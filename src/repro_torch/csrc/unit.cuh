@@ -1,0 +1,157 @@
+// The dual-mode softmax unit on the device: the one definition of the
+// unit's int32 arithmetic that every kernel of the port shares, as the
+// reference shares repro/core/softmax_unit.py among its kernel bodies.
+//
+// Word-for-word port of repro_torch/core/softmax_unit.py (itself held
+// bitwise to repro.core.softmax_unit).  The ROM tables and constants come
+// from unit_constants.h, which repro_torch/kernels/_build.py generates
+// from the Python modules at build time, so they are written down once.
+//
+// C++ traps the reference (XLA) does not have, and what is done here:
+//  * signed overflow is undefined: every product goes through mul_wrap
+//    (uint32 multiply, truncated), and left shifts through shl_wrap;
+//  * a shift by >= 32 is undefined: every variable shift is clamped to
+//    [0, 31] as sat_rshift does; right shifts of signed ints are
+//    arithmetic on nvcc, as XLA's are;
+//  * rounding is half-to-even (__float2int_rn), never roundf.
+#pragma once
+
+#include <cstdint>
+
+#include "unit_constants.h"
+
+namespace unit {
+
+__device__ __forceinline__ int32_t mul_wrap(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) *
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t shl_wrap(int32_t a, int32_t n) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) << n);
+}
+
+__device__ __forceinline__ int32_t sat_rshift(int32_t x, int32_t n) {
+  n = n < 0 ? 0 : (n > 31 ? 31 : n);
+  return x >> n;
+}
+
+// float -> saturating S5.10 word (round half-to-even, then clip)
+__device__ __forceinline__ int32_t quantize(float x, int frac_bits) {
+  int32_t q = __float2int_rn(x * static_cast<float>(1 << frac_bits));
+  return q < IN_MIN ? IN_MIN : (q > IN_MAX ? IN_MAX : q);
+}
+
+__device__ __forceinline__ float dequantize(int32_t q, int frac_bits) {
+  return static_cast<float>(q) * (1.0f / static_cast<float>(1 << frac_bits));
+}
+
+// leading-one position; 0 for v < 1, as the reference's shift ladder gives
+__device__ __forceinline__ int32_t floor_log2(int32_t v) {
+  return v >= 1 ? 31 - __clz(v) : 0;
+}
+
+__device__ __forceinline__ int32_t mantissa_frac(int32_t s, int32_t e_pos) {
+  int32_t rem = s - shl_wrap(1, e_pos);
+  int32_t up = T_FRAC - e_pos > 0 ? T_FRAC - e_pos : 0;
+  int32_t down = e_pos - T_FRAC > 0 ? e_pos - T_FRAC : 0;
+  return shl_wrap(rem, up) >> down;
+}
+
+// 8-segment PWL: one mux (the generated rom_* select chains), one
+// multiply, one shift, one add
+__device__ __forceinline__ int32_t pwl_combine(int32_t a, int32_t b,
+                                               int32_t frac, int frac_bits,
+                                               int out_frac) {
+  int32_t prod = mul_wrap(a, frac) >> (PWL_COEF_FRAC + frac_bits - out_frac);
+  return prod + (PWL_COEF_FRAC >= out_frac ? (b >> (PWL_COEF_FRAC - out_frac))
+                                           : shl_wrap(b, out_frac - PWL_COEF_FRAC));
+}
+
+__device__ __forceinline__ int32_t exp2_frac_int(int32_t v) {
+  int32_t seg = v >> (T_FRAC - 3);
+  return pwl_combine(rom_exp2_slope(seg), rom_exp2_intercept(seg), v, T_FRAC,
+                     EXP_FRAC);
+}
+
+__device__ __forceinline__ int32_t log2_mant_int(int32_t f) {
+  int32_t seg = f >> (T_FRAC - 3);
+  return pwl_combine(rom_log2_slope(seg), rom_log2_intercept(seg), f, T_FRAC,
+                     T_FRAC);
+}
+
+// t = d*log2(e) @ 2^-T_FRAC for d <= 0 @ 2^-in_frac, saturated at -32
+__device__ __forceinline__ int32_t to_log2_domain(int32_t d, int in_frac) {
+  int32_t lo = -(32 << in_frac);
+  d = d < lo ? lo : d;
+  return mul_wrap(d, LOG2E_Q) >> (in_frac + LOG2E_FRAC - T_FRAC);
+}
+
+// 2^t for t <= 0: a right shift (by -floor(t), clamped) of the PWL 2^frac
+__device__ __forceinline__ int32_t exp2_int(int32_t t) {
+  int32_t u = t >> T_FRAC;
+  int32_t v = t - shl_wrap(u, T_FRAC);
+  return sat_rshift(exp2_frac_int(v), -u);
+}
+
+__device__ __forceinline__ int32_t log2_int(int32_t s, int s_frac) {
+  int32_t e_pos = floor_log2(s);
+  int32_t log2m = log2_mant_int(mantissa_frac(s, e_pos));
+  return shl_wrap(e_pos - s_frac, T_FRAC) + log2m;
+}
+
+// sigma(2k) = softmax_1^2([k, -k]) @ 2^-EXP_FRAC, k @ 2^-k_frac
+__device__ __forceinline__ int32_t pair_softmax_first_int(int32_t k, int k_frac) {
+  int32_t amax = k < 0 ? -k : k;
+  int32_t t1 = to_log2_domain(k - amax, k_frac);
+  int32_t t2 = to_log2_domain(-k - amax, k_frac);
+  int32_t s = exp2_int(t1) + exp2_int(t2);
+  s = s < 1 ? 1 : s;
+  int32_t w = t1 - log2_int(s, EXP_FRAC);
+  return exp2_int(w < 0 ? w : 0);
+}
+
+__device__ __forceinline__ int32_t gelu_k_int(int32_t z) {
+  const int32_t lim = 8 << IN_FRAC;
+  z = z < -lim ? -lim : (z > lim ? lim : z);
+  int32_t z2 = mul_wrap(z, z) >> IN_FRAC;
+  int32_t z3 = mul_wrap(z2, z) >> IN_FRAC;
+  int32_t az3 = mul_wrap(z3, GELU_A_Q) >> 16;
+  return mul_wrap(z + az3, GELU_C_Q) >> 14;
+}
+
+__device__ __forceinline__ int32_t gelu_int(int32_t z) {
+  int32_t sig = pair_softmax_first_int(gelu_k_int(z), IN_FRAC);
+  return mul_wrap(z, sig) >> EXP_FRAC;
+}
+
+__device__ __forceinline__ int32_t silu_int(int32_t z) {
+  int32_t sig = pair_softmax_first_int(z, IN_FRAC + 1);
+  return mul_wrap(z, sig) >> EXP_FRAC;
+}
+
+// ---- snapped-max monoid ----------------------------------------------------
+
+__device__ __forceinline__ int32_t to_snap_domain(int32_t x) {
+  if (x <= PHANTOM_Q) return SNAP_MIN;
+  int32_t c = x < IN_MIN ? IN_MIN : (x > IN_MAX ? IN_MAX : x);
+  return mul_wrap(c, LOG2E_Q) >> (IN_FRAC + LOG2E_FRAC - T_FRAC);
+}
+
+__device__ __forceinline__ int32_t snap_max_int(int32_t t) {
+  return shl_wrap((t + ((1 << T_FRAC) - 1)) >> T_FRAC, T_FRAC);
+}
+
+__device__ __forceinline__ int32_t snap_prob_word(int32_t t, int guard_shift) {
+  if (t <= SNAP_MIN) return 0;
+  return exp2_frac_int(t & ((1 << T_FRAC) - 1)) >> guard_shift;
+}
+
+// exact float 2^-d (d >= 0) by exponent-field construction; +0.0 past range
+__device__ __forceinline__ float snap_scale_f32(int32_t d) {
+  int32_t e = 127 - d;
+  e = e < 0 ? 0 : (e > 254 ? 254 : e);
+  return __int_as_float(shl_wrap(e, 23));
+}
+
+}  // namespace unit

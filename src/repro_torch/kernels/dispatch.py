@@ -1,0 +1,156 @@
+"""Kernel dispatch registry (port of ``repro.kernels.dispatch`` for the
+slice that is ported: softmax, attention and paged attention).
+
+  softmax    'float' | 'dualmode' | 'dualmode_snap'
+  attention  'auto' | 'naive' | 'flash' | 'flash_decode'
+
+'dualmode' runs the unit's row-softmax kernel (``softmax_rows``, int
+words); 'dualmode_snap' is the snapped whole-row oracle of the streamed
+dual-mode paths (plain PyTorch).  Resolution keeps the reference's
+two-sided refusals: an impl never honors a softmax mode it does not
+declare, and 'auto' never drops a dual-mode word contract.  The 'auto'
+rule is the reference's without its mesh gate (this slice has no mesh):
+s_q=1 against >= DECODE_FLASH_MIN_KV keys -> 'flash_decode', score
+tiles above 2**22 -> the blocked path, else 'naive'.
+
+Impls of the reference that are not ported yet are named here so that a
+shape resolving to one raises NotImplementedError instead of running
+something else: 'flash_pallas', 'flash_pallas_int', 'flash_pallas_int3'
+and 'flash_ring'.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core import softmax_unit as _unit
+
+from . import tiling
+from .dualmode_softmax import softmax_rows
+
+# --------------------------------------------------------------------------
+# softmax (attention probabilities)
+# --------------------------------------------------------------------------
+
+
+def _softmax_dualmode(x: torch.Tensor) -> torch.Tensor:
+    """The unit's normal mode over the last axis, through its kernel."""
+    shape = x.shape
+    y = softmax_rows(x.to(torch.float32).reshape(-1, shape[-1]).contiguous(),
+                     precision="int")
+    return y.reshape(shape).to(x.dtype)
+
+
+_SOFTMAX: dict[str, Callable] = {
+    "float": lambda x: torch.softmax(x, dim=-1),
+    "dualmode": _softmax_dualmode,
+    "dualmode_snap": lambda x: _unit.softmax_dualmode_snap(
+        x.to(torch.float32), dim=-1).to(x.dtype),
+}
+
+
+def get_softmax(impl: str) -> Callable:
+    try:
+        return _SOFTMAX[impl]
+    except KeyError:
+        raise ValueError(
+            f"unknown softmax impl {impl!r}; have {sorted(_SOFTMAX)}")
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+_ATTENTION: dict[str, Callable] = {}
+_ATTENTION_MODES: dict[str, frozenset[str]] = {}
+_PAGED_ATTENTION: dict[str, Callable] = {}
+
+# the reference's impls that a later slice of the port brings
+NOT_PORTED = {
+    "flash_pallas": "the blocked float flash kernel",
+    "flash_pallas_int": "the one-sweep snapped int flash kernel",
+    "flash_pallas_int3": "the three-sweep int flash kernel",
+    "flash_ring": "ring attention",
+}
+
+
+def register_attention(name: str, fn: Callable, *, modes) -> None:
+    """fn(q, k, v, *, q_pos, kv_valid, causal, scale, softmax_impl);
+    ``modes`` declares the softmax impls the entry honors."""
+    _ATTENTION[name] = fn
+    _ATTENTION_MODES[name] = frozenset(modes)
+
+
+def register_paged_attention(name: str, fn: Callable) -> None:
+    """fn(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid, causal,
+    scale, softmax_impl) -> (B, 1, K, G, hv)."""
+    _PAGED_ATTENTION[name] = fn
+
+
+def _load_attention_providers() -> None:
+    import repro_torch.models.attention  # noqa: F401  (naive, flash, decode)
+
+
+def attention_modes(name: str) -> frozenset[str]:
+    """The softmax impls ``name`` declares it honors."""
+    if name not in _ATTENTION_MODES:
+        _load_attention_providers()
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"attention impl {name!r} ({NOT_PORTED[name]}) is not ported "
+            "to PyTorch yet; a later slice of the port brings it")
+    try:
+        return _ATTENTION_MODES[name]
+    except KeyError:
+        raise ValueError(f"unknown attention impl {name!r}; "
+                         f"have {sorted(_ATTENTION)}")
+
+
+def use_flash(s_q: int, t: int, threshold: int = 1 << 22) -> bool:
+    """Blocked path when the score tile would exceed ~16 MB f32 a head."""
+    return s_q * t > threshold
+
+
+def auto_rule(s_q: int, t: int) -> str:
+    """impl='auto': the split-KV decode kernel for one query row against a
+    long cache, the blocked path for huge score tiles, else naive."""
+    if s_q == 1 and t >= tiling.DECODE_FLASH_MIN_KV:
+        return "flash_decode"
+    return "flash" if use_flash(s_q, t) else "naive"
+
+
+def resolve_attention(impl: str, s_q: int, t_kv: int,
+                      softmax_impl: str = "float") -> str:
+    """Resolve 'auto' to a concrete impl, refusing any pairing that would
+    drop a dual-mode word contract (see the reference's docstring)."""
+    if softmax_impl not in _SOFTMAX:
+        raise ValueError(f"unknown softmax impl {softmax_impl!r}; "
+                         f"have {sorted(_SOFTMAX)}")
+    if impl == "auto":
+        impl = auto_rule(s_q, t_kv)
+        if softmax_impl not in attention_modes(impl):
+            # a float-only blocked pick under a dual-mode contract: the
+            # reference streams it through the one-sweep int kernel
+            impl = "flash_pallas_int"
+            attention_modes(impl)           # not ported: raises
+    else:
+        modes = attention_modes(impl)      # raises on unknown impls
+        if softmax_impl not in modes:
+            raise ValueError(
+                f"attn_impl={impl!r} declares softmax modes "
+                f"{sorted(modes)} and cannot honor "
+                f"softmax_impl={softmax_impl!r} -- the dualmode word "
+                "contract is never silently dropped; use attn_impl='auto'")
+    return impl
+
+
+def get_attention(impl: str) -> Callable:
+    attention_modes(impl)
+    return _ATTENTION[impl]
+
+
+def get_paged_attention(name: str) -> Callable | None:
+    """The block-table variant of ``name``, or None (dense gather)."""
+    attention_modes(name)
+    return _PAGED_ATTENTION.get(name)

@@ -1,0 +1,223 @@
+"""Paged split-KV decode (port of the block-table entry of
+``repro.kernels.flash_decode``, ``flash_decode_paged`` at :454).
+
+``decode_paged``      replaces the float body (pallas_call at :365)
+``decode_paged_int``  replaces the snapped int body (pallas_call at :440)
+
+The kernels (``csrc/decode_paged.cu``) emit one partial state per KV
+split -- (m, l, o*l) float, or (m snapped, S[16] buckets, acc) int -- and
+the split fold runs here in PyTorch, as the reference runs it outside its
+kernel: ``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
+``online_finish_int`` + one f32 division.  Both kernels are bound by
+memory on the H100: each visited K/V tile is read once.
+
+Shapes (the reference's): q (B, 1, K, G, h); pools (N, bs, K, h|hv);
+block_tables (B, nblk) int32; q_pos (B, 1); kv_valid (B, nblk*bs) ->
+(B, 1, K, G, hv).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import softmax_unit as unit
+from repro_torch.core.fixedpoint import T_FRAC, quantize
+
+from . import _build
+from . import datapath as dp
+from . import tiling
+
+_P, _I = _build.P, _build.I
+_DECODE_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
+
+DECODE_PAGED = _build.Kernel(
+    "decode_paged", "decode_paged_launch", _DECODE_ARGTYPES,
+    source="src/repro_torch/csrc/decode_paged.cu",
+    replaces="src/repro/kernels/flash_decode.py:365")
+DECODE_PAGED_INT = _build.Kernel(
+    "decode_paged_int", "decode_paged_int_launch", _DECODE_ARGTYPES,
+    source="src/repro_torch/csrc/decode_paged.cu",
+    replaces="src/repro/kernels/flash_decode.py:440")
+
+MAX_GROUPS = 8          # GQA rows per kv head the kernel holds (kMaxG)
+
+
+def snap_tile_update(m, S, acc, sq, vb, guard_shift: int):
+    """One KV tile of the snapped online recurrence (the reference's
+    ``flash_attention_int.snap_tile_update``), batched over leading dims:
+    m (..., 1) i32, S (..., 16) i32, acc (..., hv) f32, sq (..., bkv)
+    S5.10 score words, vb (..., bkv, hv) f32."""
+    t = unit.to_snap_domain(sq)
+    m_new = torch.maximum(
+        m, unit.snap_max_int(torch.amax(t, dim=-1, keepdim=True)))
+    k_corr = (m_new - m) >> T_FRAC
+    p = unit.snap_prob_word(t, guard_shift)
+    d = (m_new >> T_FRAC) - (t >> T_FRAC)
+    S_new = unit.slide_buckets_int(S, k_corr) + unit.depth_buckets(p, d, -1)
+    num = p.to(torch.float32) * unit.snap_scale_f32(d)
+    acc_new = acc * unit.snap_scale_f32(k_corr) + torch.einsum(
+        "...t,...tv->...v", num, vb)
+    return m_new, S_new, acc_new
+
+
+def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
+                                *, num_splits: int, causal: bool,
+                                int_mode: bool, guard_shift: int):
+    """Plain version of both decode kernels: the per-split partials.
+
+    qf (B, K, G, h) pre-scaled; q_pos (B,) int32; kv_valid (B, nblk*bs).
+    Returns (m, l | S, acc) shaped (B, S, K, G), (B, S, K, G[, 16]),
+    (B, S, K, G, hv).
+    """
+    b, kh, g, _ = qf.shape
+    n_pool, bs = k_pool.shape[:2]
+    hv = v_pool.shape[-1]
+    nblk = tables.shape[1]
+    inner = tiling.cdiv(nblk, num_splits)
+    dev = qf.device
+    qp = q_pos.to(torch.int64)
+    parts = []
+    for sp in range(num_splits):
+        if int_mode:
+            m = torch.full((b, kh, g, 1), unit.SNAP_MIN, dtype=torch.int32,
+                           device=dev)
+            l = torch.zeros((b, kh, g, unit.N_SNAP_BUCKETS),
+                            dtype=torch.int32, device=dev)
+        else:
+            m = torch.full((b, kh, g, 1), dp.MASK_VALUE, device=dev)
+            l = torch.zeros((b, kh, g, 1), device=dev)
+        acc = torch.zeros((b, kh, g, hv), device=dev)
+        for jt in range(sp * inner, min((sp + 1) * inner, nblk)):
+            blk = tables[:, jt].to(torch.int64)
+            blk = torch.where((blk >= 0) & (blk < n_pool), blk, 0)
+            kb = k_pool[blk].to(torch.float32)                 # (B,bs,K,h)
+            vb = v_pool[blk].to(torch.float32).permute(0, 2, 1, 3)
+            s = torch.einsum("bkgh,btkh->bkgt", qf, kb)
+            kv_pos = jt * bs + torch.arange(bs, device=dev)
+            mask = kv_valid[:, jt * bs:(jt + 1) * bs].bool()
+            if causal:
+                mask = mask & (kv_pos[None, :] <= qp[:, None])
+            s = torch.where(mask[:, None, None, :], s,
+                            torch.full_like(s, dp.MASK_VALUE))
+            vb = vb[:, :, None]                              # (B,K,1,bs,hv)
+            if int_mode:
+                m_n, l_n, acc_n = snap_tile_update(m, l, acc, quantize(s), vb,
+                                                   guard_shift)
+            else:
+                m_n, l_n, p, corr = dp.online_softmax_update(m, l, s)
+                acc_n = acc * corr + torch.einsum("bkgt,bkgtv->bkgv", p, vb)
+            live = (torch.full_like(qp, jt * bs) <= qp if causal
+                    else torch.ones_like(qp, dtype=torch.bool))
+            live = live[:, None, None, None]
+            m = torch.where(live, m_n, m)
+            l = torch.where(live, l_n, l)
+            acc = torch.where(live, acc_n, acc)
+        parts.append((m[..., 0], l if int_mode else l[..., 0], acc))
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts))
+
+
+def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
+                          num_splits: int, causal: bool, int_mode: bool,
+                          guard_shift: int):
+    """Per-split partials through the CUDA kernel (CUDA tensors) or the
+    plain version (CPU tensors); arguments as
+    :func:`decode_paged_partials_plain`."""
+    if qf.device.type == "cpu":
+        return decode_paged_partials_plain(
+            qf, k_pool, v_pool, tables, q_pos, kv_valid,
+            num_splits=num_splits, causal=causal, int_mode=int_mode,
+            guard_shift=guard_shift)
+    b, kh, g, h = qf.shape
+    n_pool, bs = k_pool.shape[:2]
+    hv = v_pool.shape[-1]
+    nblk = tables.shape[1]
+    _check_decode_operands(qf, k_pool, v_pool, tables, q_pos, kv_valid)
+    if not 1 <= num_splits <= nblk:
+        raise ValueError(f"num_splits={num_splits} outside [1, {nblk}]")
+    dev = qf.device
+    part_m = torch.empty((b, num_splits, kh, g), device=dev,
+                         dtype=torch.int32 if int_mode else torch.float32)
+    part_l = (torch.empty((b, num_splits, kh, g, unit.N_SNAP_BUCKETS),
+                          device=dev, dtype=torch.int32) if int_mode
+              else torch.empty((b, num_splits, kh, g), device=dev))
+    part_acc = torch.empty((b, num_splits, kh, g, hv), device=dev)
+    kernel = DECODE_PAGED_INT if int_mode else DECODE_PAGED
+    kernel(qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+           tables.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
+           part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+           b, n_pool, bs, kh, g, h, hv, nblk, num_splits,
+           tiling.cdiv(nblk, num_splits), int(causal), guard_shift,
+           _build.stream_ptr(dev))
+    return part_m, part_l, part_acc
+
+
+def _check_decode_operands(qf, k_pool, v_pool, tables, q_pos, kv_valid):
+    b, kh, g, h = qf.shape
+    n_pool, bs = k_pool.shape[:2]
+    nblk = tables.shape[1]
+    want = {"qf": (torch.float32, (b, kh, g, h)),
+            "k_pool": (torch.float32, (n_pool, bs, kh, h)),
+            "v_pool": (torch.float32, (n_pool, bs, kh, v_pool.shape[-1])),
+            "tables": (torch.int32, (b, nblk)),
+            "q_pos": (torch.int32, (b,)),
+            "kv_valid": (torch.uint8, (b, nblk * bs))}
+    got = {"qf": qf, "k_pool": k_pool, "v_pool": v_pool, "tables": tables,
+           "q_pos": q_pos, "kv_valid": kv_valid}
+    for name, (dtype, shape) in want.items():
+        t = got[name]
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"decode_paged: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}, expected {dtype} {shape}")
+        if t.device != qf.device or not t.is_contiguous():
+            raise ValueError(f"decode_paged: {name} must be contiguous on "
+                             f"{qf.device}")
+    if not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"decode_paged: {g} query groups per kv head; the "
+                         f"kernel holds 1..{MAX_GROUPS}")
+
+
+def finish_partials(part_m, part_l, part_acc, int_mode: bool):
+    """The split fold + normalization (outside the kernel, as in the
+    reference): partials (B, S, K, G, ...) -> (B, 1, K, G, hv)."""
+    if int_mode:
+        _, S, acc = unit.online_merge_n_int(part_m[..., None], part_l,
+                                            part_acc, dim=1)
+        l = unit.online_finish_int(S)
+        return acc / l[..., None].to(torch.float32)
+    _, l, acc = dp.online_softmax_merge_n(part_m[..., None],
+                                          part_l[..., None], part_acc, dim=1)
+    return dp.online_softmax_finish(l, acc)
+
+
+def flash_decode_paged(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
+                       causal: bool = True, scale: float | None = None,
+                       num_splits: int | None = None,
+                       softmax_impl: str = "float"):
+    """Block-table split-KV decode; ``softmax_impl='dualmode'`` runs the
+    snapped int recurrence (the reference's contract and arguments)."""
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"flash_decode is the s_q=1 decode kernel; got s_q={q.shape[1]}")
+    if softmax_impl not in ("float", "dualmode"):
+        raise ValueError(f"flash_decode_paged softmax_impl={softmax_impl!r}: "
+                         "expected 'float' or 'dualmode'")
+    b, _, kh, g, h = q.shape
+    nblk, bs = block_tables.shape[1], k_pool.shape[1]
+    if kv_valid.shape[1] != nblk * bs:
+        raise ValueError(
+            f"kv_valid covers {kv_valid.shape[1]} keys but the table maps "
+            f"{nblk} blocks x {bs} = {nblk * bs}")
+    scale = (1.0 / h ** 0.5) if scale is None else scale
+    qf = (q.to(torch.float32) * scale)[:, 0].contiguous()
+    if num_splits is None:
+        num_splits = tiling.decode_splits(nblk, bs, b * kh, q.device)
+    num_splits = max(1, min(num_splits, nblk))
+    int_mode = softmax_impl == "dualmode"
+    parts = decode_paged_partials(
+        qf, k_pool.contiguous(), v_pool.contiguous(),
+        block_tables.to(torch.int32).contiguous(),
+        q_pos.reshape(b).to(torch.int32).contiguous(),
+        kv_valid.to(torch.uint8).contiguous(), num_splits=num_splits,
+        causal=causal, int_mode=int_mode,
+        # guard from the LOGICAL cache extent, as the whole-row unit would
+        guard_shift=unit.guard_shift_for(nblk * bs))
+    return finish_partials(*parts, int_mode=int_mode).to(v_pool.dtype)

@@ -1,0 +1,219 @@
+"""GQA attention of the port (counterpart of ``repro.models.attention``):
+one scores -> softmax -> combine core, so the attention softmax goes
+through the configured implementation (float, or the dual-mode unit's
+kernel), and the paged KV cache the serving engine uses.
+
+Cache tensors are updated IN PLACE (``paged_write``): the pools are the
+largest tensors of a serving process, and a functional update would
+double them for the length of every step.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import datapath as dp
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_decode import flash_decode_paged
+
+from . import flash as _flash
+from .layers import Params, apply_rope, linear, rmsnorm
+
+
+class AttnSpec(NamedTuple):
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    softmax_impl: str = "float"
+    causal: bool = True
+    use_rope: bool = True
+    attn_impl: str = "auto"
+    norm_eps: float = 1e-6
+
+
+# ---------------- shared core ----------------
+
+def _naive_sdpa(q, k, v, *, q_pos, kv_valid, causal=True,
+                scale: float | None = None, softmax_impl: str = "float"):
+    """Materialized-scores attention: scale folded into q before the dot,
+    masked scores at MASK_VALUE, whole-row softmax through dispatch."""
+    b, s_q, t = q.shape[0], q.shape[1], k.shape[1]
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    qf = q.to(torch.float32) * scale
+    scores = torch.einsum("bskgh,btkh->bkgst", qf, k.to(torch.float32))
+    t_pos = torch.arange(t, device=q.device)[None, :]
+    mask = kv_valid[:, None, :]
+    if causal:
+        mask = mask & (t_pos[:, None, :] <= q_pos[:, :, None])
+    else:
+        mask = mask.expand(b, s_q, t)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, dp.MASK_VALUE))
+    probs = dispatch.get_softmax(softmax_impl)(scores).to(v.dtype)
+    return torch.einsum("bkgst,btkh->bskgh", probs, v)
+
+
+def _flash_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
+                 softmax_impl="float"):
+    if softmax_impl != "float":
+        raise ValueError("attn_impl='flash' is the float blocked path and "
+                         f"cannot honor softmax_impl={softmax_impl!r}")
+    return _flash.flash_attention(q, k, v, q_pos=q_pos, kv_valid=kv_valid,
+                                  causal=causal, scale=scale)
+
+
+def _decode_dense_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
+                        softmax_impl="float"):
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"flash_decode is the s_q=1 decode kernel; got s_q={q.shape[1]}")
+    raise NotImplementedError(
+        "flash_decode over a contiguous cache (the reference's "
+        "flash_decode_pallas) is not ported yet; the port decodes through "
+        "the paged cache")
+
+
+def _decode_paged_entry(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
+                        causal, scale, softmax_impl="float"):
+    # both int contracts run the snapped int recurrence
+    impl = ("dualmode" if softmax_impl in ("dualmode", "dualmode_snap")
+            else "float")
+    return flash_decode_paged(q, k_pool, v_pool, block_tables=block_tables,
+                              q_pos=q_pos, kv_valid=kv_valid, causal=causal,
+                              scale=scale, softmax_impl=impl)
+
+
+dispatch.register_attention(
+    "naive",
+    lambda q, k, v, *, q_pos, kv_valid, causal, scale, softmax_impl="float":
+    _naive_sdpa(q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal,
+                scale=scale, softmax_impl=softmax_impl),
+    modes=("float", "dualmode", "dualmode_snap"))
+dispatch.register_attention("flash", _flash_entry, modes=("float",))
+dispatch.register_attention(
+    "flash_decode", _decode_dense_entry,
+    modes=("float", "dualmode", "dualmode_snap"))
+dispatch.register_paged_attention("flash_decode", _decode_paged_entry)
+
+
+def _sdpa(q, k, v, *, q_pos, kv_valid, softmax_impl, causal=True,
+          scale: float | None = None, attn_impl: str = "auto"):
+    """Dense attention through the registry: (B,S,K,G,h) -> (B,S,K,G,hv)."""
+    impl = dispatch.resolve_attention(attn_impl, q.shape[1], k.shape[1],
+                                      softmax_impl=softmax_impl)
+    return dispatch.get_attention(impl)(
+        q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal, scale=scale,
+        softmax_impl=softmax_impl)
+
+
+def _sdpa_paged(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
+                softmax_impl, causal=True, scale: float | None = None,
+                attn_impl: str = "auto"):
+    """Paged twin of :func:`_sdpa`: resolution at the logical cache
+    extent; an impl with a block-table variant gets the pools untouched,
+    any other reads a dense gather (identical words, pure data movement).
+    """
+    s_q = q.shape[1]
+    t = block_tables.shape[1] * k_pool.shape[1]
+    impl = dispatch.resolve_attention(attn_impl, s_q, t,
+                                      softmax_impl=softmax_impl)
+    fn = dispatch.get_paged_attention(impl) if s_q == 1 else None
+    if fn is not None:
+        return fn(q, k_pool, v_pool, block_tables=block_tables, q_pos=q_pos,
+                  kv_valid=kv_valid, causal=causal, scale=scale,
+                  softmax_impl=softmax_impl)
+    return dispatch.get_attention(impl)(
+        q, paged_gather(k_pool, block_tables),
+        paged_gather(v_pool, block_tables), q_pos=q_pos, kv_valid=kv_valid,
+        causal=causal, scale=scale, softmax_impl=softmax_impl)
+
+
+def _positions_from(pos, b: int, sl: int, device) -> torch.Tensor:
+    """(B, S) logical positions from a scalar or (B,) offset."""
+    ar = torch.arange(sl, device=device)[None, :]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        return (pos.to(device)[:, None] + ar).expand(b, sl)
+    return (int(pos) + ar).expand(b, sl)
+
+
+def paged_write(pool: torch.Tensor, new: torch.Tensor, pos,
+                block_tables: torch.Tensor) -> torch.Tensor:
+    """Scatter ``new`` (B,S,...) into the (N,bs,...) pool IN PLACE at
+    logical offset ``pos`` (scalar or (B,)) through each row's table.
+    Positions past the table's extent, and sentinel table entries, land
+    in block 0, which no valid key reads."""
+    n, bs = pool.shape[:2]
+    b, sl = new.shape[:2]
+    nblk = block_tables.shape[1]
+    logpos = _positions_from(pos, b, sl, pool.device)
+    blk, off = logpos // bs, logpos % bs
+    phys = torch.gather(block_tables.long(), 1, blk.clamp(0, nblk - 1))
+    phys = torch.where((blk >= 0) & (blk < nblk), phys, 0)
+    flat = (phys * bs + off).reshape(-1)
+    pool.view((n * bs,) + pool.shape[2:])[flat] = new.to(pool.dtype).reshape(
+        (b * sl,) + new.shape[2:])
+    return pool
+
+
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """The dense (B, max_blocks*bs, ...) view of a paged cache."""
+    b, nblk = block_tables.shape
+    dense = pool[block_tables.long()]
+    return dense.reshape((b, nblk * pool.shape[1]) + pool.shape[2:])
+
+
+def _kv_valid_mask(t: int, pos, sl: int, b: int, device) -> torch.Tensor:
+    """(B, T) validity: cache rows [0, pos+sl) hold data."""
+    t_idx = torch.arange(t, device=device)[None, :]
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        end = pos.to(device)[:, None] + sl
+    else:
+        end = int(pos) + sl
+    return (t_idx < end).expand(b, t)
+
+
+# ---------------- GQA ----------------
+
+def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
+              paged=None):
+    """x: (B,S,d).  Without a cache: full attention over x.  With
+    ``paged`` (B, max_blocks) int32 block tables and ``cache`` the layer's
+    {'k','v'} (N,bs,K,h) pools: write the new K/V through the tables (in
+    place) and attend over the paged cache.  Returns (out, cache)."""
+    b, sl, _ = x.shape
+    g = s.n_heads // s.n_kv_heads
+    q = linear(p["wq"], x).reshape(b, sl, s.n_heads, s.head_dim)
+    k = linear(p["wk"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
+    v = linear(p["wv"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
+    if s.qk_norm:
+        q = rmsnorm(p["qn"], q, s.norm_eps)
+        k = rmsnorm(p["kn"], k, s.norm_eps)
+    if s.use_rope:
+        q = apply_rope(q, positions, s.rope_theta)
+        k = apply_rope(k, positions, s.rope_theta)
+    qg = q.reshape(b, sl, s.n_kv_heads, g, s.head_dim)
+    if paged is not None:
+        paged_write(cache["k"], k, pos, paged)
+        paged_write(cache["v"], v, pos, paged)
+        t = paged.shape[1] * cache["k"].shape[1]
+        kv_valid = _kv_valid_mask(t, pos, sl, b, x.device)
+        o = _sdpa_paged(qg, cache["k"], cache["v"], block_tables=paged,
+                        q_pos=positions, kv_valid=kv_valid,
+                        softmax_impl=s.softmax_impl, causal=s.causal,
+                        attn_impl=s.attn_impl)
+    elif cache is None:
+        kv_valid = torch.ones((b, sl), dtype=torch.bool, device=x.device)
+        o = _sdpa(qg, k, v, q_pos=positions, kv_valid=kv_valid,
+                  softmax_impl=s.softmax_impl, causal=s.causal,
+                  attn_impl=s.attn_impl)
+    else:
+        raise NotImplementedError(
+            "contiguous KV caches are not ported yet; use the paged cache")
+    o = o.reshape(b, sl, s.n_heads * s.head_dim)
+    return linear(p["wo"], o), cache

@@ -1,0 +1,39 @@
+"""Weights of the reference, in the port's layout.
+
+``params_from_numpy`` takes the pytree of ``repro.models.transformer.
+init_lm`` with every leaf converted to a numpy array (so that this
+module needs no JAX) and returns the port's parameter dict: the
+reference stacks the blocks of each period on a leading axis, the port
+keeps one dict per layer in a list.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+from .transformer import check_supported
+
+
+def _to_torch(tree, device, index=None):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device, index) for k, v in tree.items()}
+    a = np.asarray(tree if index is None else tree[index])
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference's ``init_lm`` pytree (numpy leaves) -> port params."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    periods = tree["periods"]
+    layers = [_to_torch(periods[j], dev, index=i)
+              for i in range(cfg.n_periods) for j in range(len(periods))]
+    params = {"embed": _to_torch(tree["embed"], dev),
+              "final_norm": _to_torch(tree["final_norm"], dev),
+              "layers": layers}
+    if "lm_head" in tree:
+        params["lm_head"] = _to_torch(tree["lm_head"], dev)
+    return params

@@ -1,0 +1,88 @@
+"""Primitive layers of the port (counterpart of ``repro.models.layers``):
+plain functions on tensors, parameters in plain dicts laid out as the
+reference's pytrees, so converted JAX weights drop in unchanged.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.activations import get_activation
+from repro_torch.kernels import datapath as dp
+
+Params = dict[str, Any]
+
+
+# ---------------- init helpers (the reference's distributions) ----------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               device: torch.device, scale: float | None = None):
+    scale = scale if scale is not None else (1.0 / math.sqrt(d_in))
+    return torch.randn((d_in, d_out), generator=gen, device=device) * scale
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               device: torch.device):
+    return torch.randn((vocab, d), generator=gen, device=device) * 0.02
+
+
+def linear_init(gen, d_in: int, d_out: int, device, bias: bool = False
+                ) -> Params:
+    p = {"w": dense_init(gen, d_in, d_out, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), device=device)
+    return p
+
+
+def rmsnorm_init(d: int, device) -> Params:
+    return {"g": torch.ones((d,), device=device)}
+
+
+def mlp_init(gen, d: int, d_ff: int, device, gated: bool = True) -> Params:
+    p = {"up": linear_init(gen, d, d_ff, device),
+         "down": linear_init(gen, d_ff, d, device)}
+    if gated:
+        p["gate"] = linear_init(gen, d, d_ff, device)
+    return p
+
+
+# ---------------- apply ----------------
+
+def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return dp.rmsnorm(x, p["g"], eps).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, hd) rotate-half RoPE; positions: (..., S)."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)
+    ang = positions[..., :, None].to(torch.float32) * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """(Gated) MLP; the activation (the unit's GELU/SiLU mode when it is a
+    dual-mode variant) applies to the gate path."""
+    act = get_activation(activation)
+    up = linear(p["up"], x)
+    h = act(linear(p["gate"], x)) * up if "gate" in p else act(up)
+    return linear(p["down"], h)

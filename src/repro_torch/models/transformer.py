@@ -1,0 +1,156 @@
+"""Decoder stack of the port (counterpart of ``repro.models.transformer``)
+for the dense attention + gated-MLP pattern (``mixer='attn'``,
+``ffn='mlp'``, dense RMSNorms): the qwen-family main path.
+
+The reference stacks each period's parameters on a leading axis for
+``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
+list and the stack is a Python loop.  ``models/convert.py`` maps the
+reference's stacked pytree onto this layout.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import check_on, resolve_device
+
+from .attention import AttnSpec, _positions_from, gqa_apply
+from .layers import (Params, embed_init, linear_init, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init)
+
+
+def attn_spec(cfg: ModelConfig) -> AttnSpec:
+    return AttnSpec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                    qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+                    rope_theta=cfg.rope_theta, softmax_impl=cfg.softmax_impl,
+                    causal=cfg.causal, use_rope=cfg.use_rope,
+                    attn_impl=cfg.attn_impl, norm_eps=cfg.norm_eps)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what this slice of the port does not
+    run yet (other mixers, MoE, encoders, layer norm, fused seams)."""
+    why = []
+    if cfg.prefix or any(s != LayerSpec() for s in cfg.pattern):
+        why.append("layer patterns other than dense attn + mlp")
+    if cfg.enc_layers or cfg.mla or cfg.moe or cfg.mamba:
+        why.append("encoder / MLA / MoE / mamba layers")
+    if cfg.norm != "rms" or cfg.pos_emb != "rope":
+        why.append(f"norm={cfg.norm!r} / pos_emb={cfg.pos_emb!r}")
+    if cfg.ffn_impl not in ("dense", "auto") or cfg.norm_impl not in (
+            "dense", "auto"):
+        why.append("the fused FFN / norm kernels")
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {'; '.join(why)}")
+
+
+# ---------------- params ----------------
+
+def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+    s = attn_spec(cfg)
+    mixer = {
+        "wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device,
+                          bias=s.qkv_bias),
+        "wk": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim, device,
+                          bias=s.qkv_bias),
+        "wv": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim, device,
+                          bias=s.qkv_bias),
+        "wo": linear_init(gen, s.n_heads * s.head_dim, s.d_model, device)}
+    if s.qk_norm:
+        mixer["qn"] = rmsnorm_init(s.head_dim, device)
+        mixer["kn"] = rmsnorm_init(s.head_dim, device)
+    return {"norm1": rmsnorm_init(cfg.d_model, device), "mixer": mixer,
+            "norm2": rmsnorm_init(cfg.d_model, device),
+            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, device,
+                            gated=cfg.gated_mlp)}
+
+
+def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
+            ) -> Params:
+    """Random float32 weights with the reference's distributions (normal
+    x 0.02 embeddings, normal / sqrt(d_in) projections, zero biases, unit
+    norm gains), drawn from ``generator`` (which must live on ``device``).
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    params: Params = {
+        "embed": embed_init(generator, cfg.vocab, cfg.d_model, dev),
+        "final_norm": rmsnorm_init(cfg.d_model, dev),
+        "layers": [block_init(generator, cfg, dev)
+                   for _ in range(cfg.n_layers)]}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab,
+                                        dev)
+    return params
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """Whether every cached layer of ``cfg`` can live in a paged pool."""
+    specs = tuple(cfg.prefix) + tuple(cfg.pattern)
+    return (not cfg.enc_layers and
+            all(s.mixer in ("attn", "mla", "none") and not s.cross
+                for s in specs))
+
+
+def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
+                      device=None) -> list[Params]:
+    """One {'k','v'} (N, bs, K, h) pool pair per layer; all layers share
+    one block table per request.  Block 0 is the write sentinel."""
+    if not paged_supported(cfg):
+        raise ValueError("paged KV requires attention-only cached layers")
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    return [{"k": torch.zeros(shape, device=dev),
+             "v": torch.zeros(shape, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+# ---------------- apply ----------------
+
+def block_apply(p: Params, cfg: ModelConfig, x, cache, *, positions, pos,
+                paged):
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    o, cache = gqa_apply(p["mixer"], attn_spec(cfg), h, positions=positions,
+                         cache=cache, pos=pos, paged=paged)
+    x = x + o
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], h, cfg.activation), cache
+
+
+def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+             pos=0, caches: list | None = None, last_pos=None, paged=None,
+             device=None):
+    """tokens (B,S) -> (logits, caches).
+
+    caches=None : full causal forward, no state.
+    caches+paged: prefill a chunk or decode one token at offset ``pos``
+                  (scalar, or (B,) for continuous batching) through the
+                  (B, max_blocks) block tables; the pools are updated in
+                  place and returned.
+    last_pos    : optional (B,) rows -- logits only there.
+    device      : where to run; None means the GPU (raising when there is
+                  none).  Params and tokens must already live there.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+    check_on(dev, tokens=tokens, embed=params["embed"])
+    if (caches is None) != (paged is None):
+        raise ValueError("caches and paged block tables go together "
+                         "(contiguous caches are not ported yet)")
+    b, sl = tokens.shape
+    x = params["embed"][tokens]
+    positions = _positions_from(pos, b, sl, dev)
+    for i, lp in enumerate(params["layers"]):
+        x, _ = block_apply(lp, cfg, x, None if caches is None else caches[i],
+                           positions=positions, pos=pos, paged=paged)
+    if last_pos is not None:
+        idx = last_pos.to(dev).long()[:, None, None].expand(b, 1, x.shape[-1])
+        x = torch.gather(x, 1, idx)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]["w"]
+    return logits, caches

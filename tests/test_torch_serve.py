@@ -1,0 +1,131 @@
+"""The port's serving engine against the JAX engine: reduced qwen1.5-0.5b,
+paged cache, max_seq 128, decode forced through the paged split-KV path
+('flash_decode') on both sides (the reference's Pallas kernel in
+interpret mode, as tests/test_serve.py runs it).
+
+Float: greedy token streams identical.  Dual-mode: per-step logits of the
+prefill chunks and decode ticks held to the reference's at 2e-3 (see
+tests/test_torch_model.py for why dual-mode logits are not bitwise),
+then the token streams compared.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as J_registry
+from repro.models.transformer import init_lm as j_init_lm
+from repro.serve import Request as JRequest
+from repro.serve import ServeEngine as JEngine
+from repro_torch.configs import registry as T_registry
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.transformer import init_lm
+from repro_torch.serve import Request, ServeEngine
+
+REQS = [(0, [1, 2, 3, 4, 5], 5), (1, list(range(7, 30)), 6),
+        (2, [4] * 10, 4), (5, [9, 9, 9], 0), (3, [2, 3], 3),
+        (4, list(range(40, 52)), 2)]
+KW = dict(n_slots=2, max_seq=128, decode_attn_impl="flash_decode",
+          prefill_chunk=8)
+
+
+def _engines(sm, act):
+    jcfg = J_registry.reduced_config("qwen1.5-0.5b").replace(
+        softmax_impl=sm, activation=act)
+    tcfg = T_registry.reduced_config("qwen1.5-0.5b").replace(
+        softmax_impl=sm, activation=act)
+    jp = j_init_lm(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    return JEngine(jcfg, jp, **KW), ServeEngine(tcfg, tp, device="cpu", **KW)
+
+
+def test_float_token_streams_identical_to_reference():
+    je, te = _engines("float", "silu")
+    assert te.decode_attn_impl == je.decode_attn_impl == "flash_decode"
+    assert te.prefill_attn_impl == je.prefill_attn_impl == "naive"
+    jo = je.run([JRequest(rid=r, prompt=p, max_new=n) for r, p, n in REQS])
+    to = te.run([Request(rid=r, prompt=p, max_new=n) for r, p, n in REQS])
+    assert to == jo
+    assert te.pool.in_use() == 0 and te.active == 0
+    assert to[5] == [] and te.reasons[5] == "max_new"
+    assert te.stats["prefills"] == je.stats["prefills"] == len(REQS) - 1
+    assert te.stats["nonfinite"] == 0
+
+
+def test_dualmode_step_logits_track_reference():
+    je, te = _engines("dualmode", "silu_dualmode")
+    got = {"prefill": [], "decode": []}
+
+    def spy(engine, attr, key, out):
+        fn = getattr(engine, attr)
+
+        def wrapped(*a, **k):
+            res = fn(*a, **k)
+            out[key].append(np.asarray(res[0]))
+            return res
+        setattr(engine, attr, wrapped)
+
+    want = {"prefill": [], "decode": []}
+    spy(je, "_prefill", "prefill", want)
+    spy(je, "_decode", "decode", want)
+    spy_t = {"prefill": "prefill_chunk_logits", "decode": "decode_logits"}
+    for key, attr in spy_t.items():
+        fn = getattr(te, attr)
+
+        def wrapped(*a, _fn=fn, _key=key, **k):
+            res = _fn(*a, **k)
+            got[_key].append(res.numpy().copy())
+            return res
+        setattr(te, attr, wrapped)
+    jo = je.run([JRequest(rid=r, prompt=p, max_new=n) for r, p, n in REQS])
+    to = te.run([Request(rid=r, prompt=p, max_new=n) for r, p, n in REQS])
+    for key in ("prefill", "decode"):
+        assert len(got[key]) == len(want[key]) > 0
+        for a, b in zip(got[key], want[key]):
+            np.testing.assert_allclose(a, b, atol=2e-3)
+    assert to == jo
+    assert te.pool.in_use() == 0
+
+
+def test_prefix_sharing_and_eos():
+    """Two prompts sharing full blocks share them; EOS retires early."""
+    cfg = T_registry.reduced_config("qwen1.5-0.5b")
+    p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(cfg, p, n_slots=2, max_seq=64, block_size=8,
+                      prefill_chunk=8, device="cpu")
+    shared = list(range(1, 25))
+    outs = eng.run([Request(rid=0, prompt=shared + [30], max_new=3)])
+    eng2_first = outs[0][0]
+    outs = eng.run([Request(rid=1, prompt=shared + [31], max_new=3)])
+    assert eng.stats["shared_blocks"] == 3
+    assert eng.pool.in_use() == 0
+    e2 = ServeEngine(cfg, p, n_slots=1, max_seq=64, eos_id=eng2_first,
+                     device="cpu")
+    out = e2.run([Request(rid=0, prompt=shared + [30], max_new=10)])[0]
+    assert out == [eng2_first] and e2.reasons[0] == "eos"
+
+
+def test_pool_exhaustion_raises_instead_of_preempting():
+    """A pool too small for the decode growth would need a preemption;
+    that is a later slice of the port, so the engine says so."""
+    cfg = T_registry.reduced_config("qwen1.5-0.5b")
+    p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = ServeEngine(cfg, p, n_slots=2, max_seq=64, block_size=8,
+                      num_blocks=4, prefill_chunk=8, device="cpu")
+    reqs = [Request(rid=0, prompt=[1] * 8, max_new=9),
+            Request(rid=1, prompt=[2] * 8, max_new=9)]
+    with pytest.raises(NotImplementedError, match="preemption"):
+        eng.run(reqs)
+
+
+def test_engine_refuses_what_this_slice_does_not_serve():
+    cfg = T_registry.reduced_config("qwen1.5-0.5b")
+    p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServeEngine(cfg, p, cache_mode="contiguous", device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ServeEngine(cfg, p)
+    eng = ServeEngine(cfg, p, max_seq=32, device="cpu")
+    with pytest.raises(ValueError):
+        eng.submit(Request(rid=0, prompt=[1] * 40))
