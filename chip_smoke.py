@@ -18,6 +18,16 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             launched.  Then one prefill chunk and the first decode step at
             full width through the kernels against the same step with the
             plain versions called in their place.
+4. long     the long-context kernels (blocked float flash, one-sweep snapped
+            int flash, contiguous split-KV decode float and int) against
+            their plain versions at the long-context path's shapes and at
+            edge shapes, timed beside their bounds; then the contiguous
+            engine at max_seq 16384 (buckets 512 / 1024 / 4096, 4 slots),
+            float and dual-mode, on 6 prompts of 1000-4000 tokens: prefill
+            resolves to the blocked kernels and decode to the contiguous
+            split-KV kernels, each launches, every request finishes with
+            finite logits; then one bucket-4096 prefill and the first decode
+            step through the kernels against the plain versions.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line.  Without a CUDA device the
@@ -50,6 +60,11 @@ TOL_DECODE_I = 1e-4    # int decode on random inputs: a score word can flip
 TOL_LOGITS_F = 2e-5    # full-width logits, float: f32 reduction orders
 TOL_LOGITS_D = 5e-3    # full-width logits, dual-mode: flipped score words
 #                        (one S5.10 step of a score) through 24 layers
+TOL_FLASH_F = 1e-5     # blocked float attention: dot / sum / exp2 orders
+TOL_FLASH_I = 5e-3     # int prefill outputs on random inputs: a score word
+#                        can flip between two f32 dot orders, and in a row
+#                        of a few keys one flip moves the output by up to
+#                        ~2^-10 log2(e) |v| (exact scores are held bitwise)
 
 
 def log(*a):
@@ -398,6 +413,347 @@ def parity(cfg, params, dev, prompt):
         check(f"{cfg.softmax_impl} full-width logits, {what}", a, b, tol)
 
 
+# ---------------- phase 4: long context ----------------
+
+LONG = dict(max_seq=16384, n_slots=4, prefill_buckets=(512, 1024, 4096))
+BUCKET = 4096            # the largest bucket: the prefill of the path's shape
+PROMPT_LENS = (1000, 4000)
+LONG_PATHS = {"float": ("float", "silu", "flash_pallas",
+                        ("flash_fwd", "decode_dense")),
+              "dualmode": ("dualmode", "silu_dualmode", "flash_pallas_int",
+                           ("flash_snap", "decode_dense_int", "pair_act"))}
+
+
+def long_kernel_phase(dev, results):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tiling
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+
+    def randn(*shape, grid=False):
+        x = torch.randn(shape, generator=gen)
+        return (torch.round(x * 4) / 16 if grid else x).to(dev)
+
+    def attn_case(b, s, t, kh, g, h, hv, q_pos, grid=False, ragged=False):
+        qf = (randn(b, s, kh, g, h, grid=grid) * h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h, grid=grid), randn(b, t, kh, hv)
+        qp = torch.as_tensor(q_pos, dtype=torch.int32).to(dev).expand(
+            b, s).contiguous()
+        valid = torch.arange(t, device=dev)[None, :] <= qp.max()
+        if ragged:
+            valid = valid & (torch.rand(b, t, generator=gen) > 0.25).to(dev)
+        return qf, k, v, qp, valid.expand(b, t).to(torch.uint8).contiguous()
+
+    def identity_v(b, t, kh):
+        return torch.eye(t, device=dev)[None, :, None, :].expand(
+            b, t, kh, t).contiguous()
+
+    # -- rows 7 / 8 at the path's shape: one bucket-4096 prefill of a
+    #    16384-key row cache (keys past the prompt invalid), 16 heads, h 64
+    log("[long] flash_fwd / flash_snap")
+    S_, T_ = BUCKET, LONG["max_seq"]
+    path = attn_case(1, S_, T_, 16, 1, 64, 64, torch.arange(S_))
+    kw = dict(causal=True, block_kv=64)
+    err_f = check(f"flash_fwd path (1, {S_}, 16, 1, 64) T {T_}",
+                  fa.flash_fwd(*path, **kw), fa.flash_fwd_plain(*path, **kw),
+                  TOL_FLASH_F)
+    err_i = check("flash_snap path, random scores",
+                  fai.flash_snap(*path, guard_shift=0, **kw),
+                  fai.flash_snap_plain(*path, guard_shift=0, **kw),
+                  TOL_FLASH_I)
+    grid = attn_case(1, S_, T_, 16, 1, 64, 64, torch.arange(S_), grid=True)
+    got = fai.flash_snap(*grid, guard_shift=0, return_partial=True, **kw)
+    want = fai.flash_snap_plain(*grid, guard_shift=0, return_partial=True,
+                                **kw)
+    check("flash_snap path m words (exact scores)", got[1], want[1], TOL_INT)
+    check("flash_snap path S words (exact scores)", got[2], want[2], TOL_INT)
+    for (b, s, t, kh, g, h, hv, qpos, causal, bkv, ragged) in (
+            (2, 70, 200, 2, 2, 64, 64, torch.arange(130, 200), True, 64,
+             True),
+            (1, 33, 129, 3, 4, 128, 72, torch.arange(96, 129), True, 16,
+             True),
+            (2, 64, 100, 1, 3, 32, 32, torch.arange(36, 100), False, 37,
+             True),
+            (2, 40, 300, 2, 2, 64, 64, torch.arange(40), True, 64, True)):
+        args = attn_case(b, s, t, kh, g, h, hv, qpos, grid=True,
+                         ragged=ragged)
+        if qpos[0] == 0:        # row 0 sees only key 0, masked: the folded
+            args[4][:, 0] = 0   # tail carries all of its mass
+        ekw = dict(causal=causal, block_kv=bkv)
+        name = f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} bkv={bkv}"
+        got = fa.flash_fwd(*args, return_stats=True, **ekw)
+        want = fa.flash_fwd_plain(*args, return_stats=True, **ekw)
+        check(f"flash_fwd out {name}", got[0], want[0], TOL_FLASH_F)
+        check(f"flash_fwd m {name}", got[1], want[1], TOL_FLASH_F)
+        check(f"flash_fwd l / plain l {name}", got[2] / want[2],
+              torch.ones_like(want[2]), TOL_FLASH_F)
+        got = fai.flash_snap(*args, guard_shift=0, return_partial=True,
+                             **ekw)
+        want = fai.flash_snap_plain(*args, guard_shift=0,
+                                    return_partial=True, **ekw)
+        check(f"flash_snap m {name}", got[1], want[1], TOL_INT)
+        check(f"flash_snap S {name}", got[2], want[2], TOL_INT)
+        check(f"flash_snap out {name}",
+              fai.flash_snap(*args, guard_shift=0, **ekw),
+              fai.flash_snap_plain(*args, guard_shift=0, **ekw), TOL_FLASH_F)
+    # identity-v probe: every output is one exact probability word
+    for causal, bkv in ((True, 64), (True, 16), (False, 64)):
+        qf, k, _, qp, valid = attn_case(2, 40, 128, 2, 2, 64, 64,
+                                        torch.arange(88, 128), grid=True,
+                                        ragged=True)
+        eye = identity_v(2, 128, 2)
+        ekw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+        check(f"flash_snap identity-v causal={causal} bkv={bkv}",
+              fai.flash_snap(qf, k, eye, qp, valid, **ekw),
+              fai.flash_snap_plain(qf, k, eye, qp, valid, **ekw), TOL_INT)
+    # 70000 keys: guard_shift 1 from the full extent
+    long_row = attn_case(1, 64, 70000, 1, 1, 64, 64, torch.arange(
+        69936, 70000), grid=True, ragged=True)
+    gs = fai.unit.guard_shift_for(70000)
+    if gs != 1:
+        fail(f"guard shift for 70000 keys is {gs}, expected 1")
+    for causal in (True, False):
+        ekw = dict(causal=causal, block_kv=64, guard_shift=gs)
+        got = fai.flash_snap(*long_row, return_partial=True, **ekw)
+        want = fai.flash_snap_plain(*long_row, return_partial=True, **ekw)
+        check(f"flash_snap 70000 keys S words causal={causal}", got[2],
+              want[2], TOL_INT)
+        check(f"flash_snap 70000 keys out causal={causal}",
+              fai.flash_snap(*long_row, **ekw),
+              fai.flash_snap_plain(*long_row, **ekw), TOL_FLASH_F)
+
+    # timing at the path's shape, random inputs
+    pairs = S_ * (S_ + 1) // 2 * 16                 # causal (q, k) pairs
+    keys = S_                                       # keys the causal run needs
+    nbytes = (path[0].numel() * 4 * 2 + keys * 16 * 128 * 4 + S_ * 4
+              + keys)
+    b_ms, b_by = bound(nbytes, pairs * (4 * 64 + 4))
+    # the library on the same work: the S_ live keys under its causal rule
+    # (the keys past them score MASK_VALUE and carry no mass here)
+    q_sdpa = path[0][0].permute(1, 2, 0, 3).reshape(1, 16, S_, 64)
+    k_sdpa = path[1][:, :S_].permute(0, 2, 1, 3)
+    v_sdpa = path[2][:, :S_].permute(0, 2, 1, 3)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_sdpa, k_sdpa, v_sdpa, is_causal=True, scale=1.0)
+    diff = (sdpa()[0].permute(1, 0, 2)[:, :, None]
+            - fa.flash_fwd(*path, **kw)[0]).abs().max().item()
+    lib = time_ms(sdpa, iters=10)
+    log(f"  SDPA (causal, {S_} keys) vs flash_fwd: max abs diff {diff:.3g}")
+    for name, fn, plain_fn, e, lib_ms in (
+            ("flash_fwd", lambda: fa.flash_fwd(*path, **kw),
+             lambda: fa.flash_fwd_plain(*path, **kw), err_f, lib),
+            ("flash_snap", lambda: fai.flash_snap(*path, guard_shift=0, **kw),
+             lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw), err_i,
+             None)):
+        ms = time_ms(fn, iters=10, warmup=2)
+        plain = time_ms(plain_fn, iters=2, warmup=1)
+        log(f"  {name} (B1 S{S_} K16 G1 h64 T{T_} causal): {ms * 1e3:.1f} "
+            f"us, plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+            f"({b_by})" + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+    # -- rows 5 / 6 at the path's shape: 4 slots of a 16384-key cache at
+    #    depths within 1000-4016
+    log("[long] decode_dense / decode_dense_int")
+
+    def dec_case(b, t, kh, g, h, q_pos, grid=False, hv=None):
+        qf = (randn(b, kh, g, h, grid=grid) * h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h, grid=grid), randn(b, t, kh, hv or h)
+        qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+        valid = (torch.arange(t, device=dev)[None, :] <= qp[:, None]).to(
+            torch.uint8)
+        return qf, k, v, qp, valid
+
+    def dparts(kern, args, ns, bkv, int_mode):
+        fn = fd.decode_dense_partials if kern else \
+            fd.decode_dense_partials_plain
+        return fn(*args, num_splits=ns, block_kv=bkv, causal=True,
+                  int_mode=int_mode, guard_shift=fai.unit.guard_shift_for(
+                      args[1].shape[1]))
+
+    main_qpos = [x * BUCKET // 4096 for x in (1100, 2500, 3900, 4015)]
+    ns = fd.dense_decode_splits(T_, 4 * 16, dev)
+    bkv = tiling.decode_kv_block(T_, ns)
+    err_f = err_i = 0.0
+    for g, grid_v in ((1, False), (1, True), (2, False), (4, True)):
+        args = dec_case(4, T_, 16 // g, g, 64, main_qpos, grid=grid_v)
+        for n_s in (1, ns, 8):
+            pk = dparts(True, args, n_s, bkv, False)
+            pp = dparts(False, args, n_s, bkv, False)
+            e = check(f"decode_dense G={g} grid={grid_v} splits={n_s}",
+                      fd.finish_partials(*pk, int_mode=False),
+                      fd.finish_partials(*pp, int_mode=False), TOL_DECODE_F)
+            if g == 1 and not grid_v:
+                err_f = max(err_f, e)
+            ik = dparts(True, args, n_s, bkv, True)
+            ip = dparts(False, args, n_s, bkv, True)
+            if grid_v:
+                check(f"decode_dense_int m G={g} splits={n_s}", ik[0], ip[0],
+                      TOL_INT)
+                check(f"decode_dense_int S G={g} splits={n_s}", ik[1], ip[1],
+                      TOL_INT)
+            e = check(f"decode_dense_int out G={g} grid={grid_v} "
+                      f"splits={n_s}", fd.finish_partials(*ik, int_mode=True),
+                      fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
+            if g == 1 and not grid_v:
+                err_i = max(err_i, e)
+    # ragged last tile, identity-v probe for the int accumulator words
+    qf, k, _, qp, valid = dec_case(3, 120, 2, 2, 64, [5, 70, 119], grid=True)
+    eye = identity_v(3, 120, 2)
+    for n_s, bk in ((1, 16), (3, 16), (2, 128)):
+        check(f"decode_dense_int identity-v acc splits={n_s} bkv={bk}",
+              dparts(True, (qf, k, eye, qp, valid), n_s, bk, True)[2],
+              dparts(False, (qf, k, eye, qp, valid), n_s, bk, True)[2],
+              TOL_INT)
+
+    args = dec_case(4, T_, 16, 1, 64, main_qpos)
+    keys = sum(p + 1 for p in main_qpos)
+    nbytes = (keys * 16 * 128 * 4 + keys + args[0].numel() * 4 + 4 * 4
+              + 4 * ns * 16 * (64 + 2) * 4)
+    b_ms, b_by = bound(nbytes, keys * 16 * (4 * 64 + 4))
+    # the library on the same keys: the deepest slot's, masked per row
+    live = max(main_qpos) + 1
+    q_sdpa = args[0].reshape(4, 16, 1, 64)
+    k_sdpa = args[1][:, :live].permute(0, 2, 1, 3)
+    v_sdpa = args[2][:, :live].permute(0, 2, 1, 3)
+    mask = args[4][:, :live].bool()[:, None, None, :]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_sdpa, k_sdpa, v_sdpa, attn_mask=mask, scale=1.0)
+    diff = (sdpa().reshape(4, 1, 16, 1, 64) - fd.finish_partials(
+        *dparts(True, args, ns, bkv, False), int_mode=False)).abs().max()
+    lib = time_ms(sdpa)
+    log(f"  SDPA ({live} keys, masked) vs decode_dense: max abs diff "
+        f"{diff.item():.3g}")
+    for name, int_mode, e, lib_ms in (("decode_dense", False, err_f, lib),
+                                      ("decode_dense_int", True, err_i, None)):
+        ms = time_ms(lambda: dparts(True, args, ns, bkv, int_mode))
+        plain = time_ms(lambda: dparts(False, args, ns, bkv, int_mode),
+                        iters=3, warmup=1)
+        fold = time_ms(lambda: fd.finish_partials(
+            *dparts(True, args, ns, bkv, int_mode), int_mode=int_mode))
+        log(f"  {name} (B4 K16 G1 h64 T{T_}, depths {main_qpos}, {ns} "
+            f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us (+fold "
+            f"{fold * 1e3:.1f} us total), plain {plain * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.1f} us ({b_by})"
+            + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    # the split count is the SM rule's; how the time moves with it
+    for n_s in (ns, tiling.DECODE_MAX_SPLITS):
+        times = [time_ms(lambda: dparts(True, args, n_s, bkv, im))
+                 for im in (True, False, True, False)]
+        log(f"  decode_dense {n_s} splits, int / float / int / float: "
+            + " / ".join(f"{t * 1e3:.1f}" for t in times) + " us")
+
+
+def long_serve_phase(dev, launches):
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Request, ServeEngine
+    base = registry.get_config("qwen1.5-0.5b")
+    for sm in ("float", "dualmode"):
+        got = dispatch.resolve_attention("auto", BUCKET, LONG["max_seq"], sm,
+                                         device=dev)
+        if got == "flash":
+            fail(f"'auto' resolved to the plain 'flash' on the card ({sm})")
+    params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.RandomState(1)
+    lens = rng.randint(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    for name, (sm, act, prefill_impl, kernels) in LONG_PATHS.items():
+        cfg = base.replace(softmax_impl=sm, activation=act)
+        eng = ServeEngine(cfg, params, cache_mode="contiguous", device=dev,
+                          **LONG)
+        if (eng.prefill_attn_impl, eng.decode_attn_impl) != (
+                prefill_impl, "flash_decode"):
+            fail(f"long {name}: resolved prefill {eng.prefill_attn_impl}, "
+                 f"decode {eng.decode_attn_impl}")
+        reqs = [Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k in kernels:
+            if k.startswith(("flash", "decode_dense")):
+                launches[k] = launches.get(k, 0) + counts[k]
+        new = sum(len(v) for v in outs.values())
+        st = eng.stats
+        log(f"[long] {name}: {len(outs)}/{len(reqs)} requests, {new} new "
+            f"tokens, prompts {int(lens.sum())} tokens, {dt:.2f} s; prefill "
+            f"{st['prefill_s'] * 1e3:.0f} ms in {st['prefills']} prefills "
+            f"({st['prefill_s'] * 1e3 / max(st['prefills'], 1):.1f} ms each, "
+            f"{int(lens.sum()) / st['prefill_s']:.0f} prompt tok/s), decode "
+            f"{st['decode_s'] * 1e3:.0f} ms in {st['decode_steps']} ticks "
+            f"({st['decode_s'] * 1e3 / max(st['decode_steps'], 1):.1f} "
+            f"ms/tick, {new / st['decode_s']:.1f} tok/s), cache copies "
+            f"{st['cache_copies']}; launches {counts}")
+        if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
+            fail(f"long {name}: unfinished requests")
+        if st["nonfinite"]:
+            fail(f"long {name}: {st['nonfinite']} non-finite logit rows")
+        for k in kernels:
+            if counts[k] == 0:
+                fail(f"long {name}: kernel {k} never launched on its path")
+        del eng
+        torch.cuda.empty_cache()
+        long_parity(cfg, params, dev, prompts[int(np.argmax(lens))])
+
+
+def long_parity(cfg, params, dev, prompt):
+    """One bucket-4096 prefill into a 16384-key row and the first decode
+    step, through the kernels and with the plain versions in their place."""
+    from repro_torch.core import activations
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve import ServeEngine
+
+    def step():
+        eng = ServeEngine(cfg, params, cache_mode="contiguous", n_slots=1,
+                          max_seq=LONG["max_seq"], prefill_buckets=(BUCKET,),
+                          device=dev)
+        row = init_caches(cfg, 1, LONG["max_seq"], dev)
+        toks = torch.tensor([prompt + [0] * (BUCKET - len(prompt))],
+                            device=dev)
+        pre = eng.prefill_logits(toks, row, torch.tensor(
+            [len(prompt) - 1], device=dev))
+        eng.caches = row
+        nxt = torch.argmax(pre, dim=-1)[:, None]
+        dec = eng.decode_logits(nxt, torch.tensor(
+            [len(prompt)], dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        del eng, row
+        return pre, dec
+
+    kern = step()
+    torch.cuda.empty_cache()
+    with mock.patch.object(fa, "flash_fwd", fa.flash_fwd_plain), \
+            mock.patch.object(fai, "flash_snap", fai.flash_snap_plain), \
+            mock.patch.object(fd, "decode_dense_partials",
+                              fd.decode_dense_partials_plain), \
+            mock.patch.object(activations, "pair_act", ds.pair_act_plain):
+        plain = step()
+    torch.cuda.empty_cache()
+    tol = TOL_LOGITS_F if cfg.softmax_impl == "float" else TOL_LOGITS_D
+    for what, a, b in ((f"bucket-{BUCKET} prefill", kern[0], plain[0]),
+                       ("first decode step", kern[1], plain[1])):
+        check(f"{cfg.softmax_impl} long-context logits, {what}", a, b, tol)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -406,6 +762,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the float32 matmul policy)
     from repro_torch.kernels import _build
     import repro_torch.kernels.dualmode_softmax  # noqa: F401  (registers)
+    import repro_torch.kernels.flash_attention_int  # noqa: F401  (registers)
     import repro_torch.kernels.flash_decode  # noqa: F401  (registers)
     dev = torch.device("cuda")
     log(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -426,6 +783,8 @@ def main() -> int:
     kernel_phase(dev, results)
     launches: dict = {}
     serve_phase(dev, launches)
+    long_kernel_phase(dev, results)
+    long_serve_phase(dev, launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

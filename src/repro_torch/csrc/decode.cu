@@ -1,22 +1,28 @@
-// decode_paged / decode_paged_int: split-KV s_q=1 decode over a paged KV
-// cache addressed through per-request block tables.
+// Split-KV s_q=1 decode, float and the unit's snapped int recurrence,
+// over a paged KV cache (block tables) or a contiguous one ((B, T) rows).
 //
-// Replaces repro/kernels/flash_decode.py:flash_decode_paged --
-//   decode_paged     the float body (_flash_decode_paged_jit, pallas_call
-//                    at :365, body _decode_body :68);
-//   decode_paged_int the snapped int body (_flash_decode_paged_int_jit,
-//                    pallas_call at :440, body _decode_body_int :185).
-// Both emit per-split partials; the split fold (online_softmax_merge_n /
-// online_merge_n_int + online_finish_int) runs outside, in PyTorch, as the
-// reference runs it outside its kernel.
+// Replaces repro/kernels/flash_decode.py --
+//   decode_paged      flash_decode_paged, float (_flash_decode_paged_jit,
+//                     pallas_call at :365, body _decode_body :68);
+//   decode_paged_int  flash_decode_paged, int (_flash_decode_paged_int_jit,
+//                     pallas_call at :440, body _decode_body_int :185);
+//   decode_dense      flash_decode_pallas, float (_flash_decode_jit,
+//                     pallas_call at :162);
+//   decode_dense_int  flash_decode_pallas, int (_flash_decode_int_jit,
+//                     pallas_call at :283).
+// One kernel body, templated over the int/float state and over the
+// addressing (a block-table entry per tile vs (B, T) strides).  Each emits
+// per-split partials; the split fold (online_softmax_merge_n /
+// online_merge_n_int + online_finish_int) runs outside, in PyTorch, as
+// the reference runs it outside its kernel.
 //
 // Bound on the H100: memory.  Every visited KV tile is read once
-// (2 * bs * h * 4 bytes per (row, kv-head) and tile) against 4 flops per
+// (2 * tile * h * 4 bytes per (row, kv-head) and tile) against 4 flops per
 // key and head dim, far below the card's ops-per-byte balance.
 //
 // Design: one block of 128 threads (4 warps) per (split, kv-head, batch
 // row).  The TPU kernel's sequential kv-tile grid axis becomes a loop
-// inside the block over the split's table entries; each iteration reads
+// inside the block over the split's tiles; paged, each iteration reads
 // its table entry and fetches the K and V tile through it (the scalar-
 // prefetch index map of the TPU kernel becomes pointer arithmetic here).
 //   scores   a warp per key: lanes stride over the head dim (coalesced
@@ -25,10 +31,16 @@
 //   acc      a thread per (row, value dim), looping over the tile's keys
 //            (coalesced across the value dim).
 // Causal tiles past a row's q_pos are skipped (the reference's per-row
-// tile skip).  Tiles past the table (the reference's phantom padding of a
-// short last split) are not visited: in the reference they score -inf
-// (float) / PHANTOM_Q (int) and are exact no-ops.  A split with no tile
-// to visit writes the merge identity (MASK_VALUE, 0, 0) / (SNAP_MIN, 0, 0).
+// tile skip).  Paged, the splits cut the table into fixed ranges and the
+// tiles past the table (the reference's phantom padding of a short last
+// split) are not visited.  Contiguous, the splits cut each row's LIVE
+// range (tiles up to its q_pos when causal): a slot at depth 4000 of a
+// 16k-key cache spreads its 32 tiles over every split instead of leaving
+// all but the first idle; keys of the last tile past T are phantoms.  In
+// the reference, skipped tiles and phantoms score -inf (float) /
+// PHANTOM_Q (int) and are exact no-ops, up to the exp(MASK_VALUE) mass of
+// fully masked tiles that its decode also drops.  A split with no tile to
+// visit writes the merge identity (MASK_VALUE, 0, 0) / (SNAP_MIN, 0, 0).
 // A table entry outside the pool is read as the sentinel block 0, the
 // convention the cache writes use for out-of-table positions.
 //
@@ -37,6 +49,8 @@
 // depth buckets S are bitwise the reference's words (int32 atomics and
 // reductions are exact in any order); acc rescales by exact powers of two.
 #include <cuda_runtime.h>
+
+#include <cmath>
 
 #include "block_reduce.cuh"
 #include "unit.cuh"
@@ -50,19 +64,22 @@ constexpr int kNB = unit::N_SNAP_BUCKETS;
 
 struct DecodeArgs {
   const float* q;          // (B, K, G, h), pre-scaled
-  const float* k_pool;     // (N, bs, K, h)
-  const float* v_pool;     // (N, bs, K, hv)
-  const int32_t* tables;   // (B, nblk)
+  const float* k_pool;     // paged (N, bs, K, h); contiguous (B, T, K, h)
+  const float* v_pool;     // paged (N, bs, K, hv); contiguous (B, T, K, hv)
+  const int32_t* tables;   // paged (B, nblk); contiguous unused
   const int32_t* q_pos;    // (B,)
   const uint8_t* kv_valid; // (B, nblk * bs)
   void* part_m;            // (B, S, K, G) f32 | i32
   void* part_l;            // (B, S, K, G) f32 | (B, S, K, G, 16) i32
   float* part_acc;         // (B, S, K, G, hv)
+  // paged: n_pool blocks of bs keys, nblk table entries, t_kv = nblk * bs;
+  // contiguous: n_pool unused, bs the tile width, nblk = cdiv(t_kv, bs)
   int n_pool, bs, kh, g, h, hv, nblk, num_splits, inner, causal, guard_shift;
+  int t_kv;
 };
 
-template <bool kInt>
-__global__ void __launch_bounds__(kThreads) decode_paged_kernel(DecodeArgs a) {
+template <bool kInt, bool kPaged>
+__global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   extern __shared__ float smem[];
   const int split = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
   const int G = a.g, h = a.h, hv = a.hv, bs = a.bs;
@@ -91,17 +108,38 @@ __global__ void __launch_bounds__(kThreads) decode_paged_kernel(DecodeArgs a) {
   __syncthreads();
 
   const int qpos = a.q_pos[b];
-  const int t_kv = a.nblk * bs;
-  const int tile0 = split * a.inner;
-  const int tile1 = min(tile0 + a.inner, a.nblk);
+  const int t_kv = a.t_kv;
+  int tile0, tile1;
+  if (kPaged) {
+    tile0 = split * a.inner;
+    tile1 = min(tile0 + a.inner, a.nblk);
+  } else {
+    const int live = !a.causal ? a.nblk : (qpos < 0 ? 0 : min(a.nblk, qpos / bs + 1));
+    const int inner = (live + a.num_splits - 1) / a.num_splits;
+    tile0 = min(split * inner, live);
+    tile1 = min(tile0 + inner, live);
+  }
   for (int jt = tile0; jt < tile1; ++jt) {
     if (a.causal && jt * bs > qpos) break;  // later tiles start later still
-    int blk = a.tables[static_cast<size_t>(b) * a.nblk + jt];
-    if (blk < 0 || blk >= a.n_pool) blk = 0;
-    const size_t base = static_cast<size_t>(blk) * bs;
+    size_t base;                            // row of the tile's first key
+    if (kPaged) {
+      int blk = a.tables[static_cast<size_t>(b) * a.nblk + jt];
+      if (blk < 0 || blk >= a.n_pool) blk = 0;
+      base = static_cast<size_t>(blk) * bs;
+    } else {
+      base = static_cast<size_t>(b) * t_kv + static_cast<size_t>(jt) * bs;
+    }
+    const int nk = min(bs, t_kv - jt * bs);  // keys past t_kv are phantoms
 
     // ---- scores: one warp per key ----
     for (int j = warp; j < bs; j += kWarps) {
+      if (j >= nk) {                       // phantom: no mass, no max
+        if (lane < G) {
+          if (kInt) ti[lane * bs + j] = unit::SNAP_MIN;
+          else sc[lane * bs + j] = -INFINITY;
+        }
+        continue;
+      }
       const float* krow = a.k_pool + ((base + j) * a.kh + head) * h;
       float part[kMaxG];
 #pragma unroll
@@ -190,7 +228,7 @@ __global__ void __launch_bounds__(kThreads) decode_paged_kernel(DecodeArgs a) {
       const size_t vstride = static_cast<size_t>(a.kh) * hv;
       const float* prow = sc + gg * bs;
       float dot = 0.0f;
-      for (int j = 0; j < bs; ++j) dot += prow[j] * vcol[j * vstride];
+      for (int j = 0; j < nk; ++j) dot += prow[j] * vcol[j * vstride];
       acc[i] = acc[i] * rowc[gg] + dot;
     }
     __syncthreads();
@@ -217,18 +255,19 @@ size_t smem_bytes(int G, int h, int hv, int bs) {
          sizeof(int32_t) * (static_cast<size_t>(G) * bs + G + 2 * G * kNB);
 }
 
-template <bool kInt>
+template <bool kInt, bool kPaged>
 int launch(const DecodeArgs& a, int batch, void* stream) {
-  if (a.g < 1 || a.g > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.g < 1 || a.g > kMaxG || a.bs < 1 || a.num_splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(a.g, a.h, a.hv, a.bs);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_paged_kernel<kInt>,
+    cudaError_t e = cudaFuncSetAttribute(decode_kernel<kInt, kPaged>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(a.num_splits, a.kh, batch);
-  decode_paged_kernel<kInt><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  decode_kernel<kInt, kPaged><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -246,12 +285,32 @@ int launch(const DecodeArgs& a, int batch, void* stream) {
 #define DECODE_ARGS                                                            \
   DecodeArgs{q, k_pool, v_pool, tables, q_pos, kv_valid, part_m, part_l,      \
              part_acc, n_pool, bs, kh, g, h, hv, nblk, num_splits, inner,     \
-             causal, guard_shift}
+             causal, guard_shift, nblk * bs}
 
 extern "C" int decode_paged_launch(DECODE_PARAMS) {
-  return launch<false>(DECODE_ARGS, batch, stream);
+  return launch<false, true>(DECODE_ARGS, batch, stream);
 }
 
 extern "C" int decode_paged_int_launch(DECODE_PARAMS) {
-  return launch<true>(DECODE_ARGS, batch, stream);
+  return launch<true, true>(DECODE_ARGS, batch, stream);
+}
+
+// Contiguous cache: k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T); the
+// tile is bkv keys, the last one ragged; partials as the paged entries.
+#define DENSE_PARAMS                                                           \
+  const float *q, const float *k, const float *v, const int32_t *q_pos,      \
+      const uint8_t *kv_valid, void *part_m, void *part_l, float *part_acc,   \
+      int batch, int t_kv, int kh, int g, int h, int hv, int bkv,             \
+      int num_splits, int causal, int guard_shift, void *stream
+#define DENSE_ARGS                                                             \
+  DecodeArgs{q, k, v, nullptr, q_pos, kv_valid, part_m, part_l, part_acc,     \
+             0, bkv, kh, g, h, hv, (t_kv + bkv - 1) / bkv, num_splits, 0,     \
+             causal, guard_shift, t_kv}
+
+extern "C" int decode_dense_launch(DENSE_PARAMS) {
+  return launch<false, false>(DENSE_ARGS, batch, stream);
+}
+
+extern "C" int decode_dense_int_launch(DENSE_PARAMS) {
+  return launch<true, false>(DENSE_ARGS, batch, stream);
 }

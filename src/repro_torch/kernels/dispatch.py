@@ -1,22 +1,27 @@
 """Kernel dispatch registry (port of ``repro.kernels.dispatch`` for the
-slice that is ported: softmax, attention and paged attention).
+slices that are ported: softmax, attention and paged attention).
 
   softmax    'float' | 'dualmode' | 'dualmode_snap'
-  attention  'auto' | 'naive' | 'flash' | 'flash_decode'
+  attention  'auto' | 'naive' | 'flash' | 'flash_pallas' |
+             'flash_pallas_int' | 'flash_decode'
 
 'dualmode' runs the unit's row-softmax kernel (``softmax_rows``, int
 words); 'dualmode_snap' is the snapped whole-row oracle of the streamed
 dual-mode paths (plain PyTorch).  Resolution keeps the reference's
 two-sided refusals: an impl never honors a softmax mode it does not
 declare, and 'auto' never drops a dual-mode word contract.  The 'auto'
-rule is the reference's without its mesh gate (this slice has no mesh):
+rule is the reference's without its mesh gate (the port has no mesh):
 s_q=1 against >= DECODE_FLASH_MIN_KV keys -> 'flash_decode', score
-tiles above 2**22 -> the blocked path, else 'naive'.
+tiles above 2**22 -> the blocked path of the device (:func:`blocked_impl`:
+the CUDA kernel 'flash_pallas' on a GPU, the plain PyTorch 'flash' on
+the CPU, as the reference picks the Pallas kernel only on a TPU), else
+'naive'; under a dual-mode contract a blocked pick becomes
+'flash_pallas_int' on either device (on the CPU its entry runs the
+kernel's plain version).
 
 Impls of the reference that are not ported yet are named here so that a
 shape resolving to one raises NotImplementedError instead of running
-something else: 'flash_pallas', 'flash_pallas_int', 'flash_pallas_int3'
-and 'flash_ring'.
+something else: 'flash_pallas_int3' and 'flash_ring'.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import softmax_unit as _unit
+from repro_torch.device import resolve_device
 
 from . import tiling
 from .dualmode_softmax import softmax_rows
@@ -68,8 +74,6 @@ _PAGED_ATTENTION: dict[str, Callable] = {}
 
 # the reference's impls that a later slice of the port brings
 NOT_PORTED = {
-    "flash_pallas": "the blocked float flash kernel",
-    "flash_pallas_int": "the one-sweep snapped int flash kernel",
     "flash_pallas_int3": "the three-sweep int flash kernel",
     "flash_ring": "ring attention",
 }
@@ -89,7 +93,11 @@ def register_paged_attention(name: str, fn: Callable) -> None:
 
 
 def _load_attention_providers() -> None:
-    import repro_torch.models.attention  # noqa: F401  (naive, flash, decode)
+    """Import the provider modules so that their registrations run."""
+    import repro_torch.kernels.flash_attention  # noqa: F401
+    import repro_torch.kernels.flash_attention_int  # noqa: F401
+    import repro_torch.kernels.flash_decode  # noqa: F401
+    import repro_torch.models.attention  # noqa: F401  (naive, flash)
 
 
 def attention_modes(name: str) -> frozenset[str]:
@@ -112,28 +120,36 @@ def use_flash(s_q: int, t: int, threshold: int = 1 << 22) -> bool:
     return s_q * t > threshold
 
 
-def auto_rule(s_q: int, t: int) -> str:
+def blocked_impl(device) -> str:
+    """The 'auto' rule's blocked pick for ``device``: the CUDA kernel on a
+    GPU, the plain PyTorch blocked loop on the CPU."""
+    return "flash_pallas" if torch.device(device).type == "cuda" else "flash"
+
+
+def auto_rule(s_q: int, t: int, device) -> str:
     """impl='auto': the split-KV decode kernel for one query row against a
-    long cache, the blocked path for huge score tiles, else naive."""
+    long cache, the device's blocked path for huge score tiles, else
+    naive."""
     if s_q == 1 and t >= tiling.DECODE_FLASH_MIN_KV:
         return "flash_decode"
-    return "flash" if use_flash(s_q, t) else "naive"
+    return blocked_impl(device) if use_flash(s_q, t) else "naive"
 
 
 def resolve_attention(impl: str, s_q: int, t_kv: int,
-                      softmax_impl: str = "float") -> str:
-    """Resolve 'auto' to a concrete impl, refusing any pairing that would
-    drop a dual-mode word contract (see the reference's docstring)."""
+                      softmax_impl: str = "float", device=None) -> str:
+    """Resolve 'auto' to a concrete impl for the engine or model running
+    on ``device`` (None: the package's rule, the GPU), refusing any
+    pairing that would drop a dual-mode word contract (see the
+    reference's docstring)."""
     if softmax_impl not in _SOFTMAX:
         raise ValueError(f"unknown softmax impl {softmax_impl!r}; "
                          f"have {sorted(_SOFTMAX)}")
     if impl == "auto":
-        impl = auto_rule(s_q, t_kv)
+        impl = auto_rule(s_q, t_kv, resolve_device(device))
         if softmax_impl not in attention_modes(impl):
             # a float-only blocked pick under a dual-mode contract: the
-            # reference streams it through the one-sweep int kernel
+            # one-sweep int kernel streams the same shapes bit-accurately
             impl = "flash_pallas_int"
-            attention_modes(impl)           # not ported: raises
     else:
         modes = attention_modes(impl)      # raises on unknown impls
         if softmax_impl not in modes:

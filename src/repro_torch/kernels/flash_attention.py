@@ -1,0 +1,185 @@
+"""Blocked flash attention, float (port of
+``repro.kernels.flash_attention``).
+
+``flash_fwd``  replaces the forward pallas_call of ``_flash_fwd_call``
+               (flash_attention.py:192), registered as ``'flash_pallas'``
+
+The kernel (``csrc/flash_fwd.cu``) streams KV tiles through shared
+memory with the running (m, l, acc) state on chip, so the (S, T) score
+matrix never reaches device memory; its per-tile step is
+``datapath.online_softmax_update``, as the reference's.  It is bound by
+operations on the H100 (see the source note).
+
+Shapes (the reference's): q (B, S, K, G, h), k (B, T, K, h),
+v (B, T, K, hv) -> (B, S, K, G, hv).  Masking is
+:func:`masked_score_block`'s: invalid or causally masked keys score
+``MASK_VALUE`` (as in naive attention), keys past T (tile padding) are
+phantoms scoring -inf.
+
+Causal tail: a row's keys from the first tile that starts past its q_pos
+up to T all score exactly MASK_VALUE, so the kernel skips those tiles and
+folds them in closed form at the end: n keys of one score update the
+state as n copies of one key, from per-tile sums of V
+(:func:`v_tail_sums`, computed here and passed in).  The plain version
+is the reference's full sweep of every tile (``models.flash``), so it
+holds the fold to account at any shape -- also for a row whose every
+visible key is masked, where that tail carries most of the mass.  The
+two agree up to f32 summation order.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import flash as _flash
+
+from . import _build
+from . import datapath as dp
+from . import dispatch, tiling
+
+_P, _I = _build.P, _build.I
+
+FLASH_FWD = _build.Kernel(
+    "flash_fwd", "flash_fwd_launch", [_P] * 9 + [_I] * 9 + [_P],
+    source="src/repro_torch/csrc/flash_fwd.cu",
+    replaces="src/repro/kernels/flash_attention.py:192")
+
+MAX_HEAD_DIM = 128       # h and hv the kernels take (kMaxHD)
+
+
+def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
+                       causal: bool, t_kv: int):
+    """Masked scores of one KV tile -- ONE definition of the flash masking
+    (the reference's, batched): qf (B, S, K, G, h) pre-scaled, kb (B,
+    bkv, K, h), q_pos (B, S), valid (B, bkv) -> scores (B, K, G, S, bkv)
+    with MASK_VALUE at invalid / causally masked keys and -inf at phantom
+    keys (position >= t_kv)."""
+    s = torch.einsum("bskgh,btkh->bkgst", qf, kb.to(torch.float32))
+    kv_pos = kv_tile * block_kv + torch.arange(kb.shape[1], device=qf.device)
+    mask = (valid != 0)[:, None, None, None, :]
+    if causal:
+        mask = mask & (kv_pos[None, None, None, None, :]
+                       <= q_pos[:, None, None, :, None])
+    s = torch.where(mask, s, torch.full_like(s, dp.MASK_VALUE))
+    return torch.where(kv_pos < t_kv, s, torch.full_like(s, -torch.inf))
+
+
+def v_tail_sums(v, block_kv: int):
+    """(B, n_tiles + 1, K, hv) f32: the sum of V over keys [j * block_kv, T)
+    for every tile j, and 0 at j = n_tiles -- what a causal row's skipped
+    tail adds to the accumulator, per unit of probability."""
+    b, t, kh, hv = v.shape
+    n = tiling.cdiv(t, block_kv)
+    per_tile = tiling.pad_dim(v.to(torch.float32), 1, block_kv).reshape(
+        b, n, block_kv, kh, hv).sum(dim=2)
+    tails = torch.flip(torch.cumsum(torch.flip(per_tile, [1]), dim=1), [1])
+    return torch.cat([tails, torch.zeros_like(tails[:, :1])],
+                     dim=1).contiguous()
+
+
+def flash_fwd_plain(qf, k, v, q_pos, kv_valid, *, causal: bool,
+                    block_kv: int, return_stats: bool = False):
+    """Plain version of the kernel, the full sweep of every KV tile: qf
+    (B, S, K, G, h) pre-scaled f32, q_pos (B, S) int32, kv_valid (B, T)
+    -> (B, S, K, G, hv) f32 [, m, l (B, K, G, S)]."""
+    res = _flash.flash_attention(
+        qf, k.to(torch.float32), v.to(torch.float32), q_pos=q_pos,
+        kv_valid=kv_valid.bool(), causal=causal, block=block_kv, scale=1.0,
+        return_stats=return_stats)
+    if return_stats:
+        return res[0].contiguous(), res[1], res[2]
+    return res.contiguous()
+
+
+def _check_operands(name, qf, k, v, q_pos, kv_valid):
+    b, s_q, kh, g, h = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    want = {"qf": (torch.float32, (b, s_q, kh, g, h)),
+            "k": (torch.float32, (b, t, kh, h)),
+            "v": (torch.float32, (b, t, kh, hv)),
+            "q_pos": (torch.int32, (b, s_q)),
+            "kv_valid": (torch.uint8, (b, t))}
+    got = {"qf": qf, "k": k, "v": v, "q_pos": q_pos, "kv_valid": kv_valid}
+    for key, (dtype, shape) in want.items():
+        x = got[key]
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {key} is {x.dtype} {tuple(x.shape)}, "
+                             f"expected {dtype} {shape}")
+        if x.device != qf.device or not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous on "
+                             f"{qf.device}")
+    if not (1 <= h <= MAX_HEAD_DIM and 1 <= hv <= MAX_HEAD_DIM):
+        raise ValueError(f"{name}: head dims {h}/{hv}; the kernel takes "
+                         f"1..{MAX_HEAD_DIM}")
+    if min(b, s_q, kh, g, t) < 1:
+        raise ValueError(f"{name}: empty operand")
+
+
+def check_block_kv(block_kv: int) -> None:
+    if not 1 <= block_kv <= tiling.ATTN_BLOCK_KV:
+        raise ValueError(f"block_kv={block_kv}: the kernels take "
+                         f"1..{tiling.ATTN_BLOCK_KV} keys a tile")
+
+
+def flash_fwd(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
+              return_stats: bool = False):
+    """The blocked forward through the CUDA kernel (CUDA tensors) or the
+    plain version (CPU tensors); arguments as :func:`flash_fwd_plain`."""
+    check_block_kv(block_kv)
+    if qf.device.type == "cpu":
+        return flash_fwd_plain(qf, k, v, q_pos, kv_valid, causal=causal,
+                               block_kv=block_kv, return_stats=return_stats)
+    _check_operands("flash_fwd", qf, k, v, q_pos, kv_valid)
+    b, s_q, kh, g, h = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    out = torch.empty((b, s_q, kh, g, hv), device=qf.device)
+    m = l = None
+    if return_stats:
+        m = torch.empty((b, kh, g, s_q), device=qf.device)
+        l = torch.empty_like(m)
+    tails = v_tail_sums(v, block_kv) if causal else None
+    FLASH_FWD(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
+              None if tails is None else tails.data_ptr(), q_pos.data_ptr(),
+              kv_valid.data_ptr(), out.data_ptr(),
+              None if m is None else m.data_ptr(),
+              None if l is None else l.data_ptr(),
+              b, s_q, kh, g, h, hv, t, block_kv, int(causal),
+              _build.stream_ptr(qf.device))
+    return (out, m, l) if return_stats else out
+
+
+def flash_attention_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
+                           scale: float | None = None,
+                           block_kv: int | None = None,
+                           return_stats: bool = False):
+    """Blocked flash attention (the reference's contract): the scale is
+    folded into q in f32 before the kernel; ``return_stats`` also returns
+    the (B, K, G, S) per-row (m, l) of the pre-scaled scores.  The q tile
+    is the kernel's own (``tiling.ATTN_BLOCK_Q`` rows); ``block_kv`` (at
+    most ``tiling.ATTN_BLOCK_KV``) defaults to the tiling policy."""
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if block_kv is None:
+        block_kv = tiling.attention_blocks(q.shape[1], k.shape[1])[1]
+    qf = (q.to(torch.float32) * scale).contiguous()
+    res = flash_fwd(qf, k.to(torch.float32).contiguous(),
+                    v.to(torch.float32).contiguous(),
+                    q_pos.to(torch.int32).contiguous(),
+                    kv_valid.to(torch.uint8).contiguous(), causal=causal,
+                    block_kv=block_kv, return_stats=return_stats)
+    if return_stats:
+        return res[0].to(v.dtype), res[1], res[2]
+    return res.to(v.dtype)
+
+
+def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
+                     softmax_impl="float"):
+    if softmax_impl != "float":
+        raise ValueError(
+            "attn_impl='flash_pallas' is the float blocked kernel and "
+            f"cannot honor softmax_impl={softmax_impl!r} (a dualmode word "
+            "contract) -- use 'naive' or 'flash_pallas_int'")
+    return flash_attention_pallas(q, k, v, q_pos=q_pos, kv_valid=kv_valid,
+                                  causal=causal, scale=scale)
+
+
+dispatch.register_attention("flash_pallas", _attention_entry,
+                            modes=("float",))

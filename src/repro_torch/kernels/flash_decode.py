@@ -1,19 +1,27 @@
-"""Paged split-KV decode (port of the block-table entry of
-``repro.kernels.flash_decode``, ``flash_decode_paged`` at :454).
+"""Split-KV decode, float and int, over a paged or a contiguous KV cache
+(port of ``repro.kernels.flash_decode``).
 
-``decode_paged``      replaces the float body (pallas_call at :365)
-``decode_paged_int``  replaces the snapped int body (pallas_call at :440)
+``decode_paged``      replaces the paged float body (pallas_call at :365)
+``decode_paged_int``  replaces the paged snapped int body (pallas_call at :440)
+``decode_dense``      replaces the contiguous float body (pallas_call at :162)
+``decode_dense_int``  replaces the contiguous int body (pallas_call at :283)
 
-The kernels (``csrc/decode_paged.cu``) emit one partial state per KV
-split -- (m, l, o*l) float, or (m snapped, S[16] buckets, acc) int -- and
-the split fold runs here in PyTorch, as the reference runs it outside its
-kernel: ``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
-``online_finish_int`` + one f32 division.  Both kernels are bound by
+The kernels (``csrc/decode.cu``, one body templated over the state and
+the addressing) emit one partial state per KV split -- (m, l, o*l)
+float, or (m snapped, S[16] buckets, acc) int -- and the split fold runs
+here in PyTorch, as the reference runs it outside its kernel:
+``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
+``online_finish_int`` + one f32 division.  The kernels are bound by
 memory on the H100: each visited K/V tile is read once.
 
-Shapes (the reference's): q (B, 1, K, G, h); pools (N, bs, K, h|hv);
-block_tables (B, nblk) int32; q_pos (B, 1); kv_valid (B, nblk*bs) ->
-(B, 1, K, G, hv).
+Shapes (the reference's): q (B, 1, K, G, h); paged pools (N, bs, K,
+h|hv) with block_tables (B, nblk) int32 and kv_valid (B, nblk*bs);
+contiguous k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T); q_pos (B, 1)
+-> (B, 1, K, G, hv).  Paged, split s covers table entries [s*inner,
+(s+1)*inner); contiguous, it covers that share of each row's LIVE tiles
+(up to its q_pos when causal), so a shallow slot in a deep cache still
+spreads its work over every split.  The fold does not depend on where
+the splits fall.
 """
 from __future__ import annotations
 
@@ -24,39 +32,31 @@ from repro_torch.core.fixedpoint import T_FRAC, quantize
 
 from . import _build
 from . import datapath as dp
-from . import tiling
+from . import dispatch, tiling
+from .flash_attention_int import snap_tile_update
 
 _P, _I = _build.P, _build.I
 _DECODE_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
 
 DECODE_PAGED = _build.Kernel(
     "decode_paged", "decode_paged_launch", _DECODE_ARGTYPES,
-    source="src/repro_torch/csrc/decode_paged.cu",
+    source="src/repro_torch/csrc/decode.cu",
     replaces="src/repro/kernels/flash_decode.py:365")
 DECODE_PAGED_INT = _build.Kernel(
     "decode_paged_int", "decode_paged_int_launch", _DECODE_ARGTYPES,
-    source="src/repro_torch/csrc/decode_paged.cu",
+    source="src/repro_torch/csrc/decode.cu",
     replaces="src/repro/kernels/flash_decode.py:440")
+_DENSE_ARGTYPES = [_P] * 8 + [_I] * 10 + [_P]
+DECODE_DENSE = _build.Kernel(
+    "decode_dense", "decode_dense_launch", _DENSE_ARGTYPES,
+    source="src/repro_torch/csrc/decode.cu",
+    replaces="src/repro/kernels/flash_decode.py:162")
+DECODE_DENSE_INT = _build.Kernel(
+    "decode_dense_int", "decode_dense_int_launch", _DENSE_ARGTYPES,
+    source="src/repro_torch/csrc/decode.cu",
+    replaces="src/repro/kernels/flash_decode.py:283")
 
 MAX_GROUPS = 8          # GQA rows per kv head the kernel holds (kMaxG)
-
-
-def snap_tile_update(m, S, acc, sq, vb, guard_shift: int):
-    """One KV tile of the snapped online recurrence (the reference's
-    ``flash_attention_int.snap_tile_update``), batched over leading dims:
-    m (..., 1) i32, S (..., 16) i32, acc (..., hv) f32, sq (..., bkv)
-    S5.10 score words, vb (..., bkv, hv) f32."""
-    t = unit.to_snap_domain(sq)
-    m_new = torch.maximum(
-        m, unit.snap_max_int(torch.amax(t, dim=-1, keepdim=True)))
-    k_corr = (m_new - m) >> T_FRAC
-    p = unit.snap_prob_word(t, guard_shift)
-    d = (m_new >> T_FRAC) - (t >> T_FRAC)
-    S_new = unit.slide_buckets_int(S, k_corr) + unit.depth_buckets(p, d, -1)
-    num = p.to(torch.float32) * unit.snap_scale_f32(d)
-    acc_new = acc * unit.snap_scale_f32(k_corr) + torch.einsum(
-        "...t,...tv->...v", num, vb)
-    return m_new, S_new, acc_new
 
 
 def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
@@ -221,3 +221,202 @@ def flash_decode_paged(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
         # guard from the LOGICAL cache extent, as the whole-row unit would
         guard_shift=unit.guard_shift_for(nblk * bs))
     return finish_partials(*parts, int_mode=int_mode).to(v_pool.dtype)
+
+
+# ---------------- contiguous cache ----------------
+
+def dense_split_tiles(q_pos, nblk: int, block_kv: int, num_splits: int,
+                      causal: bool):
+    """Per row: (live tiles, tiles per split) of the contiguous decode --
+    each row's live range (tiles up to its q_pos when causal) cut into
+    ``num_splits`` shares, as the kernel cuts it."""
+    if causal:
+        live = torch.where(q_pos < 0, torch.zeros_like(q_pos),
+                           torch.clamp(q_pos // block_kv + 1, max=nblk))
+    else:
+        live = torch.full_like(q_pos, nblk)
+    return live, (live + num_splits - 1) // num_splits
+
+
+def decode_dense_partials_plain(qf, k, v, q_pos, kv_valid, *,
+                                num_splits: int, block_kv: int, causal: bool,
+                                int_mode: bool, guard_shift: int):
+    """Plain version of both contiguous decode kernels: the per-split
+    partials.  qf (B, K, G, h) pre-scaled; k (B, T, K, h); v (B, T, K,
+    hv); q_pos (B,) int32; kv_valid (B, T).  Returns (m, l | S, acc)
+    shaped (B, S, K, G), (B, S, K, G[, 16]), (B, S, K, G, hv)."""
+    b, kh, g, _ = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    nblk = tiling.cdiv(t, block_kv)
+    dev = qf.device
+    qp = q_pos.to(torch.int64)
+    live, inner = dense_split_tiles(qp, nblk, block_kv, num_splits, causal)
+    rows = torch.arange(b, device=dev)[:, None]
+    offs = torch.arange(block_kv, device=dev)
+    parts = []
+    for sp in range(num_splits):
+        if int_mode:
+            m = torch.full((b, kh, g, 1), unit.SNAP_MIN, dtype=torch.int32,
+                           device=dev)
+            l = torch.zeros((b, kh, g, unit.N_SNAP_BUCKETS),
+                            dtype=torch.int32, device=dev)
+        else:
+            m = torch.full((b, kh, g, 1), dp.MASK_VALUE, device=dev)
+            l = torch.zeros((b, kh, g, 1), device=dev)
+        acc = torch.zeros((b, kh, g, hv), device=dev)
+        n_steps = int(inner.max()) if b else 0
+        for i in range(n_steps):
+            jt = sp * inner + i                                   # (B,)
+            on = (i < inner) & (jt < live)
+            kv_pos = jt[:, None] * block_kv + offs[None, :]       # (B, bkv)
+            real = kv_pos < t
+            idx = torch.where(real, kv_pos, torch.zeros_like(kv_pos))
+            kb = k[rows, idx].to(torch.float32)                   # (B,bkv,K,h)
+            vb = v[rows, idx].to(torch.float32).permute(0, 2, 1, 3)
+            vb = torch.where(real[:, None, :, None], vb, torch.zeros_like(vb))
+            s = torch.einsum("bkgh,btkh->bkgt", qf, kb)
+            mask = torch.gather(kv_valid, 1, idx).bool()
+            if causal:
+                mask = mask & (kv_pos <= qp[:, None])
+            s = torch.where(mask[:, None, None, :], s,
+                            torch.full_like(s, dp.MASK_VALUE))
+            ph = ~real[:, None, None, :]
+            vb = vb[:, :, None]                              # (B,K,1,bkv,hv)
+            if int_mode:
+                sq = torch.where(ph, torch.full_like(s, 0.0), s)
+                sq = torch.where(ph, torch.full((), unit.PHANTOM_Q,
+                                                dtype=torch.int32,
+                                                device=dev), quantize(sq))
+                m_n, l_n, acc_n = snap_tile_update(m, l, acc, sq, vb,
+                                                   guard_shift)
+            else:
+                s = torch.where(ph, torch.full_like(s, -torch.inf), s)
+                m_n, l_n, p, corr = dp.online_softmax_update(m, l, s)
+                acc_n = acc * corr + torch.einsum("bkgt,bkgtv->bkgv", p, vb)
+            on = on[:, None, None, None]
+            m = torch.where(on, m_n, m)
+            l = torch.where(on, l_n, l)
+            acc = torch.where(on, acc_n, acc)
+        parts.append((m[..., 0], l if int_mode else l[..., 0], acc))
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts))
+
+
+def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
+                          block_kv: int, causal: bool, int_mode: bool,
+                          guard_shift: int):
+    """Per-split partials of the contiguous decode through the CUDA
+    kernel (CUDA tensors) or the plain version (CPU tensors); arguments
+    as :func:`decode_dense_partials_plain`."""
+    if qf.device.type == "cpu":
+        return decode_dense_partials_plain(
+            qf, k, v, q_pos, kv_valid, num_splits=num_splits,
+            block_kv=block_kv, causal=causal, int_mode=int_mode,
+            guard_shift=guard_shift)
+    b, kh, g, h = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    _check_dense_operands(qf, k, v, q_pos, kv_valid)
+    if num_splits < 1 or not 1 <= block_kv <= 1024:
+        raise ValueError(f"num_splits={num_splits}, block_kv={block_kv}")
+    dev = qf.device
+    part_m = torch.empty((b, num_splits, kh, g), device=dev,
+                         dtype=torch.int32 if int_mode else torch.float32)
+    part_l = (torch.empty((b, num_splits, kh, g, unit.N_SNAP_BUCKETS),
+                          device=dev, dtype=torch.int32) if int_mode
+              else torch.empty((b, num_splits, kh, g), device=dev))
+    part_acc = torch.empty((b, num_splits, kh, g, hv), device=dev)
+    kernel = DECODE_DENSE_INT if int_mode else DECODE_DENSE
+    kernel(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+           kv_valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+           part_acc.data_ptr(), b, t, kh, g, h, hv, block_kv, num_splits,
+           int(causal), guard_shift, _build.stream_ptr(dev))
+    return part_m, part_l, part_acc
+
+
+def _check_dense_operands(qf, k, v, q_pos, kv_valid):
+    b, kh, g, h = qf.shape
+    t = k.shape[1]
+    want = {"qf": (torch.float32, (b, kh, g, h)),
+            "k": (torch.float32, (b, t, kh, h)),
+            "v": (torch.float32, (b, t, kh, v.shape[-1])),
+            "q_pos": (torch.int32, (b,)),
+            "kv_valid": (torch.uint8, (b, t))}
+    got = {"qf": qf, "k": k, "v": v, "q_pos": q_pos, "kv_valid": kv_valid}
+    for name, (dtype, shape) in want.items():
+        x = got[name]
+        if x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(f"decode_dense: {name} is {x.dtype} "
+                             f"{tuple(x.shape)}, expected {dtype} {shape}")
+        if x.device != qf.device or not x.is_contiguous():
+            raise ValueError(f"decode_dense: {name} must be contiguous on "
+                             f"{qf.device}")
+    if not 1 <= g <= MAX_GROUPS:
+        raise ValueError(f"decode_dense: {g} query groups per kv head; the "
+                         f"kernel holds 1..{MAX_GROUPS}")
+
+
+def dense_decode_splits(t: int, rows: int, device) -> int:
+    """Split count of the contiguous decode: on a GPU, from the SM count
+    over DECODE_BLOCK_KV-key tiles; on the CPU, the reference's off-TPU
+    rule (one split per DECODE_SPLIT_KEYS keys)."""
+    return tiling.decode_splits(tiling.cdiv(t, tiling.DECODE_BLOCK_KV),
+                                tiling.DECODE_BLOCK_KV, rows, device)
+
+
+def flash_decode_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
+                        scale: float | None = None,
+                        num_splits: int | None = None,
+                        block_kv: int | None = None,
+                        softmax_impl: str = "float"):
+    """Contiguous split-KV decode (the reference's contract and
+    arguments); ``softmax_impl='dualmode'`` runs the snapped int
+    recurrence, its guard shift from the full cache extent T."""
+    if q.shape[1] != 1:
+        raise ValueError(
+            f"flash_decode is the s_q=1 decode kernel; got s_q={q.shape[1]}")
+    if softmax_impl not in ("float", "dualmode"):
+        raise ValueError(f"flash_decode_pallas softmax_impl={softmax_impl!r}"
+                         ": expected 'float' or 'dualmode'")
+    b, _, kh, _, h = q.shape
+    t = k.shape[1]
+    if num_splits is None:
+        num_splits = dense_decode_splits(t, b * kh, q.device)
+    num_splits = max(1, num_splits)
+    if block_kv is None:
+        block_kv = tiling.decode_kv_block(t, num_splits)
+    scale = (1.0 / h ** 0.5) if scale is None else scale
+    qf = (q.to(torch.float32) * scale)[:, 0].contiguous()
+    int_mode = softmax_impl == "dualmode"
+    parts = decode_dense_partials(
+        qf, k.to(torch.float32).contiguous(), v.to(torch.float32).contiguous(),
+        q_pos.reshape(b).to(torch.int32).contiguous(),
+        kv_valid.to(torch.uint8).contiguous(), num_splits=num_splits,
+        block_kv=block_kv, causal=causal, int_mode=int_mode,
+        guard_shift=unit.guard_shift_for(t))
+    return finish_partials(*parts, int_mode=int_mode).to(v.dtype)
+
+
+def _int_impl(softmax_impl: str) -> str:
+    # both int contracts run the snapped int recurrence: a snap request
+    # never falls back to the float path
+    return ("dualmode" if softmax_impl in ("dualmode", "dualmode_snap")
+            else "float")
+
+
+def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
+                     softmax_impl="float"):
+    return flash_decode_pallas(q, k, v, q_pos=q_pos, kv_valid=kv_valid,
+                               causal=causal, scale=scale,
+                               softmax_impl=_int_impl(softmax_impl))
+
+
+def _paged_attention_entry(q, k_pool, v_pool, *, block_tables, q_pos,
+                           kv_valid, causal, scale, softmax_impl="float"):
+    return flash_decode_paged(q, k_pool, v_pool, block_tables=block_tables,
+                              q_pos=q_pos, kv_valid=kv_valid, causal=causal,
+                              scale=scale,
+                              softmax_impl=_int_impl(softmax_impl))
+
+
+dispatch.register_attention("flash_decode", _attention_entry,
+                            modes=("float", "dualmode", "dualmode_snap"))
+dispatch.register_paged_attention("flash_decode", _paged_attention_entry)

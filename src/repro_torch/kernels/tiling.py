@@ -3,11 +3,22 @@
 VMEM budgets -- do not apply to a GPU).
 
 What carries over unchanged is the paged-KV block rule (the engine's
-block size is also the decode kernel's KV tile width) and the
-decode-vs-naive threshold.  The split-KV decode split count is sized
-from the card's streaming multiprocessor count instead of the TPU core
-probe: splits are added until (batch x kv-heads x splits) blocks cover
-every SM, and never more than the table has tiles.
+block size is also the decode kernel's KV tile width), the
+decode-vs-naive threshold and the blocked-attention pad rule
+(:func:`pad_attention_operands`, used by the plain versions).  The
+split-KV decode split count is sized from the card's streaming
+multiprocessor count instead of the TPU core probe: splits are added
+until (batch x kv-heads x splits) blocks cover every SM, and never more
+than the cache has tiles.
+
+Blocked attention tiles are Hopper-sized, not the TPU's 128 x 512: a
+block of 256 threads holds ATTN_BLOCK_Q query rows against
+ATTN_BLOCK_KV keys (64 x 64 f32 scores, 16 a thread), small enough that
+K, V, Q and the score tile all sit in shared memory at head dims up to
+128.  The CUDA kernels read the ragged edge of the last tile as phantom
+keys themselves instead of padding the operands in device memory.
+Results do not depend on the tile: int words are bitwise equal for any
+(bq, bkv), float outputs equal up to f32 summation order.
 """
 from __future__ import annotations
 
@@ -18,6 +29,9 @@ DECODE_MAX_SPLITS = 8        # partial-merge fan-in cap
 DECODE_SPLIT_KEYS = 2048     # CPU rule: keys per split
 PAGED_MIN_BLOCK = 8          # block-size window of the paged pool
 PAGED_MAX_BLOCK = 128
+ATTN_BLOCK_Q = 64            # blocked attention: query rows per tile
+ATTN_BLOCK_KV = 64           # blocked attention: keys per tile
+DECODE_BLOCK_KV = 128        # contiguous split-KV decode: keys per tile
 
 
 def cdiv(a: int, b: int) -> int:
@@ -35,6 +49,41 @@ def paged_block_size(max_seq: int) -> int:
     return int(max(PAGED_MIN_BLOCK, min(PAGED_MAX_BLOCK, want)))
 
 
+def attention_blocks(s_q: int, t_kv: int) -> tuple[int, int]:
+    """(bq, bkv) for blocked attention: the Hopper tile, shrunk (to a
+    multiple of 16) only where the whole extent is smaller."""
+    return (min(ATTN_BLOCK_Q, round_up(s_q, 16)),
+            min(ATTN_BLOCK_KV, round_up(t_kv, 16)))
+
+
+def pad_dim(x: torch.Tensor, dim: int, multiple: int, value=0):
+    """Pad ``x`` along ``dim`` with ``value`` up to a multiple."""
+    pad = (-x.shape[dim]) % multiple
+    if not pad:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pad
+    return torch.cat([x, torch.full(shape, value, dtype=x.dtype,
+                                    device=x.device)], dim=dim)
+
+
+def pad_attention_operands(q, q_pos, k, v, kv_valid, bq: int, bkv: int):
+    """Pad the five blocked-attention operands up to the (bq, bkv) grid
+    (the reference's rule): q / q_pos along the query axis, k / v /
+    kv_valid along the key axis, validity padded with 0 so padded keys
+    are invalid.  Callers tell padded keys (phantoms) from invalid ones
+    by position: a key at or past the unpadded extent is a phantom."""
+    return (pad_dim(q, 1, bq), pad_dim(q_pos.to(torch.int32), 1, bq),
+            pad_dim(k, 1, bkv), pad_dim(v, 1, bkv),
+            pad_dim(kv_valid.to(torch.int32), 1, bkv))
+
+
+def decode_kv_block(t_kv: int, num_splits: int) -> int:
+    """KV tile width of the contiguous split-KV decode: DECODE_BLOCK_KV
+    keys, shrunk (to a multiple of 16) where a split holds fewer."""
+    return min(DECODE_BLOCK_KV, round_up(cdiv(t_kv, max(num_splits, 1)), 16))
+
+
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the card ``device`` names."""
     idx = device.index if device.index is not None else \
@@ -50,8 +99,9 @@ _SM_COUNT: dict[int, int] = {}    # per card index: a property of the card
 
 def decode_splits(nblk: int, block_size: int, rows: int,
                   device: torch.device) -> int:
-    """Split count for the paged decode kernel: ``rows`` (batch x kv-heads)
-    independent sweeps over ``nblk`` tiles of ``block_size`` keys.
+    """Split count for the split-KV decode kernels: ``rows`` (batch x
+    kv-heads) independent sweeps over ``nblk`` tiles of ``block_size``
+    keys.
 
     On a GPU: enough splits for rows x splits blocks to cover the SMs,
     capped at DECODE_MAX_SPLITS and at one tile per split.  On the CPU

@@ -1,5 +1,6 @@
-"""Serving launcher of the port: the paged continuous-batching engine over
-synthetic requests, on the GPU (``--device cpu`` runs the plain versions).
+"""Serving launcher of the port: the continuous-batching engine (paged or
+contiguous KV cache) over synthetic requests, on the GPU (``--device
+cpu`` runs the plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 8 --slots 4 --max-new 16 --max-seq 2048
@@ -44,6 +45,12 @@ def main() -> None:
                          "force the paged split-KV kernel at any cache "
                          "length (default: 'auto', which picks it at "
                          "--max-seq >= 1024)")
+    ap.add_argument("--cache-mode", default="auto",
+                    choices=("auto", "paged", "contiguous"),
+                    help="KV cache layout: 'paged' = block-table pool with "
+                         "prefix sharing + chunked prefill, 'contiguous' = "
+                         "per-slot rows with bucketed prefill, 'auto' = "
+                         "paged wherever the arch supports it")
     ap.add_argument("--block-size", type=int, default=0,
                     help="paged KV block size in tokens (0 = the tiling "
                          "policy's pick for --max-seq)")
@@ -71,11 +78,14 @@ def main() -> None:
                       decode_attn_impl=args.decode_impl,
                       block_size=args.block_size or None,
                       num_blocks=args.num_blocks or None,
-                      prefill_chunk=args.prefill_chunk or None, device=dev)
-    print(f"[serve] {cfg.name} on {dev}: cache=paged (block="
-          f"{eng.block_size} pool={eng.num_blocks} chunk="
-          f"{eng.prefill_chunk}) attention impls: prefill="
-          f"{eng.prefill_attn_impl} decode={eng.decode_attn_impl}")
+                      prefill_chunk=args.prefill_chunk or None,
+                      cache_mode=args.cache_mode, device=dev)
+    layout = (f"block={eng.block_size} pool={eng.num_blocks} chunk="
+              f"{eng.prefill_chunk}" if eng.cache_mode == "paged"
+              else f"buckets={eng.buckets}")
+    print(f"[serve] {cfg.name} on {dev}: cache={eng.cache_mode} ({layout}) "
+          f"attention impls: prefill={eng.prefill_attn_impl} "
+          f"decode={eng.decode_attn_impl}")
     rng = np.random.RandomState(args.seed + 1)
     reqs = []
     for i in range(args.requests):

@@ -1,11 +1,13 @@
 """GQA attention of the port (counterpart of ``repro.models.attention``):
 one scores -> softmax -> combine core, so the attention softmax goes
 through the configured implementation (float, or the dual-mode unit's
-kernel), and the paged KV cache the serving engine uses.
+kernel), and the two KV cache layouts the serving engine uses: paged
+pools behind block tables, and contiguous (B, max_seq, K, h) rows.
 
-Cache tensors are updated IN PLACE (``paged_write``): the pools are the
-largest tensors of a serving process, and a functional update would
-double them for the length of every step.
+Cache tensors are updated IN PLACE (``paged_write``, ``_write_seq``),
+where the reference returns new arrays: the caches are the largest
+tensors of a serving process, and a functional update would double them
+for the length of every step.
 """
 from __future__ import annotations
 
@@ -15,7 +17,6 @@ import torch
 
 from repro_torch.kernels import datapath as dp
 from repro_torch.kernels import dispatch
-from repro_torch.kernels.flash_decode import flash_decode_paged
 
 from . import flash as _flash
 from .layers import Params, apply_rope, linear, rmsnorm
@@ -67,27 +68,6 @@ def _flash_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
                                   causal=causal, scale=scale)
 
 
-def _decode_dense_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
-                        softmax_impl="float"):
-    if q.shape[1] != 1:
-        raise ValueError(
-            f"flash_decode is the s_q=1 decode kernel; got s_q={q.shape[1]}")
-    raise NotImplementedError(
-        "flash_decode over a contiguous cache (the reference's "
-        "flash_decode_pallas) is not ported yet; the port decodes through "
-        "the paged cache")
-
-
-def _decode_paged_entry(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
-                        causal, scale, softmax_impl="float"):
-    # both int contracts run the snapped int recurrence
-    impl = ("dualmode" if softmax_impl in ("dualmode", "dualmode_snap")
-            else "float")
-    return flash_decode_paged(q, k_pool, v_pool, block_tables=block_tables,
-                              q_pos=q_pos, kv_valid=kv_valid, causal=causal,
-                              scale=scale, softmax_impl=impl)
-
-
 dispatch.register_attention(
     "naive",
     lambda q, k, v, *, q_pos, kv_valid, causal, scale, softmax_impl="float":
@@ -95,17 +75,14 @@ dispatch.register_attention(
                 scale=scale, softmax_impl=softmax_impl),
     modes=("float", "dualmode", "dualmode_snap"))
 dispatch.register_attention("flash", _flash_entry, modes=("float",))
-dispatch.register_attention(
-    "flash_decode", _decode_dense_entry,
-    modes=("float", "dualmode", "dualmode_snap"))
-dispatch.register_paged_attention("flash_decode", _decode_paged_entry)
 
 
 def _sdpa(q, k, v, *, q_pos, kv_valid, softmax_impl, causal=True,
           scale: float | None = None, attn_impl: str = "auto"):
     """Dense attention through the registry: (B,S,K,G,h) -> (B,S,K,G,hv)."""
     impl = dispatch.resolve_attention(attn_impl, q.shape[1], k.shape[1],
-                                      softmax_impl=softmax_impl)
+                                      softmax_impl=softmax_impl,
+                                      device=q.device)
     return dispatch.get_attention(impl)(
         q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal, scale=scale,
         softmax_impl=softmax_impl)
@@ -121,7 +98,8 @@ def _sdpa_paged(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
     s_q = q.shape[1]
     t = block_tables.shape[1] * k_pool.shape[1]
     impl = dispatch.resolve_attention(attn_impl, s_q, t,
-                                      softmax_impl=softmax_impl)
+                                      softmax_impl=softmax_impl,
+                                      device=q.device)
     fn = dispatch.get_paged_attention(impl) if s_q == 1 else None
     if fn is not None:
         return fn(q, k_pool, v_pool, block_tables=block_tables, q_pos=q_pos,
@@ -168,6 +146,32 @@ def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor
     return dense.reshape((b, nblk * pool.shape[1]) + pool.shape[2:])
 
 
+def _write_seq(buf: torch.Tensor, new: torch.Tensor, pos) -> torch.Tensor:
+    """Write ``new`` (B,S,...) into ``buf`` (B,Smax,...) IN PLACE at offset
+    ``pos``: a scalar (lockstep) or (B,) (every slot at its own depth).
+    A start past Smax - S clamps back, as the reference's
+    ``dynamic_update_slice`` clamps it."""
+    b, sl = new.shape[:2]
+    hi = buf.shape[1] - sl
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        start = torch.clamp(pos.to(buf.device).long(), 0, hi)
+        idx = start[:, None] + torch.arange(sl, device=buf.device)[None, :]
+        buf[torch.arange(b, device=buf.device)[:, None], idx] = new.to(
+            buf.dtype)
+    else:
+        start = min(max(int(pos), 0), hi)
+        buf[:, start:start + sl].copy_(new)
+    return buf
+
+
+def _update_cache(cache, k_new, v_new, pos):
+    """Write (B,S,K,h) at sequence offset ``pos`` into the (B,Smax,K,h)
+    buffers of ``cache``, in place; returns ``cache``."""
+    _write_seq(cache["k"], k_new, pos)
+    _write_seq(cache["v"], v_new, pos)
+    return cache
+
+
 def _kv_valid_mask(t: int, pos, sl: int, b: int, device) -> torch.Tensor:
     """(B, T) validity: cache rows [0, pos+sl) hold data."""
     t_idx = torch.arange(t, device=device)[None, :]
@@ -183,9 +187,12 @@ def _kv_valid_mask(t: int, pos, sl: int, b: int, device) -> torch.Tensor:
 def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
               paged=None):
     """x: (B,S,d).  Without a cache: full attention over x.  With
-    ``paged`` (B, max_blocks) int32 block tables and ``cache`` the layer's
-    {'k','v'} (N,bs,K,h) pools: write the new K/V through the tables (in
-    place) and attend over the paged cache.  Returns (out, cache)."""
+    ``cache`` the layer's {'k','v'} (B,Smax,K,h) rows: write the new K/V
+    at ``pos`` (in place) and attend over the whole rows, keys past each
+    row's pos + S invalid.  With ``paged`` (B, max_blocks) int32 block
+    tables and ``cache`` the layer's {'k','v'} (N,bs,K,h) pools: write
+    the new K/V through the tables (in place) and attend over the paged
+    cache.  Returns (out, cache)."""
     b, sl, _ = x.shape
     g = s.n_heads // s.n_kv_heads
     q = linear(p["wq"], x).reshape(b, sl, s.n_heads, s.head_dim)
@@ -207,13 +214,15 @@ def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
                         q_pos=positions, kv_valid=kv_valid,
                         softmax_impl=s.softmax_impl, causal=s.causal,
                         attn_impl=s.attn_impl)
-    elif cache is None:
-        kv_valid = torch.ones((b, sl), dtype=torch.bool, device=x.device)
+    else:
+        if cache is not None:
+            _update_cache(cache, k, v, pos)
+            k, v = cache["k"], cache["v"]
+            kv_valid = _kv_valid_mask(k.shape[1], pos, sl, b, x.device)
+        else:
+            kv_valid = torch.ones((b, sl), dtype=torch.bool, device=x.device)
         o = _sdpa(qg, k, v, q_pos=positions, kv_valid=kv_valid,
                   softmax_impl=s.softmax_impl, causal=s.causal,
                   attn_impl=s.attn_impl)
-    else:
-        raise NotImplementedError(
-            "contiguous KV caches are not ported yet; use the paged cache")
     o = o.reshape(b, sl, s.n_heads * s.head_dim)
     return linear(p["wo"], o), cache

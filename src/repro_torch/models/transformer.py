@@ -93,6 +93,19 @@ def paged_supported(cfg: ModelConfig) -> bool:
                 for s in specs))
 
 
+def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
+                ) -> list[Params]:
+    """One {'k','v'} (batch, max_seq, K, h) zero row pair per layer: the
+    contiguous cache (the reference stacks the layers of each period on a
+    leading axis; here they are a list, as the parameters are)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    return [{"k": torch.zeros(shape, device=dev),
+             "v": torch.zeros(shape, device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                       device=None) -> list[Params]:
     """One {'k','v'} (N, bs, K, h) pool pair per layer; all layers share
@@ -125,10 +138,13 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens (B,S) -> (logits, caches).
 
     caches=None : full causal forward, no state.
+    caches      : :func:`init_caches` rows: prefill (pos=0, S=bucket) or
+                  decode (S=1) at offset ``pos`` (scalar, or (B,) for
+                  continuous batching); the rows are updated in place
+                  and returned.
     caches+paged: prefill a chunk or decode one token at offset ``pos``
-                  (scalar, or (B,) for continuous batching) through the
-                  (B, max_blocks) block tables; the pools are updated in
-                  place and returned.
+                  through the (B, max_blocks) block tables; the pools are
+                  updated in place and returned.
     last_pos    : optional (B,) rows -- logits only there.
     device      : where to run; None means the GPU (raising when there is
                   none).  Params and tokens must already live there.
@@ -136,9 +152,8 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     check_supported(cfg)
     dev = resolve_device(device)
     check_on(dev, tokens=tokens, embed=params["embed"])
-    if (caches is None) != (paged is None):
-        raise ValueError("caches and paged block tables go together "
-                         "(contiguous caches are not ported yet)")
+    if paged is not None and caches is None:
+        raise ValueError("paged block tables need the paged caches")
     b, sl = tokens.shape
     x = params["embed"][tokens]
     positions = _positions_from(pos, b, sl, dev)

@@ -1,23 +1,35 @@
-"""Batched serving engine of the port: continuous batching over the paged
-KV cache (counterpart of ``repro.serve.engine`` in its default paged
-mode).
+"""Batched serving engine of the port: continuous batching over a paged
+or a contiguous KV cache (counterpart of ``repro.serve.engine``).
 
-Per engine step: admit queued requests into free slots (reactive
+``paged`` (the default for the attention-only archs the port runs) --
+per engine step: admit queued requests into free slots (reactive
 admission: reserve each prompt's block reach with ``BlockPool.reserve``,
 sharing full prompt blocks already cached), advance the oldest
 mid-prefill slot by one ``prefill_chunk``-token chunk, grow every
 decoding slot's block table to cover its next write (``ensure_reach``),
-then run one lockstep decode tick over all decoding slots.  Attention
-impls (and the softmax of each phase) are resolved once per phase
-through the dispatch registry; at ``max_seq >= 1024`` decode takes the
-paged split-KV kernel.
+then run one lockstep decode tick over all decoding slots.
 
-Not in this slice of the port (a later one brings them): the contiguous
-cache mode, preemption (recompute or swap), deadlines, skip-ahead
-admission (``hol_window``), the per-step isfinite quarantine and the
-fault harness.  Where a decode tick would need a preemption -- the pool
-cannot grow a slot's table -- the engine raises NotImplementedError
-instead of dropping or stalling the request.
+``contiguous`` -- per-slot (n_slots, max_seq, ...) rows: a request is
+admitted by a whole-prompt prefill at batch 1, padded to the smallest
+``prefill_buckets`` entry that holds it, into a fresh row cache that is
+then copied into the slot's row (``stats['cache_copies']``); each step
+then runs one lockstep decode tick over every slot at its own depth.
+This is the long-context layout: at max_seq 16384 the buckets prefill
+through the blocked kernels and decode through the contiguous split-KV
+kernels.
+
+Attention impls (and the softmax of each phase) are resolved once per
+phase through the dispatch registry, for the engine's device, at the
+phase's widest shape: paged (prefill_chunk, table extent) and (1, table
+extent); contiguous (largest bucket, max_seq) and (1, max_seq).
+
+Not in the port yet (a later slice brings them): preemption (recompute
+or swap), deadlines, skip-ahead admission (``hol_window``), the per-step
+isfinite quarantine, the fault harness, and the archs that need the
+contiguous cache (mamba / rwkv state, cross-attention, encoders).  Where
+a decode tick would need a preemption -- the pool cannot grow a slot's
+table -- the engine raises NotImplementedError instead of dropping or
+stalling the request.
 """
 from __future__ import annotations
 
@@ -31,8 +43,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch, tiling
-from repro_torch.models.transformer import (init_paged_caches, lm_apply,
-                                            paged_supported)
+from repro_torch.models.transformer import (check_supported, init_caches,
+                                            init_paged_caches, lm_apply)
 
 from .paged_cache import BlockPool, chain_hashes
 
@@ -89,47 +101,54 @@ class ServeEngine:
                  prefill_softmax_impl: str | None = None,
                  decode_softmax_impl: str | None = None,
                  seed: int = 0, cache_mode: str = "auto",
+                 prefill_buckets: tuple[int, ...] = (32, 128, 512),
                  block_size: int | None = None,
                  num_blocks: int | None = None,
                  prefill_chunk: int | None = None, device=None):
         self.device = resolve_device(device)
         check_on(self.device, embed=params["embed"])
-        if cache_mode == "contiguous":
-            raise NotImplementedError(
-                "cache_mode='contiguous' is not ported yet (a later slice "
-                "of the port brings it); use 'paged'")
-        if cache_mode not in ("auto", "paged"):
+        if cache_mode not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        if not paged_supported(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} needs the contiguous cache, which is not "
-                "ported yet")
+        # every arch the port runs has attention-only cached layers, so
+        # 'auto' is paged, as the reference picks for them
+        check_supported(cfg)
+        self.cache_mode = ("contiguous" if cache_mode == "contiguous"
+                           else "paged")
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_seq = n_slots, max_seq
         self.eos_id = eos_id
-        self.block_size = block_size or tiling.paged_block_size(max_seq)
-        self.max_blocks = tiling.cdiv(max_seq, self.block_size)
-        # default pool = the contiguous budget (+1 sentinel)
-        self.num_blocks = num_blocks or (n_slots * self.max_blocks + 1)
-        self.prefill_chunk = min(prefill_chunk or 64, max_seq)
-        self.pool = BlockPool(self.num_blocks, self.block_size)
-        self.caches = init_paged_caches(cfg, self.num_blocks,
-                                        self.block_size, self.device)
-        self._tables = np.zeros((n_slots, self.max_blocks), np.int32)
+        self.buckets = tuple(b for b in sorted(prefill_buckets)
+                             if b <= max_seq) or (max_seq,)
+        if self.cache_mode == "paged":
+            self.block_size = block_size or tiling.paged_block_size(max_seq)
+            self.max_blocks = tiling.cdiv(max_seq, self.block_size)
+            # default pool = the contiguous budget (+1 sentinel)
+            self.num_blocks = num_blocks or (n_slots * self.max_blocks + 1)
+            self.prefill_chunk = min(prefill_chunk or 64, max_seq)
+            self.pool = BlockPool(self.num_blocks, self.block_size)
+            self.caches = init_paged_caches(cfg, self.num_blocks,
+                                            self.block_size, self.device)
+            self._tables = np.zeros((n_slots, self.max_blocks), np.int32)
+            prefill_sq = self.prefill_chunk
+            t_kv = self.max_blocks * self.block_size
+        else:
+            self.pool = None
+            self.caches = init_caches(cfg, n_slots, max_seq, self.device)
+            prefill_sq, t_kv = self.buckets[-1], max_seq
 
         # per-phase softmax and attention impls, resolved once at each
-        # phase's shape: prefill a chunk against the whole table, decode
-        # one row against it
+        # phase's widest shape: a prefill chunk (paged) or the largest
+        # bucket (contiguous) against the whole cache, one decode row
+        # against it
         self.prefill_softmax_impl = (prefill_softmax_impl
                                      or cfg.softmax_impl)
         self.decode_softmax_impl = decode_softmax_impl or cfg.softmax_impl
-        t_kv = self.max_blocks * self.block_size
         self.prefill_attn_impl = dispatch.resolve_attention(
-            prefill_attn_impl or cfg.attn_impl, self.prefill_chunk, t_kv,
-            softmax_impl=self.prefill_softmax_impl)
+            prefill_attn_impl or cfg.attn_impl, prefill_sq, t_kv,
+            softmax_impl=self.prefill_softmax_impl, device=self.device)
         self.decode_attn_impl = dispatch.resolve_attention(
             decode_attn_impl or cfg.attn_impl, 1, t_kv,
-            softmax_impl=self.decode_softmax_impl)
+            softmax_impl=self.decode_softmax_impl, device=self.device)
         self._prefill_cfg = cfg.replace(attn_impl=self.prefill_attn_impl,
                                         softmax_impl=self.prefill_softmax_impl)
         self._decode_cfg = cfg.replace(attn_impl=self.decode_attn_impl,
@@ -143,7 +162,8 @@ class ServeEngine:
         self._last_tok = torch.zeros((n_slots, 1), dtype=torch.long,
                                      device=self.device)
         self.stats = {"prefills": 0, "decode_steps": 0, "admitted": 0,
-                      "prefill_chunks": 0, "shared_blocks": 0,
+                      "prefill_chunks": 0, "cache_copies": 0,
+                      "shared_blocks": 0,
                       "blocks_hwm": 0, "engine_steps": 0, "nonfinite": 0,
                       "prefill_s": 0.0, "decode_s": 0.0}
 
@@ -158,9 +178,19 @@ class ServeEngine:
             device=self.device)
         return logits[:, -1, :]
 
-    def decode_logits(self, tokens, pos, tables):
+    def prefill_logits(self, tokens, row_caches, last_idx):
+        """Contiguous mode: one whole prompt (1, L), padded to its bucket,
+        written at 0 into the batch-1 ``row_caches`` -> (1, V) logits at
+        row ``last_idx``."""
+        logits, _ = lm_apply(self.params, self._prefill_cfg, tokens, pos=0,
+                             caches=row_caches, last_pos=last_idx,
+                             device=self.device)
+        return logits[:, -1, :]
+
+    def decode_logits(self, tokens, pos, tables=None):
         """One lockstep decode tick: tokens (B, 1) at depths ``pos`` (B,)
-        through (B, max_blocks) tables -> (B, V) logits."""
+        through (B, max_blocks) tables (paged) or the slot rows
+        (contiguous, ``tables`` None) -> (B, V) logits."""
         logits, self.caches = lm_apply(
             self.params, self._decode_cfg, tokens, pos=pos,
             caches=self.caches, paged=tables, device=self.device)
@@ -172,6 +202,10 @@ class ServeEngine:
         n = len(req.prompt)
         if n < 1:
             raise ValueError("empty prompt")
+        if self.cache_mode == "contiguous":
+            self._bucket(n)
+            self._queue.append(req)
+            return
         if n > self.max_seq:
             raise ValueError(f"prompt length {n} exceeds max_seq "
                              f"{self.max_seq}")
@@ -181,6 +215,17 @@ class ServeEngine:
             raise ValueError(f"request needs {need} blocks, exceeds pool "
                              f"of {self.num_blocks - 1}")
         self._queue.append(req)
+
+    def _bucket(self, n: int) -> int:
+        """The smallest prefill bucket that holds an n-token prompt."""
+        if n > self.max_seq:
+            raise ValueError(f"prompt length {n} exceeds max_seq "
+                             f"{self.max_seq}")
+        for b in self.buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"prompt length {n} exceeds largest bucket "
+                         f"{self.buckets[-1]}")
 
     def _drain_zero_tokens(self) -> None:
         """Finish max_new <= 0 requests at the queue head with empty
@@ -198,10 +243,45 @@ class ServeEngine:
                 break
             if not slot.free:
                 continue
-            if not self._admit_paged(i, self._queue[0]):
+            if self.cache_mode == "contiguous":
+                self._admit_contiguous(i, self._queue.pop(0))
+            elif self._admit_paged(i, self._queue[0]):
+                self._queue.pop(0)
+            else:
                 break                      # strict FCFS: wait for blocks
-            self._queue.pop(0)
             self._drain_zero_tokens()
+
+    def _admit_contiguous(self, i: int, req: Request) -> None:
+        """Prefill the whole prompt at its bucket into a fresh batch-1 row
+        cache, copy that row into slot ``i`` of the batch cache, and
+        sample the first token."""
+        t0 = time.perf_counter()
+        plen = len(req.prompt)
+        bucket = self._bucket(plen)
+        toks = torch.tensor([req.prompt + [0] * (bucket - plen)],
+                            dtype=torch.long, device=self.device)
+        row = init_caches(self.cfg, 1, self.max_seq, self.device)
+        logits = self.prefill_logits(
+            toks, row, torch.tensor([plen - 1], device=self.device))
+        for full, one in zip(self.caches, row):
+            full["k"][i].copy_(one["k"][0])
+            full["v"][i].copy_(one["v"][0])
+        self.stats["cache_copies"] += 1
+        self._check_logits(logits)
+        s = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,
+                  temperature=req.temperature, seq=self._admit_seq)
+        self._slots[i] = s
+        self._admit_seq += 1
+        tok = sample_token(logits[0], s.temperature, self._gen)
+        s.out.append(tok)
+        s.remaining -= 1
+        self._last_tok[i, 0] = tok
+        self.stats["prefills"] += 1
+        self.stats["admitted"] += 1
+        self._retire(i)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["prefill_s"] += time.perf_counter() - t0
 
     def _admit_paged(self, i: int, req: Request) -> bool:
         """Zero-copy admission: reserve the prompt's block reach (shared
@@ -296,9 +376,10 @@ class ServeEngine:
         s = self._slots[i]
         self.finished[s.rid] = s.out
         self.reasons[s.rid] = reason
-        for b in s.blocks:
-            self.pool.decref(b)
-        self._tables[i, :] = 0
+        if self.pool is not None:
+            for b in s.blocks:
+                self.pool.decref(b)
+            self._tables[i, :] = 0
         self._slots[i] = _Slot()
 
     def _retire(self, i: int) -> None:
@@ -322,19 +403,24 @@ class ServeEngine:
     def step(self) -> None:
         self.stats["engine_steps"] += 1
         self._admit()
-        self._prefill_tick()
-        self._grow_decode_tables()
+        if self.cache_mode == "paged":
+            self._prefill_tick()
+            self._grow_decode_tables()
         decoding = np.array([s.decoding for s in self._slots])
         if not decoding.any():
             return
         t0 = time.perf_counter()
         pos = torch.tensor([s.pos if s.decoding else 0 for s in self._slots],
                            dtype=torch.int32, device=self.device)
-        # non-decoding rows get all-sentinel tables: their writes land in
-        # block 0, never in a mid-prefill slot's blocks
-        masked = np.where(decoding[:, None], self._tables, 0)
-        logits = self.decode_logits(self._last_tok, pos,
-                                    torch.from_numpy(masked).to(self.device))
+        tables = None
+        if self.cache_mode == "paged":
+            # non-decoding rows get all-sentinel tables: their writes land
+            # in block 0, never in a mid-prefill slot's blocks
+            tables = torch.from_numpy(np.where(
+                decoding[:, None], self._tables, 0)).to(self.device)
+        # contiguous: a free slot writes its own row at 0, which the next
+        # admission into it overwrites whole
+        logits = self.decode_logits(self._last_tok, pos, tables)
         self._check_logits(logits[torch.from_numpy(decoding).to(
             self.device)])
         self.stats["decode_steps"] += 1

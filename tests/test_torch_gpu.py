@@ -9,9 +9,10 @@ is installed:
         tests/test_torch_gpu.py
 
 Tolerances: int words bitwise; float softmax 1e-6, float GELU/SiLU 2e-6
-(a few ulps of |z| <= ~10), float decode 1e-5 (dot and sum order); int
-decode outputs 1e-5 on exact (grid-valued) scores, 1e-4 on random ones,
-where a score can round to the neighbouring S5.10 word.
+(a few ulps of |z| <= ~10), float decode and blocked attention 1e-5 (dot
+and sum order); int decode outputs 1e-5 on exact (grid-valued) scores,
+1e-4 on random ones, where a score can round to the neighbouring S5.10
+word; int blocked attention on exact scores only.
 """
 import os
 
@@ -105,8 +106,96 @@ def test_decode_paged_kernels(cuda, g, num_splits):
 
 
 def test_kernel_registry(cuda):
+    import repro_torch.kernels.flash_attention_int  # noqa: F401
     assert set(_build.KERNELS) == {"softmax_rows", "pair_act",
-                                   "decode_paged", "decode_paged_int"}
+                                   "decode_paged", "decode_paged_int",
+                                   "decode_dense", "decode_dense_int",
+                                   "flash_fwd", "flash_snap"}
     x = torch.zeros(2, 3, device=cuda)
     with pytest.raises(ValueError):
         ds.softmax_rows(x.t())                  # not contiguous
+
+
+# ---------------- long context: blocked flash and contiguous decode ----
+
+def _attn(dev, b, s, t, kh, g, h, hv, grid, seed=3, causal_end=None):
+    gen = torch.Generator().manual_seed(seed)
+    qf = _randn(gen, dev, b, s, kh, g, h) * h ** -0.5
+    k = _randn(gen, dev, b, t, kh, h)
+    if grid:                  # multiples of 2^-4 (x h^-0.5 = 2^-3): exact
+        qf = torch.round(qf * 32) / 32
+        k = torch.round(k * 4) / 16
+    v = _randn(gen, dev, b, t, kh, hv)
+    end = t if causal_end is None else causal_end
+    qp = torch.arange(end - s, end, dtype=torch.int32)[None].expand(
+        b, s).contiguous().to(dev)
+    valid = (torch.rand(b, t, generator=gen) > 0.25).to(torch.uint8).to(dev)
+    return qf.contiguous(), k, v, qp, valid
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 130, 200, 2, 1, 64, 64, None),
+                                   (2, 33, 129, 3, 4, 128, 72, None),
+                                   (2, 40, 300, 2, 2, 64, 64, 40)])
+def test_flash_kernels(cuda, shape, causal):
+    """The kernels (causal: skip and closed-form tail fold) against the
+    plain full sweeps; the last shape has rows whose one visible key is
+    masked, where the folded tail carries all the mass."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    *dims, end = shape
+
+    def operands(grid):
+        args = _attn(cuda, *dims, grid=grid, causal_end=end)
+        if end is not None:
+            args[4][:, 0] = 0
+        return args
+    for bkv in (16, 64):
+        kw = dict(causal=causal, block_kv=bkv)
+        args = operands(False)
+        before = fa.FLASH_FWD.launches
+        torch.testing.assert_close(fa.flash_fwd(*args, **kw),
+                                   fa.flash_fwd_plain(*args, **kw),
+                                   atol=1e-5, rtol=0)
+        assert fa.FLASH_FWD.launches == before + 1
+        args = operands(True)
+        got = fai.flash_snap(*args, guard_shift=0, return_partial=True, **kw)
+        want = fai.flash_snap_plain(*args, guard_shift=0,
+                                    return_partial=True, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(
+            fai.flash_snap(*args, guard_shift=0, **kw),
+            fai.flash_snap_plain(*args, guard_shift=0, **kw), atol=1e-5,
+            rtol=0)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("num_splits", [1, 3])
+def test_decode_dense_kernels(cuda, g, num_splits):
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator().manual_seed(4)
+    b, t, kh, h, bkv = 4, 3000, 4, 64, 128
+    for grid in (False, True):
+        qf = _randn(gen, cuda, b, kh, g, h) * h ** -0.5
+        k = _randn(gen, cuda, b, t, kh, h)
+        if grid:
+            qf, k = torch.round(qf * 32) / 32, torch.round(k * 4) / 16
+        v = _randn(gen, cuda, b, t, kh, h)
+        qp = torch.tensor([5, 127, 1000, t - 1], dtype=torch.int32).to(cuda)
+        valid = (torch.arange(t, device=cuda)[None] <= qp[:, None]).to(
+            torch.uint8)
+        args = (qf.contiguous(), k, v, qp, valid)
+        kw = dict(num_splits=num_splits, block_kv=bkv, causal=True,
+                  guard_shift=0)
+        kf = fd.decode_dense_partials(*args, int_mode=False, **kw)
+        pf = fd.decode_dense_partials_plain(*args, int_mode=False, **kw)
+        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
+                                   fd.finish_partials(*pf, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        ki = fd.decode_dense_partials(*args, int_mode=True, **kw)
+        pi = fd.decode_dense_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
+        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
+                                   fd.finish_partials(*pi, int_mode=True),
+                                   atol=1e-5 if grid else 1e-4, rtol=0)

@@ -235,30 +235,46 @@ def test_finish_partials_folds_sentinel_splits_exactly():
 # ---------------- dispatch / tiling ----------------
 
 def test_resolution_matches_reference_where_ported():
+    """On the CPU the port resolves every shape as the reference does on
+    its CPU backend: blocked float shapes to the plain 'flash', blocked
+    dual-mode shapes to 'flash_pallas_int'.  On a GPU the blocked float
+    pick is the CUDA kernel 'flash_pallas' (the reference's TPU pick)."""
     from repro.kernels import dispatch as J_dispatch
-    for s_q, t in ((1, 64), (1, 2048), (64, 2048), (1, 1 << 16), (1, 1023)):
+    for s_q, t in ((1, 64), (1, 2048), (64, 2048), (1, 1 << 16), (1, 1023),
+                   (4096, 4096), (512, 16384), (2049, 2048)):
         for sm in ("float", "dualmode", "dualmode_snap"):
-            assert dispatch.resolve_attention("auto", s_q, t, sm) == \
+            assert dispatch.resolve_attention("auto", s_q, t, sm,
+                                              device="cpu") == \
                 J_dispatch.resolve_attention("auto", s_q, t, sm), (s_q, t, sm)
-    assert dispatch.resolve_attention("auto", 4096, 4096) == "flash"
+    assert dispatch.resolve_attention("auto", 4096, 4096,
+                                      device="cpu") == "flash"
+    assert dispatch.blocked_impl("cuda") == "flash_pallas"
+    assert dispatch.auto_rule(4096, 4096, "cuda") == "flash_pallas"
+    assert dispatch.resolve_attention("auto", 512, 16384, "dualmode",
+                                      device="cpu") == "flash_pallas_int"
 
 
 def test_resolution_refusals_are_two_sided():
     with pytest.raises(ValueError):
         dispatch.resolve_attention("flash", 64, 64, softmax_impl="dualmode")
     with pytest.raises(ValueError):
+        dispatch.resolve_attention("flash_pallas", 64, 64,
+                                   softmax_impl="dualmode")
+    with pytest.raises(ValueError):
+        dispatch.resolve_attention("flash_pallas_int", 64, 64,
+                                   softmax_impl="float")
+    with pytest.raises(ValueError):
         dispatch.resolve_attention("auto", 1, 64, softmax_impl="fp8")
     with pytest.raises(ValueError):
         dispatch.resolve_attention("nope", 1, 64)
     with pytest.raises(ValueError):
         dispatch.get_softmax("nope")
-    # the reference streams big dual-mode shapes through a kernel this
-    # slice has not ported: refuse instead of running something else
-    with pytest.raises(NotImplementedError):
-        dispatch.resolve_attention("auto", 4096, 4096,
-                                   softmax_impl="dualmode")
-    with pytest.raises(NotImplementedError):
-        dispatch.resolve_attention("flash_pallas", 64, 64)
+    # the reference's impls that no slice has ported yet refuse instead
+    # of running something else
+    for impl, sm in (("flash_pallas_int3", "dualmode"),
+                     ("flash_ring", "float")):
+        with pytest.raises(NotImplementedError):
+            dispatch.resolve_attention(impl, 64, 64, softmax_impl=sm)
 
 
 def test_softmax_registry_matches_reference():

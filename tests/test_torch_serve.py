@@ -119,13 +119,56 @@ def test_pool_exhaustion_raises_instead_of_preempting():
 
 
 def test_engine_refuses_what_this_slice_does_not_serve():
+    """The contiguous cache is served now; what is still unported --
+    preemption (above) and the archs that are not dense attention + MLP
+    -- raises NotImplementedError, as does running on no GPU unasked."""
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        ServeEngine(cfg, p, cache_mode="contiguous", device="cpu")
+        ServeEngine(cfg.replace(norm="layer"), p, cache_mode="contiguous",
+                    device="cpu")
+    with pytest.raises(ValueError):
+        ServeEngine(cfg, p, cache_mode="ring", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServeEngine(cfg, p)
     eng = ServeEngine(cfg, p, max_seq=32, device="cpu")
     with pytest.raises(ValueError):
         eng.submit(Request(rid=0, prompt=[1] * 40))
+    eng = ServeEngine(cfg, p, max_seq=64, cache_mode="contiguous",
+                      prefill_buckets=(16, 32), device="cpu")
+    assert eng.cache_mode == "contiguous" and eng.buckets == (16, 32)
+    with pytest.raises(ValueError, match="largest bucket"):
+        eng.submit(Request(rid=0, prompt=[1] * 40))
+
+
+def test_paged_long_chunked_prefill_goes_blocked():
+    """A 1024-token chunk against a 4224-key table is a blocked shape
+    (over 2**22 scores): float resolves as the reference does on its CPU
+    backend ('flash'; on a GPU the kernel 'flash_pallas') and streams
+    identically; dual-mode resolves to the one-sweep int path and
+    serves.  Decode is pinned to 'naive' on both sides: the reference's
+    split-KV decode would run in interpret mode, and decode is not what
+    this test is about."""
+    kw = dict(n_slots=2, max_seq=4160, prefill_chunk=1024,
+              decode_attn_impl="naive")
+    reqs = [(0, list(range(1, 40)), 3), (1, [7] * 600, 2)]
+    for sm, act in (("float", "silu"), ("dualmode", "silu_dualmode")):
+        tcfg = T_registry.reduced_config("qwen1.5-0.5b").replace(
+            softmax_impl=sm, activation=act)
+        jcfg = J_registry.reduced_config("qwen1.5-0.5b").replace(
+            softmax_impl=sm, activation=act)
+        jp = j_init_lm(jax.random.PRNGKey(0), jcfg)
+        tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg,
+                               device="cpu")
+        te = ServeEngine(tcfg, tp, device="cpu", **kw)
+        je = JEngine(jcfg, jp, **kw)
+        assert te.prefill_attn_impl == je.prefill_attn_impl == (
+            "flash" if sm == "float" else "flash_pallas_int")
+        to = te.run([Request(rid=r, prompt=p, max_new=n)
+                     for r, p, n in reqs])
+        assert all(len(to[r]) == n for r, _, n in reqs)
+        assert te.stats["nonfinite"] == 0 and te.pool.in_use() == 0
+        if sm == "float":
+            assert to == je.run([JRequest(rid=r, prompt=p, max_new=n)
+                                 for r, p, n in reqs])
