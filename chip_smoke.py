@@ -29,6 +29,19 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             finite logits; then one bucket-4096 prefill and the first decode
             step through the kernels against the plain versions.
 
+5. yi       yi-6b's path: the residual-norm epilogue, the norm -> QKV
+            prologue and the fused GLU against their plain versions at the
+            path's shapes (a decode tick's 4 rows and a prefill chunk's 64,
+            d 4096, F 5120 and 11008) and at edge shapes, timed beside their
+            bounds; the unit and paged decode kernels at h 128, G 8.  Then,
+            with the qwen weights freed, ServeEngine on full-width yi-6b
+            (random weights from a seeded generator), float and dual-mode
+            with norm_impl / ffn_impl 'fused_pallas', paged cache at max_seq
+            4096, 4 slots, 64-token chunks, 6 prompts of 200-3000 tokens:
+            every request finishes, the pool drains, logits are finite and
+            every kernel of the path launched; then one prefill chunk and the
+            first decode step through the kernels against the plain versions.
+
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line.  Without a CUDA device the
 script exits non-zero before printing any result.
@@ -65,6 +78,13 @@ TOL_FLASH_I = 5e-3     # int prefill outputs on random inputs: a score word
 #                        can flip between two f32 dot orders, and in a row
 #                        of a few keys one flip moves the output by up to
 #                        ~2^-10 log2(e) |v| (exact scores are held bitwise)
+TOL_NORM = 1e-5        # the normalized row: moment sum order, exp2/log2
+#                        ulps, unit-scale outputs (the residual sum: bitwise)
+TOL_GEMM = 1e-4        # norm -> QKV and the fused GLU: f32 dots over 4096
+#                        terms in two orders (32-deep chunks vs cuBLAS) give
+#                        ~1e-5 on outputs up to ~5; the GLU scales one by |u|
+TOL_YI_LOGITS_F = 1e-4  # full-width yi-6b logits, float: every QKV and FFN
+#                        product of 32 layers at d 4096 in another f32 order
 
 
 def log(*a):
@@ -378,17 +398,26 @@ def serve_phase(dev, launches):
         parity(cfg, params, dev, prompts[0])
 
 
-def parity(cfg, params, dev, prompt):
+def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
     """One prefill chunk + the first decode step at full width, through
     the kernels and with the plain versions called in their place."""
     from repro_torch.core import activations
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
     from repro_torch.serve import ServeEngine
+    plain_norm = {"residual_norm": fn.fused_residual_norm_plain,
+                  "norm_linear": fn.fused_norm_linear_plain,
+                  "norm_glu": dispatch.get_norm("fused_pallas")["norm_glu"]}
+
+    def plain_glu(x, wg, wu, mode):
+        return ff._glu_reference(x, wg, wu, mode)
 
     def step():
-        eng = ServeEngine(cfg, params, n_slots=1, max_seq=2048, device=dev)
+        eng = ServeEngine(cfg, params, n_slots=1, max_seq=max_seq,
+                          device=dev)
         eng.pool.alloc(2)
         tables = torch.tensor([[1, 2] + [0] * (eng.max_blocks - 2)],
                               dtype=torch.int32, device=dev)
@@ -399,18 +428,24 @@ def parity(cfg, params, dev, prompt):
         dec = eng.decode_logits(nxt, torch.tensor([64], dtype=torch.int32,
                                                   device=dev), tables)
         torch.cuda.synchronize()
+        del eng
         return chunk, dec
 
     kern = step()
+    torch.cuda.empty_cache()
     with mock.patch.object(dispatch, "softmax_rows", ds.softmax_rows_plain), \
             mock.patch.object(activations, "pair_act", ds.pair_act_plain), \
             mock.patch.object(fd, "decode_paged_partials",
-                              fd.decode_paged_partials_plain):
+                              fd.decode_paged_partials_plain), \
+            mock.patch.dict(dispatch._NORM, {"fused_pallas": plain_norm}), \
+            mock.patch.dict(dispatch._FFN, {"fused_pallas": plain_glu}):
         plain = step()
-    tol = TOL_LOGITS_F if cfg.softmax_impl == "float" else TOL_LOGITS_D
+    torch.cuda.empty_cache()
+    tol = tol_f if cfg.softmax_impl == "float" else TOL_LOGITS_D
     for what, a, b in (("prefill chunk", kern[0], plain[0]),
                        ("first decode step", kern[1], plain[1])):
-        check(f"{cfg.softmax_impl} full-width logits, {what}", a, b, tol)
+        check(f"{cfg.name} {cfg.softmax_impl} full-width logits, {what}", a,
+              b, tol)
 
 
 # ---------------- phase 4: long context ----------------
@@ -754,6 +789,258 @@ def long_parity(cfg, params, dev, prompt):
         check(f"{cfg.softmax_impl} long-context logits, {what}", a, b, tol)
 
 
+# ---------------- phase 5: yi-6b, the block's fused seams ----------------
+
+YI = dict(max_seq=4096, n_slots=4, prefill_chunk=64)
+YI_PROMPT_LENS = (200, 3000)
+FUSED = dict(norm_impl="fused_pallas", ffn_impl="fused_pallas")
+YI_PATHS = {"float": (dict(softmax_impl="float", activation="silu", **FUSED),
+                      ("resnorm", "norm_linear", "glu", "decode_paged")),
+            "dualmode": (dict(softmax_impl="dualmode",
+                              activation="silu_dualmode", **FUSED),
+                         ("resnorm", "norm_linear", "softmax_rows",
+                          "pair_act", "decode_paged_int"))}
+YI_NEW = ("resnorm", "norm_linear", "glu")   # the kernels this phase ports
+
+
+def yi_kernel_phase(dev, results):
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import tiling
+    gen = torch.Generator(device="cpu").manual_seed(2024)
+    eps = 1e-6
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    d, nq, nk, dff = 4096, 4096, 512, 11008
+    # -- row 14: residual add + norm epilogue
+    log("[yi] resnorm")
+    err = 0.0
+    for m, dd, kind in ((4, d, "rms"), (64, d, "rms"), (1, 1, "rms"),
+                        (37, 200, "layer"), (64, d, "layer"),
+                        (5, 14000, "rms")):
+        x, r = randn(m, dd, scale=3.0), randn(m, dd)
+        g = 1.0 + randn(dd, scale=0.1)
+        b = randn(dd, scale=0.1) if kind == "layer" else None
+        got = fn.fused_residual_norm(x, r, g, b, kind=kind, eps=eps)
+        want = fn.fused_residual_norm_plain(x, r, g, b, kind=kind, eps=eps)
+        check(f"resnorm sum {kind} ({m}, {dd})", got[0], want[0], TOL_INT)
+        e = check(f"resnorm h {kind} ({m}, {dd})", got[1], want[1], TOL_NORM)
+        if dd == d and kind == "rms":
+            err = max(err, e)
+    x, r, g = randn(64, d, scale=3.0), randn(64, d), 1.0 + randn(d, scale=0.1)
+    for m in (4, 64):
+        xs, rs = x[:m].contiguous(), r[:m].contiguous()
+        ms = time_ms(lambda: fn.fused_residual_norm(xs, rs, g, kind="rms",
+                                                    eps=eps))
+        plain = time_ms(lambda: fn.fused_residual_norm_plain(
+            xs, rs, g, kind="rms", eps=eps))
+        s_ = xs + rs
+        lib = time_ms(lambda: torch.nn.functional.rms_norm(s_, (d,), g, eps))
+        b_ms, b_by = bound(4 * m * d * 4 + d * 4, 8 * m * d)
+        log(f"  resnorm rms M{m} d{d}: {ms * 1e3:.2f} us, plain "
+            f"{plain * 1e3:.2f} us, F.rms_norm on the sum {lib * 1e3:.2f} us, "
+            f"bound {b_ms * 1e3:.2f} us ({b_by})")
+        if m == 64:
+            results["resnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=lib)
+
+    # -- row 15: norm -> QKV prologue over [wq | wk | wv] read in place
+    log("[yi] norm_linear")
+    err = 0.0
+    for m, dd, widths, kind in ((4, d, (nq, nk, nk), "rms"),
+                                (64, d, (nq, nk, nk), "rms"),
+                                (64, d, (nq, nk, nk), "layer"),
+                                (23, 200, (130, 17, 40), "rms"),
+                                (100, 72, (5,), "layer"),
+                                (1, 33, (64, 64), "rms")):
+        x = randn(m, dd)
+        g = 1.0 + randn(dd, scale=0.1)
+        b = randn(dd, scale=0.1) if kind == "layer" else None
+        ws = [randn(dd, n, scale=dd ** -0.5) for n in widths]
+        e = check(f"norm_linear {kind} ({m}, {dd}) x {widths}",
+                  fn.fused_norm_linear(x, g, b, ws, kind=kind, eps=eps),
+                  fn.fused_norm_linear_plain(x, g, b, ws, kind=kind, eps=eps),
+                  TOL_GEMM)
+        if dd == d and kind == "rms":
+            err = max(err, e)
+    x, g = randn(64, d), 1.0 + randn(d, scale=0.1)
+    ws = [randn(d, n, scale=d ** -0.5) for n in (nq, nk, nk)]
+    wcat = torch.cat(ws, dim=1)
+    f = wcat.shape[1]
+    for m in (4, 64):
+        xs = x[:m].contiguous()
+        ms = time_ms(lambda: fn.fused_norm_linear(xs, g, None, ws, kind="rms",
+                                                  eps=eps), iters=20)
+        plain = time_ms(lambda: fn.fused_norm_linear_plain(
+            xs, g, None, ws, kind="rms", eps=eps), iters=20)
+        h = fn._scaled(xs, g, None, kind="rms", eps=eps)
+        lib = time_ms(lambda: torch.matmul(h, wcat), iters=20)
+        b_ms, b_by = bound((m * d + d * f + m * f + d) * 4,
+                           2 * m * d * f + 5 * m * d)
+        log(f"  norm_linear rms M{m} d{d} F{f}: {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, torch.matmul on the normed rows "
+            f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})")
+        if m == 64:
+            results["norm_linear"] = dict(max_abs_err=err, ms=ms,
+                                          plain_ms=plain, bound_ms=b_ms,
+                                          bound_by=b_by, library_ms=lib)
+
+    # -- row 12: the fused GLU
+    log("[yi] glu")
+    err = 0.0
+    for m, k, f, mode in ((4, d, dff, "silu"), (64, d, dff, "silu"),
+                          (64, d, dff, "gelu"), (23, 200, 130, "silu"),
+                          (1, 64, 1, "gelu"), (70, 37, 33, "silu")):
+        x = randn(m, k)
+        wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+        e = check(f"glu {mode} ({m}, {k}) x {f}",
+                  ff.fused_glu(x, wg, wu, mode=mode),
+                  ff._glu_reference(x, wg, wu, mode), TOL_GEMM)
+        if k == d and mode == "silu":
+            err = max(err, e)
+    x = randn(64, d)
+    wg, wu = randn(d, dff, scale=d ** -0.5), randn(d, dff, scale=d ** -0.5)
+    for m in (4, 64):
+        xs = x[:m].contiguous()
+        ms = time_ms(lambda: ff.fused_glu(xs, wg, wu, mode="silu"), iters=20)
+        plain = time_ms(lambda: ff._glu_reference(xs, wg, wu, "silu"),
+                        iters=20)
+        lib = time_ms(lambda: (torch.matmul(xs, wg), torch.matmul(xs, wu)),
+                      iters=20)
+        b_ms, b_by = bound((m * d + 2 * d * dff + m * dff) * 4,
+                           4 * m * d * dff + 20 * m * dff)
+        log(f"  glu silu M{m} d{d} F{dff}: {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, two torch.matmul {lib * 1e3:.1f} us, "
+            f"bound {b_ms * 1e3:.1f} us ({b_by})")
+        if m == 64:
+            results["glu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib)
+
+    # -- rows 1-4 at yi's shapes: h 128, G 8 (4 kv heads of 8 query heads)
+    log("[yi] unit and paged decode kernels at h 128, G 8")
+    sc = randn(2048, 4096, scale=3.0)        # 32 heads x 64 queries
+    qpos = torch.arange(2048, device=dev) % 64 + 2000
+    sc = torch.where(torch.arange(4096, device=dev)[None, :] <= qpos[:, None],
+                     sc, torch.full_like(sc, -30.0))
+    check("softmax_rows int (2048, 4096)", ds.softmax_rows(sc, "int"),
+          ds.softmax_rows_plain(sc, "int"), TOL_INT)
+    z = randn(64, dff, scale=3.0)
+    for mode in ("silu", "gelu"):
+        check(f"pair_act {mode} int (64, {dff})", ds.pair_act(z, mode, "int"),
+              ds.pair_act_plain(z, mode, "int"), TOL_INT)
+    b_, kh, g_, h_, bs, nblk = 4, 4, 8, 128, 128, 32
+    n_pool = 1 + b_ * nblk
+    ids = (torch.randperm(n_pool - 1, generator=gen) + 1).reshape(b_, nblk)
+    tables = ids.to(torch.int32).to(dev)
+    qp = torch.tensor([250, 1300, 2900, 4095], dtype=torch.int32, device=dev)
+    valid = (torch.arange(nblk * bs, device=dev)[None, :]
+             <= qp[:, None]).to(torch.uint8)
+    for grid in (False, True):
+        q = randn(b_, kh, g_, h_)
+        kp = randn(n_pool, bs, kh, h_)
+        if grid:         # multiples of 2^-4: exact scores
+            q, kp = torch.round(q * 4) / 16, torch.round(kp * 4) / 16
+        vp = randn(n_pool, bs, kh, h_)
+        args = ((q * h_ ** -0.5).contiguous(), kp, vp, tables, qp, valid)
+        for ns in (1, 8):
+            kw = dict(num_splits=ns, causal=True, guard_shift=0)
+            check(f"decode_paged G8 h128 grid={grid} splits={ns}",
+                  fd.finish_partials(*fd.decode_paged_partials(
+                      *args, int_mode=False, **kw), int_mode=False),
+                  fd.finish_partials(*fd.decode_paged_partials_plain(
+                      *args, int_mode=False, **kw), int_mode=False),
+                  TOL_DECODE_F)
+            ik = fd.decode_paged_partials(*args, int_mode=True, **kw)
+            ip = fd.decode_paged_partials_plain(*args, int_mode=True, **kw)
+            if grid:
+                check(f"decode_paged_int m G8 h128 splits={ns}", ik[0], ip[0],
+                      TOL_INT)
+                check(f"decode_paged_int S G8 h128 splits={ns}", ik[1], ip[1],
+                      TOL_INT)
+            check(f"decode_paged_int out G8 h128 grid={grid} splits={ns}",
+                  fd.finish_partials(*ik, int_mode=True),
+                  fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
+    ns = tiling.decode_splits(nblk, bs, b_ * kh, dev)
+    for name, int_mode in (("decode_paged", False),
+                           ("decode_paged_int", True)):
+        ms = time_ms(lambda: fd.decode_paged_partials(
+            *args, num_splits=ns, causal=True, int_mode=int_mode,
+            guard_shift=0))
+        log(f"  {name} (B4 K4 G8 h128 bs128 4096 keys, {ns} splits): "
+            f"{ms * 1e3:.1f} us")
+
+
+def yi_serve_phase(dev, launches):
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Request, ServeEngine
+    gc.collect()                    # the qwen phases' weights and pools
+    torch.cuda.empty_cache()
+    base = registry.get_config("yi-6b")
+    t0 = time.perf_counter()
+    params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log(f"[yi] yi-6b full width: {base.n_layers} layers d {base.d_model} "
+        f"heads {base.n_heads}/{base.n_kv_heads} h {base.hd} d_ff "
+        f"{base.d_ff} vocab {base.vocab}; init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    rng = np.random.RandomState(2)
+    lens = rng.randint(YI_PROMPT_LENS[0], YI_PROMPT_LENS[1] + 1, size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    for name, (over, kernels) in YI_PATHS.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev, **YI)
+        if eng.decode_attn_impl != "flash_decode":
+            fail(f"yi {name}: decode resolved {eng.decode_attn_impl}")
+        reqs = [Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k in YI_NEW:
+            launches[k] = launches.get(k, 0) + counts[k]
+        new = sum(len(v) for v in outs.values())
+        st = eng.stats
+        log(f"[yi] {name}: {len(outs)}/{len(reqs)} requests, {new} new "
+            f"tokens, prompts {int(lens.sum())} tokens, {dt:.2f} s "
+            f"({(new + int(lens.sum())) / dt:.0f} tok/s all, "
+            f"{new / st['decode_s']:.1f} tok/s decode); prefill "
+            f"{st['prefill_s'] * 1e3:.0f} ms in {st['prefill_chunks']} chunks "
+            f"({st['prefill_s'] * 1e3 / st['prefill_chunks']:.1f} ms/chunk), "
+            f"decode {st['decode_s'] * 1e3:.0f} ms in {st['decode_steps']} "
+            f"ticks ({st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick);"
+            f" peak {torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}")
+        if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
+            fail(f"yi {name}: unfinished requests")
+        if eng.pool.in_use() != 0:
+            fail(f"yi {name}: pool did not drain ({eng.pool.in_use()} blocks)")
+        if st["nonfinite"]:
+            fail(f"yi {name}: {st['nonfinite']} non-finite logit rows")
+        for k in kernels:
+            if counts[k] == 0:
+                fail(f"yi {name}: kernel {k} never launched on its path")
+        del eng
+        torch.cuda.empty_cache()
+        parity(cfg, params, dev, prompts[0], max_seq=YI["max_seq"],
+               tol_f=TOL_YI_LOGITS_F)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -764,6 +1051,8 @@ def main() -> int:
     import repro_torch.kernels.dualmode_softmax  # noqa: F401  (registers)
     import repro_torch.kernels.flash_attention_int  # noqa: F401  (registers)
     import repro_torch.kernels.flash_decode  # noqa: F401  (registers)
+    import repro_torch.kernels.fused_ffn  # noqa: F401  (registers)
+    import repro_torch.kernels.fused_norm  # noqa: F401  (registers)
     dev = torch.device("cuda")
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA "
@@ -785,6 +1074,8 @@ def main() -> int:
     serve_phase(dev, launches)
     long_kernel_phase(dev, results)
     long_serve_phase(dev, launches)
+    yi_kernel_phase(dev, results)
+    yi_serve_phase(dev, launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

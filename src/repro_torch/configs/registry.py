@@ -8,6 +8,7 @@ from .base import ModelConfig
 
 _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "yi-6b": "yi_6b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -1,9 +1,10 @@
 """Activation registry of the port (counterpart of
 ``repro.core.activations``, for the variants the ported slice serves).
 
-  'gelu_tanh'      tanh-approximated GELU (Eq. 4)
-  'gelu_dualmode'  Eq. 8 through the bit-accurate unit
-  'silu' / 'silu_dualmode'  the same for SiLU
+  'gelu_tanh'         tanh-approximated GELU (Eq. 4)
+  'gelu_via_softmax'  Eq. 8 in float (the datapath's pair mode)
+  'gelu_dualmode'     Eq. 8 through the bit-accurate unit
+  'silu' / 'silu_via_softmax' / 'silu_dualmode'  the same for SiLU
 
 The dual-mode variants run the unit's ``pair_act`` kernel (int words)
 and are straight-through estimators: the forward value is the
@@ -24,8 +25,18 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + torch.tanh(_dp.gelu_k(x)))
 
 
+def gelu_via_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Eq. (8): z * softmax_1^2([k, -k]) == z * sigmoid(2k), float."""
+    return _dp.gelu(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def silu_via_softmax(x: torch.Tensor) -> torch.Tensor:
+    """Exact identity: z * softmax_1^2([z/2, -z/2])."""
+    return _dp.silu(x)
 
 
 _SURROGATE = {"gelu": gelu_tanh, "silu": silu}
@@ -62,8 +73,10 @@ def silu_dualmode(x: torch.Tensor) -> torch.Tensor:
 
 ACTIVATIONS: dict[str, Callable] = {
     "gelu_tanh": gelu_tanh,
+    "gelu_via_softmax": gelu_via_softmax,
     "gelu_dualmode": gelu_dualmode,
     "silu": silu,
+    "silu_via_softmax": silu_via_softmax,
     "silu_dualmode": silu_dualmode,
 }
 

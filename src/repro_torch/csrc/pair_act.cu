@@ -19,14 +19,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float pair_sigmoid(float k) {
-  const float amax = fabsf(k);
-  const float t1 = (k - amax) * unit::LOG2E;
-  const float t2 = (-k - amax) * unit::LOG2E;
-  const float s = exp2f(t1) + exp2f(t2);
-  return exp2f(t1 - log2f(s));
-}
-
 template <bool kGelu, bool kInt>
 __global__ void __launch_bounds__(kThreads)
 pair_act_kernel(const float* __restrict__ z, float* __restrict__ y, long long n) {
@@ -38,11 +30,8 @@ pair_act_kernel(const float* __restrict__ z, float* __restrict__ y, long long n)
       const int32_t q = unit::quantize(v, unit::IN_FRAC);
       const int32_t r = kGelu ? unit::gelu_int(q) : unit::silu_int(q);
       y[i] = unit::dequantize(r, unit::IN_FRAC);
-    } else if (kGelu) {
-      const float k = unit::SQRT_2_OVER_PI * (v + unit::GELU_CUBIC * v * v * v);
-      y[i] = v * pair_sigmoid(k);
     } else {
-      y[i] = v * pair_sigmoid(0.5f * v);
+      y[i] = unit::pair_act_f32<kGelu>(v);
     }
   }
 }

@@ -130,6 +130,24 @@ __device__ __forceinline__ int32_t silu_int(int32_t z) {
   return mul_wrap(z, sig) >> EXP_FRAC;
 }
 
+// ---- the float datapath's pair mode (datapath.pair_act) ----------------
+
+// sigma(2k) = softmax_1^2([k, -k]) through the log-domain float datapath
+__device__ __forceinline__ float pair_sigmoid_f32(float k) {
+  const float amax = fabsf(k);
+  const float t1 = (k - amax) * LOG2E;
+  const float t2 = (-k - amax) * LOG2E;
+  const float s = exp2f(t1) + exp2f(t2);
+  return exp2f(t1 - log2f(s));
+}
+
+// GELU (Eq. 8, k the tanh-form cubic) or SiLU (k = z / 2) in float
+template <bool kGelu>
+__device__ __forceinline__ float pair_act_f32(float z) {
+  if (kGelu) return z * pair_sigmoid_f32(SQRT_2_OVER_PI * (z + GELU_CUBIC * z * z * z));
+  return z * pair_sigmoid_f32(0.5f * z);
+}
+
 // ---- snapped-max monoid ----------------------------------------------------
 
 __device__ __forceinline__ int32_t to_snap_domain(int32_t x) {

@@ -166,6 +166,7 @@ KERNELS: dict[str, "Kernel"] = {}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float
 
 
 class Kernel:

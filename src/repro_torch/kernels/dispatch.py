@@ -1,9 +1,17 @@
 """Kernel dispatch registry (port of ``repro.kernels.dispatch`` for the
-slices that are ported: softmax, attention and paged attention).
+slices that are ported: softmax, attention, paged attention, the gated
+FFN and the block's norm seams).
 
   softmax    'float' | 'dualmode' | 'dualmode_snap'
   attention  'auto' | 'naive' | 'flash' | 'flash_pallas' |
              'flash_pallas_int' | 'flash_decode'
+  ffn        'auto' | 'dense' | 'fused_pallas'
+  norm       'auto' | 'dense' | 'fused_pallas'
+
+ffn / norm 'auto' picks 'fused_pallas' (the CUDA kernels) on a GPU and
+'dense' on the CPU, as the reference picks its Pallas kernels only on a
+TPU; explicit names pass through, so 'fused_pallas' on the CPU runs the
+kernels' plain versions.
 
 'dualmode' runs the unit's row-softmax kernel (``softmax_rows``, int
 words); 'dualmode_snap' is the snapped whole-row oracle of the streamed
@@ -170,3 +178,76 @@ def get_paged_attention(name: str) -> Callable | None:
     """The block-table variant of ``name``, or None (dense gather)."""
     attention_modes(name)
     return _PAGED_ATTENTION.get(name)
+
+
+# --------------------------------------------------------------------------
+# FFN (gated-MLP execution) and norm seams
+# --------------------------------------------------------------------------
+#
+# An ffn provider is fn(x2d, wg, wu, mode) -> (M, F), the fused gate
+# matmul + activation.  A norm provider is a dict of the block's three
+# fusable seams, registered as one unit:
+#   'residual_norm' (x, r, g, b, *, kind, eps)  -> (x + r, norm(x + r))
+#   'norm_linear'   (x, g, b, ws, *, kind, eps) -> norm(x) @ cat(ws, 1)
+#   'norm_glu'      (x, g, b, wg, wu, *, kind, eps, mode)
+# 'dense' maps to None: the plain unfused graph of models/layers.py.
+
+NORM_SEAMS = ("residual_norm", "norm_linear", "norm_glu")
+
+_FFN: dict[str, Callable | None] = {"dense": None}
+_NORM: dict[str, dict[str, Callable] | None] = {"dense": None}
+
+
+def register_ffn(name: str, fn: Callable) -> None:
+    _FFN[name] = fn
+
+
+def register_norm(name: str, seams: dict[str, Callable]) -> None:
+    """Register a fused-norm provider: a dict keyed by NORM_SEAMS."""
+    if set(seams) != set(NORM_SEAMS):
+        raise ValueError(f"norm provider {name!r} has seams {sorted(seams)}; "
+                         f"need {sorted(NORM_SEAMS)}")
+    _NORM[name] = seams
+
+
+def _fused_auto(device) -> str:
+    return ("fused_pallas" if resolve_device(device).type == "cuda"
+            else "dense")
+
+
+def _lookup(table: dict, kind: str, impl: str):
+    if impl not in table and impl == "fused_pallas":
+        import repro_torch.kernels.fused_ffn  # noqa: F401  (registers)
+        import repro_torch.kernels.fused_norm  # noqa: F401  (registers)
+    try:
+        return table[impl]
+    except KeyError:
+        raise ValueError(f"unknown {kind} impl {impl!r}; have "
+                         f"{sorted(set(table) | {'auto', 'fused_pallas'})}")
+
+
+def resolve_ffn(impl: str, device=None) -> str:
+    """'auto' -> 'fused_pallas' on a GPU, 'dense' on the CPU; explicit
+    names pass through (unknown ones raise ValueError)."""
+    if impl == "auto":
+        return _fused_auto(device)
+    _lookup(_FFN, "ffn", impl)
+    return impl
+
+
+def get_ffn(impl: str) -> Callable | None:
+    """None means the plain (unfused) path; otherwise the fused GLU."""
+    return _lookup(_FFN, "ffn", impl)
+
+
+def resolve_norm(impl: str, device=None) -> str:
+    """'auto' as :func:`resolve_ffn`; explicit names pass through."""
+    if impl == "auto":
+        return _fused_auto(device)
+    _lookup(_NORM, "norm", impl)
+    return impl
+
+
+def get_norm(impl: str) -> dict[str, Callable] | None:
+    """None means the plain norms; otherwise the seam dict."""
+    return _lookup(_NORM, "norm", impl)

@@ -1,0 +1,176 @@
+"""The block's norm seams as kernels (port of ``repro.kernels.fused_norm``).
+
+``fused_residual_norm``  replaces ``_resnorm_jit``     (fused_norm.py:134)
+``fused_norm_linear``    replaces ``_norm_linear_jit`` (fused_norm.py:217)
+
+  residual_norm  (x, r)    -> (x + r, norm(x + r) * g + b)
+                 the attention-output epilogue: the new residual stream
+                 and the FFN's input from one read of x and r
+                 (``csrc/resnorm.cu``).
+  norm_linear    x, [W...] -> norm(x) @ [W0 | W1 | W2]
+                 the norm -> QKV prologue: the normalized stream is made
+                 as the matmul stages x and never reaches device memory
+                 (``csrc/norm_linear.cu``).  The weights are read in
+                 place: ``ws`` is a sequence of up to three matrices
+                 whose columns land side by side, so [wq|wk|wv] is never
+                 concatenated on the card.
+
+Both inline the datapath's norm arithmetic (:func:`_hat`: f32 moments,
+rsqrt as exp2(-0.5 log2 v), gain and bias in f32, one downcast of the
+finished result), for ``kind`` 'rms' (``b`` None) or 'layer'.  The plain
+versions below are the reference's kernel bodies in PyTorch (the
+norm_linear one concatenates the weights, as the reference does); each
+wrapper runs its plain version for CPU tensors and launches its CUDA
+kernel for CUDA tensors, or raises.  The kernels agree with the plain
+versions up to f32 summation order.
+
+The third seam of the reference's provider, norm -> gated GLU
+(``_norm_glu_jit``), fires only in blocks whose attention epilogue made
+no normed stream ('none' mixers, cross-attention sublayers): it is not
+ported yet, and its seam raises NotImplementedError.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, dispatch, tiling
+
+_P, _I, _F = _build.P, _build.I, _build.F
+
+RESNORM = _build.Kernel(
+    "resnorm", "resnorm_launch", [_P] * 6 + [_I] * 3 + [_F, _P],
+    source="src/repro_torch/csrc/resnorm.cu",
+    replaces="src/repro/kernels/fused_norm.py:134")
+NORM_LINEAR = _build.Kernel(
+    "norm_linear", "norm_linear_launch",
+    [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P],
+    source="src/repro_torch/csrc/norm_linear.cu",
+    replaces="src/repro/kernels/fused_norm.py:217")
+
+KINDS = ("rms", "layer")
+MAX_MATRICES = 3          # weight matrices norm_linear reads in place
+
+
+def _hat(xn: torch.Tensor, *, kind: str, eps: float) -> torch.Tensor:
+    """Normalized rows (no gain / bias) of f32 ``xn`` over its last axis:
+    the reference's in-kernel moment datapath."""
+    inv_n = 1.0 / xn.shape[-1]
+    if kind == "rms":
+        ms = torch.sum(xn * xn, dim=-1, keepdim=True) * inv_n
+        return xn * torch.exp2(-0.5 * torch.log2(ms + eps))
+    if kind == "layer":
+        mu = torch.sum(xn, dim=-1, keepdim=True) * inv_n
+        var = torch.clamp(torch.sum(xn * xn, dim=-1, keepdim=True) * inv_n
+                          - mu * mu, min=0.0)
+        return (xn - mu) * torch.exp2(-0.5 * torch.log2(var + eps))
+    raise ValueError(f"unknown norm kind {kind!r}")
+
+
+def _scaled(xn, g, b, *, kind: str, eps: float) -> torch.Tensor:
+    h = _hat(xn, kind=kind, eps=eps) * g.to(torch.float32)
+    return h if b is None else h + b.to(torch.float32)
+
+
+def _matrices(ws) -> list[torch.Tensor]:
+    ws = list(ws)
+    if not 1 <= len(ws) <= MAX_MATRICES:
+        raise ValueError(f"norm_linear takes 1..{MAX_MATRICES} weight "
+                         f"matrices, got {len(ws)}")
+    return ws
+
+
+# ---- plain versions ---------------------------------------------------------
+
+def fused_residual_norm_plain(x, r, g, b=None, *, kind: str, eps: float):
+    """(x + r, norm(x + r) * g + b) in x's dtype; x, r (..., d)."""
+    xn = x.to(torch.float32) + r.to(torch.float32)
+    h = _scaled(xn, g, b, kind=kind, eps=eps)
+    return xn.to(x.dtype), h.to(x.dtype)
+
+
+def fused_norm_linear_plain(x, g, b, ws, *, kind: str, eps: float):
+    """norm(x) @ cat(ws, axis=1): x (..., d), each matrix (d, n_i) ->
+    (..., sum n_i) in x's dtype."""
+    wc = torch.cat([m.to(torch.float32) for m in _matrices(ws)], dim=1)
+    h = _scaled(x.to(torch.float32), g, b, kind=kind, eps=eps)
+    return (h @ wc).to(x.dtype)
+
+
+# ---- kernel wrappers --------------------------------------------------------
+
+def _check(name: str, kind: str, **tensors) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    dev = tensors["x"].device
+    for key, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != dev:
+            raise ValueError(f"{name}: {key} is {t.dtype} on {t.device}; the "
+                             f"kernel takes float32 on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
+    """(x + r, norm(x + r) * g + b); x, r (..., d), g / b (d,), b None
+    for rms.  Both outputs in x's dtype."""
+    if x.device.type == "cpu":
+        return fused_residual_norm_plain(x, r, g, b, kind=kind, eps=eps)
+    _check("fused_residual_norm", kind, x=x, r=r, g=g, b=b)
+    d = x.shape[-1]
+    if r.shape != x.shape or g.shape != (d,) or (
+            b is not None and b.shape != (d,)):
+        raise ValueError(f"fused_residual_norm: x {tuple(x.shape)}, r "
+                         f"{tuple(r.shape)}, g {tuple(g.shape)}")
+    xo, ho = torch.empty_like(x), torch.empty_like(x)
+    if x.numel():
+        RESNORM(x.data_ptr(), r.data_ptr(), g.data_ptr(),
+                None if b is None else b.data_ptr(), xo.data_ptr(),
+                ho.data_ptr(), x.numel() // d, d, KINDS.index(kind), eps,
+                _build.stream_ptr(x.device))
+    return xo, ho
+
+
+def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):
+    """norm(x) @ [W0 | W1 | W2] without the normalized stream in memory:
+    x (..., d), ``ws`` a sequence of up to three (d, n_i) matrices ->
+    (..., sum n_i)."""
+    if x.device.type == "cpu":
+        return fused_norm_linear_plain(x, g, b, ws, kind=kind, eps=eps)
+    ws = _matrices(ws)
+    _check("fused_norm_linear", kind, x=x, g=g, b=b,
+           **{f"w{i}": m for i, m in enumerate(ws)})
+    d = x.shape[-1]
+    if g.shape != (d,) or (b is not None and b.shape != (d,)) or any(
+            m.ndim != 2 or m.shape[0] != d for m in ws):
+        raise ValueError(f"fused_norm_linear: x {tuple(x.shape)}, weights "
+                         f"{[tuple(m.shape) for m in ws]}")
+    widths = [m.shape[1] for m in ws]
+    out = torch.empty(x.shape[:-1] + (sum(widths),), dtype=x.dtype,
+                      device=x.device)
+    if out.numel():
+        m = out.numel() // out.shape[-1]
+        slots = [(t.data_ptr(), n) for t, n in zip(ws, widths)]
+        slots += [(None, 0)] * (MAX_MATRICES - len(slots))
+        NORM_LINEAR(x.data_ptr(), g.data_ptr(),
+                    None if b is None else b.data_ptr(),
+                    *[v for s in slots for v in s], len(ws), out.data_ptr(),
+                    m, d, KINDS.index(kind), eps,
+                    *tiling.matmul_blocks(m, norm_prologue=True),
+                    _build.stream_ptr(x.device))
+    return out
+
+
+def _norm_glu_not_ported(*args, **kwargs):
+    raise NotImplementedError(
+        "the norm -> gated-GLU seam (fused_norm.py:_norm_glu_jit) is not "
+        "ported yet: it fires only for 'none'-mixer and cross-attention "
+        "blocks, and comes with the llama-3.2-vision slice of the port")
+
+
+dispatch.register_norm("fused_pallas", {
+    "residual_norm": fused_residual_norm,
+    "norm_linear": fused_norm_linear,
+    "norm_glu": _norm_glu_not_ported,
+})

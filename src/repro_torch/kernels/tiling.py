@@ -19,6 +19,18 @@ K, V, Q and the score tile all sit in shared memory at head dims up to
 keys themselves instead of padding the operands in device memory.
 Results do not depend on the tile: int words are bitwise equal for any
 (bq, bkv), float outputs equal up to f32 summation order.
+
+Matmul-epilogue kernels (the fused GLU, the norm -> linear prologue;
+``csrc/norm_gemm.cuh``) take the place of the reference's
+``matmul_blocks`` (128 x 512 MXU tiles with the whole contraction dim
+in VMEM): 32-column output tiles, so a decode tick's few rows still give
+every SM a column tile at yi-6b's widths, row tiles of 16, 32 or 64
+sized to M, and K walked in chunks staged in shared memory, never held
+whole (:func:`matmul_blocks`).  The residual-norm epilogue takes one
+block per row, in place of the reference's ``norm_rows``.  The
+pad-and-slice rule is kept, done in registers: the kernels load the
+ragged rows, columns and K tail as zeros and never store them, so no
+operand is padded in device memory.
 """
 from __future__ import annotations
 
@@ -76,6 +88,26 @@ def pad_attention_operands(q, q_pos, k, v, kv_valid, bq: int, bkv: int):
     return (pad_dim(q, 1, bq), pad_dim(q_pos.to(torch.int32), 1, bq),
             pad_dim(k, 1, bkv), pad_dim(v, 1, bkv),
             pad_dim(kv_valid.to(torch.int32), 1, bkv))
+
+
+def matmul_blocks(m: int, *, norm_prologue: bool) -> tuple[int, int]:
+    """(bm, bk) of the matmul-epilogue kernels for m rows: rows per tile
+    and the K chunk staged in shared memory (tiles are 32 columns wide).
+
+    A decode tick (m <= 16) is bound by the weight bytes: one 16-row
+    tile, and the norm -> linear kernel (one weight matrix a tile) walks
+    K 128 deep to keep 16 KB of weights in flight a block; the GLU reads
+    two matrices a chunk and stays at 32 (at 128 its staging registers
+    leave one block an SM, and it ran slower).  More rows are bound by
+    the FMAs: 32-row tiles up to a prefill chunk for the norm -> linear
+    kernel (twice the blocks of 64-row ones at yi-6b's QKV width),
+    64-row tiles past 32 rows for the GLU.  The kernels instantiate
+    exactly these pairs (their H100 timings are in PERF.md)."""
+    if m <= 16:
+        return 16, 128 if norm_prologue else 32
+    if m <= (64 if norm_prologue else 32):
+        return 32, 32
+    return 64, 32
 
 
 def decode_kv_block(t_kv: int, num_splits: int) -> int:

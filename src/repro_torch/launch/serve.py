@@ -4,6 +4,8 @@ cpu`` runs the plain versions).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 8 --slots 4 --max-new 16 --max-seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 4096
 
 Full width by default; ``--reduced`` takes the arch's smoke config.
 """
@@ -37,6 +39,17 @@ def main() -> None:
     ap.add_argument("--activation", default=None,
                     help="FFN activation, e.g. silu_dualmode (default: the "
                          "config's)")
+    ap.add_argument("--norm-impl", default=None,
+                    choices=("auto", "dense", "fused_pallas"),
+                    help="the block's norm seams: 'fused_pallas' runs the "
+                         "residual-norm epilogue and the norm -> QKV "
+                         "prologue kernels, 'auto' picks them on a GPU "
+                         "(default: the config's)")
+    ap.add_argument("--ffn-impl", default=None,
+                    choices=("auto", "dense", "fused_pallas"),
+                    help="gated FFN: 'fused_pallas' runs the fused GLU "
+                         "kernel for fusable activations, 'auto' picks it "
+                         "on a GPU (default: the config's)")
     ap.add_argument("--prefill-impl", default=None,
                     help="attention impl for prefill chunks (default: "
                          "resolve the config's per phase)")
@@ -71,6 +84,10 @@ def main() -> None:
         cfg = cfg.replace(softmax_impl=args.softmax_impl)
     if args.activation:
         cfg = cfg.replace(activation=args.activation)
+    if args.norm_impl:
+        cfg = cfg.replace(norm_impl=args.norm_impl)
+    if args.ffn_impl:
+        cfg = cfg.replace(ffn_impl=args.ffn_impl)
     params = init_lm(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                      dev)
     eng = ServeEngine(cfg, params, n_slots=args.slots, max_seq=args.max_seq,
@@ -85,7 +102,8 @@ def main() -> None:
               else f"buckets={eng.buckets}")
     print(f"[serve] {cfg.name} on {dev}: cache={eng.cache_mode} ({layout}) "
           f"attention impls: prefill={eng.prefill_attn_impl} "
-          f"decode={eng.decode_attn_impl}")
+          f"decode={eng.decode_attn_impl}; norm={cfg.norm_impl} "
+          f"ffn={cfg.ffn_impl}")
     rng = np.random.RandomState(args.seed + 1)
     reqs = []
     for i in range(args.requests):

@@ -185,19 +185,41 @@ def _kv_valid_mask(t: int, pos, sl: int, b: int, device) -> torch.Tensor:
 # ---------------- GQA ----------------
 
 def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
-              paged=None):
+              paged=None, prenorm=None):
     """x: (B,S,d).  Without a cache: full attention over x.  With
     ``cache`` the layer's {'k','v'} (B,Smax,K,h) rows: write the new K/V
     at ``pos`` (in place) and attend over the whole rows, keys past each
     row's pos + S invalid.  With ``paged`` (B, max_blocks) int32 block
     tables and ``cache`` the layer's {'k','v'} (N,bs,K,h) pools: write
     the new K/V through the tables (in place) and attend over the paged
-    cache.  Returns (out, cache)."""
+    cache.  Returns (out, cache).
+
+    ``prenorm=(norm_params, kind, eps, provider)`` hands this sublayer
+    its input norm (the block's norm1): with bias-free projections the
+    provider's norm -> QKV seam computes norm(x) @ [wq|wk|wv] in one
+    kernel that reads the three matrices in place; otherwise the dense
+    norm applies here and the three projections proceed unchanged."""
     b, sl, _ = x.shape
     g = s.n_heads // s.n_kv_heads
-    q = linear(p["wq"], x).reshape(b, sl, s.n_heads, s.head_dim)
-    k = linear(p["wk"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
-    v = linear(p["wv"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
+    if prenorm is not None and not s.qkv_bias:
+        np_, kind, eps, nprov = prenorm
+        qkv = nprov["norm_linear"](
+            x, np_["g"], np_.get("b"),
+            (p["wq"]["w"], p["wk"]["w"], p["wv"]["w"]), kind=kind, eps=eps)
+        # split the (B, S, nq + 2 nk) panel; contiguous copies, as the
+        # attention kernels take contiguous operands
+        nk = s.n_kv_heads * s.head_dim
+        q, k, v = (t.contiguous() for t in torch.split(
+            qkv, [s.n_heads * s.head_dim, nk, nk], dim=-1))
+        q = q.reshape(b, sl, s.n_heads, s.head_dim)
+        k = k.reshape(b, sl, s.n_kv_heads, s.head_dim)
+        v = v.reshape(b, sl, s.n_kv_heads, s.head_dim)
+    else:
+        if prenorm is not None:
+            x = rmsnorm(prenorm[0], x, prenorm[2])
+        q = linear(p["wq"], x).reshape(b, sl, s.n_heads, s.head_dim)
+        k = linear(p["wk"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
+        v = linear(p["wv"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
     if s.qk_norm:
         q = rmsnorm(p["qn"], q, s.norm_eps)
         k = rmsnorm(p["kn"], k, s.norm_eps)

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.activations import get_activation
 from repro_torch.kernels import datapath as dp
+from repro_torch.kernels import dispatch
 
 Params = dict[str, Any]
 
@@ -79,9 +80,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mlp(p: Params, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+# activations the fused epilogue (datapath.pair_act, float log-domain
+# form) agrees with mathematically -- gelu_tanh is the tanh-form identity
+# tanh(k) = 2*sigma(2k)-1 of the same curve, so fused-vs-dense parity is
+# a small-ULP tolerance, not bitwise.  The bit-accurate dual-mode
+# variants stay on the dense path (their unit kernel, pair_act).
+_FUSABLE_ACT = {"gelu_tanh": "gelu", "gelu_via_softmax": "gelu",
+                "silu": "silu", "silu_via_softmax": "silu"}
+
+
+def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
+        impl: str = "dense") -> torch.Tensor:
     """(Gated) MLP; the activation (the unit's GELU/SiLU mode when it is a
-    dual-mode variant) applies to the gate path."""
+    dual-mode variant) applies to the gate path.
+
+    ``impl`` resolves through the ffn registry for x's device: 'dense' is
+    the plain graph; 'fused_pallas' runs a bias-free gated pair with a
+    fusable activation through the fused GLU (the CUDA kernel on a GPU,
+    its plain version on the CPU); 'auto' picks 'fused_pallas' on a GPU
+    and 'dense' on the CPU."""
+    fused = dispatch.get_ffn(dispatch.resolve_ffn(impl, x.device))
+    mode = _FUSABLE_ACT.get(activation)
+    if (fused is not None and mode is not None and "gate" in p
+            and "b" not in p["gate"] and "b" not in p["up"]):
+        x2 = x.reshape(-1, x.shape[-1])
+        h = fused(x2, p["gate"]["w"], p["up"]["w"], mode)
+        return linear(p["down"], h.reshape(*x.shape[:-1], h.shape[-1]))
     act = get_activation(activation)
     up = linear(p["up"], x)
     h = act(linear(p["gate"], x)) * up if "gate" in p else act(up)

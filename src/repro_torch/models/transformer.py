@@ -1,6 +1,8 @@
 """Decoder stack of the port (counterpart of ``repro.models.transformer``)
 for the dense attention + gated-MLP pattern (``mixer='attn'``,
-``ffn='mlp'``, dense RMSNorms): the qwen-family main path.
+``ffn='mlp'``, RMSNorms): the qwen / yi family main path, with the
+reference's fused norm seams (``norm_impl``) and fused GLU
+(``ffn_impl``).
 
 The reference stacks each period's parameters on a leading axis for
 ``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import check_on, resolve_device
+from repro_torch.kernels import dispatch
 
 from .attention import AttnSpec, _positions_from, gqa_apply
 from .layers import (Params, embed_init, linear_init, mlp, mlp_init, rmsnorm,
@@ -29,7 +32,7 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what this slice of the port does not
-    run yet (other mixers, MoE, encoders, layer norm, fused seams)."""
+    run yet (other mixers, MoE, encoders, layer norm)."""
     why = []
     if cfg.prefix or any(s != LayerSpec() for s in cfg.pattern):
         why.append("layer patterns other than dense attn + mlp")
@@ -37,9 +40,6 @@ def check_supported(cfg: ModelConfig) -> None:
         why.append("encoder / MLA / MoE / mamba layers")
     if cfg.norm != "rms" or cfg.pos_emb != "rope":
         why.append(f"norm={cfg.norm!r} / pos_emb={cfg.pos_emb!r}")
-    if cfg.ffn_impl not in ("dense", "auto") or cfg.norm_impl not in (
-            "dense", "auto"):
-        why.append("the fused FFN / norm kernels")
     if why:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(why)}")
@@ -124,12 +124,27 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def block_apply(p: Params, cfg: ModelConfig, x, cache, *, positions, pos,
                 paged):
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    o, cache = gqa_apply(p["mixer"], attn_spec(cfg), h, positions=positions,
-                         cache=cache, pos=pos, paged=paged)
-    x = x + o
-    h = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h, cfg.activation), cache
+    """One attn + mlp block.  With a fused norm provider (``norm_impl``
+    resolved for x's device) the reference's seams run fused: norm1 into
+    the QKV projection (prologue), the attention residual add + norm2 as
+    one epilogue; the FFN's own seam is the fused GLU (``ffn_impl``)."""
+    nprov = dispatch.get_norm(dispatch.resolve_norm(cfg.norm_impl, x.device))
+    if nprov is not None:
+        o, cache = gqa_apply(p["mixer"], attn_spec(cfg), x,
+                             positions=positions, cache=cache, pos=pos,
+                             paged=paged, prenorm=(p["norm1"], cfg.norm,
+                                                   cfg.norm_eps, nprov))
+        x, h = nprov["residual_norm"](x, o, p["norm2"]["g"],
+                                      p["norm2"].get("b"), kind=cfg.norm,
+                                      eps=cfg.norm_eps)
+    else:
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        o, cache = gqa_apply(p["mixer"], attn_spec(cfg), h,
+                             positions=positions, cache=cache, pos=pos,
+                             paged=paged)
+        x = x + o
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+    return x + mlp(p["ffn"], h, cfg.activation, impl=cfg.ffn_impl), cache
 
 
 def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

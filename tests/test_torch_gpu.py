@@ -12,7 +12,13 @@ Tolerances: int words bitwise; float softmax 1e-6, float GELU/SiLU 2e-6
 (a few ulps of |z| <= ~10), float decode and blocked attention 1e-5 (dot
 and sum order); int decode outputs 1e-5 on exact (grid-valued) scores,
 1e-4 on random ones, where a score can round to the neighbouring S5.10
-word; int blocked attention on exact scores only.
+word; int blocked attention on exact scores only.  The block's seams:
+the residual sum bitwise (one f32 add either way), the normalized row
+1e-5 (moment sum order, exp2/log2 ulps, unit-scale outputs); the norm ->
+QKV prologue and the fused GLU 1e-4 (f32 dot products over up to 4096
+terms in two orders -- 32-deep chunks against cuBLAS -- give ~1e-5 on
+outputs of magnitude up to ~5, and the GLU multiplies one such error by
+|u| up to ~5).
 """
 import os
 
@@ -105,12 +111,105 @@ def test_decode_paged_kernels(cuda, g, num_splits):
                                    atol=1e-5 if grid else 1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("grid", [False, True])
+def test_decode_paged_kernels_at_yi_shape(cuda, grid):
+    """yi-6b's decode: 4 kv heads x G 8 query heads, h 128, 128-key
+    blocks, a 4096-key table."""
+    args = _case(cuda, 8, grid, b=4, kh=4, h=128, bs=128, nblk=32)
+    for num_splits in (1, 8):
+        kw = dict(num_splits=num_splits, causal=True, guard_shift=0)
+        kf = fd.decode_paged_partials(*args, int_mode=False, **kw)
+        pf = fd.decode_paged_partials_plain(*args, int_mode=False, **kw)
+        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
+                                   fd.finish_partials(*pf, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        ki = fd.decode_paged_partials(*args, int_mode=True, **kw)
+        pi = fd.decode_paged_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
+        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
+                                   fd.finish_partials(*pi, int_mode=True),
+                                   atol=1e-5 if grid else 1e-4, rtol=0)
+
+
+def test_unit_kernels_at_yi_shape(cuda):
+    """A yi-6b prefill chunk's score rows (32 heads x 64 queries against a
+    4096-key table) and its FFN gate (64 x 11008)."""
+    gen = torch.Generator().manual_seed(5)
+    x = _randn(gen, cuda, 2048, 4096, scale=3.0)
+    x[:, 3000:] = -30.0
+    assert torch.equal(ds.softmax_rows(x, "int"),
+                       ds.softmax_rows_plain(x, "int"))
+    z = _randn(gen, cuda, 64, 11008, scale=3.0)
+    assert torch.equal(ds.pair_act(z, "silu", "int"),
+                       ds.pair_act_plain(z, "silu", "int"))
+
+
+# ---------------- the block's seams: rows 14, 15 and 12 ----------------
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("m,d", [(4, 4096), (64, 4096), (1, 1), (37, 200),
+                                 (5, 14000)])
+def test_resnorm_kernel(cuda, kind, m, d):
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator().manual_seed(6)
+    x, r = _randn(gen, cuda, m, d, scale=3.0), _randn(gen, cuda, m, d)
+    g = 1.0 + _randn(gen, cuda, d, scale=0.1)
+    b = _randn(gen, cuda, d, scale=0.1) if kind == "layer" else None
+    before = fn.RESNORM.launches
+    xo, ho = fn.fused_residual_norm(x, r, g, b, kind=kind, eps=1e-6)
+    pxo, pho = fn.fused_residual_norm_plain(x, r, g, b, kind=kind, eps=1e-6)
+    assert fn.RESNORM.launches == before + 1
+    assert torch.equal(xo, pxo)
+    torch.testing.assert_close(ho, pho, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+@pytest.mark.parametrize("m,d,widths", [(4, 4096, (4096, 512, 512)),
+                                        (64, 4096, (4096, 512, 512)),
+                                        (23, 200, (130, 17, 40)),
+                                        (100, 72, (5,)),
+                                        (1, 33, (64, 64))])
+def test_norm_linear_kernel(cuda, kind, m, d, widths):
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator().manual_seed(7)
+    x = _randn(gen, cuda, m, d)
+    g = 1.0 + _randn(gen, cuda, d, scale=0.1)
+    b = _randn(gen, cuda, d, scale=0.1) if kind == "layer" else None
+    ws = [_randn(gen, cuda, d, n, scale=d ** -0.5) for n in widths]
+    before = fn.NORM_LINEAR.launches
+    got = fn.fused_norm_linear(x, g, b, ws, kind=kind, eps=1e-6)
+    assert fn.NORM_LINEAR.launches == before + 1
+    torch.testing.assert_close(
+        got, fn.fused_norm_linear_plain(x, g, b, ws, kind=kind, eps=1e-6),
+        atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["silu", "gelu"])
+@pytest.mark.parametrize("m,k,f", [(4, 4096, 11008), (64, 4096, 11008),
+                                   (23, 200, 130), (1, 64, 1), (70, 37, 33)])
+def test_glu_kernel(cuda, mode, m, k, f):
+    from repro_torch.kernels import fused_ffn as ff
+    gen = torch.Generator().manual_seed(8)
+    x = _randn(gen, cuda, m, k)
+    wg = _randn(gen, cuda, k, f, scale=k ** -0.5)
+    wu = _randn(gen, cuda, k, f, scale=k ** -0.5)
+    before = ff.GLU.launches
+    got = ff.fused_glu(x, wg, wu, mode=mode)
+    assert ff.GLU.launches == before + 1
+    torch.testing.assert_close(got, ff._glu_reference(x, wg, wu, mode),
+                               atol=1e-4, rtol=0)
+
+
 def test_kernel_registry(cuda):
     import repro_torch.kernels.flash_attention_int  # noqa: F401
+    import repro_torch.kernels.fused_ffn  # noqa: F401
+    import repro_torch.kernels.fused_norm  # noqa: F401
     assert set(_build.KERNELS) == {"softmax_rows", "pair_act",
                                    "decode_paged", "decode_paged_int",
                                    "decode_dense", "decode_dense_int",
-                                   "flash_fwd", "flash_snap"}
+                                   "flash_fwd", "flash_snap", "resnorm",
+                                   "norm_linear", "glu"}
     x = torch.zeros(2, 3, device=cuda)
     with pytest.raises(ValueError):
         ds.softmax_rows(x.t())                  # not contiguous

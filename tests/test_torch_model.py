@@ -38,6 +38,7 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
 
 @pytest.mark.parametrize("path", ["configs/base.py",
                                   "configs/qwen1_5_0_5b.py",
+                                  "configs/yi_6b.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -45,10 +46,11 @@ def test_copied_modules_equal_originals(path):
         (REPO / "src/repro" / path).read_text()
 
 
-def test_configs_equal_reference():
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b"])
+def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
-        j = getattr(J_registry, get)("qwen1.5-0.5b")
-        t = getattr(T_registry, get)("qwen1.5-0.5b")
+        j = getattr(J_registry, get)(arch)
+        t = getattr(T_registry, get)(arch)
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
 
 
@@ -181,7 +183,7 @@ def test_unported_configurations_raise():
         lm_apply(p, cfg.replace(norm="layer"), torch.zeros(
             (1, 3), dtype=torch.long), device="cpu")
     with pytest.raises(ValueError):
-        T_registry.get_config("yi-6b")
+        T_registry.get_config("jamba-v0.1-52b")
 
 
 def test_flash_oracles_match_reference():
