@@ -41,6 +41,24 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             every request finishes, the pool drains, logits are finite and
             every kernel of the path launched; then one prefill chunk and the
             first decode step through the kernels against the plain versions.
+6. train    the training kernels (flash backward dq and dk/dv, the fused
+            GLU backward) against their plain versions at qwen1.5-0.5b's
+            training shape (B 2, S = T = 4096, 16 heads, h 64; M 8192, d
+            1024, F 2816), at yi-6b's heads (h 128, G 8) and widths, and at
+            edge shapes (ragged kv_valid, a row whose visible keys are all
+            masked, S != T, hv != h, non-causal, ragged M and F), timed
+            beside their bounds.  Then, with the serve weights freed, the
+            Trainer on full-width, full-depth qwen1.5-0.5b (norm / ffn
+            'fused_pallas', float, remat) for 8 steps on 2 rows of 4096
+            tokens: the loss is finite and falls, every kernel of the path
+            launched the number of times a step implies, one step from one
+            state gives the same bits twice, one step's loss and gradients
+            through the kernels match the plain versions', and a save and
+            resume (depth cut to 2 layers, in a temporary directory removed
+            afterwards) continues with the uninterrupted run's loss.  The one
+            cut: batches come from an 8192-token bigram stream (the table at
+            the full vocabulary would be ~92 GB on the host); the model and
+            its head keep all 151936 rows.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line.  Without a CUDA device the
@@ -85,6 +103,14 @@ TOL_GEMM = 1e-4        # norm -> QKV and the fused GLU: f32 dots over 4096
 #                        ~1e-5 on outputs up to ~5; the GLU scales one by |u|
 TOL_YI_LOGITS_F = 1e-4  # full-width yi-6b logits, float: every QKV and FFN
 #                        product of 32 layers at d 4096 in another f32 order
+# training kernels, relative to max(1, max |plain|) of the output:
+TOL_FLASH_BWD = 1e-5   # dq, dk, dv: f32 sums over up to 16384 rows (dk/dv)
+#                        or 4096 keys (dq) of h-deep products in two orders
+TOL_GLU_BWD = 2e-5     # d_gate, d_up: the forward's dots over up to 4096
+#                        terms in two orders, times |dY| and pair_act'
+TOL_TRAIN_LOSS = 1e-5  # one step's loss, kernels vs plain, relative
+TOL_TRAIN_GRAD = 1e-3  # each gradient tensor, kernels vs plain, relative to
+#                        its own max |plain|
 
 
 def log(*a):
@@ -125,6 +151,14 @@ def check(name: str, a, b, tol: float) -> float:
     if e > tol:
         fail(f"{name}: max |diff| {e:.3e} > {tol:.1e}")
     log(f"  ok {name}: max|diff| {e:.3e} (tol {tol:.0e})")
+    return e
+
+
+def check_rel(name: str, a, b, tol: float) -> float:
+    """check() with the limit ``tol`` x max(1, max |b|); returns the
+    absolute max |a - b|."""
+    scale = max(1.0, float(b.abs().max()))
+    e = check(f"{name} (limit x {scale:.3g})", a, b, tol * scale)
     return e
 
 
@@ -1041,6 +1075,322 @@ def yi_serve_phase(dev, launches):
                tol_f=TOL_YI_LOGITS_F)
 
 
+# ---------------- phase 6: training ----------------
+
+TRAIN = dict(batch=2, seq=4096, steps=8, data_vocab=8192)
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "resnorm",
+                 "glu", "glu_bwd")
+# launches one remat step implies per layer: each forward kernel runs in
+# the forward and again in the recompute, each backward kernel once
+TRAIN_PER_LAYER = {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+                   "resnorm": 2, "glu": 2, "glu_bwd": 1}
+
+
+def train_kernel_phase(dev, results):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fnorm
+    gen = torch.Generator(device="cpu").manual_seed(99)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def attn_case(b, s, t, kh, g, h, hv, causal, bkv, ragged=False,
+                  all_masked=False):
+        qf = (randn(b, s, kh, g, h) * h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h), randn(b, t, kh, hv)
+        qp = torch.arange(t - s, t, dtype=torch.int32, device=dev)
+        if all_masked:          # row 0 sees only key 0, which is invalid
+            qp = torch.arange(s, dtype=torch.int32, device=dev)
+        qp = qp[None].expand(b, s).contiguous()
+        valid = torch.ones(b, t, dtype=torch.uint8, device=dev)
+        if ragged:
+            valid = (torch.rand(b, t, generator=gen) > 0.25).to(
+                torch.uint8).to(dev)
+        if all_masked:
+            valid[:, 0] = 0
+        o, m, l = fa.flash_fwd(qf, k, v, qp, valid, causal=causal,
+                               block_kv=bkv, return_stats=True)
+        do = randn(*o.shape)
+        return (qf, k, v, o, m, l, do, qp, valid), dict(causal=causal,
+                                                        block_kv=bkv)
+
+    def bwd_checks(name, args, kw):
+        dq = fb.flash_bwd_dq(*args, **kw)
+        e_q = check_rel(f"flash_bwd_dq {name}", dq,
+                        fb.flash_bwd_dq_plain(*args, **kw), TOL_FLASH_BWD)
+        dk, dv = fb.flash_bwd_dkdv(*args, **kw)
+        dkp, dvp = fb.flash_bwd_dkdv_plain(*args, **kw)
+        e_k = check_rel(f"flash_bwd_dkdv dk {name}", dk, dkp, TOL_FLASH_BWD)
+        e_v = check_rel(f"flash_bwd_dkdv dv {name}", dv, dvp, TOL_FLASH_BWD)
+        return e_q, max(e_k, e_v)
+
+    # -- rows 10 / 11: the train path's shape, yi's heads, edge shapes
+    log("[train] flash_bwd_dq / flash_bwd_dkdv")
+    S_ = TRAIN["seq"]
+    path, kw = attn_case(TRAIN["batch"], S_, S_, 16, 1, 64, 64, True, 64)
+    err_q, err_kv = bwd_checks(f"path (2, {S_}, 16, 1, 64) causal", path, kw)
+    yi, ykw = attn_case(1, 2048, 2048, 4, 8, 128, 128, True, 64)
+    bwd_checks("yi heads (1, 2048, 4, 8, 128) causal", yi, ykw)
+    for (b, s, t, kh, g, h, hv, causal, bkv, ragged, allm) in (
+            (2, 70, 200, 2, 2, 64, 64, True, 64, True, False),
+            (2, 40, 300, 2, 2, 64, 64, True, 64, True, True),
+            (1, 33, 129, 3, 4, 128, 72, True, 16, True, False),
+            (2, 64, 100, 1, 3, 32, 32, False, 37, True, False),
+            (1, 130, 130, 2, 1, 64, 64, False, 64, False, False)):
+        args, ekw = attn_case(b, s, t, kh, g, h, hv, causal, bkv, ragged,
+                              allm)
+        bwd_checks(f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} "
+                   f"bkv={bkv} ragged={ragged} all-masked row={allm}",
+                   args, ekw)
+
+    # timing at the path's shape; the bound counts the kept (q, k) pairs
+    b, kh, h = TRAIN["batch"], 16, 64
+    pairs = b * kh * S_ * (S_ + 1) // 2
+    rows = b * S_ * kh
+    q_bytes = rows * h * 4
+    common = 5 * q_bytes + 2 * rows * 4 + b * S_ * 4 + b * S_  # q k v o dO m l
+    bq_ms, bq_by = bound(common + q_bytes, pairs * (4 * h + 2 * h))
+    bkv_ms, bkv_by = bound(common + 2 * q_bytes, pairs * (4 * h + 4 * h))
+    # the library: SDPA's backward on the same work (forward + backward
+    # minus forward), B H S h layout, causal
+    q_l = path[0][:, :, :, 0].permute(0, 2, 1, 3).detach().clone()
+    k_l = path[1].permute(0, 2, 1, 3).detach().clone()
+    v_l = path[2].permute(0, 2, 1, 3).detach().clone()
+    do_l = path[6][:, :, :, 0].permute(0, 2, 1, 3).contiguous()
+    for t_ in (q_l, k_l, v_l):
+        t_.requires_grad_(True)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q_l, k_l, v_l, is_causal=True, scale=1.0)
+
+    def sdpa_fb():
+        torch.autograd.grad(sdpa(), (q_l, k_l, v_l), do_l)
+    lib = max(time_ms(sdpa_fb, iters=10) - time_ms(sdpa, iters=10), 0.0)
+    # the forward the train step runs (with stats) at the same shape
+    step_ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(
+        *path[:3], path[7], path[8], return_stats=True, **kw), iters=5)}
+    for name, fn, plain_fn, e, b_ms, b_by in (
+            ("flash_bwd_dq", lambda: fb.flash_bwd_dq(*path, **kw),
+             lambda: fb.flash_bwd_dq_plain(*path, **kw), err_q, bq_ms,
+             bq_by),
+            ("flash_bwd_dkdv", lambda: fb.flash_bwd_dkdv(*path, **kw),
+             lambda: fb.flash_bwd_dkdv_plain(*path, **kw), err_kv, bkv_ms,
+             bkv_by)):
+        ms = time_ms(fn, iters=10, warmup=2)
+        plain = time_ms(plain_fn, iters=2, warmup=1)
+        log(f"  {name} (B{b} S{S_} K{kh} G1 h{h} causal): {ms * 1e3:.1f} us, "
+            f"plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+            f"({b_by}), SDPA backward {lib * 1e3:.1f} us")
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        step_ms[name] = ms
+    del path, yi, q_l, k_l, v_l, do_l
+
+    # -- row 13: the fused GLU backward
+    log("[train] glu_bwd")
+    err = 0.0
+    for m, k, f, mode in ((8192, 1024, 2816, "silu"),
+                          (8192, 1024, 2816, "gelu"),
+                          (4096, 4096, 11008, "silu"), (23, 200, 130, "gelu"),
+                          (70, 37, 33, "silu"), (1, 64, 1, "gelu")):
+        x, dy = randn(m, k), randn(m, f)
+        wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+        got = ff.glu_bwd(x, wg, wu, dy, mode=mode)
+        want = ff._glu_bwd_plain(x, wg, wu, dy, mode)
+        name = f"glu_bwd {mode} ({m}, {k}) x {f}"
+        e = max(check_rel(f"{name} d_gate", got[0], want[0], TOL_GLU_BWD),
+                check_rel(f"{name} d_up", got[1], want[1], TOL_GLU_BWD))
+        if (m, mode) == (8192, "silu"):
+            err = e
+    m, k, f = TRAIN["batch"] * S_, 1024, 2816
+    x, dy = randn(m, k), randn(m, f)
+    wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+    ms = time_ms(lambda: ff.glu_bwd(x, wg, wu, dy, mode="silu"), iters=10)
+    plain = time_ms(lambda: ff._glu_bwd_plain(x, wg, wu, dy, "silu"),
+                    iters=10)
+    lib = time_ms(lambda: (torch.matmul(x, wg), torch.matmul(x, wu)),
+                  iters=10)
+    b_ms, b_by = bound((m * k + 2 * k * f + 3 * m * f) * 4,
+                       4 * m * k * f + 30 * m * f)
+    log(f"  glu_bwd silu M{m} d{k} F{f}: {ms * 1e3:.1f} us, plain "
+        f"{plain * 1e3:.1f} us, two torch.matmul {lib * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by})")
+    results["glu_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    step_ms["glu_bwd"] = ms
+    step_ms["glu"] = time_ms(lambda: ff.fused_glu(x, wg, wu, mode="silu"),
+                             iters=10)
+    h_ = randn(m, k)
+    g_ = torch.ones(k, device=dev)
+    step_ms["resnorm"] = time_ms(lambda: fnorm.fused_residual_norm(
+        x, h_, g_, kind="rms", eps=1e-6), iters=10)
+    log("  the train step's kernels at its shapes, us a call: " + ", ".join(
+        f"{k_} {v_ * 1e3:.1f}" for k_, v_ in step_ms.items()))
+    results["train_step_kernel_ms"] = step_ms
+
+
+def _plain_train_kernels():
+    """Patches that put the plain versions in the train path kernels'
+    place (the same call sites, so the same graph)."""
+    from contextlib import ExitStack
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    stack = ExitStack()
+    for mod, name, plain in ((fa, "flash_fwd", fa.flash_fwd_plain),
+                             (fb, "flash_bwd_dq", fb.flash_bwd_dq_plain),
+                             (fb, "flash_bwd_dkdv", fb.flash_bwd_dkdv_plain),
+                             (fn, "_resnorm_fwd", fn.fused_residual_norm_plain),
+                             (ff, "_glu_fwd", ff._glu_reference),
+                             (ff, "glu_bwd", ff._glu_bwd_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+def train_phase(dev, launches, results):
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.train import Trainer, make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_paths
+    gc.collect()                    # the serve phases' weights and pools
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = registry.get_config("qwen1.5-0.5b").replace(
+        softmax_impl="float", activation="silu", norm_impl="fused_pallas",
+        ffn_impl="fused_pallas")
+    b, seq, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    impl = dispatch.resolve_attention(cfg.attn_impl, seq, seq, "float",
+                                      device=dev)
+    if impl != "flash_pallas":
+        fail(f"train: 'auto' resolved {impl} at seq {seq}")
+    t0 = time.perf_counter()
+    data = SyntheticLM(vocab=TRAIN["data_vocab"], seq_len=seq,
+                       global_batch=b, seed=0)
+    log(f"[train] bigram table {TRAIN['data_vocab']}^2 built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        tcfg = TrainConfig(lr=3e-4, warmup_steps=2, remat=True,
+                           total_steps=steps, checkpoint_every=1000,
+                           checkpoint_dir=os.path.join(tmp, "main"))
+        trainer = Trainer(cfg, tcfg, b, seq, device=dev, data=data,
+                          log=lambda *_: None)
+        n_par = sum(p.numel() for p in tree_leaves(trainer.state.params))
+        log(f"[train] qwen1.5-0.5b full width and depth: {cfg.n_layers} "
+            f"layers d {cfg.d_model} heads {cfg.n_heads}/{cfg.n_kv_heads} "
+            f"d_ff {cfg.d_ff} vocab {cfg.vocab}, {n_par / 1e6:.1f} M "
+            f"parameters; batch {b} x {seq}, data vocab "
+            f"{TRAIN['data_vocab']}, remat, attn {impl}")
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        hist = []
+        for i in range(steps):
+            mt = trainer.run(1)
+            hist.append(mt)
+            log(f"  step {i}: loss {mt['loss']:.5f} grad_norm "
+                f"{mt['grad_norm']:.4f} lr {mt['lr']:.3g} "
+                f"{trainer.step_times[-1] * 1e3:.0f} ms")
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        ms_step = float(np.median(trainer.step_times[1:]))
+        per_call = results["train_step_kernel_ms"]
+        in_kernels = sum(per_call[k] * counts[k] for k in TRAIN_KERNELS
+                         ) / steps
+        log(f"[train] {steps} steps: median {ms_step * 1e3:.0f} ms a step "
+            f"(first {trainer.step_times[0] * 1e3:.0f} ms), "
+            f"{b * seq / ms_step:.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}; the port's kernels ~{in_kernels:.0f} ms a "
+            f"step (per-call times x launches, not a trace)")
+        losses = [mt["loss"] for mt in hist]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train: loss not finite and falling: {losses}")
+        for k, n in counts.items():
+            want = TRAIN_PER_LAYER.get(k, 0) * cfg.n_layers * steps
+            if n != want:
+                fail(f"train: kernel {k} launched {n} times, expected {want}")
+        for k in TRAIN_KERNELS:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+        # one step from one state, twice: the same bits
+        state = trainer.state
+        tokens, labels = data.batch(steps)
+        batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+        s1, m1 = trainer.step_fn(state, batch)
+        s2, m2 = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(tree_leaves(s1),
+                                                      tree_leaves(s2))
+                   if torch.is_tensor(x))
+        same = same and all(torch.equal(torch.as_tensor(m1[k]),
+                                        torch.as_tensor(m2[k]))
+                            for k in m1)
+        if not same:
+            fail("train: one step from the same state gave other bits")
+        log(f"  ok a step repeated from one state: identical bits (loss "
+            f"{float(m1['loss']):.6f})")
+        del s1, s2
+
+        # one step's loss and gradients, kernels vs plain versions
+        grad_fn = make_grad_fn(cfg, tcfg, dev)
+        ce_k, g_k = grad_fn(state.params, batch)
+        with _plain_train_kernels():
+            ce_p, g_p = grad_fn(state.params, batch)
+        torch.cuda.synchronize()
+        rel = abs(float(ce_k) - float(ce_p)) / abs(float(ce_p))
+        if rel > TOL_TRAIN_LOSS:
+            fail(f"train: loss kernels {float(ce_k)} vs plain {float(ce_p)}"
+                 f" (relative {rel:.2e} > {TOL_TRAIN_LOSS:.0e})")
+        worst, worst_at = 0.0, "(every tensor)"
+        for (path, gk), gp in zip(tree_paths(g_k), tree_leaves(g_p)):
+            r = max_err(gk, gp) / max(float(gp.abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_at = r, path
+        if worst > TOL_TRAIN_GRAD:
+            fail(f"train: gradient {worst_at} kernels vs plain {worst:.2e} "
+                 f"of its max > {TOL_TRAIN_GRAD:.0e}")
+        log(f"  ok one step, kernels vs plain: loss relative {rel:.2e} "
+            f"(limit {TOL_TRAIN_LOSS:.0e}), worst gradient {worst_at} "
+            f"{worst:.2e} of its max (limit {TOL_TRAIN_GRAD:.0e})")
+        del g_k, g_p, trainer, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # save and resume at full width, depth cut to 2 layers
+        cut = cfg.replace(n_layers=2)
+        quiet = dict(device=dev, data=data, log=lambda *_: None)
+        saved = TrainConfig(lr=3e-4, warmup_steps=2, remat=True,
+                            total_steps=steps, checkpoint_every=2,
+                            checkpoint_dir=os.path.join(tmp, "saved"))
+        Trainer(cut, saved, b, seq, **quiet).run(2)
+        resumed = Trainer(cut, saved, b, seq, **quiet)
+        if resumed.start_step != 2:
+            fail(f"train: resumed at step {resumed.start_step}, not 2")
+        m_res = resumed.run(2)
+        cont = TrainConfig(lr=3e-4, warmup_steps=2, remat=True,
+                           total_steps=steps, checkpoint_every=1000,
+                           checkpoint_dir=os.path.join(tmp, "cont"))
+        m_cont = Trainer(cut, cont, b, seq, **quiet).run(4)
+        if not np.isclose(m_res["loss"], m_cont["loss"], rtol=1e-4, atol=0):
+            fail(f"train: resumed loss {m_res['loss']} vs uninterrupted "
+                 f"{m_cont['loss']}")
+        log(f"  ok save at step 2, resume, step 4: loss {m_res['loss']:.6f} "
+            f"vs uninterrupted {m_cont['loss']:.6f} (rtol 1e-4; "
+            f"{'identical' if m_res['loss'] == m_cont['loss'] else 'close'})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1049,6 +1399,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (sets the float32 matmul policy)
     from repro_torch.kernels import _build
     import repro_torch.kernels.dualmode_softmax  # noqa: F401  (registers)
+    import repro_torch.kernels.flash_attention_bwd  # noqa: F401  (registers)
     import repro_torch.kernels.flash_attention_int  # noqa: F401  (registers)
     import repro_torch.kernels.flash_decode  # noqa: F401  (registers)
     import repro_torch.kernels.fused_ffn  # noqa: F401  (registers)
@@ -1076,6 +1427,8 @@ def main() -> int:
     long_serve_phase(dev, launches)
     yi_kernel_phase(dev, results)
     yi_serve_phase(dev, launches)
+    train_kernel_phase(dev, results)
+    train_phase(dev, launches, results)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -148,6 +148,19 @@ __device__ __forceinline__ float pair_act_f32(float z) {
   return z * pair_sigmoid_f32(0.5f * z);
 }
 
+// d/dz of pair_act_f32 (datapath.pair_act_grad), through the same
+// pair_sigmoid_f32 tap as the forward: s + z * 2 s (1 - s) k'(z)
+template <bool kGelu>
+__device__ __forceinline__ float pair_act_grad_f32(float z) {
+  if (kGelu) {
+    const float s = pair_sigmoid_f32(SQRT_2_OVER_PI * (z + GELU_CUBIC * z * z * z));
+    const float kp = SQRT_2_OVER_PI * (1.0f + 3.0f * GELU_CUBIC * z * z);
+    return s + z * (2.0f * s * (1.0f - s)) * kp;
+  }
+  const float s = pair_sigmoid_f32(0.5f * z);
+  return s + z * s * (1.0f - s);
+}
+
 // ---- snapped-max monoid ----------------------------------------------------
 
 __device__ __forceinline__ int32_t to_snap_domain(int32_t x) {

@@ -63,6 +63,21 @@ def pair_act(z: torch.Tensor, mode: str) -> torch.Tensor:
     raise ValueError(f"unknown pair-act mode {mode!r}")
 
 
+def pair_act_grad(z: torch.Tensor, mode: str) -> torch.Tensor:
+    """d/dz of :func:`pair_act`, through the unit's own ``pair_sigmoid``
+    tap (s = sigma(2k)), so a backward evaluates the exponentials the
+    forward ran:  y' = s + z * 2 s (1 - s) * k'(z), with 2k' = 1 for
+    SiLU and k' = sqrt(2/pi) (1 + 3 GELU_CUBIC z^2) for GELU."""
+    if mode == "gelu":
+        s = pair_sigmoid(gelu_k(z))
+        kp = SQRT_2_OVER_PI * (1.0 + 3.0 * GELU_CUBIC * z * z)
+        return s + z * (2.0 * s * (1.0 - s)) * kp
+    if mode == "silu":
+        s = pair_sigmoid(0.5 * z)
+        return s + z * s * (1.0 - s)
+    raise ValueError(f"unknown pair-act mode {mode!r}")
+
+
 def online_softmax_update(m, l, s):
     """One streamed block of Eq. (10) (Milakov & Gimelshein recurrence):
     returns (m_new, l_new, p, corr); acc <- acc * corr + p @ v."""
@@ -107,9 +122,54 @@ def online_softmax_merge_n(m, l, acc, dim: int = 0):
             torch.sum(acc * c, dim=dim, keepdim=True))
 
 
+def _rsqrt_log2(v: torch.Tensor) -> torch.Tensor:
+    """rsqrt through the unit: 2**(-0.5 log2 v), v > 0."""
+    return torch.exp2(-0.5 * torch.log2(v))
+
+
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm, f32 in/out, rsqrt through the unit as 2**(-0.5 log2 v)."""
     x32 = x.to(torch.float32)
     ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
-    r = torch.exp2(-0.5 * torch.log2(ms + eps))
-    return x32 * r * g.to(torch.float32)
+    return x32 * _rsqrt_log2(ms + eps) * g.to(torch.float32)
+
+
+def _moments(x32: torch.Tensor, eps: float):
+    """LayerNorm's (mu, rsqrt(var + eps)), one-pass var = E[x^2] - mu^2."""
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.clamp(torch.mean(torch.square(x32), dim=-1, keepdim=True)
+                      - torch.square(mu), min=0.0)
+    return mu, _rsqrt_log2(var + eps)
+
+
+def layernorm(x, g, b, eps: float) -> torch.Tensor:
+    """LayerNorm, f32 in/out, the moments of :func:`_moments`."""
+    x32 = x.to(torch.float32)
+    mu, r = _moments(x32, eps)
+    return (x32 - mu) * r * g.to(torch.float32) + b.to(torch.float32)
+
+
+def rmsnorm_vjp(x, g, eps: float, dy):
+    """VJP of :func:`rmsnorm` wrt (x, g): with r = rsqrt(ms + eps) and
+    w = g * dy,  dx = r w - x r^3 mean(x w),  dg-hat = dy x r (callers
+    reduce over leading axes).  All f32.  Returns (dx, dg_hat)."""
+    x32, dy32 = x.to(torch.float32), dy.to(torch.float32)
+    ms = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    r = _rsqrt_log2(ms + eps)
+    w = g.to(torch.float32) * dy32
+    dx = r * w - x32 * (r * r * r) * torch.mean(x32 * w, dim=-1,
+                                                keepdim=True)
+    return dx, dy32 * x32 * r
+
+
+def layernorm_vjp(x, g, eps: float, dy):
+    """VJP of :func:`layernorm` wrt (x, g, b): with xhat = (x - mu) r and
+    w = g * dy,  dx = r (w - mean(w) - xhat mean(w xhat)),  dg-hat =
+    dy xhat,  db-hat = dy.  Returns (dx, dg_hat, db_hat), all f32."""
+    x32, dy32 = x.to(torch.float32), dy.to(torch.float32)
+    mu, r = _moments(x32, eps)
+    xhat = (x32 - mu) * r
+    w = g.to(torch.float32) * dy32
+    dx = r * (w - torch.mean(w, dim=-1, keepdim=True)
+              - xhat * torch.mean(w * xhat, dim=-1, keepdim=True))
+    return dx, dy32 * xhat, dy32

@@ -78,6 +78,7 @@ def get_softmax(impl: str) -> Callable:
 
 _ATTENTION: dict[str, Callable] = {}
 _ATTENTION_MODES: dict[str, frozenset[str]] = {}
+_ATTENTION_GRAD: dict[str, bool] = {}
 _PAGED_ATTENTION: dict[str, Callable] = {}
 
 # the reference's impls that a later slice of the port brings
@@ -87,11 +88,15 @@ NOT_PORTED = {
 }
 
 
-def register_attention(name: str, fn: Callable, *, modes) -> None:
+def register_attention(name: str, fn: Callable, *, modes,
+                       grad: bool) -> None:
     """fn(q, k, v, *, q_pos, kv_valid, causal, scale, softmax_impl);
-    ``modes`` declares the softmax impls the entry honors."""
+    ``modes`` declares the softmax impls the entry honors, ``grad``
+    whether it is differentiable (the reference's ``AttentionInfo.grad``:
+    the int word paths and the decode kernels are forward-only)."""
     _ATTENTION[name] = fn
     _ATTENTION_MODES[name] = frozenset(modes)
+    _ATTENTION_GRAD[name] = grad
 
 
 def register_paged_attention(name: str, fn: Callable) -> None:
@@ -167,6 +172,12 @@ def resolve_attention(impl: str, s_q: int, t_kv: int,
                 f"softmax_impl={softmax_impl!r} -- the dualmode word "
                 "contract is never silently dropped; use attn_impl='auto'")
     return impl
+
+
+def attention_grad(name: str) -> bool:
+    """Whether ``name`` declares itself differentiable."""
+    attention_modes(name)
+    return _ATTENTION_GRAD[name]
 
 
 def get_attention(impl: str) -> Callable:

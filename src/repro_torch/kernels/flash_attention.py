@@ -25,6 +25,13 @@ is the reference's full sweep of every tile (``models.flash``), so it
 holds the fold to account at any shape -- also for a row whose every
 visible key is masked, where that tail carries most of the mass.  The
 two agree up to f32 summation order.
+
+Gradients: :func:`flash_attention_pallas` runs the kernel inside a
+``torch.autograd.Function`` whenever grad is needed (on either device).
+Its forward then also writes the (m, l) row statistics, saves (qf, k,
+v, o, m, l), and its backward calls the dq and dk/dv kernels of
+``flash_attention_bwd.py``.  The scale is folded into q outside the
+Function, so its chain rule is PyTorch's, as in the reference.
 """
 from __future__ import annotations
 
@@ -47,12 +54,13 @@ MAX_HEAD_DIM = 128       # h and hv the kernels take (kMaxHD)
 
 
 def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
-                       causal: bool, t_kv: int):
+                       causal: bool, t_kv: int, return_mask: bool = False):
     """Masked scores of one KV tile -- ONE definition of the flash masking
     (the reference's, batched): qf (B, S, K, G, h) pre-scaled, kb (B,
     bkv, K, h), q_pos (B, S), valid (B, bkv) -> scores (B, K, G, S, bkv)
     with MASK_VALUE at invalid / causally masked keys and -inf at phantom
-    keys (position >= t_kv)."""
+    keys (position >= t_kv).  ``return_mask`` also returns where the
+    score is the dot product itself (the backward zeroes dS elsewhere)."""
     s = torch.einsum("bskgh,btkh->bkgst", qf, kb.to(torch.float32))
     kv_pos = kv_tile * block_kv + torch.arange(kb.shape[1], device=qf.device)
     mask = (valid != 0)[:, None, None, None, :]
@@ -60,7 +68,10 @@ def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
         mask = mask & (kv_pos[None, None, None, None, :]
                        <= q_pos[:, None, None, :, None])
     s = torch.where(mask, s, torch.full_like(s, dp.MASK_VALUE))
-    return torch.where(kv_pos < t_kv, s, torch.full_like(s, -torch.inf))
+    s = torch.where(kv_pos < t_kv, s, torch.full_like(s, -torch.inf))
+    if return_mask:
+        return s, mask & (kv_pos < t_kv)
+    return s
 
 
 def v_tail_sums(v, block_kv: int):
@@ -147,6 +158,27 @@ def flash_fwd(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
     return (out, m, l) if return_stats else out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The reference's custom VJP around the blocked forward."""
+
+    @staticmethod
+    def forward(ctx, qf, k, v, q_pos, kv_valid, causal, block_kv):
+        o, m, l = flash_fwd(qf, k, v, q_pos, kv_valid, causal=causal,
+                            block_kv=block_kv, return_stats=True)
+        ctx.save_for_backward(qf, k, v, o, m, l, q_pos, kv_valid)
+        ctx.causal, ctx.block_kv = causal, block_kv
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from .flash_attention_bwd import flash_attention_bwd_pallas
+        qf, k, v, o, m, l, q_pos, kv_valid = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_pallas(
+            qf, k, v, o, m, l, do, q_pos=q_pos, kv_valid=kv_valid,
+            causal=ctx.causal, block_kv=ctx.block_kv)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
                            scale: float | None = None,
                            block_kv: int | None = None,
@@ -155,19 +187,30 @@ def flash_attention_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
     folded into q in f32 before the kernel; ``return_stats`` also returns
     the (B, K, G, S) per-row (m, l) of the pre-scaled scores.  The q tile
     is the kernel's own (``tiling.ATTN_BLOCK_Q`` rows); ``block_kv`` (at
-    most ``tiling.ATTN_BLOCK_KV``) defaults to the tiling policy."""
+    most ``tiling.ATTN_BLOCK_KV``) defaults to the tiling policy.
+    Differentiable in q, k and v; ``return_stats`` is the forward-only
+    form and raises ValueError when grad is needed."""
     scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
     if block_kv is None:
         block_kv = tiling.attention_blocks(q.shape[1], k.shape[1])[1]
     qf = (q.to(torch.float32) * scale).contiguous()
-    res = flash_fwd(qf, k.to(torch.float32).contiguous(),
-                    v.to(torch.float32).contiguous(),
-                    q_pos.to(torch.int32).contiguous(),
-                    kv_valid.to(torch.uint8).contiguous(), causal=causal,
-                    block_kv=block_kv, return_stats=return_stats)
+    args = (qf, k.to(torch.float32).contiguous(),
+            v.to(torch.float32).contiguous(),
+            q_pos.to(torch.int32).contiguous(),
+            kv_valid.to(torch.uint8).contiguous())
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in args[:3])
     if return_stats:
-        return res[0].to(v.dtype), res[1], res[2]
-    return res.to(v.dtype)
+        if needs_grad:
+            raise ValueError(
+                "flash_attention_pallas: return_stats is forward-only; "
+                "call it under torch.no_grad() or without return_stats")
+        o, m, l = flash_fwd(*args, causal=causal, block_kv=block_kv,
+                            return_stats=True)
+        return o.to(v.dtype), m, l
+    if needs_grad:
+        return _FlashAttention.apply(*args, causal, block_kv).to(v.dtype)
+    return flash_fwd(*args, causal=causal, block_kv=block_kv).to(v.dtype)
 
 
 def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
@@ -182,4 +225,4 @@ def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
 
 
 dispatch.register_attention("flash_pallas", _attention_entry,
-                            modes=("float",))
+                            modes=("float",), grad=True)

@@ -199,4 +199,4 @@ def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
 
 
 dispatch.register_attention("flash_pallas_int", _attention_entry,
-                            modes=("dualmode", "dualmode_snap"))
+                            modes=("dualmode", "dualmode_snap"), grad=False)

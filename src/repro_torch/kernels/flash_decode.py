@@ -418,5 +418,6 @@ def _paged_attention_entry(q, k_pool, v_pool, *, block_tables, q_pos,
 
 
 dispatch.register_attention("flash_decode", _attention_entry,
-                            modes=("float", "dualmode", "dualmode_snap"))
+                            modes=("float", "dualmode", "dualmode_snap"),
+                            grad=False)
 dispatch.register_paged_attention("flash_decode", _paged_attention_entry)

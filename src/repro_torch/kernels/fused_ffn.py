@@ -1,8 +1,9 @@
 """The gated FFN with its activation epilogue fused (port of
-``repro.kernels.fused_ffn``, forward).
+``repro.kernels.fused_ffn``).
 
 ``fused_glu``  replaces ``_fused_glu_jit`` (fused_ffn.py:133), registered
                as the ffn impl ``'fused_pallas'``
+``glu_bwd``    replaces ``_glu_bwd_call`` (fused_ffn.py:79)
 
     Y = pair_act(X @ Wg, mode) * (X @ Wu),   mode 'silu' or 'gelu'
 
@@ -14,7 +15,12 @@ runs the plain version :func:`_glu_reference` (the reference's unfused
 graph with the same epilogue) for CPU tensors, and launches the kernel
 for CUDA tensors, or raises.  The two agree up to f32 summation order.
 
-The fused backward (``_glu_bwd_call``) belongs to the training slice.
+``fused_glu`` is a ``torch.autograd.Function`` (on either device) with
+the reference's custom VJP: ``glu_bwd`` recomputes the (g, u) tiles and
+writes d_gate = dY u pair_act'(g) and d_up = dY pair_act(g)
+(``csrc/glu_bwd.cu``, the same GEMM body with another epilogue; plain
+version :func:`_glu_bwd_plain`); the four products around it (dx, dWg,
+dWu) are ``torch.matmul``, as they are plain XLA dots in the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +37,11 @@ GLU = _build.Kernel(
     source="src/repro_torch/csrc/glu.cu",
     replaces="src/repro/kernels/fused_ffn.py:133")
 
+GLU_BWD = _build.Kernel(
+    "glu_bwd", "glu_bwd_launch", [_P] * 6 + [_I] * 6 + [_P],
+    source="src/repro_torch/csrc/glu_bwd.cu",
+    replaces="src/repro/kernels/fused_ffn.py:79")
+
 MODES = ("gelu", "silu")
 
 
@@ -42,24 +53,38 @@ def _glu_reference(x, wg, wu, mode: str):
     return (dp.pair_act(g, mode) * u).to(x.dtype)
 
 
-def fused_glu(x, wg, wu, *, mode: str = "silu"):
-    """x (M, K) @ wg / wu (K, F) with the fused activation epilogue ->
-    (M, F)."""
-    if mode not in MODES:
-        raise ValueError(f"unknown pair-act mode {mode!r}")
+def _glu_bwd_plain(x, wg, wu, dy, mode: str):
+    """Plain version of the backward kernel (the reference's
+    ``_ffn_bwd_body``): recompute g and u -> (d_gate, d_up) f32."""
+    g = x.to(torch.float32) @ wg.to(torch.float32)
+    u = x.to(torch.float32) @ wu.to(torch.float32)
+    dy = dy.to(torch.float32)
+    return dy * u * dp.pair_act_grad(g, mode), dy * dp.pair_act(g, mode)
+
+
+def _check_2d(name: str, dev, **tensors) -> None:
+    for key, t in tensors.items():
+        if t.dtype != torch.float32 or t.device != dev or t.ndim != 2:
+            raise ValueError(f"{name}: {key} is {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}; the kernel takes 2-D float32 "
+                             f"on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _check_glu_shapes(name: str, x, wg, wu) -> None:
+    if wg.shape != wu.shape or wg.shape[0] != x.shape[1]:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, wg "
+                         f"{tuple(wg.shape)}, wu {tuple(wu.shape)}")
+
+
+def _glu_fwd(x, wg, wu, mode: str):
+    """The forward kernel (CUDA tensors) or its plain version (CPU)."""
     if x.device.type == "cpu":
         return _glu_reference(x, wg, wu, mode)
-    for name, t in (("x", x), ("wg", wg), ("wu", wu)):
-        if t.dtype != torch.float32 or t.device != x.device or t.ndim != 2:
-            raise ValueError(f"fused_glu: {name} is {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}; the kernel "
-                             f"takes 2-D float32 on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"fused_glu: {name} must be contiguous")
+    _check_2d("fused_glu", x.device, x=x, wg=wg, wu=wu)
+    _check_glu_shapes("fused_glu", x, wg, wu)
     m, k = x.shape
-    if wg.shape != wu.shape or wg.shape[0] != k:
-        raise ValueError(f"fused_glu: x {tuple(x.shape)}, wg "
-                         f"{tuple(wg.shape)}, wu {tuple(wu.shape)}")
     out = torch.empty((m, wg.shape[1]), dtype=x.dtype, device=x.device)
     if out.numel():
         GLU(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), m, k,
@@ -67,6 +92,58 @@ def fused_glu(x, wg, wu, *, mode: str = "silu"):
             *tiling.matmul_blocks(m, norm_prologue=False),
             _build.stream_ptr(x.device))
     return out
+
+
+def glu_bwd(x, wg, wu, dy, *, mode: str):
+    """(d_gate, d_up), each (M, F) f32: the backward kernel (CUDA
+    tensors) or :func:`_glu_bwd_plain` (CPU tensors); x (M, K), wg / wu
+    (K, F), dy (M, F)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pair-act mode {mode!r}")
+    if x.device.type == "cpu":
+        return _glu_bwd_plain(x, wg, wu, dy, mode)
+    _check_2d("glu_bwd", x.device, x=x, wg=wg, wu=wu, dy=dy)
+    _check_glu_shapes("glu_bwd", x, wg, wu)
+    m, k = x.shape
+    f = wg.shape[1]
+    if dy.shape != (m, f):
+        raise ValueError(f"glu_bwd: dy {tuple(dy.shape)}, expected {(m, f)}")
+    d_gate = torch.empty((m, f), device=x.device)
+    d_up = torch.empty_like(d_gate)
+    if d_gate.numel():
+        GLU_BWD(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), dy.data_ptr(),
+                d_gate.data_ptr(), d_up.data_ptr(), m, k, f,
+                MODES.index(mode),
+                *tiling.matmul_blocks(m, norm_prologue=False),
+                _build.stream_ptr(x.device))
+    return d_gate, d_up
+
+
+class _FusedGLU(torch.autograd.Function):
+    """``_fused_glu_jit``'s custom VJP: saves (x, wg, wu)."""
+
+    @staticmethod
+    def forward(ctx, x, wg, wu, mode):
+        ctx.save_for_backward(x, wg, wu)
+        ctx.mode = mode
+        return _glu_fwd(x, wg, wu, mode)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, wg, wu = ctx.saved_tensors
+        dg, du = glu_bwd(x, wg, wu, gy.contiguous(), mode=ctx.mode)
+        xf = x.to(torch.float32)
+        dx = dg @ wg.to(torch.float32).T + du @ wu.to(torch.float32).T
+        return (dx.to(x.dtype), (xf.T @ dg).to(wg.dtype),
+                (xf.T @ du).to(wu.dtype), None)
+
+
+def fused_glu(x, wg, wu, *, mode: str = "silu"):
+    """x (M, K) @ wg / wu (K, F) with the fused activation epilogue ->
+    (M, F); differentiable."""
+    if mode not in MODES:
+        raise ValueError(f"unknown pair-act mode {mode!r}")
+    return _FusedGLU.apply(x, wg, wu, mode)
 
 
 dispatch.register_ffn("fused_pallas",

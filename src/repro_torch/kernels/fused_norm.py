@@ -24,6 +24,13 @@ wrapper runs its plain version for CPU tensors and launches its CUDA
 kernel for CUDA tensors, or raises.  The kernels agree with the plain
 versions up to f32 summation order.
 
+Both seams are ``torch.autograd.Function``s, on either device, with the
+reference's custom VJPs as their backwards: plain PyTorch through
+``datapath.rmsnorm_vjp`` / ``layernorm_vjp`` (the reference's backwards
+are jnp, not Pallas); norm_linear recomputes the normalized stream and
+takes dW = h^T dO and dh = dO W^T as ``torch.matmul``.  A bias that is
+None gets no gradient.
+
 The third seam of the reference's provider, norm -> gated GLU
 (``_norm_glu_jit``), fires only in blocks whose attention epilogue made
 no normed stream ('none' mixers, cross-attention sublayers): it is not
@@ -33,7 +40,9 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, dispatch, tiling
+from . import _build
+from . import datapath as dp
+from . import dispatch, tiling
 
 _P, _I, _F = _build.P, _build.I, _build.F
 
@@ -112,9 +121,8 @@ def _check(name: str, kind: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
-    """(x + r, norm(x + r) * g + b); x, r (..., d), g / b (d,), b None
-    for rms.  Both outputs in x's dtype."""
+def _resnorm_fwd(x, r, g, b, *, kind: str, eps: float):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
     if x.device.type == "cpu":
         return fused_residual_norm_plain(x, r, g, b, kind=kind, eps=eps)
     _check("fused_residual_norm", kind, x=x, r=r, g=g, b=b)
@@ -132,10 +140,8 @@ def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
     return xo, ho
 
 
-def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):
-    """norm(x) @ [W0 | W1 | W2] without the normalized stream in memory:
-    x (..., d), ``ws`` a sequence of up to three (d, n_i) matrices ->
-    (..., sum n_i)."""
+def _norm_linear_fwd(x, g, b, ws, *, kind: str, eps: float):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
     if x.device.type == "cpu":
         return fused_norm_linear_plain(x, g, b, ws, kind=kind, eps=eps)
     ws = _matrices(ws)
@@ -160,6 +166,84 @@ def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):
                     *tiling.matmul_blocks(m, norm_prologue=True),
                     _build.stream_ptr(x.device))
     return out
+
+
+# ---- autograd ---------------------------------------------------------------
+
+def _dense_h(x, g, b, *, kind: str, eps: float):
+    """The dense f32 normalized-and-scaled stream the backward recomputes
+    (the reference's ``_dense_h``)."""
+    if kind == "rms":
+        return dp.rmsnorm(x, g, eps)
+    return dp.layernorm(x, g, b, eps)
+
+
+def _norm_vjp(x, g, b, dy, *, kind: str, eps: float):
+    """(dx, dg, db) through the datapath's VJPs, dg / db reduced over the
+    leading axes; db None without a bias."""
+    d = x.shape[-1]
+    if kind == "rms":
+        dx, dg_hat = dp.rmsnorm_vjp(x, g, eps, dy)
+        db = None
+    else:
+        dx, dg_hat, db_hat = dp.layernorm_vjp(x, g, eps, dy)
+        db = None if b is None else db_hat.reshape(-1, d).sum(0).to(b.dtype)
+    return dx, dg_hat.reshape(-1, d).sum(0).to(g.dtype), db
+
+
+class _ResidualNorm(torch.autograd.Function):
+    """``_resnorm_jit``'s custom VJP: saves (x, r, g, b), recomputes x + r."""
+
+    @staticmethod
+    def forward(ctx, x, r, g, b, kind, eps):
+        ctx.save_for_backward(x, r, g, b)
+        ctx.kind, ctx.eps = kind, eps
+        return _resnorm_fwd(x, r, g, b, kind=kind, eps=eps)
+
+    @staticmethod
+    def backward(ctx, d_xnew, dh):
+        x, r, g, b = ctx.saved_tensors
+        xn = x.to(torch.float32) + r.to(torch.float32)
+        dxn, dg, db = _norm_vjp(xn, g, b, dh, kind=ctx.kind, eps=ctx.eps)
+        dxn = dxn + d_xnew.to(torch.float32)
+        return dxn.to(x.dtype), dxn.to(r.dtype), dg, db, None, None
+
+
+class _NormLinear(torch.autograd.Function):
+    """``_norm_linear_jit``'s custom VJP; the matrices ride as separate
+    inputs so each gets its own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, kind, eps, *ws):
+        ctx.save_for_backward(x, g, b, *ws)
+        ctx.kind, ctx.eps = kind, eps
+        return _norm_linear_fwd(x, g, b, ws, kind=kind, eps=eps)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, g, b, *ws = ctx.saved_tensors
+        kind, eps = ctx.kind, ctx.eps
+        do32 = do.to(torch.float32).reshape(-1, do.shape[-1])
+        wc = torch.cat([m.to(torch.float32) for m in ws], dim=1)
+        dh = (do32 @ wc.T).reshape(x.shape)
+        h = _dense_h(x, g, b, kind=kind, eps=eps).reshape(-1, x.shape[-1])
+        dws = torch.split(h.T @ do32, [m.shape[1] for m in ws], dim=1)
+        dx, dg, db = _norm_vjp(x, g, b, dh, kind=kind, eps=eps)
+        return (dx.to(x.dtype), dg, db, None, None,
+                *(dw.to(m.dtype) for dw, m in zip(dws, ws)))
+
+
+def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
+    """(x + r, norm(x + r) * g + b); x, r (..., d), g / b (d,), b None
+    for rms.  Both outputs in x's dtype; differentiable."""
+    return _ResidualNorm.apply(x, r, g, b, kind, eps)
+
+
+def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):
+    """norm(x) @ [W0 | W1 | W2] without the normalized stream in memory:
+    x (..., d), ``ws`` a sequence of up to three (d, n_i) matrices ->
+    (..., sum n_i); differentiable."""
+    return _NormLinear.apply(x, g, b, kind, eps, *_matrices(ws))
 
 
 def _norm_glu_not_ported(*args, **kwargs):

@@ -73,8 +73,9 @@ dispatch.register_attention(
     lambda q, k, v, *, q_pos, kv_valid, causal, scale, softmax_impl="float":
     _naive_sdpa(q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal,
                 scale=scale, softmax_impl=softmax_impl),
-    modes=("float", "dualmode", "dualmode_snap"))
-dispatch.register_attention("flash", _flash_entry, modes=("float",))
+    modes=("float", "dualmode", "dualmode_snap"), grad=True)
+dispatch.register_attention("flash", _flash_entry, modes=("float",),
+                            grad=True)
 
 
 def _sdpa(q, k, v, *, q_pos, kv_valid, softmax_impl, causal=True,
@@ -83,6 +84,10 @@ def _sdpa(q, k, v, *, q_pos, kv_valid, softmax_impl, causal=True,
     impl = dispatch.resolve_attention(attn_impl, q.shape[1], k.shape[1],
                                       softmax_impl=softmax_impl,
                                       device=q.device)
+    if (torch.is_grad_enabled() and not dispatch.attention_grad(impl)
+            and any(t.requires_grad for t in (q, k, v))):
+        raise ValueError(f"attn_impl {impl!r} is forward-only and cannot "
+                         "pass gradients; train with a float impl")
     return dispatch.get_attention(impl)(
         q, k, v, q_pos=q_pos, kv_valid=kv_valid, causal=causal, scale=scale,
         softmax_impl=softmax_impl)

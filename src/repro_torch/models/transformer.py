@@ -12,6 +12,7 @@ reference's stacked pytree onto this layout.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import check_on, resolve_device
@@ -149,7 +150,7 @@ def block_apply(p: Params, cfg: ModelConfig, x, cache, *, positions, pos,
 
 def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
              pos=0, caches: list | None = None, last_pos=None, paged=None,
-             device=None):
+             remat: bool = False, return_hidden: bool = False, device=None):
     """tokens (B,S) -> (logits, caches).
 
     caches=None : full causal forward, no state.
@@ -161,6 +162,12 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   through the (B, max_blocks) block tables; the pools are
                   updated in place and returned.
     last_pos    : optional (B,) rows -- logits only there.
+    remat       : train mode (caches=None): checkpoint each block
+                  (``torch.utils.checkpoint``, non-reentrant), the
+                  reference's per-period ``jax.checkpoint`` with one block
+                  a period -- its activations are recomputed in backward.
+    return_hidden: skip the LM head and return the final-norm hidden
+                  states (the chunked CE applies the head itself).
     device      : where to run; None means the GPU (raising when there is
                   none).  Params and tokens must already live there.
     """
@@ -172,15 +179,30 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, sl = tokens.shape
     x = params["embed"][tokens]
     positions = _positions_from(pos, b, sl, dev)
+    if remat and caches is not None:
+        raise ValueError("remat is for train mode (caches=None)")
     for i, lp in enumerate(params["layers"]):
+        if remat:
+            x = checkpoint(_train_block, lp, cfg, x, positions,
+                           use_reentrant=False)
+            continue
         x, _ = block_apply(lp, cfg, x, None if caches is None else caches[i],
                            positions=positions, pos=pos, paged=paged)
     if last_pos is not None:
         idx = last_pos.to(dev).long()[:, None, None].expand(b, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["lm_head"]["w"]
-    return logits, caches
+    if return_hidden:
+        return x, caches
+    return x @ lm_head_weight(params, cfg), caches
+
+
+def _train_block(lp: Params, cfg: ModelConfig, x, positions):
+    return block_apply(lp, cfg, x, None, positions=positions, pos=0,
+                       paged=None)[0]
+
+
+def lm_head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """(d, vocab) head matrix (the transposed embedding when tied)."""
+    return (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])

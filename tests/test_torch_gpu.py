@@ -18,7 +18,11 @@ the residual sum bitwise (one f32 add either way), the normalized row
 QKV prologue and the fused GLU 1e-4 (f32 dot products over up to 4096
 terms in two orders -- 32-deep chunks against cuBLAS -- give ~1e-5 on
 outputs of magnitude up to ~5, and the GLU multiplies one such error by
-|u| up to ~5).
+|u| up to ~5).  Training (rows 10, 11, 13 and the autograd Functions):
+dq, dk, dv and d_gate / d_up within 1e-5 / 2e-5 of max(1, max |plain|)
+(f32 sums over up to thousands of rows in two orders), the Functions'
+gradients on CUDA tensors within 1e-4 of the dense graph's (the
+kernels' and cuBLAS's orders of f32 products).
 """
 import os
 
@@ -205,11 +209,13 @@ def test_kernel_registry(cuda):
     import repro_torch.kernels.flash_attention_int  # noqa: F401
     import repro_torch.kernels.fused_ffn  # noqa: F401
     import repro_torch.kernels.fused_norm  # noqa: F401
+    import repro_torch.kernels.flash_attention_bwd  # noqa: F401
     assert set(_build.KERNELS) == {"softmax_rows", "pair_act",
                                    "decode_paged", "decode_paged_int",
                                    "decode_dense", "decode_dense_int",
                                    "flash_fwd", "flash_snap", "resnorm",
-                                   "norm_linear", "glu"}
+                                   "norm_linear", "glu", "flash_bwd_dq",
+                                   "flash_bwd_dkdv", "glu_bwd"}
     x = torch.zeros(2, 3, device=cuda)
     with pytest.raises(ValueError):
         ds.softmax_rows(x.t())                  # not contiguous
@@ -298,3 +304,113 @@ def test_decode_dense_kernels(cuda, g, num_splits):
         torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
                                    fd.finish_partials(*pi, int_mode=True),
                                    atol=1e-5 if grid else 1e-4, rtol=0)
+
+
+# ---------------- training: backward kernels and autograd ----------------
+
+def _close_rel(got, want, tol):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=tol * max(1.0, float(want.abs().max())))
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 130, 200, 2, 1, 64, 64, True, 64, None),     # S != T, ragged tile
+    (2, 33, 129, 3, 4, 128, 72, True, 16, None),     # GQA, hv != h
+    (2, 40, 300, 2, 2, 64, 64, True, 64, 40),        # all-masked rows
+    (2, 64, 100, 1, 3, 32, 32, False, 37, None),     # non-causal
+    (1, 256, 256, 2, 1, 64, 64, True, 64, None)])    # skipped tiles
+def test_flash_bwd_kernels(cuda, shape):
+    """Rows 10 / 11: dq and dk/dv (causal skip and the folded dV tail)
+    against the plain full sweeps."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    b, s, t, kh, g, h, hv, causal, bkv, end = shape
+    qf, k, v, qp, valid = _attn(cuda, b, s, t, kh, g, h, hv, False,
+                                causal_end=end)
+    if end is not None:
+        valid[:, 0] = 0
+    o, m, l = fa.flash_fwd(qf, k, v, qp, valid, causal=causal, block_kv=bkv,
+                           return_stats=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(5)).to(
+        cuda)
+    args, kw = (qf, k, v, o, m, l, do, qp, valid), dict(causal=causal,
+                                                        block_kv=bkv)
+    before = (fb.FLASH_BWD_DQ.launches, fb.FLASH_BWD_DKDV.launches)
+    dq = fb.flash_bwd_dq(*args, **kw)
+    dk, dv = fb.flash_bwd_dkdv(*args, **kw)
+    assert (fb.FLASH_BWD_DQ.launches, fb.FLASH_BWD_DKDV.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close_rel(dq, fb.flash_bwd_dq_plain(*args, **kw), 1e-5)
+    for got, want in zip((dk, dv), fb.flash_bwd_dkdv_plain(*args, **kw)):
+        _close_rel(got, want, 1e-5)
+    again = fb.flash_bwd_dkdv(*args, **kw)          # no atomics: same bits
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+@pytest.mark.parametrize("mode", ["silu", "gelu"])
+@pytest.mark.parametrize("m,k,f", [(8192, 1024, 2816), (64, 4096, 11008),
+                                   (23, 200, 130), (1, 64, 1)])
+def test_glu_bwd_kernel(cuda, mode, m, k, f):
+    from repro_torch.kernels import fused_ffn as ff
+    gen = torch.Generator().manual_seed(6)
+    x, dy = _randn(gen, cuda, m, k), _randn(gen, cuda, m, f)
+    wg = _randn(gen, cuda, k, f, scale=k ** -0.5)
+    wu = _randn(gen, cuda, k, f, scale=k ** -0.5)
+    before = ff.GLU_BWD.launches
+    got = ff.glu_bwd(x, wg, wu, dy, mode=mode)
+    assert ff.GLU_BWD.launches == before + 1
+    for a, b in zip(got, ff._glu_bwd_plain(x, wg, wu, dy, mode)):
+        _close_rel(a, b, 2e-5)
+
+
+def test_autograd_functions_on_cuda(cuda):
+    """The Functions around flash_pallas, the fused norms and the fused
+    GLU: their gradients on CUDA tensors against torch.autograd of the
+    dense graph, and each backward through its kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    from repro_torch.models.attention import _naive_sdpa
+    gen = torch.Generator().manual_seed(7)
+    q = _randn(gen, cuda, 2, 70, 2, 2, 64)
+    k, v = _randn(gen, cuda, 2, 70, 2, 64), _randn(gen, cuda, 2, 70, 2, 64)
+    qp = torch.arange(70, device=cuda)[None].expand(2, 70)
+    valid = torch.rand(2, 70, generator=gen).to(cuda) > 0.2
+    do = _randn(gen, cuda, 2, 70, 2, 2, 64)
+    grads = []
+    before = (fb.FLASH_BWD_DQ.launches, fb.FLASH_BWD_DKDV.launches)
+    for attn in (fa.flash_attention_pallas, _naive_sdpa):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = attn(*ins, q_pos=qp, kv_valid=valid, causal=True, scale=0.125)
+        grads.append(torch.autograd.grad(o, ins, do))
+    assert (fb.FLASH_BWD_DQ.launches, fb.FLASH_BWD_DKDV.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
+    x, r = _randn(gen, cuda, 2, 33, 256), _randn(gen, cuda, 2, 33, 256)
+    g = 1.0 + _randn(gen, cuda, 256, scale=0.1)
+    wg = _randn(gen, cuda, 256, 300, scale=256 ** -0.5)
+    wu = _randn(gen, cuda, 256, 300, scale=256 ** -0.5)
+    dy = _randn(gen, cuda, 66, 300)
+
+    def run(fused):
+        ins = [t.clone().requires_grad_(True) for t in (x, r, g, wg, wu)]
+        if fused:
+            xo, h = fn.fused_residual_norm(ins[0], ins[1], ins[2],
+                                           kind="rms", eps=1e-6)
+            y = ff.fused_glu(h.reshape(66, 256), ins[3], ins[4], mode="silu")
+        else:
+            xo = ins[0] + ins[1]
+            h = fn._scaled(xo, ins[2], None, kind="rms", eps=1e-6)
+            y = ff._glu_reference(h.reshape(66, 256), ins[3], ins[4], "silu")
+        loss = (y * dy).sum() + xo.sum()
+        return torch.autograd.grad(loss, ins)
+    before = (ff.GLU_BWD.launches, fn.RESNORM.launches)
+    fused = run(True)
+    assert ff.GLU_BWD.launches == before[0] + 1
+    assert fn.RESNORM.launches == before[1] + 1
+    for a, b in zip(fused, run(False)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+
