@@ -59,6 +59,23 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             cut: batches come from an 8192-token bigram stream (the table at
             the full vocabulary would be ~92 GB on the host); the model and
             its head keep all 151936 rows.
+7. bert     bert-base's path: the three-sweep int flash (row 9) against its
+            plain version at bert's shape (B 8, S = T = 512, 12 heads, h
+            64, non-causal) and at edge shapes (causal with ragged
+            kv_valid, S != T, G 8 / h 128, a row whose one visible key is
+            masked, 70000 keys), bitwise on the grid-valued identity-v
+            probe; the unit's row softmax on 49152 rows of 512, its GELU
+            mode on 4096 x 3072, the residual-norm and norm -> QKV seams
+            with kind='layer' at d 768, timed beside their bounds.  Then,
+            with the training state freed, lm_apply(..., return_hidden=True)
+            on full-width bert-base (random weights from a seeded
+            generator, 8 x 512 tokens, norm_impl 'fused_pallas') in four
+            configurations: float GELU, dual-mode (the unit's softmax and
+            GELU modes), dual-mode through the three-sweep kernel, and the
+            i-GELU baseline.  Each kernel of a configuration launches once a
+            layer; hidden states are finite and match the same forward with
+            the plain versions called in the kernels' place, and the
+            three-sweep path matches the naive dual-mode path.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line.  Without a CUDA device the
@@ -111,6 +128,14 @@ TOL_GLU_BWD = 2e-5     # d_gate, d_up: the forward's dots over up to 4096
 TOL_TRAIN_LOSS = 1e-5  # one step's loss, kernels vs plain, relative
 TOL_TRAIN_GRAD = 1e-3  # each gradient tensor, kernels vs plain, relative to
 #                        its own max |plain|
+TOL_BERT_F = 1e-4      # full-width bert-base hidden states, float: the
+#                        norm -> QKV products of 12 layers at d 768 in
+#                        another f32 order (yi's limit).  The quantized
+#                        configurations (dual-mode, i-GELU) take
+#                        TOL_LOGITS_D: an FFN input that the kernels' f32
+#                        order moves across an S5.10 boundary flips its
+#                        i-GELU word as it flips the unit's (i-GELU
+#                        measured 1.35e-3 on the H100)
 
 
 def log(*a):
@@ -1391,6 +1416,306 @@ def train_phase(dev, launches, results):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------- phase 7: bert-base, the paper's encoder ----------------
+
+BERT_BATCH = (8, 512)
+# name: (config overrides, the path's kernels, kernels-vs-plain limit)
+BERT_PATHS = {
+    "float": (dict(softmax_impl="float", activation="gelu_tanh", **FUSED),
+              ("resnorm", "norm_linear"), TOL_BERT_F),
+    "dualmode": (dict(softmax_impl="dualmode", activation="gelu_dualmode",
+                      **FUSED),
+                 ("resnorm", "norm_linear", "softmax_rows", "pair_act"),
+                 TOL_LOGITS_D),
+    "dualmode_int3": (dict(softmax_impl="dualmode",
+                           activation="gelu_dualmode",
+                           attn_impl="flash_pallas_int3", **FUSED),
+                      ("resnorm", "norm_linear", "flash_int3", "pair_act"),
+                      TOL_LOGITS_D),
+    "igelu": (dict(softmax_impl="float", activation="igelu", **FUSED),
+              ("resnorm", "norm_linear"), TOL_LOGITS_D)}
+
+
+def bert_kernel_phase(dev, results):
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator(device="cpu").manual_seed(512)
+
+    def randn(*shape, grid=False, scale=1.0):
+        x = torch.randn(shape, generator=gen) * scale
+        return (torch.round(x * 4) / 16 if grid else x).to(dev)
+
+    def attn_case(b, s, t, kh, g, h, hv, causal_end=None, grid=False,
+                  ragged=False):
+        qf = randn(b, s, kh, g, h, grid=grid)
+        qf = (qf if grid else qf * h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h, grid=grid), randn(b, t, kh, hv)
+        end = t if causal_end is None else causal_end
+        qp = torch.arange(end - s, end, dtype=torch.int32, device=dev)[
+            None].expand(b, s).contiguous()
+        valid = torch.ones(b, t, dtype=torch.uint8, device=dev)
+        if ragged:
+            valid = (torch.rand(b, t, generator=gen) > 0.25).to(
+                torch.uint8).to(dev)
+        return qf, k, v, qp, valid
+
+    def eye_chunks(b, t, kh, width=128):
+        # the identity v in slices of <= 128 value columns (the kernels'
+        # hv limit): each output column is one key's probability word
+        eye = torch.eye(t, device=dev)
+        for j in range(0, t, width):
+            yield eye[:, j:j + width][None, :, None, :].expand(
+                b, t, kh, min(width, t - j)).contiguous()
+
+    # -- row 9 at bert's shape: one layer's attention of 8 x 512 tokens
+    log("[bert] flash_int3")
+    b, s, kh, h = BERT_BATCH[0], BERT_BATCH[1], 12, 64
+    path = attn_case(b, s, s, kh, 1, h, h)
+    kw = dict(causal=False, block_kv=64, guard_shift=0)
+    err = check(f"flash_int3 path (B{b}, {s}, {kh}, 1, {h}) non-causal, "
+                "random", fai.flash_int3(*path, **kw),
+                fai.flash_int3_plain(*path, **kw), TOL_FLASH_I)
+    qf, k, _, qp, valid = attn_case(b, s, s, kh, 1, h, h, grid=True)
+    for i, eye in enumerate(eye_chunks(b, s, kh)):
+        check(f"flash_int3 path identity-v (exact scores), keys from "
+              f"{128 * i}", fai.flash_int3(qf, k, eye, qp, valid, **kw),
+              fai.flash_int3_plain(qf, k, eye, qp, valid, **kw), TOL_INT)
+    for (bb, ss, t, kk, g, hh, causal, bkv, end, allm) in (
+            (2, 70, 200, 2, 2, 64, True, 64, None, False),
+            (1, 33, 129, 3, 4, 128, True, 16, None, False),
+            (2, 64, 100, 4, 8, 128, False, 37, None, False),
+            (2, 40, 300, 2, 2, 64, True, 64, 40, True)):
+        qf, k, _, qp, valid = attn_case(bb, ss, t, kk, g, hh, hh,
+                                        causal_end=end, grid=True,
+                                        ragged=True)
+        if allm:              # row 0 sees only key 0, which is invalid
+            valid[:, 0] = 0
+        ekw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+        name = (f"({bb},{ss},{t},{kk},{g},{hh}) causal={causal} bkv={bkv}"
+                f"{' all-masked row' if allm else ''}")
+        for i, eye in enumerate(eye_chunks(bb, t, kk)):
+            check(f"flash_int3 identity-v {name} keys from {128 * i}",
+                  fai.flash_int3(qf, k, eye, qp, valid, **ekw),
+                  fai.flash_int3_plain(qf, k, eye, qp, valid, **ekw),
+                  TOL_INT)
+        v = randn(bb, t, kk, hh)
+        check(f"flash_int3 random v {name}",
+              fai.flash_int3(qf, k, v, qp, valid, **ekw),
+              fai.flash_int3_plain(qf, k, v, qp, valid, **ekw), TOL_FLASH_F)
+    # 70000 keys: guard_shift 1 from the unpadded T; v's first column sums
+    # the row's words, the others pick the last keys' words
+    t = 70000
+    qf, k, _, qp, valid = attn_case(1, 64, t, 1, 1, 64, 64, grid=True,
+                                    ragged=True)
+    v = torch.zeros(1, t, 1, 8, device=dev)
+    v[0, :, 0, 0] = 1.0
+    v[0, t - 7:, 0, 1:] = torch.eye(7, device=dev)
+    gs = unit.guard_shift_for(t)
+    if gs != 1:
+        fail(f"guard shift for {t} keys is {gs}, expected 1")
+    for causal in (True, False):
+        ekw = dict(causal=causal, block_kv=64, guard_shift=gs)
+        check(f"flash_int3 {t} keys words causal={causal}",
+              fai.flash_int3(qf, k, v, qp, valid, **ekw),
+              fai.flash_int3_plain(qf, k, v, qp, valid, **ekw), TOL_INT)
+
+    # timing at the path's shape; the bound counts one q.k and one p.v a
+    # (q, k) pair, so the three-sweep price shows as a gap
+    pairs = b * kh * s * s
+    nbytes = (4 * path[0].numel() * 2 + 4 * (path[1].numel()
+              + path[2].numel()) + 4 * b * s + b * s)
+    b_ms, b_by = bound(nbytes, pairs * (2 * h + 2 * h))
+    ms = time_ms(lambda: fai.flash_int3(*path, **kw), iters=20, warmup=3)
+    plain = time_ms(lambda: fai.flash_int3_plain(*path, **kw), iters=3,
+                    warmup=1)
+    log(f"  flash_int3 (B{b} S{s} T{s} K{kh} G1 h{h} non-causal): "
+        f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by}); no library call computes the "
+        "unit's words")
+    results["flash_int3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+    del path
+
+    # -- rows 1, 2, 14, 15 at bert's shapes
+    shapes = {}
+    log("[bert] softmax_rows, pair_act, resnorm, norm_linear at bert's "
+        "shapes")
+    x = randn(b * kh * s, s, scale=3.0)       # one layer's score rows
+    check(f"softmax_rows int ({b * kh * s}, {s})", ds.softmax_rows(x, "int"),
+          ds.softmax_rows_plain(x, "int"), TOL_INT)
+    n = x.numel()
+    shapes[f"softmax_rows int {tuple(x.shape)}"] = dict(
+        ms=time_ms(lambda: ds.softmax_rows(x, "int")),
+        plain_ms=time_ms(lambda: ds.softmax_rows_plain(x, "int"), iters=5),
+        bound_ms=bound(8 * n, 80 * n)[0],
+        library_ms=time_ms(lambda: torch.softmax(x, dim=-1)))
+    del x
+    z = randn(b * s, 3072, scale=3.0)         # one layer's FFN activation
+    check(f"pair_act gelu int {tuple(z.shape)}", ds.pair_act(z, "gelu", "int"),
+          ds.pair_act_plain(z, "gelu", "int"), TOL_INT)
+    check(f"pair_act gelu float {tuple(z.shape)}",
+          ds.pair_act(z, "gelu", "float"),
+          ds.pair_act_plain(z, "gelu", "float"), TOL_PAIR_F)
+    n = z.numel()
+    for prec in ("int", "float"):
+        shapes[f"pair_act gelu {prec} {tuple(z.shape)}"] = dict(
+            ms=time_ms(lambda: ds.pair_act(z, "gelu", prec)),
+            plain_ms=time_ms(lambda: ds.pair_act_plain(z, "gelu", prec),
+                             iters=5),
+            bound_ms=bound(8 * n, 60 * n)[0],
+            library_ms=time_ms(lambda: torch.nn.functional.gelu(
+                z, approximate="tanh")))
+    del z
+    m, d, eps = b * s, 768, 1e-12
+    x, r = randn(m, d, scale=3.0), randn(m, d)
+    g, bias = 1.0 + randn(d, scale=0.1), randn(d, scale=0.1)
+    got = fn.fused_residual_norm(x, r, g, bias, kind="layer", eps=eps)
+    want = fn.fused_residual_norm_plain(x, r, g, bias, kind="layer", eps=eps)
+    check(f"resnorm sum layer ({m}, {d})", got[0], want[0], TOL_INT)
+    check(f"resnorm h layer ({m}, {d})", got[1], want[1], TOL_NORM)
+    s_ = x + r
+    shapes[f"resnorm layer ({m}, {d})"] = dict(
+        ms=time_ms(lambda: fn.fused_residual_norm(x, r, g, bias,
+                                                  kind="layer", eps=eps)),
+        plain_ms=time_ms(lambda: fn.fused_residual_norm_plain(
+            x, r, g, bias, kind="layer", eps=eps)),
+        bound_ms=bound(4 * m * d * 4 + 2 * d * 4, 10 * m * d)[0],
+        library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
+            s_, (d,), g, bias, eps)))
+    ws = [randn(d, d, scale=d ** -0.5) for _ in range(3)]
+    check(f"norm_linear layer ({m}, {d}) x {3 * d}",
+          fn.fused_norm_linear(x, g, bias, ws, kind="layer", eps=eps),
+          fn.fused_norm_linear_plain(x, g, bias, ws, kind="layer", eps=eps),
+          TOL_GEMM)
+    wcat = torch.cat(ws, dim=1)
+    hn = fn._scaled(x, g, bias, kind="layer", eps=eps)
+    f = 3 * d
+    shapes[f"norm_linear layer ({m}, {d}) x {3 * d}"] = dict(
+        ms=time_ms(lambda: fn.fused_norm_linear(x, g, bias, ws, kind="layer",
+                                                eps=eps), iters=20),
+        plain_ms=time_ms(lambda: fn.fused_norm_linear_plain(
+            x, g, bias, ws, kind="layer", eps=eps), iters=20),
+        bound_ms=bound((m * d + d * f + m * f + 2 * d) * 4,
+                       2 * m * d * f + 6 * m * d)[0],
+        library_ms=time_ms(lambda: torch.matmul(hn, wcat), iters=20))
+    for name, r_ in shapes.items():
+        log(f"  {name}: {r_['ms'] * 1e3:.1f} us, plain "
+            f"{r_['plain_ms'] * 1e3:.1f} us, bound {r_['bound_ms'] * 1e3:.2f}"
+            f" us, library {r_['library_ms'] * 1e3:.1f} us")
+    results["bert_shape_ms"] = shapes
+
+
+def _plain_bert_kernels():
+    """Patches that put the plain versions in the bert path kernels'
+    place (the same call sites)."""
+    from contextlib import ExitStack
+
+    from repro_torch.core import activations
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import fused_norm as fn
+    plain_norm = {"residual_norm": fn.fused_residual_norm_plain,
+                  "norm_linear": fn.fused_norm_linear_plain,
+                  "norm_glu": dispatch.get_norm("fused_pallas")["norm_glu"]}
+    stack = ExitStack()
+    for mod, name, plain in ((dispatch, "softmax_rows", ds.softmax_rows_plain),
+                             (activations, "pair_act", ds.pair_act_plain),
+                             (fai, "flash_int3", fai.flash_int3_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    stack.enter_context(mock.patch.dict(dispatch._NORM,
+                                        {"fused_pallas": plain_norm}))
+    return stack
+
+
+def bert_phase(dev, launches):
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.models.transformer import init_lm, lm_apply
+    from repro_torch.tree import tree_leaves
+    gc.collect()                    # the training phase's state
+    torch.cuda.empty_cache()
+    base = registry.get_config("bert-base")
+    t0 = time.perf_counter()
+    params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    log(f"[bert] bert-base full width: {base.n_layers} layers d "
+        f"{base.d_model} heads {base.n_heads} d_ff {base.d_ff} vocab "
+        f"{base.vocab} max_seq {base.max_seq}, {n_par / 1e6:.1f} M "
+        f"parameters; init {time.perf_counter() - t0:.1f} s")
+    bsz, seq = BERT_BATCH
+    toks = torch.from_numpy(np.random.RandomState(5).randint(
+        0, base.vocab, size=(bsz, seq))).to(dev)
+
+    def forward(cfg):
+        return lm_apply(params, cfg, toks, return_hidden=True, device=dev)[0]
+
+    hidden = {}
+    for name, (over, kernels, tol) in BERT_PATHS.items():
+        cfg = base.replace(**over)
+        impl = dispatch.resolve_attention(cfg.attn_impl, seq, seq,
+                                          cfg.softmax_impl, device=dev)
+        want_impl = ("flash_pallas_int3" if name == "dualmode_int3"
+                     else "naive")
+        if impl != want_impl:
+            fail(f"bert {name}: attention resolved {impl}, not {want_impl}")
+        forward(cfg)                                  # warm-up
+        torch.cuda.synchronize()
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        h = forward(cfg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            forward(cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        log(f"[bert] {name}: {ms:.1f} ms a batch of {bsz} x {seq} (median of "
+            f"5; counted run {first * 1e3:.1f} ms), "
+            f"{bsz * seq / ms * 1e3:.0f} tokens/s; attention {impl}; "
+            f"launches {counts}")
+        if tuple(h.shape) != (bsz, seq, base.d_model):
+            fail(f"bert {name}: hidden states {tuple(h.shape)}")
+        if not torch.isfinite(h).all():
+            fail(f"bert {name}: non-finite hidden states")
+        for k, n in counts.items():
+            want = base.n_layers if k in kernels else 0
+            if n != want:
+                fail(f"bert {name}: kernel {k} launched {n} times in one "
+                     f"forward, expected {want}")
+        with _plain_bert_kernels():
+            plain = forward(cfg)
+        check(f"bert-base {name} hidden states, kernels vs plain", h, plain,
+              tol)
+        hidden[name] = h
+        del plain
+    check("bert-base dual-mode hidden states, flash_int3 path vs naive path",
+          hidden["dualmode_int3"], hidden["dualmode"], TOL_LOGITS_D)
+    logits = lm_apply(params, base.replace(**BERT_PATHS["float"][0]), toks,
+                      device=dev)[0]
+    torch.cuda.synchronize()
+    if (tuple(logits.shape) != (bsz, seq, base.vocab)
+            or not torch.isfinite(logits).all()):
+        fail(f"bert: logits {tuple(logits.shape)} not finite")
+    log(f"  ok full logits through the head: {tuple(logits.shape)}, finite")
+    del params, hidden, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1429,6 +1754,8 @@ def main() -> int:
     yi_serve_phase(dev, launches)
     train_kernel_phase(dev, results)
     train_phase(dev, launches, results)
+    bert_kernel_phase(dev, results)
+    bert_phase(dev, launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -9,9 +9,12 @@ from .base import ModelConfig
 _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "yi-6b": "yi_6b",
+    "bert-base": "bert_base",
 }
 
-ARCH_IDS = list(_MODULES)
+# the serving / training archs; bert-base (the paper's encoder) stays out,
+# as in the reference's registry
+ARCH_IDS = [k for k in _MODULES if k != "bert-base"]
 
 
 def _mod(arch_id: str):

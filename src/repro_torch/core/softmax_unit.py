@@ -3,6 +3,8 @@
 
 Normal mode is Eq. (10), division in the log2 domain; GELU/SiLU mode is
 Eq. (8), z * softmax_1^2([k, -k]) on the same exp/log datapath.  The
+blocked three-sweep folds evaluate normal mode over KV tiles with the
+whole-row words (the three-sweep int flash kernel's oracle).  The
 snapped-max monoid (ceil-snap the running max to a multiple of 2**T_FRAC
 so every rescale is an exact shift, keep one int32 partial sum per depth
 bucket) is what the dual-mode decode kernel streams.
@@ -107,6 +109,58 @@ def silu_int(z_fx: torch.Tensor) -> torch.Tensor:
     """SiLU mode: z * softmax_1^2([z/2, -z/2]) (z read at scale 2**-11)."""
     sig = _pair_softmax_first_int(z_fx.to(I32), IN_FRAC + 1)
     return (z_fx.to(I32) * sig) >> EXP_FRAC
+
+
+# --- blocked / online evaluation of normal mode -----------------------------
+#
+# The PWL exp2 is not multiplicative, so a one-sweep rescale of old sums
+# would change words.  The max fold and the guard-shifted sum fold are
+# associative int32 reductions and the emit is elementwise given the
+# final (m, l): three KV sweeps -- max, sum, emit -- telescope to the
+# whole-row softmax_int words for any blocking.  The three-sweep kernel
+# (``kernels/flash_attention_int.flash_int3``) computes these steps.
+
+def online_max_int(m: torch.Tensor, x_blk: torch.Tensor,
+                   dim: int = -1) -> torch.Tensor:
+    """Sweep 1 fold: running row max (init the carry with PHANTOM_Q)."""
+    return torch.maximum(m, torch.amax(x_blk.to(I32), dim=dim, keepdim=True))
+
+
+def online_sum_int(l: torch.Tensor, m: torch.Tensor, x_blk: torch.Tensor,
+                   guard_shift: int, dim: int = -1) -> torch.Tensor:
+    """Sweep 2 fold: guard-shifted int32 row-sum carry (init 0) against
+    the FINAL sweep-1 max ``m``."""
+    e = _exp2_int(_to_log2_domain(x_blk.to(I32) - m, IN_FRAC))
+    return l + torch.sum(e >> guard_shift, dim=dim, keepdim=True).to(I32)
+
+
+def online_probs_int(m: torch.Tensor, l: torch.Tensor, x_blk: torch.Tensor,
+                     guard_shift: int) -> torch.Tensor:
+    """Sweep 3 emit: this block's probability words @ 2**-EXP_FRAC, the
+    whole-row tail of :func:`softmax_int` given the final (m, l)."""
+    t = _to_log2_domain(x_blk.to(I32) - m, IN_FRAC)
+    log2s = _log2_int(torch.clamp(l, min=1), EXP_FRAC - guard_shift)
+    return _exp2_int(torch.clamp(t - log2s, max=0))
+
+
+def softmax_int_blocked(x_fx: torch.Tensor, block: int,
+                        guard_shift: int | None = None) -> torch.Tensor:
+    """Whole-row normal mode over the last axis as the three blocked
+    sweeps; bitwise :func:`softmax_int` for any ``block``."""
+    n = x_fx.shape[-1]
+    if guard_shift is None:
+        guard_shift = guard_shift_for(n)
+    x_fx = x_fx.to(I32)
+    blocks = [x_fx[..., i:i + block] for i in range(0, n, block)]
+    m = torch.full(x_fx.shape[:-1] + (1,), PHANTOM_Q, dtype=I32,
+                   device=x_fx.device)
+    for b in blocks:
+        m = online_max_int(m, b)
+    l = torch.zeros_like(m)
+    for b in blocks:
+        l = online_sum_int(l, m, b, guard_shift)
+    return torch.cat([online_probs_int(m, l, b, guard_shift)
+                      for b in blocks], dim=-1)
 
 
 # --- snapped-max mode: the word-exact online-softmax monoid ----------------
@@ -218,6 +272,31 @@ def softmax_snap(x_fx: torch.Tensor, dim: int = -1,
     """Snapped-max normal mode: S5.10 words -> f32 probabilities, one
     f32 division of exact numerators."""
     p, d, l = snap_row_stats(x_fx, dim=dim, guard_shift=guard_shift)
+    return p.to(torch.float32) * snap_scale_f32(d) / l.to(torch.float32)
+
+
+def softmax_snap_blocked(x_fx: torch.Tensor, block: int,
+                         guard_shift: int | None = None) -> torch.Tensor:
+    """Whole-row snapped mode over the last axis as a blocked monoid fold
+    (partials merged with :func:`online_merge_int`); bitwise
+    :func:`softmax_snap` for any ``block``."""
+    n = x_fx.shape[-1]
+    if guard_shift is None:
+        guard_shift = guard_shift_for(n)
+    x_fx = x_fx.to(I32)
+    lead, dev = x_fx.shape[:-1], x_fx.device
+    zero_acc = torch.zeros(lead + (1,), device=dev)
+    part = (torch.full(lead + (1,), SNAP_MIN, dtype=I32, device=dev),
+            torch.zeros(lead + (N_SNAP_BUCKETS,), dtype=I32, device=dev),
+            zero_acc)
+    for i in range(0, n, block):
+        m_b, S_b, _ = online_partial_int(x_fx[..., i:i + block], guard_shift)
+        part = online_merge_int(part, (m_b, S_b, zero_acc))
+    m, S, _ = part
+    t = to_snap_domain(x_fx)
+    p = snap_prob_word(t, guard_shift)
+    d = (m >> T_FRAC) - (t >> T_FRAC)
+    l = online_finish_int(S).unsqueeze(-1)
     return p.to(torch.float32) * snap_scale_f32(d) / l.to(torch.float32)
 
 

@@ -1,5 +1,6 @@
 // The blocked-attention tile machinery shared by flash_fwd.cu (float
-// online softmax) and flash_snap.cu (the unit's snapped int recurrence):
+// online softmax), flash_snap.cu (the unit's snapped int recurrence) and
+// flash_int3.cu (the unit's classic words in three sweeps):
 // the grid, the shared-memory layout, the tile loads, the masked score
 // tile and the P @ V update.  Only the per-row state update differs
 // between the two, as the reference's _flash_body and _flash_snap_body
@@ -140,9 +141,11 @@ __device__ inline int tiles_to_visit(const Args& a, int32_t qmax) {
 }
 
 // Keys [key0, key0 + nk) of this (b, head) into shared memory; the rest
-// of the tile reads as zeros.
+// of the tile reads as zeros.  With load_v false only K and the validity
+// words are loaded (the int3 kernel's max and sum sweeps read no V).
 __device__ inline void load_kv_tile(const Args& a, const Smem& sm, int b,
-                                    int head, int key0, int nk) {
+                                    int head, int key0, int nk,
+                                    bool load_v = true) {
   const int h = a.h, hv = a.hv;
   for (int i = threadIdx.x; i < kBKV * h; i += kThreads) {
     const int j = i / h, d = i - j * h;
@@ -150,7 +153,7 @@ __device__ inline void load_kv_tile(const Args& a, const Smem& sm, int b,
         j < nk ? a.k[((static_cast<size_t>(b) * a.T + key0 + j) * a.K + head) * h + d]
                : 0.0f;
   }
-  for (int i = threadIdx.x; i < kBKV * hv; i += kThreads) {
+  for (int i = threadIdx.x; load_v && i < kBKV * hv; i += kThreads) {
     const int j = i / hv, d = i - j * hv;
     sm.vs[i] =
         j < nk ? a.v[((static_cast<size_t>(b) * a.T + key0 + j) * a.K + head) * hv + d]

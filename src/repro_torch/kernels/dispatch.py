@@ -4,7 +4,7 @@ FFN and the block's norm seams).
 
   softmax    'float' | 'dualmode' | 'dualmode_snap'
   attention  'auto' | 'naive' | 'flash' | 'flash_pallas' |
-             'flash_pallas_int' | 'flash_decode'
+             'flash_pallas_int' | 'flash_pallas_int3' | 'flash_decode'
   ffn        'auto' | 'dense' | 'fused_pallas'
   norm       'auto' | 'dense' | 'fused_pallas'
 
@@ -29,7 +29,7 @@ kernel's plain version).
 
 Impls of the reference that are not ported yet are named here so that a
 shape resolving to one raises NotImplementedError instead of running
-something else: 'flash_pallas_int3' and 'flash_ring'.
+something else: 'flash_ring'.
 """
 from __future__ import annotations
 
@@ -83,7 +83,6 @@ _PAGED_ATTENTION: dict[str, Callable] = {}
 
 # the reference's impls that a later slice of the port brings
 NOT_PORTED = {
-    "flash_pallas_int3": "the three-sweep int flash kernel",
     "flash_ring": "ring attention",
 }
 

@@ -1,9 +1,12 @@
-"""Blocked attention on the unit's bit-accurate int datapath (port of the
-one-sweep half of ``repro.kernels.flash_attention_int``).
+"""Blocked attention on the unit's bit-accurate int datapath (port of
+``repro.kernels.flash_attention_int``).
 
 ``flash_snap``  replaces the pallas_call of ``_flash_snap_jit``
                 (flash_attention_int.py:218), registered as
                 ``'flash_pallas_int'``
+``flash_int3``  replaces the pallas_call of ``_flash_int_jit``
+                (flash_attention_int.py:354), registered as
+                ``'flash_pallas_int3'``
 
 One KV sweep of the snapped-max recurrence: the running max is
 ceil-snapped to a power of two, so every rescale is an exact shift of
@@ -23,15 +26,22 @@ one score word each) in closed form as the float kernel does: its (m, S)
 words are the full sweep's exactly.  The plain version is that full
 sweep of every tile, so the fold is held to it at any shape.
 
-The three-sweep ``flash_pallas_int3`` of the same reference module is
-not ported yet (``dispatch.NOT_PORTED``).
+Three sweeps of the classic unit: the unsnapped rescale is not
+multiplicative in words, so ``flash_int3`` runs the row max, the
+guard-shifted sum and the emit of the probability words as three sweeps
+over the same KV tiles (``softmax_unit.online_max_int`` /
+``online_sum_int`` / ``online_probs_int``).  Its probability words are
+the whole-row ``softmax_int`` words of naive ``softmax_impl='dualmode'``
+attention bit for bit; only the f32 p @ v order differs.  It sweeps
+every tile, causal or not, so it needs no tail fold.  K is read three
+times, V once.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import softmax_unit as unit
-from repro_torch.core.fixedpoint import T_FRAC, quantize
+from repro_torch.core.fixedpoint import EXP_FRAC, T_FRAC, dequantize, quantize
 
 from . import _build
 from . import dispatch, tiling
@@ -44,6 +54,10 @@ FLASH_SNAP = _build.Kernel(
     "flash_snap", "flash_snap_launch", [_P] * 9 + [_I] * 11 + [_P],
     source="src/repro_torch/csrc/flash_snap.cu",
     replaces="src/repro/kernels/flash_attention_int.py:218")
+FLASH_INT3 = _build.Kernel(
+    "flash_int3", "flash_int3_launch", [_P] * 6 + [_I] * 10 + [_P],
+    source="src/repro_torch/csrc/flash_int3.cu",
+    replaces="src/repro/kernels/flash_attention_int.py:354")
 
 
 def int_score_words(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
@@ -184,6 +198,85 @@ def flash_attention_pallas_int(q, k, v, *, q_pos, kv_valid,
     return res if return_partial else res.to(v.dtype)
 
 
+# --------------------------------------------------------------------------
+# three-sweep classic int flash ('flash_pallas_int3')
+# --------------------------------------------------------------------------
+
+def flash_int3_plain(qf, k, v, q_pos, kv_valid, *, causal: bool,
+                     block_kv: int, guard_shift: int):
+    """Plain version of the kernel, the three sweeps over every KV tile:
+    qf (B, S, K, G, h) pre-scaled f32, q_pos (B, S) int32, kv_valid (B, T)
+    -> (B, S, K, G, hv) f32."""
+    b, s_q, kh, g, _ = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    _, qp, kp, vp, valid = tiling.pad_attention_operands(
+        qf, q_pos, k, v, kv_valid, 1, block_kv)
+    dev = qf.device
+    n_tiles = tiling.cdiv(t, block_kv)
+
+    def words(j):
+        sl = slice(j * block_kv, (j + 1) * block_kv)
+        return int_score_words(qf, kp[:, sl], qp, valid[:, sl], j,
+                               block_kv=block_kv, causal=causal, t_kv=t)
+    m = torch.full((b, kh, g, s_q, 1), unit.PHANTOM_Q, dtype=torch.int32,
+                   device=dev)
+    for j in range(n_tiles):
+        m = unit.online_max_int(m, words(j))
+    l = torch.zeros_like(m)
+    for j in range(n_tiles):
+        l = unit.online_sum_int(l, m, words(j), guard_shift)
+    acc = torch.zeros((b, kh, g, s_q, hv), device=dev)
+    for j in range(n_tiles):
+        p = dequantize(unit.online_probs_int(m, l, words(j), guard_shift),
+                       EXP_FRAC)
+        vb = vp[:, j * block_kv:(j + 1) * block_kv].to(torch.float32)
+        acc = acc + torch.einsum("bkgst,btkv->bkgsv", p, vb)
+    return acc.movedim(3, 1).contiguous()
+
+
+def flash_int3(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
+               guard_shift: int):
+    """The three-sweep int attention through the CUDA kernel (CUDA
+    tensors) or the plain version (CPU tensors); arguments as
+    :func:`flash_int3_plain`."""
+    check_block_kv(block_kv)
+    if not 0 <= guard_shift <= 31:
+        raise ValueError(f"guard_shift={guard_shift} outside [0, 31]")
+    if qf.device.type == "cpu":
+        return flash_int3_plain(qf, k, v, q_pos, kv_valid, causal=causal,
+                                block_kv=block_kv, guard_shift=guard_shift)
+    _check_operands("flash_int3", qf, k, v, q_pos, kv_valid)
+    b, s_q, kh, g, h = qf.shape
+    t, hv = k.shape[1], v.shape[-1]
+    out = torch.empty((b, s_q, kh, g, hv), device=qf.device)
+    FLASH_INT3(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+               kv_valid.data_ptr(), out.data_ptr(), b, s_q, kh, g, h, hv, t,
+               block_kv, int(causal), guard_shift,
+               _build.stream_ptr(qf.device))
+    return out
+
+
+def flash_attention_pallas_int3(q, k, v, *, q_pos, kv_valid,
+                                causal: bool = True,
+                                scale: float | None = None,
+                                block_kv: int | None = None):
+    """THREE-sweep blocked dual-mode attention (the reference's contract):
+    the naive ``softmax_impl='dualmode'`` attention with identical int
+    probability words; only the f32 p @ v order differs.  The guard shift
+    is the whole-row rule for the full key extent T."""
+    t = k.shape[1]
+    scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale
+    if block_kv is None:
+        block_kv = tiling.attention_blocks(q.shape[1], t)[1]
+    qf = (q.to(torch.float32) * scale).contiguous()
+    out = flash_int3(qf, k.to(torch.float32).contiguous(),
+                     v.to(torch.float32).contiguous(),
+                     q_pos.to(torch.int32).contiguous(),
+                     kv_valid.to(torch.uint8).contiguous(), causal=causal,
+                     block_kv=block_kv, guard_shift=unit.guard_shift_for(t))
+    return out.to(v.dtype)
+
+
 def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
                      softmax_impl="dualmode"):
     # the one-sweep kernel runs on snap words, so it honors BOTH int
@@ -200,3 +293,19 @@ def _attention_entry(q, k, v, *, q_pos, kv_valid, causal, scale,
 
 dispatch.register_attention("flash_pallas_int", _attention_entry,
                             modes=("dualmode", "dualmode_snap"), grad=False)
+
+
+def _attention_entry3(q, k, v, *, q_pos, kv_valid, causal, scale,
+                      softmax_impl="dualmode"):
+    if softmax_impl != "dualmode":
+        raise ValueError(
+            "attn_impl='flash_pallas_int3' IS the bit-accurate unit; it "
+            f"cannot honor softmax_impl={softmax_impl!r} (use 'dualmode', "
+            "or a float impl: 'flash'/'flash_pallas')")
+    return flash_attention_pallas_int3(q, k, v, q_pos=q_pos,
+                                       kv_valid=kv_valid, causal=causal,
+                                       scale=scale)
+
+
+dispatch.register_attention("flash_pallas_int3", _attention_entry3,
+                            modes=("dualmode",), grad=False)

@@ -19,7 +19,7 @@ from repro_torch.kernels import datapath as dp
 from repro_torch.kernels import dispatch
 
 from . import flash as _flash
-from .layers import Params, apply_rope, linear, rmsnorm
+from .layers import Params, apply_rope, linear, make_norm, rmsnorm
 
 
 class AttnSpec(NamedTuple):
@@ -221,7 +221,8 @@ def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
         v = v.reshape(b, sl, s.n_kv_heads, s.head_dim)
     else:
         if prenorm is not None:
-            x = rmsnorm(prenorm[0], x, prenorm[2])
+            np_, kind, eps, _ = prenorm
+            x = make_norm(kind)[1](np_, x, eps)
         q = linear(p["wq"], x).reshape(b, sl, s.n_heads, s.head_dim)
         k = linear(p["wk"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)
         v = linear(p["wv"], x).reshape(b, sl, s.n_kv_heads, s.head_dim)

@@ -34,6 +34,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     params = {"embed": _to_torch(tree["embed"], dev),
               "final_norm": _to_torch(tree["final_norm"], dev),
               "layers": layers}
-    if "lm_head" in tree:
-        params["lm_head"] = _to_torch(tree["lm_head"], dev)
+    for key in ("lm_head", "pos"):
+        if key in tree:
+            params[key] = _to_torch(tree[key], dev)
     return params

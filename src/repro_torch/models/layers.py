@@ -62,6 +62,24 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
     return dp.rmsnorm(x, p["g"], eps).to(x.dtype)
 
 
+def layernorm_init(d: int, device) -> Params:
+    return {"g": torch.ones((d,), device=device),
+            "b": torch.zeros((d,), device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    return dp.layernorm(x, p["g"], p["b"], eps).to(x.dtype)
+
+
+def make_norm(kind: str):
+    """(init, apply) of the norm ``kind``: 'rms' or 'layer'."""
+    if kind == "rms":
+        return rmsnorm_init, rmsnorm
+    if kind == "layer":
+        return layernorm_init, layernorm
+    raise ValueError(f"unknown norm kind {kind!r}; have 'rms', 'layer'")
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))

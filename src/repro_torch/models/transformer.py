@@ -1,8 +1,15 @@
-"""Decoder stack of the port (counterpart of ``repro.models.transformer``)
-for the dense attention + gated-MLP pattern (``mixer='attn'``,
-``ffn='mlp'``, RMSNorms): the qwen / yi family main path, with the
+"""Transformer stack of the port (counterpart of
+``repro.models.transformer``) for the dense attention + MLP pattern
+(``mixer='attn'``, ``ffn='mlp'``): the qwen / yi decoders (RMSNorm,
+RoPE, gated MLP) and the bert-base encoder (LayerNorm, a learned
+position table, non-causal attention, an ungated MLP), with the
 reference's fused norm seams (``norm_impl``) and fused GLU
 (``ffn_impl``).
+
+bert-base also rotates q and k by RoPE: its config leaves ``use_rope``
+at its default (True), so the reference applies RoPE on top of the
+learned table, and the port matches the reference rather than Devlin
+et al.
 
 The reference stacks each period's parameters on a leading axis for
 ``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
@@ -19,8 +26,8 @@ from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch
 
 from .attention import AttnSpec, _positions_from, gqa_apply
-from .layers import (Params, embed_init, linear_init, mlp, mlp_init, rmsnorm,
-                     rmsnorm_init)
+from .layers import (Params, embed_init, linear_init, make_norm, mlp,
+                     mlp_init, rmsnorm_init)
 
 
 def attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -32,15 +39,17 @@ def attn_spec(cfg: ModelConfig) -> AttnSpec:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice of the port does not
-    run yet (other mixers, MoE, encoders, layer norm)."""
+    """Raise NotImplementedError for what the port does not run yet
+    (other mixers, MoE, encoder-decoder stacks, sinusoid positions)."""
     why = []
     if cfg.prefix or any(s != LayerSpec() for s in cfg.pattern):
         why.append("layer patterns other than dense attn + mlp")
     if cfg.enc_layers or cfg.mla or cfg.moe or cfg.mamba:
         why.append("encoder / MLA / MoE / mamba layers")
-    if cfg.norm != "rms" or cfg.pos_emb != "rope":
-        why.append(f"norm={cfg.norm!r} / pos_emb={cfg.pos_emb!r}")
+    if cfg.norm not in ("rms", "layer"):
+        why.append(f"norm={cfg.norm!r}")
+    if cfg.pos_emb not in ("rope", "learned"):
+        why.append(f"pos_emb={cfg.pos_emb!r}")
     if why:
         raise NotImplementedError(
             f"{cfg.name}: not ported yet: {'; '.join(why)}")
@@ -50,6 +59,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     s = attn_spec(cfg)
+    norm_init, _ = make_norm(cfg.norm)
     mixer = {
         "wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device,
                           bias=s.qkv_bias),
@@ -61,8 +71,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     if s.qk_norm:
         mixer["qn"] = rmsnorm_init(s.head_dim, device)
         mixer["kn"] = rmsnorm_init(s.head_dim, device)
-    return {"norm1": rmsnorm_init(cfg.d_model, device), "mixer": mixer,
-            "norm2": rmsnorm_init(cfg.d_model, device),
+    return {"norm1": norm_init(cfg.d_model, device), "mixer": mixer,
+            "norm2": norm_init(cfg.d_model, device),
             "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, device,
                             gated=cfg.gated_mlp)}
 
@@ -71,18 +81,24 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
             ) -> Params:
     """Random float32 weights with the reference's distributions (normal
     x 0.02 embeddings, normal / sqrt(d_in) projections, zero biases, unit
-    norm gains), drawn from ``generator`` (which must live on ``device``).
+    norm gains, zero norm biases), drawn from ``generator`` (which must
+    live on ``device``).  A learned position table has min(max_seq, 2**16)
+    rows, as the reference's.
     """
     check_supported(cfg)
     dev = resolve_device(device)
+    norm_init, _ = make_norm(cfg.norm)
     params: Params = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, dev),
-        "final_norm": rmsnorm_init(cfg.d_model, dev),
+        "final_norm": norm_init(cfg.d_model, dev),
         "layers": [block_init(generator, cfg, dev)
                    for _ in range(cfg.n_layers)]}
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab,
                                         dev)
+    if cfg.pos_emb == "learned":
+        params["pos"] = embed_init(generator, min(cfg.max_seq, 1 << 16),
+                                   cfg.d_model, dev)
     return params
 
 
@@ -139,12 +155,13 @@ def block_apply(p: Params, cfg: ModelConfig, x, cache, *, positions, pos,
                                       p["norm2"].get("b"), kind=cfg.norm,
                                       eps=cfg.norm_eps)
     else:
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+        _, norm = make_norm(cfg.norm)
+        h = norm(p["norm1"], x, cfg.norm_eps)
         o, cache = gqa_apply(p["mixer"], attn_spec(cfg), h,
                              positions=positions, cache=cache, pos=pos,
                              paged=paged)
         x = x + o
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps)
+        h = norm(p["norm2"], x, cfg.norm_eps)
     return x + mlp(p["ffn"], h, cfg.activation, impl=cfg.ffn_impl), cache
 
 
@@ -179,6 +196,9 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, sl = tokens.shape
     x = params["embed"][tokens]
     positions = _positions_from(pos, b, sl, dev)
+    if cfg.pos_emb == "learned":
+        rows = params["pos"].shape[0]
+        x = x + params["pos"][torch.clamp(positions, 0, rows - 1)]
     if remat and caches is not None:
         raise ValueError("remat is for train mode (caches=None)")
     for i, lp in enumerate(params["layers"]):
@@ -191,7 +211,7 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if last_pos is not None:
         idx = last_pos.to(dev).long()[:, None, None].expand(b, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = make_norm(cfg.norm)[1](params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, caches
     return x @ lm_head_weight(params, cfg), caches

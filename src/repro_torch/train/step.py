@@ -94,7 +94,12 @@ def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, device=None):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
             ce = loss_fn(live, batch)
-            grads = torch.autograd.grad(ce, tree_leaves(live))
+            # the unit's quantized scores cut wq / wk (and their biases)
+            # out of a dual-mode graph: their gradient is zero, as
+            # jax.value_and_grad gives it
+            grads = torch.autograd.grad(ce, tree_leaves(live),
+                                        allow_unused=True,
+                                        materialize_grads=True)
         return ce.detach(), tree_unflatten(params, grads)
     return grad_fn
 

@@ -18,7 +18,10 @@ the residual sum bitwise (one f32 add either way), the normalized row
 QKV prologue and the fused GLU 1e-4 (f32 dot products over up to 4096
 terms in two orders -- 32-deep chunks against cuBLAS -- give ~1e-5 on
 outputs of magnitude up to ~5, and the GLU multiplies one such error by
-|u| up to ~5).  Training (rows 10, 11, 13 and the autograd Functions):
+|u| up to ~5).  The three-sweep int flash (row 9): its words bitwise under an identity-v
+probe on grid-valued q and k, outputs within 5e-3 on random inputs (a
+score word can flip between two f32 dot orders).  Training (rows 10,
+11, 13 and the autograd Functions):
 dq, dk, dv and d_gate / d_up within 1e-5 / 2e-5 of max(1, max |plain|)
 (f32 sums over up to thousands of rows in two orders), the Functions'
 gradients on CUDA tensors within 1e-4 of the dense graph's (the
@@ -153,7 +156,7 @@ def test_unit_kernels_at_yi_shape(cuda):
 
 @pytest.mark.parametrize("kind", ["rms", "layer"])
 @pytest.mark.parametrize("m,d", [(4, 4096), (64, 4096), (1, 1), (37, 200),
-                                 (5, 14000)])
+                                 (5, 14000), (4096, 768)])
 def test_resnorm_kernel(cuda, kind, m, d):
     from repro_torch.kernels import fused_norm as fn
     gen = torch.Generator().manual_seed(6)
@@ -173,7 +176,8 @@ def test_resnorm_kernel(cuda, kind, m, d):
                                         (64, 4096, (4096, 512, 512)),
                                         (23, 200, (130, 17, 40)),
                                         (100, 72, (5,)),
-                                        (1, 33, (64, 64))])
+                                        (1, 33, (64, 64)),
+                                        (4096, 768, (768, 768, 768))])
 def test_norm_linear_kernel(cuda, kind, m, d, widths):
     from repro_torch.kernels import fused_norm as fn
     gen = torch.Generator().manual_seed(7)
@@ -215,7 +219,8 @@ def test_kernel_registry(cuda):
                                    "decode_dense", "decode_dense_int",
                                    "flash_fwd", "flash_snap", "resnorm",
                                    "norm_linear", "glu", "flash_bwd_dq",
-                                   "flash_bwd_dkdv", "glu_bwd"}
+                                   "flash_bwd_dkdv", "glu_bwd",
+                                   "flash_int3"}
     x = torch.zeros(2, 3, device=cuda)
     with pytest.raises(ValueError):
         ds.softmax_rows(x.t())                  # not contiguous
@@ -414,3 +419,75 @@ def test_autograd_functions_on_cuda(cuda):
     for a, b in zip(fused, run(False)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
 
+
+# ---------------- bert-base: row 9 and the unit's GELU mode ----------------
+
+def test_pair_act_gelu_kernel_at_bert_shape(cuda):
+    """The FFN activation of one bert-base forward of 8 x 512 tokens."""
+    gen = torch.Generator().manual_seed(11)
+    z = _randn(gen, cuda, 4096, 3072, scale=3.0)
+    before = ds.PAIR_ACT.launches
+    assert torch.equal(ds.pair_act(z, "gelu", "int"),
+                       ds.pair_act_plain(z, "gelu", "int"))
+    torch.testing.assert_close(ds.pair_act(z, "gelu", "float"),
+                               ds.pair_act_plain(z, "gelu", "float"),
+                               atol=2e-6, rtol=0)
+    assert ds.PAIR_ACT.launches == before + 2
+
+
+def _eye_chunks(dev, b, t, kh, width=128):
+    """The identity v over T keys in slices of at most ``width`` value
+    columns (the kernels take hv <= 128): each output column is one key's
+    probability word."""
+    eye = torch.eye(t, device=dev)
+    for j in range(0, t, width):
+        yield eye[:, j:j + width][None, :, None, :].expand(
+            b, t, kh, min(width, t - j)).contiguous()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 130, 200, 2, 1, 64, 64, None),
+                                   (1, 33, 129, 3, 4, 128, 72, None),
+                                   (2, 40, 300, 2, 2, 64, 64, 40),
+                                   (1, 512, 512, 12, 1, 64, 64, None)])
+def test_flash_int3_kernel(cuda, shape, causal):
+    """Row 9 against its plain three sweeps: random inputs within 5e-3,
+    and bitwise on the identity-v probe (grid-valued q and k); the third
+    shape has rows whose one visible key is masked."""
+    from repro_torch.kernels import flash_attention_int as fai
+    *dims, end = shape
+    b, s, t, kh = dims[:4]
+    for bkv in (16, 64):
+        kw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+        args = _attn(cuda, *dims, grid=False, causal_end=end)
+        if end is not None:
+            args[4][:, 0] = 0
+        before = fai.FLASH_INT3.launches
+        torch.testing.assert_close(fai.flash_int3(*args, **kw),
+                                   fai.flash_int3_plain(*args, **kw),
+                                   atol=5e-3, rtol=0)
+        assert fai.FLASH_INT3.launches == before + 1
+        qf, k, _, qp, valid = _attn(cuda, *dims, grid=True, causal_end=end)
+        if end is not None:
+            valid[:, 0] = 0
+        for eye in _eye_chunks(cuda, b, t, kh):
+            assert torch.equal(
+                fai.flash_int3(qf, k, eye, qp, valid, **kw),
+                fai.flash_int3_plain(qf, k, eye, qp, valid, **kw))
+
+
+def test_flash_int3_kernel_guard_shift(cuda):
+    """70000 keys: the guard shift (1, from the unpadded T) on the card."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_attention_int as fai
+    t = 70000
+    qf, k, _, qp, valid = _attn(cuda, 1, 64, t, 1, 1, 64, 64, grid=True)
+    v = torch.zeros(1, t, 1, 8, device=cuda)
+    v[0, :, 0, 0] = 1.0                   # the sum of the row's words
+    v[0, t - 7:, 0, 1:] = torch.eye(7, device=cuda)
+    for causal in (True, False):
+        kw = dict(causal=causal, block_kv=64,
+                  guard_shift=unit.guard_shift_for(t))
+        assert kw["guard_shift"] == 1
+        assert torch.equal(fai.flash_int3(qf, k, v, qp, valid, **kw),
+                           fai.flash_int3_plain(qf, k, v, qp, valid, **kw))

@@ -270,11 +270,17 @@ def test_resolution_refusals_are_two_sided():
     with pytest.raises(ValueError):
         dispatch.get_softmax("nope")
     # the reference's impls that no slice has ported yet refuse instead
-    # of running something else
-    for impl, sm in (("flash_pallas_int3", "dualmode"),
-                     ("flash_ring", "float")):
-        with pytest.raises(NotImplementedError):
-            dispatch.resolve_attention(impl, 64, 64, softmax_impl=sm)
+    # of running something else; the three-sweep int kernel is ported and
+    # honors the classic unit only
+    with pytest.raises(NotImplementedError):
+        dispatch.resolve_attention("flash_ring", 64, 64, softmax_impl="float")
+    assert dispatch.resolve_attention("flash_pallas_int3", 64, 64,
+                                      softmax_impl="dualmode") == \
+        "flash_pallas_int3"
+    with pytest.raises(ValueError):
+        dispatch.resolve_attention("flash_pallas_int3", 64, 64,
+                                   softmax_impl="float")
+    assert set(dispatch.NOT_PORTED) == {"flash_ring"}
 
 
 def test_softmax_registry_matches_reference():

@@ -39,6 +39,7 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
 @pytest.mark.parametrize("path", ["configs/base.py",
                                   "configs/qwen1_5_0_5b.py",
                                   "configs/yi_6b.py",
+                                  "configs/bert_base.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -46,7 +47,7 @@ def test_copied_modules_equal_originals(path):
         (REPO / "src/repro" / path).read_text()
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b", "bert-base"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
         j = getattr(J_registry, get)(arch)
@@ -180,7 +181,7 @@ def test_unported_configurations_raise():
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        lm_apply(p, cfg.replace(norm="layer"), torch.zeros(
+        lm_apply(p, cfg.replace(pos_emb="sinusoid"), torch.zeros(
             (1, 3), dtype=torch.long), device="cpu")
     with pytest.raises(ValueError):
         T_registry.get_config("jamba-v0.1-52b")

@@ -125,8 +125,8 @@ def test_engine_refuses_what_this_slice_does_not_serve():
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        ServeEngine(cfg.replace(norm="layer"), p, cache_mode="contiguous",
-                    device="cpu")
+        ServeEngine(cfg.replace(pos_emb="sinusoid"), p,
+                    cache_mode="contiguous", device="cpu")
     with pytest.raises(ValueError):
         ServeEngine(cfg, p, cache_mode="ring", device="cpu")
     if not torch.cuda.is_available():

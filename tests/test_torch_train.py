@@ -364,6 +364,47 @@ def test_train_step_vs_reference(step_case, fused):
     assert diff < 2e-5, diff
 
 
+def test_dualmode_train_step_vs_reference(step_case):
+    """softmax_impl='dualmode' (naive: the unit's quantized scores cut wq
+    and wk out of the graph, so their gradients are zero on both sides)
+    against the reference's jitted step: ce and the gradient norm."""
+    cfg, tcfg, state, np_params, batch = step_case
+    s_t, m_t = _port_step(_qwen().replace(softmax_impl="dualmode"), tcfg,
+                          np_params, batch)
+    p_j, m_j = _jax_step(cfg.replace(softmax_impl="dualmode"), tcfg, state,
+                         batch)
+    np.testing.assert_allclose(float(m_t["ce"]), float(m_j["ce"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m_t["grad_norm"]),
+                               float(m_j["grad_norm"]), rtol=1e-4)
+
+
+def test_silu_dualmode_gradients_vs_reference(step_case):
+    """The STE activation through the unit: each gradient tensor within
+    1e-3 of its own max of the reference's (an S5.10 gate word that
+    flips between XLA's and PyTorch's f32 orders moves the gradients),
+    as chip_smoke.py holds the kernels' step to the plain one.  The
+    float 2e-5 limit on updated parameters does not apply: the first
+    AdamW step is sign-like and turns a small gradient difference on a
+    near-zero entry into up to 2 lr."""
+    from repro.train.step import make_loss_fn as j_make_loss_fn
+    from repro_torch.train import make_grad_fn
+    from repro_torch.tree import tree_paths
+    cfg, tcfg, state, np_params, batch = step_case
+    j_cfg = cfg.replace(activation="silu_dualmode")
+    (_, (ce_j, _)), g_j = jax.jit(jax.value_and_grad(
+        j_make_loss_fn(j_cfg, tcfg), has_aux=True))(
+        state.params, {k: jnp.asarray(v) for k, v in batch.items()})
+    t_cfg = _qwen().replace(activation="silu_dualmode")
+    params = params_from_numpy(np_params, t_cfg, device=CPU)
+    ce_t, g_t = make_grad_fn(t_cfg, tcfg, CPU)(
+        params, {k: torch.from_numpy(v).long() for k, v in batch.items()})
+    np.testing.assert_allclose(float(ce_t), float(ce_j), rtol=1e-5)
+    g_j = params_from_numpy(jax.tree.map(np.asarray, g_j), t_cfg, device=CPU)
+    for (path, gt), gj in zip(tree_paths(g_t), tree_leaves(g_j)):
+        scale = float(gj.abs().max())
+        assert float((gt - gj).abs().max()) <= 1e-3 * scale, path
+
+
 def test_adamw_update_vs_reference():
     """One AdamW update on one flat tree (decay on the 2-D leaf only,
     clipping by the global norm) and the schedule, against the
