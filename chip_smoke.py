@@ -76,6 +76,27 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             layer; hidden states are finite and match the same forward with
             the plain versions called in the kernels' place, and the
             three-sweep path matches the naive dual-mode path.
+8. vision   llama-3.2-vision's path: the norm -> gated-GLU prologue (row
+            16) against its plain version at d 4096, F 14336 and the
+            path's rows (a decode tick's 4, a bucket-512 and a bucket-4096
+            prefill) and at edge shapes (a layer norm with a bias, GELU,
+            ragged M and F, small d), its backward against the plain VJP;
+            the contiguous decode kernels (rows 5 / 6: 4 slots, 8 kv heads
+            of 4 queries, h 128) and the blocked kernels (rows 7 / 8: S
+            4096 and 512) non-causal over the 1601 image keys, as the
+            cross sublayer runs them; each timed beside its bound.  Then,
+            with the bert weights freed, ServeEngine on full-width
+            llama-3.2-vision-11b (random weights from a seeded generator,
+            every cross_gate 0.5), float (norm / ffn 'fused_pallas') and
+            dual-mode (norm 'fused_pallas'), on the contiguous cache that
+            'auto' picks for it (max_seq 4096, 4 slots, buckets 512 /
+            1024 / 4096), 6 prompts of 200-3000 tokens, five of them with
+            (1, 1601, 4096) image embeddings: every request finishes,
+            logits are finite, each kernel of the path launches exactly
+            the number of times the prefills and ticks imply (40, 32 or 8
+            a forward) and no other kernel launches; then one bucket-1024
+            prefill with image embeddings and the first decode step
+            through the kernels against the plain versions.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line.  Without a CUDA device the
@@ -136,6 +157,10 @@ TOL_BERT_F = 1e-4      # full-width bert-base hidden states, float: the
 #                        order moves across an S5.10 boundary flips its
 #                        i-GELU word as it flips the unit's (i-GELU
 #                        measured 1.35e-3 on the H100)
+TOL_VISION_F = 1e-4    # full-width llama-3.2-vision logits, float: yi's
+#                        limit (every QKV, FFN and norm -> GLU product of 40
+#                        layers at d 4096 in another f32 order); dual-mode
+#                        takes TOL_LOGITS_D
 
 
 def log(*a):
@@ -457,6 +482,15 @@ def serve_phase(dev, launches):
         parity(cfg, params, dev, prompts[0])
 
 
+def _plain_norm_provider():
+    """The fused norm provider's seams, each replaced by its plain
+    version (the kernels' oracles)."""
+    from repro_torch.kernels import fused_norm as fn
+    return {"residual_norm": fn.fused_residual_norm_plain,
+            "norm_linear": fn.fused_norm_linear_plain,
+            "norm_glu": fn.fused_norm_glu_plain}
+
+
 def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
     """One prefill chunk + the first decode step at full width, through
     the kernels and with the plain versions called in their place."""
@@ -465,11 +499,8 @@ def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_ffn as ff
-    from repro_torch.kernels import fused_norm as fn
     from repro_torch.serve import ServeEngine
-    plain_norm = {"residual_norm": fn.fused_residual_norm_plain,
-                  "norm_linear": fn.fused_norm_linear_plain,
-                  "norm_glu": dispatch.get_norm("fused_pallas")["norm_glu"]}
+    plain_norm = _plain_norm_provider()
 
     def plain_glu(x, wg, wu, mode):
         return ff._glu_reference(x, wg, wu, mode)
@@ -1617,17 +1648,13 @@ def _plain_bert_kernels():
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_attention_int as fai
-    from repro_torch.kernels import fused_norm as fn
-    plain_norm = {"residual_norm": fn.fused_residual_norm_plain,
-                  "norm_linear": fn.fused_norm_linear_plain,
-                  "norm_glu": dispatch.get_norm("fused_pallas")["norm_glu"]}
     stack = ExitStack()
     for mod, name, plain in ((dispatch, "softmax_rows", ds.softmax_rows_plain),
                              (activations, "pair_act", ds.pair_act_plain),
                              (fai, "flash_int3", fai.flash_int3_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
-    stack.enter_context(mock.patch.dict(dispatch._NORM,
-                                        {"fused_pallas": plain_norm}))
+    stack.enter_context(mock.patch.dict(
+        dispatch._NORM, {"fused_pallas": _plain_norm_provider()}))
     return stack
 
 
@@ -1716,6 +1743,458 @@ def bert_phase(dev, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------- phase 8: llama-3.2-vision, cross attention ----------------
+
+VISION = dict(max_seq=4096, n_slots=4, prefill_buckets=(512, 1024, 4096))
+VISION_PROMPT_LENS = (200, 3000)
+VISION_NO_IMAGE = 2      # the request that carries no image embeddings
+VISION_GATE = 0.5        # every cross_gate: tanh(0) would shut the sublayer
+VISION_PARITY_BUCKET = 1024
+# the kernels at the path's shapes: d, F, the norm -> GLU rows (a decode
+# tick, a bucket-512 and a bucket-4096 prefill), the image keys, the kv
+# heads, query groups and head width, the cross prefill's query rows
+VISION_KERNEL = dict(d=4096, f=14336, rows=(4, 512, 4096), t=1601,
+                     heads=(8, 4, 128), s=(4096, 512))
+# name: (config overrides, prefill impl, the layers each kernel launches
+# in, a prefill and a decode tick: 'all' 40, 'self' the 32 self-attention
+# layers, 'cross' the 8 cross-attention layers, None never; every kernel
+# not named launches 0 times)
+VISION_PATHS = {
+    "float": (dict(softmax_impl="float", activation="silu", **FUSED),
+              "flash_pallas",
+              {"flash_fwd": ("all", None), "decode_dense": (None, "all"),
+               "norm_glu": ("cross", "cross"), "glu": ("self", "self"),
+               "norm_linear": ("self", "self"), "resnorm": ("self", "self")}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="silu_dualmode",
+                      norm_impl="fused_pallas"),
+                 "flash_pallas_int",
+                 {"flash_snap": ("all", None),
+                  "decode_dense_int": (None, "all"),
+                  "pair_act": ("all", "all"), "norm_linear": ("self", "self"),
+                  "resnorm": ("self", "self")})}
+
+
+def vision_kernel_phase(dev, results):
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import tiling
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    eps = 1e-5
+
+    def randn(*shape, scale=1.0, grid=False):
+        x = torch.randn(shape, generator=gen) * scale
+        return (torch.round(x * 4) / 16 if grid else x).to(dev)
+
+    d, dff, rows = (VISION_KERNEL[k] for k in ("d", "f", "rows"))
+    # -- row 16: norm -> gated GLU at the path's rows (a decode tick, a
+    #    bucket-512 and a bucket-4096 prefill) and edge shapes
+    log("[vision] norm_glu")
+    x = randn(max(rows), d, scale=2.0)
+    g = 1.0 + randn(d, scale=0.1)
+    wg, wu = randn(d, dff, scale=d ** -0.5), randn(d, dff, scale=d ** -0.5)
+    err = 0.0
+    for m in rows:
+        xs = x[:m].contiguous()
+        e = check(f"norm_glu rms silu ({m}, {d}) x {dff}",
+                  fn.fused_norm_glu(xs, g, None, wg, wu, kind="rms", eps=eps,
+                                    mode="silu"),
+                  fn.fused_norm_glu_plain(xs, g, None, wg, wu, kind="rms",
+                                          eps=eps, mode="silu"), TOL_GEMM)
+        err = max(err, e)
+    for m, dd, f, kind, mode in ((5, d, 1000, "layer", "gelu"),
+                                 (67, d, 1000, "rms", "silu"),
+                                 (67, 72, 14336, "layer", "silu"),
+                                 (5, 200, 130, "layer", "gelu"),
+                                 (1, 33, 1, "rms", "gelu")):
+        xe = randn(m, dd, scale=2.0)
+        ge = 1.0 + randn(dd, scale=0.1)
+        be = randn(dd, scale=0.1) if kind == "layer" else None
+        wge = randn(dd, f, scale=dd ** -0.5)
+        wue = randn(dd, f, scale=dd ** -0.5)
+        check(f"norm_glu {kind} {mode} ({m}, {dd}) x {f}",
+              fn.fused_norm_glu(xe, ge, be, wge, wue, kind=kind, eps=eps,
+                                mode=mode),
+              fn.fused_norm_glu_plain(xe, ge, be, wge, wue, kind=kind,
+                                      eps=eps, mode=mode), TOL_GEMM)
+    # its backward (the GLU backward kernel inside) against the plain VJP
+    xb, dyb = randn(2, 37, 256), randn(2, 37, 300)
+    gb, bb = 1.0 + randn(256, scale=0.1), randn(256, scale=0.1)
+    wgb, wub = randn(256, 300, scale=1 / 16), randn(256, 300, scale=1 / 16)
+
+    def grads():
+        ins = [t.clone().requires_grad_(True) for t in (xb, gb, bb, wgb,
+                                                         wub)]
+        y = fn.fused_norm_glu(*ins, kind="layer", eps=eps, mode="silu")
+        return torch.autograd.grad(y, ins, dyb)
+    got = grads()
+    with mock.patch.object(fn, "_norm_glu_fwd", fn.fused_norm_glu_plain), \
+            mock.patch.object(ff, "glu_bwd",
+                              lambda *a, mode: ff._glu_bwd_plain(*a, mode)):
+        want = grads()
+    for name, a, b in zip(("dx", "dg", "db", "dWg", "dWu"), got, want):
+        check_rel(f"norm_glu backward {name} (2, 37, 256) x 300", a, b,
+                  TOL_GLU_BWD)
+    shapes = {}
+    for m in rows:
+        xs = x[:m].contiguous()
+        it = 20 if m < max(rows) else 5
+        ms = time_ms(lambda: fn.fused_norm_glu(
+            xs, g, None, wg, wu, kind="rms", eps=eps, mode="silu"), iters=it)
+        plain = time_ms(lambda: fn.fused_norm_glu_plain(
+            xs, g, None, wg, wu, kind="rms", eps=eps, mode="silu"), iters=it)
+
+        def library():
+            h = torch.nn.functional.rms_norm(xs, (d,), g, eps)
+            return torch.matmul(h, wg), torch.matmul(h, wu)
+        lib = time_ms(library, iters=it)
+        b_ms, b_by = bound((m * d + 2 * d * dff + m * dff + d) * 4,
+                           4 * m * d * dff + 5 * m * d + 20 * m * dff)
+        log(f"  norm_glu rms silu M{m} d{d} F{dff}: {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, F.rms_norm + two torch.matmul "
+            f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})")
+        shapes[f"norm_glu M{m}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                        library_ms=lib)
+        if m == rows[1]:
+            results["norm_glu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                       bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=lib)
+    del x, wg, wu
+
+    # -- rows 5 / 6 as a cross decode tick runs them: 4 slots, K8 G4 h128,
+    #    1601 image keys, non-causal, q_pos 0
+    log("[vision] decode_dense / decode_dense_int at the cross shape")
+    t, (kh, gq, h) = VISION_KERNEL["t"], VISION_KERNEL["heads"]
+    b = VISION["n_slots"]
+    gs = unit.guard_shift_for(t)
+    ns = fd.dense_decode_splits(t, b * kh, dev)
+    bkv = tiling.decode_kv_block(t, ns)
+    qp = torch.zeros(b, dtype=torch.int32, device=dev)
+    valid = torch.ones(b, t, dtype=torch.uint8, device=dev)
+
+    def dparts(kern, args, n_s, bk, int_mode):
+        f_ = fd.decode_dense_partials if kern else \
+            fd.decode_dense_partials_plain
+        return f_(*args, num_splits=n_s, block_kv=bk, causal=False,
+                  int_mode=int_mode, guard_shift=gs)
+    for grid in (True, False):          # the random operands are timed
+        args = ((randn(b, kh, gq, h, grid=grid) * h ** -0.5).contiguous(),
+                randn(b, t, kh, h, grid=grid), randn(b, t, kh, h), qp, valid)
+        for n_s, bk in ((ns, bkv), (1, 128), (8, 128)):
+            check(f"decode_dense cross T{t} grid={grid} splits={n_s}",
+                  fd.finish_partials(*dparts(True, args, n_s, bk, False),
+                                     int_mode=False),
+                  fd.finish_partials(*dparts(False, args, n_s, bk, False),
+                                     int_mode=False), TOL_DECODE_F)
+            ik, ip = (dparts(True, args, n_s, bk, True),
+                      dparts(False, args, n_s, bk, True))
+            if grid:
+                check(f"decode_dense_int cross m words splits={n_s}", ik[0],
+                      ip[0], TOL_INT)
+                check(f"decode_dense_int cross S words splits={n_s}", ik[1],
+                      ip[1], TOL_INT)
+            check(f"decode_dense_int cross T{t} grid={grid} splits={n_s}",
+                  fd.finish_partials(*ik, int_mode=True),
+                  fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
+    keys = b * t
+    nbytes = keys * kh * 2 * h * 4 + args[0].numel() * 4 + keys + 4 * b
+    b_ms, _ = bound(nbytes, keys * kh * gq * (4 * h + 4))
+    q_l = args[0].reshape(b, kh * gq, 1, h)
+    k_l = args[1].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    v_l = args[2].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, scale=1.0))
+    for name, int_mode in (("decode_dense", False),
+                           ("decode_dense_int", True)):
+        ms = time_ms(lambda: dparts(True, args, ns, bkv, int_mode))
+        plain = time_ms(lambda: dparts(False, args, ns, bkv, int_mode),
+                        iters=3, warmup=1)
+        log(f"  {name} cross (B{b} K{kh} G{gq} h{h} T{t} non-causal, {ns} "
+            f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us (bytes)"
+            + ("" if int_mode else f", SDPA {lib * 1e3:.1f} us"))
+        shapes[f"{name} cross"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                       library_ms=None if int_mode else lib)
+
+    # -- rows 7 / 8 as a cross prefill runs them: B1, S 4096 and 512
+    #    queries against the 1601 image keys, non-causal, K8 G4 h128
+    log("[vision] flash_fwd / flash_snap at the cross shape")
+    kw = dict(causal=False, block_kv=64)
+    for s_ in VISION_KERNEL["s"]:
+        for grid in (True, False):      # the random operands are timed
+            args = ((randn(1, s_, kh, gq, h, grid=grid)
+                     * (1.0 if grid else h ** -0.5)).contiguous(),
+                    randn(1, t, kh, h, grid=grid), randn(1, t, kh, h),
+                    torch.zeros(1, s_, dtype=torch.int32, device=dev),
+                    torch.ones(1, t, dtype=torch.uint8, device=dev))
+            check(f"flash_fwd cross S{s_} T{t} grid={grid}",
+                  fa.flash_fwd(*args, **kw), fa.flash_fwd_plain(*args, **kw),
+                  TOL_FLASH_F)
+            got = fai.flash_snap(*args, guard_shift=gs, return_partial=True,
+                                 **kw)
+            want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                        return_partial=True, **kw)
+            if grid:
+                check(f"flash_snap cross S{s_} m words", got[1], want[1],
+                      TOL_INT)
+                check(f"flash_snap cross S{s_} S words", got[2], want[2],
+                      TOL_INT)
+            check(f"flash_snap cross S{s_} T{t} grid={grid}",
+                  fai.flash_snap(*args, guard_shift=gs, **kw),
+                  fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+                  TOL_FLASH_F if grid else TOL_FLASH_I)
+        pairs = s_ * t * kh * gq
+        nbytes = (2 * args[0].numel() + 2 * t * kh * h) * 4 + 4 * s_ + t
+        b_ms, _ = bound(nbytes, pairs * (4 * h + 4))
+        q_l = args[0][0].permute(1, 2, 0, 3).reshape(1, kh * gq, s_, h)
+        k_l = args[1].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+        v_l = args[2].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q_l, k_l, v_l, scale=1.0), iters=10)
+        for name, fn_, plain_fn in (
+                ("flash_fwd", lambda: fa.flash_fwd(*args, **kw),
+                 lambda: fa.flash_fwd_plain(*args, **kw)),
+                ("flash_snap",
+                 lambda: fai.flash_snap(*args, guard_shift=gs, **kw),
+                 lambda: fai.flash_snap_plain(*args, guard_shift=gs, **kw))):
+            ms = time_ms(fn_, iters=10, warmup=2)
+            plain = time_ms(plain_fn, iters=2, warmup=1)
+            lib_ms = lib if name == "flash_fwd" else None
+            log(f"  {name} cross (B1 S{s_} K{kh} G{gq} h{h} T{t} "
+                f"non-causal): {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us,"
+                f" bound {b_ms * 1e3:.1f} us (operations)"
+                + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
+            shapes[f"{name} cross S{s_}"] = dict(ms=ms, plain_ms=plain,
+                                                 bound_ms=b_ms,
+                                                 library_ms=lib_ms)
+    # -- the other path kernels at the vision forward's shapes (a decode
+    #    tick's rows and a bucket-4096 prefill), timed only (each is held
+    #    to its plain version above, in the phases that ported it): where
+    #    a forward's time goes, per call x launches
+    log("[vision] the path's other kernels at its shapes (timing)")
+    nq, nk = kh * gq * h, kh * h
+    big = max(rows)
+    xp = randn(big, d)
+    wq_, wk_, wv_ = (randn(d, n, scale=d ** -0.5) for n in (nq, nk, nk))
+    wg, wu = randn(d, dff, scale=d ** -0.5), randn(d, dff, scale=d ** -0.5)
+    for m in (rows[0], big):
+        xs = xp[:m].contiguous()
+        shapes[f"glu M{m}"] = dict(ms=time_ms(lambda: ff.fused_glu(
+            xs, wg, wu, mode="silu"), iters=5 if m == big else 20))
+        shapes[f"norm_linear M{m}"] = dict(ms=time_ms(
+            lambda: fn.fused_norm_linear(xs, g, None, (wq_, wk_, wv_),
+                                         kind="rms", eps=eps),
+            iters=5 if m == big else 20))
+        shapes[f"resnorm M{m}"] = dict(ms=time_ms(
+            lambda: fn.fused_residual_norm(xs, xs, g, kind="rms",
+                                           eps=eps)))
+    del xp, wq_, wk_, wv_, wg, wu
+    qs = randn(1, big, kh, gq, h, scale=h ** -0.5).contiguous()
+    ks, vs = randn(1, big, kh, h), randn(1, big, kh, h)
+    qps = torch.arange(big, dtype=torch.int32, device=dev)[None]
+    vals = torch.ones(1, big, dtype=torch.uint8, device=dev)
+    shapes[f"flash_fwd self S{big} causal"] = dict(ms=time_ms(
+        lambda: fa.flash_fwd(qs, ks, vs, qps, vals, causal=True,
+                             block_kv=64), iters=5))
+    shapes[f"flash_snap self S{big} causal"] = dict(ms=time_ms(
+        lambda: fai.flash_snap(qs, ks, vs, qps, vals, causal=True,
+                               block_kv=64, guard_shift=0), iters=5))
+    del qs, ks, vs
+    t_self = VISION["max_seq"]
+    ns_self = fd.dense_decode_splits(t_self, b * kh, dev)
+    qpd = torch.tensor([375, 737, 1420, 2750][:b], dtype=torch.int32,
+                       device=dev)
+    dargs = ((randn(b, kh, gq, h) * h ** -0.5).contiguous(),
+             randn(b, t_self, kh, h), randn(b, t_self, kh, h), qpd,
+             (torch.arange(t_self, device=dev)[None] <= qpd[:, None]).to(
+                 torch.uint8))
+    for name, int_mode in (("decode_dense", False),
+                           ("decode_dense_int", True)):
+        shapes[f"{name} self T{t_self}"] = dict(ms=time_ms(
+            lambda: fd.decode_dense_partials(
+                *dargs, num_splits=ns_self,
+                block_kv=tiling.decode_kv_block(t_self, ns_self), causal=True,
+                int_mode=int_mode, guard_shift=0)))
+    del dargs
+    log("  " + ", ".join(f"{k_} {v_['ms'] * 1e3:.1f} us"
+                         for k_, v_ in shapes.items()
+                         if k_.startswith(("glu", "norm_linear", "resnorm",
+                                           "flash_fwd self",
+                                           "flash_snap self"))
+                         or " self T" in k_))
+    results["vision_shape_ms"] = shapes
+
+
+def _plain_vision_kernels():
+    """Patches that put the plain versions in the vision path kernels'
+    place (the same call sites)."""
+    from contextlib import ExitStack
+
+    from repro_torch.core import activations
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import fused_ffn as ff
+    stack = ExitStack()
+    for mod, name, plain in (
+            (fa, "flash_fwd", fa.flash_fwd_plain),
+            (fai, "flash_snap", fai.flash_snap_plain),
+            (fd, "decode_dense_partials", fd.decode_dense_partials_plain),
+            (activations, "pair_act", ds.pair_act_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    stack.enter_context(mock.patch.dict(dispatch._NORM, {
+        "fused_pallas": _plain_norm_provider()}))
+    stack.enter_context(mock.patch.dict(dispatch._FFN, {
+        "fused_pallas": lambda x, wg, wu, mode: ff._glu_reference(
+            x, wg, wu, mode)}))
+    return stack
+
+
+def vision_serve_phase(dev, launches):
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_caches, init_lm
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
+    gc.collect()                    # the bert phase's weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = registry.get_config("llama-3.2-vision-11b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_lm(base, gen, dev)
+    for lp in params["layers"]:
+        if "cross_gate" in lp:
+            lp["cross_gate"].fill_(VISION_GATE)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    log(f"[vision] llama-3.2-vision-11b full width: {base.n_layers} layers "
+        f"({sum('cross' in lp for lp in params['layers'])} cross) d "
+        f"{base.d_model} heads {base.n_heads}/{base.n_kv_heads} h {base.hd} "
+        f"d_ff {base.d_ff} vocab {base.vocab} image tokens "
+        f"{base.n_img_tokens}, {n_par / 1e9:.3f} B parameters; cross_gate "
+        f"{VISION_GATE}; init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    n_cross = sum("cross" in lp for lp in params["layers"])
+    n_layers = {"all": base.n_layers, "cross": n_cross,
+                "self": base.n_layers - n_cross, None: 0}
+    rng = np.random.RandomState(7)      # buckets 512 x 2, 1024, 4096 x 3
+    lens = rng.randint(VISION_PROMPT_LENS[0], VISION_PROMPT_LENS[1] + 1,
+                       size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    images = [None if i == VISION_NO_IMAGE else torch.randn(
+        (1, base.n_img_tokens, base.d_model), generator=gen, device=dev)
+        for i in range(len(prompts))]
+    for name, (over, prefill_impl, per_kernel) in VISION_PATHS.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev, **VISION)
+        if (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl) != (
+                "contiguous", prefill_impl, "flash_decode"):
+            fail(f"vision {name}: cache {eng.cache_mode}, prefill "
+                 f"{eng.prefill_attn_impl}, decode {eng.decode_attn_impl}")
+        prefill_ms = []
+        inner = eng.prefill_logits
+
+        def timed(tokens, *a, _inner=inner, _out=prefill_ms):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            res = _inner(tokens, *a)
+            torch.cuda.synchronize()
+            _out.append((tokens.shape[1], (time.perf_counter() - t_) * 1e3))
+            return res
+        eng.prefill_logits = timed
+        reqs = [Request(rid=i, prompt=p, max_new=16, cross_src=img)
+                for i, (p, img) in enumerate(zip(prompts, images))]
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        launches["norm_glu"] = launches.get("norm_glu", 0) + counts["norm_glu"]
+        new = sum(len(v) for v in outs.values())
+        st = eng.stats
+        by_bucket = {}
+        for bucket, ms in prefill_ms:
+            by_bucket.setdefault(bucket, []).append(ms)
+        log(f"[vision] {name}: {len(outs)}/{len(reqs)} requests "
+            f"({sum(i is not None for i in images)} with image embeddings), "
+            f"{new} new tokens, prompts {int(lens.sum())} tokens, {dt:.2f} s "
+            f"({(new + int(lens.sum())) / dt:.0f} tok/s all, "
+            f"{new / st['decode_s']:.1f} tok/s decode); prefill "
+            f"{st['prefill_s'] * 1e3:.0f} ms in {st['prefills']} prefills ("
+            + ", ".join(f"bucket {k_}: " + " / ".join(f"{v_:.0f}" for v_ in v)
+                        + " ms" for k_, v in sorted(by_bucket.items()))
+            + f"), decode {st['decode_s'] * 1e3:.0f} ms in "
+            f"{st['decode_steps']} ticks "
+            f"({st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}")
+        if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
+            fail(f"vision {name}: unfinished requests")
+        if st["nonfinite"]:
+            fail(f"vision {name}: {st['nonfinite']} non-finite logit rows")
+        n_pre, n_dec = st["prefills"], st["decode_steps"]
+        per = {k: tuple(n_layers[w] for w in v) for k, v in per_kernel.items()}
+        for k, n in counts.items():
+            a, b = per.get(k, (0, 0))
+            want = a * n_pre + b * n_dec
+            if n != want:
+                fail(f"vision {name}: kernel {k} launched {n} times, "
+                     f"expected {want} ({n_pre} prefills, {n_dec} ticks)")
+        log(f"  ok exact launches: {n_pre} prefills x "
+            + ", ".join(f"{k} {a}" for k, (a, _) in per.items() if a)
+            + f"; {n_dec} ticks x "
+            + ", ".join(f"{k} {b}" for k, (_, b) in per.items() if b)
+            + "; every other kernel 0")
+        del eng
+        torch.cuda.empty_cache()
+
+        # one bucket-1024 prefill with image embeddings and the first
+        # decode step, kernels vs plain versions, the engine's impls
+        prompt = prompts[0][:VISION_PARITY_BUCKET - 24]
+
+        def step():
+            eng = ServeEngine(cfg, params, device=dev,
+                              **{**VISION, "n_slots": 1})
+            row = init_caches(cfg, 1, VISION["max_seq"], dev)
+            toks = torch.tensor([prompt + [0] * (VISION_PARITY_BUCKET
+                                                 - len(prompt))], device=dev)
+            pre = eng.prefill_logits(toks, row, torch.tensor(
+                [len(prompt) - 1], device=dev), images[0])
+            eng.caches = row
+            nxt = torch.argmax(pre, dim=-1)[:, None]
+            dec = eng.decode_logits(nxt, torch.tensor(
+                [len(prompt)], dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            del eng, row
+            return pre, dec
+        kern = step()
+        torch.cuda.empty_cache()
+        with _plain_vision_kernels():
+            plain = step()
+        torch.cuda.empty_cache()
+        tol = TOL_VISION_F if name == "float" else TOL_LOGITS_D
+        for what, a, b in ((f"bucket-{VISION_PARITY_BUCKET} prefill",
+                            kern[0], plain[0]),
+                           ("first decode step", kern[1], plain[1])):
+            check(f"llama-3.2-vision {name} full-width logits, {what}", a, b,
+                  tol)
+        del kern, plain
+    del params, images
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1756,6 +2235,8 @@ def main() -> int:
     train_phase(dev, launches, results)
     bert_kernel_phase(dev, results)
     bert_phase(dev, launches)
+    vision_kernel_phase(dev, results)
+    vision_serve_phase(dev, launches)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

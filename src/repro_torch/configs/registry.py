@@ -10,6 +10,7 @@ _MODULES = {
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "yi-6b": "yi_6b",
     "bert-base": "bert_base",
+    "llama-3.2-vision-11b": "llama3_2_vision_11b",
 }
 
 # the serving / training archs; bert-base (the paper's encoder) stays out,

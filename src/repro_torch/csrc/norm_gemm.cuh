@@ -1,5 +1,6 @@
 // The tiled float32 GEMM body shared by norm_linear.cu (the norm -> QKV
-// prologue) and glu.cu (the gated-FFN epilogue):
+// prologue), glu.cu / glu_bwd.cu (the gated-FFN epilogues) and
+// norm_glu.cu (both: the norm prologue and the GLU epilogue):
 //
 //   out[m, c] = epilogue( sum_k prologue(x)[m, k] * W[k, c] )
 //
@@ -7,8 +8,8 @@
 // in place.  norm_linear hands up to three matrices (wq, wk, wv) whose
 // columns land side by side in one (M, sum n) output: a block's column
 // tile lies inside one matrix, so nothing concatenates [wq|wk|wv] in
-// device memory.  glu hands two (Wg, Wu) of one width and reads the same
-// column tile of both.
+// device memory.  glu and norm_glu hand two (Wg, Wu) of one width and
+// read the same column tile of both.
 //
 // Grid: one block of 256 threads per (BN = 32 output columns, BM = 16 x
 // TM rows); thread (ty, tx) of the 16 x 16 layout holds TM rows x 2

@@ -2,6 +2,7 @@
 
 ``fused_residual_norm``  replaces ``_resnorm_jit``     (fused_norm.py:134)
 ``fused_norm_linear``    replaces ``_norm_linear_jit`` (fused_norm.py:217)
+``fused_norm_glu``       replaces ``_norm_glu_jit``    (fused_norm.py:302)
 
   residual_norm  (x, r)    -> (x + r, norm(x + r) * g + b)
                  the attention-output epilogue: the new residual stream
@@ -14,27 +15,32 @@
                  place: ``ws`` is a sequence of up to three matrices
                  whose columns land side by side, so [wq|wk|wv] is never
                  concatenated on the card.
+  norm_glu       x, Wg, Wu -> pair_act(h @ Wg) * (h @ Wu), h = norm(x)
+                 the FFN seam of blocks whose attention epilogue made no
+                 normed stream ('none' mixers, cross-attention
+                 sublayers): norm_linear's prologue under the fused
+                 GLU's epilogue, so neither h nor the gate and up
+                 products reach device memory (``csrc/norm_glu.cu``).
 
-Both inline the datapath's norm arithmetic (:func:`_hat`: f32 moments,
-rsqrt as exp2(-0.5 log2 v), gain and bias in f32, one downcast of the
-finished result), for ``kind`` 'rms' (``b`` None) or 'layer'.  The plain
-versions below are the reference's kernel bodies in PyTorch (the
-norm_linear one concatenates the weights, as the reference does); each
-wrapper runs its plain version for CPU tensors and launches its CUDA
-kernel for CUDA tensors, or raises.  The kernels agree with the plain
-versions up to f32 summation order.
+All three inline the datapath's norm arithmetic (:func:`_hat`: f32
+moments, rsqrt as exp2(-0.5 log2 v), gain and bias in f32, one downcast
+of the finished result), for ``kind`` 'rms' (``b`` None) or 'layer'.
+The plain versions below are the reference's kernel bodies in PyTorch
+(the norm_linear one concatenates the weights, as the reference does;
+the norm_glu one is that norm followed by ``fused_ffn._glu_reference``);
+each wrapper runs its plain version for CPU tensors and launches its
+CUDA kernel for CUDA tensors, or raises.  The kernels agree with the
+plain versions up to f32 summation order.
 
-Both seams are ``torch.autograd.Function``s, on either device, with the
-reference's custom VJPs as their backwards: plain PyTorch through
-``datapath.rmsnorm_vjp`` / ``layernorm_vjp`` (the reference's backwards
-are jnp, not Pallas); norm_linear recomputes the normalized stream and
-takes dW = h^T dO and dh = dO W^T as ``torch.matmul``.  A bias that is
-None gets no gradient.
-
-The third seam of the reference's provider, norm -> gated GLU
-(``_norm_glu_jit``), fires only in blocks whose attention epilogue made
-no normed stream ('none' mixers, cross-attention sublayers): it is not
-ported yet, and its seam raises NotImplementedError.
+The seams are ``torch.autograd.Function``s, on either device, with the
+reference's custom VJPs as their backwards: the norm's VJP is plain
+PyTorch through ``datapath.rmsnorm_vjp`` / ``layernorm_vjp`` (the
+reference's are jnp, not Pallas); norm_linear and norm_glu recompute the
+normalized stream with the dense norm and take the products around it
+(dW = h^T dO, dh = dO W^T) as ``torch.matmul``; norm_glu's d_gate /
+d_up come from the GLU backward kernel (``fused_ffn.glu_bwd``), as the
+reference's come from ``_glu_bwd_call``.  A bias that is None gets no
+gradient.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import torch
 
 from . import _build
 from . import datapath as dp
-from . import dispatch, tiling
+from . import dispatch, fused_ffn, tiling
 
 _P, _I, _F = _build.P, _build.I, _build.F
 
@@ -55,6 +61,11 @@ NORM_LINEAR = _build.Kernel(
     [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P],
     source="src/repro_torch/csrc/norm_linear.cu",
     replaces="src/repro/kernels/fused_norm.py:217")
+NORM_GLU = _build.Kernel(
+    "norm_glu", "norm_glu_launch",
+    [_P] * 6 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    source="src/repro_torch/csrc/norm_glu.cu",
+    replaces="src/repro/kernels/fused_norm.py:302")
 
 KINDS = ("rms", "layer")
 MAX_MATRICES = 3          # weight matrices norm_linear reads in place
@@ -103,6 +114,16 @@ def fused_norm_linear_plain(x, g, b, ws, *, kind: str, eps: float):
     wc = torch.cat([m.to(torch.float32) for m in _matrices(ws)], dim=1)
     h = _scaled(x.to(torch.float32), g, b, kind=kind, eps=eps)
     return (h @ wc).to(x.dtype)
+
+
+def fused_norm_glu_plain(x, g, b, wg, wu, *, kind: str, eps: float,
+                         mode: str):
+    """pair_act(h @ wg) * (h @ wu), h = norm(x) * g + b: x (..., d), wg /
+    wu (d, F) -> (..., F) in x's dtype."""
+    d = x.shape[-1]
+    h = _scaled(x.to(torch.float32), g, b, kind=kind, eps=eps)
+    y = fused_ffn._glu_reference(h.reshape(-1, d), wg, wu, mode)
+    return y.reshape(x.shape[:-1] + (wg.shape[1],)).to(x.dtype)
 
 
 # ---- kernel wrappers --------------------------------------------------------
@@ -165,6 +186,30 @@ def _norm_linear_fwd(x, g, b, ws, *, kind: str, eps: float):
                     m, d, KINDS.index(kind), eps,
                     *tiling.matmul_blocks(m, norm_prologue=True),
                     _build.stream_ptr(x.device))
+    return out
+
+
+def _norm_glu_fwd(x, g, b, wg, wu, *, kind: str, eps: float, mode: str):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
+    if x.device.type == "cpu":
+        return fused_norm_glu_plain(x, g, b, wg, wu, kind=kind, eps=eps,
+                                    mode=mode)
+    _check("fused_norm_glu", kind, x=x, g=g, b=b, wg=wg, wu=wu)
+    d = x.shape[-1]
+    if g.shape != (d,) or (b is not None and b.shape != (d,)) or (
+            wg.ndim != 2 or wg.shape != wu.shape or wg.shape[0] != d):
+        raise ValueError(f"fused_norm_glu: x {tuple(x.shape)}, wg "
+                         f"{tuple(wg.shape)}, wu {tuple(wu.shape)}")
+    f = wg.shape[1]
+    out = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
+    if out.numel():
+        m = out.numel() // f
+        NORM_GLU(x.data_ptr(), g.data_ptr(),
+                 None if b is None else b.data_ptr(), wg.data_ptr(),
+                 wu.data_ptr(), out.data_ptr(), m, d, f, KINDS.index(kind),
+                 eps, fused_ffn.MODES.index(mode),
+                 *tiling.matmul_blocks(m, norm_prologue=True, glu=True),
+                 _build.stream_ptr(x.device))
     return out
 
 
@@ -233,6 +278,33 @@ class _NormLinear(torch.autograd.Function):
                 *(dw.to(m.dtype) for dw, m in zip(dws, ws)))
 
 
+class _NormGLU(torch.autograd.Function):
+    """``_norm_glu_jit``'s custom VJP: recompute h with the dense norm,
+    (d_gate, d_up) from the GLU backward kernel, the rest as matmuls."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, wg, wu, kind, eps, mode):
+        ctx.save_for_backward(x, g, b, wg, wu)
+        ctx.kind, ctx.eps, ctx.mode = kind, eps, mode
+        return _norm_glu_fwd(x, g, b, wg, wu, kind=kind, eps=eps, mode=mode)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, b, wg, wu = ctx.saved_tensors
+        kind, eps = ctx.kind, ctx.eps
+        d, f = x.shape[-1], wg.shape[1]
+        h = _dense_h(x, g, b, kind=kind, eps=eps).reshape(-1, d).contiguous()
+        dgm, dum = fused_ffn.glu_bwd(
+            h, wg.to(torch.float32).contiguous(),
+            wu.to(torch.float32).contiguous(),
+            dy.to(torch.float32).reshape(-1, f).contiguous(), mode=ctx.mode)
+        dh = dgm @ wg.to(torch.float32).T + dum @ wu.to(torch.float32).T
+        dx, dg, db = _norm_vjp(x, g, b, dh.reshape(x.shape), kind=kind,
+                               eps=eps)
+        return (dx.to(x.dtype), dg, db, (h.T @ dgm).to(wg.dtype),
+                (h.T @ dum).to(wu.dtype), None, None, None)
+
+
 def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
     """(x + r, norm(x + r) * g + b); x, r (..., d), g / b (d,), b None
     for rms.  Both outputs in x's dtype; differentiable."""
@@ -246,15 +318,17 @@ def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):
     return _NormLinear.apply(x, g, b, kind, eps, *_matrices(ws))
 
 
-def _norm_glu_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "the norm -> gated-GLU seam (fused_norm.py:_norm_glu_jit) is not "
-        "ported yet: it fires only for 'none'-mixer and cross-attention "
-        "blocks, and comes with the llama-3.2-vision slice of the port")
+def fused_norm_glu(x, g, b, wg, wu, *, kind: str, eps: float, mode: str):
+    """pair_act(norm(x) @ wg) * (norm(x) @ wu) without the normalized
+    stream or the products in memory: x (..., d), wg / wu (d, F) ->
+    (..., F); differentiable."""
+    if mode not in fused_ffn.MODES:
+        raise ValueError(f"unknown pair-act mode {mode!r}")
+    return _NormGLU.apply(x, g, b, wg, wu, kind, eps, mode)
 
 
 dispatch.register_norm("fused_pallas", {
     "residual_norm": fused_residual_norm,
     "norm_linear": fused_norm_linear,
-    "norm_glu": _norm_glu_not_ported,
+    "norm_glu": fused_norm_glu,
 })

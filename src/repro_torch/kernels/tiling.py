@@ -20,8 +20,8 @@ keys themselves instead of padding the operands in device memory.
 Results do not depend on the tile: int words are bitwise equal for any
 (bq, bkv), float outputs equal up to f32 summation order.
 
-Matmul-epilogue kernels (the fused GLU, the norm -> linear prologue;
-``csrc/norm_gemm.cuh``) take the place of the reference's
+Matmul-epilogue kernels (the fused GLU, the norm -> linear and norm ->
+gated-GLU prologues; ``csrc/norm_gemm.cuh``) take the place of the reference's
 ``matmul_blocks`` (128 x 512 MXU tiles with the whole contraction dim
 in VMEM): 32-column output tiles, so a decode tick's few rows still give
 every SM a column tile at yi-6b's widths, row tiles of 16, 32 or 64
@@ -90,9 +90,14 @@ def pad_attention_operands(q, q_pos, k, v, kv_valid, bq: int, bkv: int):
             pad_dim(kv_valid.to(torch.int32), 1, bkv))
 
 
-def matmul_blocks(m: int, *, norm_prologue: bool) -> tuple[int, int]:
+def matmul_blocks(m: int, *, norm_prologue: bool,
+                  glu: bool | None = None) -> tuple[int, int]:
     """(bm, bk) of the matmul-epilogue kernels for m rows: rows per tile
     and the K chunk staged in shared memory (tiles are 32 columns wide).
+    ``glu`` says whether the kernel reads two weight matrices a chunk
+    (the GLU's gate and up); it defaults to ``not norm_prologue``, so
+    ``norm_prologue=True`` alone is the norm -> linear kernel and
+    ``norm_prologue=True, glu=True`` the norm -> gated-GLU kernel.
 
     A decode tick (m <= 16) is bound by the weight bytes: one 16-row
     tile, and the norm -> linear kernel (one weight matrix a tile) walks
@@ -101,11 +106,15 @@ def matmul_blocks(m: int, *, norm_prologue: bool) -> tuple[int, int]:
     leave one block an SM, and it ran slower).  More rows are bound by
     the FMAs: 32-row tiles up to a prefill chunk for the norm -> linear
     kernel (twice the blocks of 64-row ones at yi-6b's QKV width),
-    64-row tiles past 32 rows for the GLU.  The kernels instantiate
-    exactly these pairs (their H100 timings are in PERF.md)."""
+    64-row tiles past 32 rows for the GLU.  The norm -> gated-GLU kernel
+    takes the GLU's pairs: its prologue adds shared memory for two words
+    a row, not staging registers.  The kernels instantiate exactly these
+    pairs (their H100 timings are in PERF.md)."""
+    if glu is None:
+        glu = not norm_prologue
     if m <= 16:
-        return 16, 128 if norm_prologue else 32
-    if m <= (64 if norm_prologue else 32):
+        return 16, 32 if glu else 128
+    if m <= (32 if glu else 64):
         return 32, 32
     return 64, 32
 

@@ -6,8 +6,13 @@ cpu`` runs the plain versions).
         --requests 8 --slots 4 --max-new 16 --max-seq 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama-3.2-vision-11b --max-seq 4096
 
-Full width by default; ``--reduced`` takes the arch's smoke config.
+Full width by default; ``--reduced`` takes the arch's smoke config.  The
+requests are text-only, as the reference launcher's: on
+llama-3.2-vision they attend over a zero cross cache ('auto' picks the
+contiguous cache there).
 """
 from __future__ import annotations
 

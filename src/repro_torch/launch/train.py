@@ -21,6 +21,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.data import SyntheticLM
 from repro_torch.device import resolve_device
 from repro_torch.train import Trainer
+from repro_torch.train.step import check_train_arch
 
 
 def main() -> None:
@@ -49,6 +50,7 @@ def main() -> None:
 
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    check_train_arch(cfg)
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1),
                        checkpoint_every=args.ckpt_every,

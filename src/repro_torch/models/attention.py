@@ -1,8 +1,10 @@
 """GQA attention of the port (counterpart of ``repro.models.attention``):
 one scores -> softmax -> combine core, so the attention softmax goes
 through the configured implementation (float, or the dual-mode unit's
-kernel), and the two KV cache layouts the serving engine uses: paged
-pools behind block tables, and contiguous (B, max_seq, K, h) rows.
+kernel), the two KV cache layouts the serving engine uses (paged pools
+behind block tables, and contiguous (B, max_seq, K, h) rows), and the
+cross attention of the VLM's image layers (non-causal, over K/V made
+from the image embeddings once per request).
 
 Cache tensors are updated IN PLACE (``paged_write``, ``_write_seq``),
 where the reference returns new arrays: the caches are the largest
@@ -19,7 +21,8 @@ from repro_torch.kernels import datapath as dp
 from repro_torch.kernels import dispatch
 
 from . import flash as _flash
-from .layers import Params, apply_rope, linear, make_norm, rmsnorm
+from .layers import (Params, apply_rope, linear, linear_init, make_norm,
+                     rmsnorm)
 
 
 class AttnSpec(NamedTuple):
@@ -254,3 +257,40 @@ def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
                   attn_impl=s.attn_impl)
     o = o.reshape(b, sl, s.n_heads * s.head_dim)
     return linear(p["wo"], o), cache
+
+
+# ---------------- cross attention (VLM) ----------------
+
+def cross_init(gen: torch.Generator, s: AttnSpec, device) -> Params:
+    return {"wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device),
+            "wk": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim,
+                              device),
+            "wv": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim,
+                              device),
+            "wo": linear_init(gen, s.n_heads * s.head_dim, s.d_model,
+                              device)}
+
+
+def cross_kv(p: Params, s: AttnSpec, enc) -> Params:
+    """Cross K/V (B, T, K, h) from the image embeddings ``enc`` (B, T, d):
+    computed at prefill and cached for decode."""
+    b, t, _ = enc.shape
+    k = linear(p["wk"], enc).reshape(b, t, s.n_kv_heads, s.head_dim)
+    v = linear(p["wv"], enc).reshape(b, t, s.n_kv_heads, s.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_apply(p: Params, s: AttnSpec, x, kv: Params):
+    """x (B, S, d) attends over every cross key, non-causally, through
+    the attention impl ``s.attn_impl`` (the engine's pick for the phase:
+    a concrete name is taken as it is, not resolved for this shape)."""
+    b, sl, _ = x.shape
+    g = s.n_heads // s.n_kv_heads
+    q = linear(p["wq"], x).reshape(b, sl, s.n_kv_heads, g, s.head_dim)
+    t = kv["k"].shape[1]
+    valid = torch.ones((b, t), dtype=torch.bool, device=x.device)
+    o = _sdpa(q, kv["k"], kv["v"],
+              q_pos=torch.zeros((b, sl), dtype=torch.int32, device=x.device),
+              kv_valid=valid, softmax_impl=s.softmax_impl, causal=False,
+              attn_impl=s.attn_impl)
+    return linear(p["wo"], o.reshape(b, sl, s.n_heads * s.head_dim))

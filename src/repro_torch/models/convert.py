@@ -4,7 +4,9 @@
 init_lm`` with every leaf converted to a numpy array (so that this
 module needs no JAX) and returns the port's parameter dict: the
 reference stacks the blocks of each period on a leading axis, the port
-keeps one dict per layer in a list.
+keeps one dict per layer in a list.  Every leaf is taken per period, so
+a cross layer's gate, stacked by the reference as (n_periods,), becomes
+the 0-d ``cross_gate`` of each of its layers.
 """
 from __future__ import annotations
 

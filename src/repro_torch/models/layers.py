@@ -108,7 +108,8 @@ _FUSABLE_ACT = {"gelu_tanh": "gelu", "gelu_via_softmax": "gelu",
 
 
 def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
-        impl: str = "dense") -> torch.Tensor:
+        impl: str = "dense", prenorm=None, norm_impl: str = "dense"
+        ) -> torch.Tensor:
     """(Gated) MLP; the activation (the unit's GELU/SiLU mode when it is a
     dual-mode variant) applies to the gate path.
 
@@ -116,11 +117,26 @@ def mlp(p: Params, x: torch.Tensor, activation: str = "silu",
     the plain graph; 'fused_pallas' runs a bias-free gated pair with a
     fusable activation through the fused GLU (the CUDA kernel on a GPU,
     its plain version on the CPU); 'auto' picks 'fused_pallas' on a GPU
-    and 'dense' on the CPU."""
+    and 'dense' on the CPU.
+
+    ``prenorm=(norm_params, kind, eps)`` makes this sublayer own its input
+    norm: with a fused norm provider (``norm_impl``), a fusable
+    activation and a bias-free gate / up, the provider's norm -> gated-GLU
+    seam computes the norm and both products in one kernel; otherwise the
+    dense norm applies here and the body proceeds unchanged."""
     fused = dispatch.get_ffn(dispatch.resolve_ffn(impl, x.device))
     mode = _FUSABLE_ACT.get(activation)
-    if (fused is not None and mode is not None and "gate" in p
-            and "b" not in p["gate"] and "b" not in p["up"]):
+    bias_free_glu = ("gate" in p and "b" not in p["gate"]
+                     and "b" not in p["up"])
+    if prenorm is not None:
+        np_, kind, eps = prenorm
+        nprov = dispatch.get_norm(dispatch.resolve_norm(norm_impl, x.device))
+        if nprov is not None and mode is not None and bias_free_glu:
+            h = nprov["norm_glu"](x, np_["g"], np_.get("b"), p["gate"]["w"],
+                                  p["up"]["w"], kind=kind, eps=eps, mode=mode)
+            return linear(p["down"], h)
+        x = make_norm(kind)[1](np_, x, eps)
+    if fused is not None and mode is not None and bias_free_glu:
         x2 = x.reshape(-1, x.shape[-1])
         h = fused(x2, p["gate"]["w"], p["up"]["w"], mode)
         return linear(p["down"], h.reshape(*x.shape[:-1], h.shape[-1]))

@@ -1,10 +1,13 @@
 """Transformer stack of the port (counterpart of
-``repro.models.transformer``) for the dense attention + MLP pattern
-(``mixer='attn'``, ``ffn='mlp'``): the qwen / yi decoders (RMSNorm,
-RoPE, gated MLP) and the bert-base encoder (LayerNorm, a learned
-position table, non-causal attention, an ungated MLP), with the
-reference's fused norm seams (``norm_impl``) and fused GLU
-(``ffn_impl``).
+``repro.models.transformer``) for the dense layer patterns: each layer's
+``LayerSpec`` has mixer ``'attn'`` or ``'none'``, ffn ``'mlp'``, and may
+carry a tanh-gated cross-attention sublayer (``cross``).  That covers
+the qwen / yi decoders (RMSNorm, RoPE, gated MLP), the bert-base encoder
+(LayerNorm, a learned position table, non-causal attention, an ungated
+MLP) and llama-3.2-vision (a period of four self-attention layers and
+one 'none'-mixer layer whose cross attention reads the image
+embeddings), with the reference's fused norm seams (``norm_impl``) and
+fused GLU (``ffn_impl``).
 
 bert-base also rotates q and k by RoPE: its config leaves ``use_rope``
 at its default (True), so the reference applies RoPE on top of the
@@ -13,8 +16,9 @@ et al.
 
 The reference stacks each period's parameters on a leading axis for
 ``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
-list and the stack is a Python loop.  ``models/convert.py`` maps the
-reference's stacked pytree onto this layout.
+list (layer i has spec ``cfg.pattern[i % len(cfg.pattern)]``) and the
+stack is a Python loop.  ``models/convert.py`` maps the reference's
+stacked pytree onto this layout.
 """
 from __future__ import annotations
 
@@ -25,25 +29,29 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch
 
-from .attention import AttnSpec, _positions_from, gqa_apply
+from .attention import (AttnSpec, _positions_from, cross_apply, cross_init,
+                        cross_kv, gqa_apply)
 from .layers import (Params, embed_init, linear_init, make_norm, mlp,
                      mlp_init, rmsnorm_init)
 
 
-def attn_spec(cfg: ModelConfig) -> AttnSpec:
+def attn_spec(cfg: ModelConfig, causal: bool | None = None) -> AttnSpec:
     return AttnSpec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                     qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
                     rope_theta=cfg.rope_theta, softmax_impl=cfg.softmax_impl,
-                    causal=cfg.causal, use_rope=cfg.use_rope,
-                    attn_impl=cfg.attn_impl, norm_eps=cfg.norm_eps)
+                    causal=cfg.causal if causal is None else causal,
+                    use_rope=cfg.use_rope, attn_impl=cfg.attn_impl,
+                    norm_eps=cfg.norm_eps)
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet
     (other mixers, MoE, encoder-decoder stacks, sinusoid positions)."""
     why = []
-    if cfg.prefix or any(s != LayerSpec() for s in cfg.pattern):
-        why.append("layer patterns other than dense attn + mlp")
+    if cfg.prefix or any(s.mixer not in ("attn", "none") or s.ffn != "mlp"
+                         for s in cfg.pattern):
+        why.append("layer patterns other than attn / 'none' mixers with an "
+                   "mlp (and an optional cross sublayer)")
     if cfg.enc_layers or cfg.mla or cfg.moe or cfg.mamba:
         why.append("encoder / MLA / MoE / mamba layers")
     if cfg.norm not in ("rms", "layer"):
@@ -55,35 +63,53 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported yet: {'; '.join(why)}")
 
 
+def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
+    """The spec of every layer, in order: the period repeated."""
+    return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+
+
 # ---------------- params ----------------
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
+def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+               device) -> Params:
+    """The reference's keys for ``spec``: norm1 always (a 'none' block
+    carries an unused one), the mixer for 'attn', cross_norm / cross / a
+    0-d cross_gate (zero: tanh(0) shuts the sublayer) for cross, then
+    norm2 and the ffn."""
     s = attn_spec(cfg)
     norm_init, _ = make_norm(cfg.norm)
-    mixer = {
-        "wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device,
-                          bias=s.qkv_bias),
-        "wk": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim, device,
-                          bias=s.qkv_bias),
-        "wv": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim, device,
-                          bias=s.qkv_bias),
-        "wo": linear_init(gen, s.n_heads * s.head_dim, s.d_model, device)}
-    if s.qk_norm:
-        mixer["qn"] = rmsnorm_init(s.head_dim, device)
-        mixer["kn"] = rmsnorm_init(s.head_dim, device)
-    return {"norm1": norm_init(cfg.d_model, device), "mixer": mixer,
-            "norm2": norm_init(cfg.d_model, device),
-            "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, device,
-                            gated=cfg.gated_mlp)}
+    p: Params = {"norm1": norm_init(cfg.d_model, device)}
+    if spec.mixer == "attn":
+        mixer = {
+            "wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device,
+                              bias=s.qkv_bias),
+            "wk": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim,
+                              device, bias=s.qkv_bias),
+            "wv": linear_init(gen, s.d_model, s.n_kv_heads * s.head_dim,
+                              device, bias=s.qkv_bias),
+            "wo": linear_init(gen, s.n_heads * s.head_dim, s.d_model,
+                              device)}
+        if s.qk_norm:
+            mixer["qn"] = rmsnorm_init(s.head_dim, device)
+            mixer["kn"] = rmsnorm_init(s.head_dim, device)
+        p["mixer"] = mixer
+    if spec.cross:
+        p["cross_norm"] = norm_init(cfg.d_model, device)
+        p["cross"] = cross_init(gen, attn_spec(cfg, causal=False), device)
+        p["cross_gate"] = torch.zeros((), device=device)
+    p["norm2"] = norm_init(cfg.d_model, device)
+    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device,
+                        gated=cfg.gated_mlp)
+    return p
 
 
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
             ) -> Params:
     """Random float32 weights with the reference's distributions (normal
     x 0.02 embeddings, normal / sqrt(d_in) projections, zero biases, unit
-    norm gains, zero norm biases), drawn from ``generator`` (which must
-    live on ``device``).  A learned position table has min(max_seq, 2**16)
-    rows, as the reference's.
+    norm gains, zero norm biases, zero cross gates), drawn from
+    ``generator`` (which must live on ``device``).  A learned position
+    table has min(max_seq, 2**16) rows, as the reference's.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -91,8 +117,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
     params: Params = {
         "embed": embed_init(generator, cfg.vocab, cfg.d_model, dev),
         "final_norm": norm_init(cfg.d_model, dev),
-        "layers": [block_init(generator, cfg, dev)
-                   for _ in range(cfg.n_layers)]}
+        "layers": [block_init(generator, cfg, spec, dev)
+                   for spec in layer_specs(cfg)]}
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(generator, cfg.d_model, cfg.vocab,
                                         dev)
@@ -110,71 +136,120 @@ def paged_supported(cfg: ModelConfig) -> bool:
                 for s in specs))
 
 
+def _kv_pair(shape, dev) -> Params:
+    return {"k": torch.zeros(shape, device=dev),
+            "v": torch.zeros(shape, device=dev)}
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
                 ) -> list[Params]:
-    """One {'k','v'} (batch, max_seq, K, h) zero row pair per layer: the
-    contiguous cache (the reference stacks the layers of each period on a
-    leading axis; here they are a list, as the parameters are)."""
+    """The contiguous cache, one dict per layer (the reference stacks the
+    layers of each period on a leading axis; here they are a list, as the
+    parameters are): ``'kv'`` {'k','v'} (batch, max_seq, K, h) zero rows
+    for an attention layer, ``'cross_kv'`` {'k','v'} (batch,
+    n_img_tokens, K, h) for a cross-attention layer."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_seq, cfg.n_kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shape, device=dev),
-             "v": torch.zeros(shape, device=dev)}
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for spec in layer_specs(cfg):
+        c: Params = {}
+        if spec.mixer == "attn":
+            c["kv"] = _kv_pair((batch, max_seq, cfg.n_kv_heads, cfg.hd), dev)
+        if spec.cross:
+            c["cross_kv"] = _kv_pair((batch, cfg.n_img_tokens or cfg.n_frames,
+                                      cfg.n_kv_heads, cfg.hd), dev)
+        caches.append(c)
+    return caches
 
 
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                       device=None) -> list[Params]:
-    """One {'k','v'} (N, bs, K, h) pool pair per layer; all layers share
-    one block table per request.  Block 0 is the write sentinel."""
+    """One ``'kv'`` {'k','v'} (N, bs, K, h) pool pair per attention
+    layer; all layers share one block table per request.  Block 0 is the
+    write sentinel."""
     if not paged_supported(cfg):
         raise ValueError("paged KV requires attention-only cached layers")
     check_supported(cfg)
     dev = resolve_device(device)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-    return [{"k": torch.zeros(shape, device=dev),
-             "v": torch.zeros(shape, device=dev)}
-            for _ in range(cfg.n_layers)]
+    return [{"kv": _kv_pair(shape, dev)} if spec.mixer == "attn" else {}
+            for spec in layer_specs(cfg)]
 
 
 # ---------------- apply ----------------
 
-def block_apply(p: Params, cfg: ModelConfig, x, cache, *, positions, pos,
-                paged):
-    """One attn + mlp block.  With a fused norm provider (``norm_impl``
-    resolved for x's device) the reference's seams run fused: norm1 into
-    the QKV projection (prologue), the attention residual add + norm2 as
-    one epilogue; the FFN's own seam is the fused GLU (``ffn_impl``)."""
+def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
+                positions, pos, paged, cross_src=None):
+    """One block of ``spec`` (the reference's control flow).  With a fused
+    norm provider (``norm_impl`` resolved for x's device) the seams run
+    fused: norm1 into the QKV projection (prologue); the attention
+    residual add + norm2 as one epilogue when no cross sublayer follows;
+    otherwise ('none' mixer, or a cross sublayer that touched x) norm2
+    into the gate / up products (the norm -> gated-GLU seam, inside
+    ``mlp``).  The FFN's own seam is the fused GLU (``ffn_impl``).
+
+    The cross sublayer: dense norm, K/V from ``cross_src`` (written into
+    the layer's cross cache when there is one) or from that cache, then
+    x + tanh(cross_gate) * cross_apply(...)."""
     nprov = dispatch.get_norm(dispatch.resolve_norm(cfg.norm_impl, x.device))
-    if nprov is not None:
-        o, cache = gqa_apply(p["mixer"], attn_spec(cfg), x,
-                             positions=positions, cache=cache, pos=pos,
+    _, norm = make_norm(cfg.norm)
+    h_ffn = None
+    if spec.mixer == "attn":
+        kv = None if cache is None else cache["kv"]
+        if nprov is not None:
+            o, _ = gqa_apply(p["mixer"], attn_spec(cfg), x,
+                             positions=positions, cache=kv, pos=pos,
                              paged=paged, prenorm=(p["norm1"], cfg.norm,
                                                    cfg.norm_eps, nprov))
-        x, h = nprov["residual_norm"](x, o, p["norm2"]["g"],
-                                      p["norm2"].get("b"), kind=cfg.norm,
-                                      eps=cfg.norm_eps)
-    else:
-        _, norm = make_norm(cfg.norm)
-        h = norm(p["norm1"], x, cfg.norm_eps)
-        o, cache = gqa_apply(p["mixer"], attn_spec(cfg), h,
-                             positions=positions, cache=cache, pos=pos,
+        else:
+            o, _ = gqa_apply(p["mixer"], attn_spec(cfg),
+                             norm(p["norm1"], x, cfg.norm_eps),
+                             positions=positions, cache=kv, pos=pos,
                              paged=paged)
-        x = x + o
-        h = norm(p["norm2"], x, cfg.norm_eps)
+        if nprov is not None and not spec.cross:
+            x, h_ffn = nprov["residual_norm"](
+                x, o, p["norm2"]["g"], p["norm2"].get("b"), kind=cfg.norm,
+                eps=cfg.norm_eps)
+        else:
+            x = x + o
+    if spec.cross:
+        cs = attn_spec(cfg, causal=False)
+        h = norm(p["cross_norm"], x, cfg.norm_eps)
+        if cross_src is not None:
+            ckv = cross_kv(p["cross"], cs, cross_src)
+            if cache is not None:
+                for key in ("k", "v"):
+                    cache["cross_kv"][key].copy_(ckv[key])
+        elif cache is not None:
+            ckv = cache["cross_kv"]
+        else:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "cross_src or the caches")
+        x = x + torch.tanh(p["cross_gate"]) * cross_apply(p["cross"], cs, h,
+                                                          ckv)
+    if h_ffn is None and nprov is not None:
+        return x + mlp(p["ffn"], x, cfg.activation, impl=cfg.ffn_impl,
+                       prenorm=(p["norm2"], cfg.norm, cfg.norm_eps),
+                       norm_impl=cfg.norm_impl), cache
+    h = h_ffn if h_ffn is not None else norm(p["norm2"], x, cfg.norm_eps)
     return x + mlp(p["ffn"], h, cfg.activation, impl=cfg.ffn_impl), cache
 
 
 def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-             pos=0, caches: list | None = None, last_pos=None, paged=None,
-             remat: bool = False, return_hidden: bool = False, device=None):
+             pos=0, caches: list | None = None, cross_src=None,
+             last_pos=None, paged=None, remat: bool = False,
+             return_hidden: bool = False, device=None):
     """tokens (B,S) -> (logits, caches).
 
-    caches=None : full causal forward, no state.
+    caches=None : full forward, no state.
     caches      : :func:`init_caches` rows: prefill (pos=0, S=bucket) or
                   decode (S=1) at offset ``pos`` (scalar, or (B,) for
                   continuous batching); the rows are updated in place
                   and returned.
+    cross_src   : (B, n_img_tokens, d) image embeddings for the cross
+                  layers; with caches, their K/V are written into the
+                  cross caches (prefill).  None reads the cross caches
+                  (decode, or a request without an image: zeros).
     caches+paged: prefill a chunk or decode one token at offset ``pos``
                   through the (B, max_blocks) block tables; the pools are
                   updated in place and returned.
@@ -191,6 +266,8 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     check_supported(cfg)
     dev = resolve_device(device)
     check_on(dev, tokens=tokens, embed=params["embed"])
+    if cross_src is not None:
+        check_on(dev, cross_src=cross_src)
     if paged is not None and caches is None:
         raise ValueError("paged block tables need the paged caches")
     b, sl = tokens.shape
@@ -201,13 +278,15 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + params["pos"][torch.clamp(positions, 0, rows - 1)]
     if remat and caches is not None:
         raise ValueError("remat is for train mode (caches=None)")
-    for i, lp in enumerate(params["layers"]):
+    for i, (lp, spec) in enumerate(zip(params["layers"], layer_specs(cfg))):
         if remat:
-            x = checkpoint(_train_block, lp, cfg, x, positions,
-                           use_reentrant=False)
+            x = checkpoint(_train_block, lp, cfg, spec, x, positions,
+                           cross_src, use_reentrant=False)
             continue
-        x, _ = block_apply(lp, cfg, x, None if caches is None else caches[i],
-                           positions=positions, pos=pos, paged=paged)
+        x, _ = block_apply(lp, cfg, spec, x,
+                           None if caches is None else caches[i],
+                           positions=positions, pos=pos, paged=paged,
+                           cross_src=cross_src)
     if last_pos is not None:
         idx = last_pos.to(dev).long()[:, None, None].expand(b, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
@@ -217,9 +296,10 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return x @ lm_head_weight(params, cfg), caches
 
 
-def _train_block(lp: Params, cfg: ModelConfig, x, positions):
-    return block_apply(lp, cfg, x, None, positions=positions, pos=0,
-                       paged=None)[0]
+def _train_block(lp: Params, cfg: ModelConfig, spec: LayerSpec, x,
+                 positions, cross_src):
+    return block_apply(lp, cfg, spec, x, None, positions=positions, pos=0,
+                       paged=None, cross_src=cross_src)[0]
 
 
 def lm_head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:

@@ -16,7 +16,14 @@ then copied into the slot's row (``stats['cache_copies']``); each step
 then runs one lockstep decode tick over every slot at its own depth.
 This is the long-context layout: at max_seq 16384 the buckets prefill
 through the blocked kernels and decode through the contiguous split-KV
-kernels.
+kernels.  It is also the only layout of the cross-attention arch
+(llama-3.2-vision): a request's ``cross_src`` image embeddings (1,
+n_img_tokens, d) go to its prefill, which writes their K/V into the row's
+cross caches; decode ticks read them from there, and a request without
+embeddings attends over the fresh row's zero cross cache, as in the
+reference.  ``cache_mode='auto'`` is paged where every cached layer can
+be paged (``paged_supported``) and contiguous otherwise; ``'paged'`` on
+a cross arch raises ValueError.
 
 Attention impls (and the softmax of each phase) are resolved once per
 phase through the dispatch registry, for the engine's device, at the
@@ -25,8 +32,8 @@ extent); contiguous (largest bucket, max_seq) and (1, max_seq).
 
 Not in the port yet (a later slice brings them): preemption (recompute
 or swap), deadlines, skip-ahead admission (``hol_window``), the per-step
-isfinite quarantine, the fault harness, and the archs that need the
-contiguous cache (mamba / rwkv state, cross-attention, encoders).  Where
+isfinite quarantine, the fault harness, and the other archs that need
+the contiguous cache (mamba / rwkv state, encoder-decoder stacks).  Where
 a decode tick would need a preemption -- the pool cannot grow a slot's
 table -- the engine raises NotImplementedError instead of dropping or
 stalling the request.
@@ -44,7 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch, tiling
 from repro_torch.models.transformer import (check_supported, init_caches,
-                                            init_paged_caches, lm_apply)
+                                            init_paged_caches, lm_apply,
+                                            paged_supported)
 
 from .paged_cache import BlockPool, chain_hashes
 
@@ -67,6 +75,7 @@ class Request:
     prompt: list[int]
     max_new: int = 32
     temperature: float = 0.0
+    cross_src: Any = None            # (1, n_img_tokens, d) image embeddings
 
 
 @dataclasses.dataclass
@@ -109,11 +118,13 @@ class ServeEngine:
         check_on(self.device, embed=params["embed"])
         if cache_mode not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
-        # every arch the port runs has attention-only cached layers, so
-        # 'auto' is paged, as the reference picks for them
         check_supported(cfg)
-        self.cache_mode = ("contiguous" if cache_mode == "contiguous"
-                           else "paged")
+        if cache_mode == "paged" and not paged_supported(cfg):
+            raise ValueError(
+                "cache_mode='paged' requires attention-only cached layers "
+                "(no cross-attention) -- use 'auto' or 'contiguous'")
+        self.cache_mode = ("paged" if cache_mode == "paged" or (
+            cache_mode == "auto" and paged_supported(cfg)) else "contiguous")
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_seq = n_slots, max_seq
         self.eos_id = eos_id
@@ -178,13 +189,14 @@ class ServeEngine:
             device=self.device)
         return logits[:, -1, :]
 
-    def prefill_logits(self, tokens, row_caches, last_idx):
+    def prefill_logits(self, tokens, row_caches, last_idx, cross_src=None):
         """Contiguous mode: one whole prompt (1, L), padded to its bucket,
-        written at 0 into the batch-1 ``row_caches`` -> (1, V) logits at
+        written at 0 into the batch-1 ``row_caches`` (with the cross K/V of
+        ``cross_src`` (1, n_img_tokens, d), if given) -> (1, V) logits at
         row ``last_idx``."""
         logits, _ = lm_apply(self.params, self._prefill_cfg, tokens, pos=0,
-                             caches=row_caches, last_pos=last_idx,
-                             device=self.device)
+                             caches=row_caches, cross_src=cross_src,
+                             last_pos=last_idx, device=self.device)
         return logits[:, -1, :]
 
     def decode_logits(self, tokens, pos, tables=None):
@@ -261,11 +273,15 @@ class ServeEngine:
         toks = torch.tensor([req.prompt + [0] * (bucket - plen)],
                             dtype=torch.long, device=self.device)
         row = init_caches(self.cfg, 1, self.max_seq, self.device)
+        cross = (None if req.cross_src is None else torch.as_tensor(
+            req.cross_src, dtype=torch.float32).to(self.device))
         logits = self.prefill_logits(
-            toks, row, torch.tensor([plen - 1], device=self.device))
+            toks, row, torch.tensor([plen - 1], device=self.device), cross)
         for full, one in zip(self.caches, row):
-            full["k"][i].copy_(one["k"][0])
-            full["v"][i].copy_(one["v"][0])
+            for pair in ("kv", "cross_kv"):
+                if pair in full:
+                    full[pair]["k"][i].copy_(one[pair]["k"][0])
+                    full[pair]["v"][i].copy_(one[pair]["v"][0])
         self.stats["cache_copies"] += 1
         self._check_logits(logits)
         s = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,

@@ -75,7 +75,7 @@ def test_init_caches_layout():
     caches = init_caches(cfg, 3, 40, device="cpu")
     assert len(caches) == cfg.n_layers
     for c in caches:
-        for x in (c["k"], c["v"]):
+        for x in (c["kv"]["k"], c["kv"]["v"]):
             assert tuple(x.shape) == (3, 40, cfg.n_kv_heads, cfg.hd)
             assert not x.any()
     j = J_tf.init_caches(J_registry.reduced_config("qwen1.5-0.5b"), 3, 40)

@@ -202,10 +202,14 @@ def test_ffn_and_norm_registries(monkeypatch):
             get("bogus")
     prov = dispatch.get_norm("fused_pallas")
     assert set(prov) == set(dispatch.NORM_SEAMS)
-    with pytest.raises(NotImplementedError, match="llama-3.2-vision"):
-        prov["norm_glu"](torch.zeros(2, 4), torch.ones(4), None,
-                         torch.zeros(4, 3), torch.zeros(4, 3), kind="rms",
-                         eps=EPS, mode="silu")
+    # the norm -> gated-GLU seam (row 16) computes its plain version's
+    # result for CPU tensors
+    x, _, g, _, ws = _data(5, 16, (12, 12), "rms", seed=8)
+    got = prov["norm_glu"](_t(x), _t(g), None, _t(ws[0]), _t(ws[1]),
+                           kind="rms", eps=EPS, mode="silu")
+    assert torch.equal(got, T_norm.fused_norm_glu_plain(
+        _t(x), _t(g), None, _t(ws[0]), _t(ws[1]), kind="rms", eps=EPS,
+        mode="silu"))
     with pytest.raises(ValueError):
         dispatch.register_norm("partial", {"residual_norm": print})
     assert dispatch.get_ffn("fused_pallas") is not None

@@ -18,7 +18,9 @@ the residual sum bitwise (one f32 add either way), the normalized row
 QKV prologue and the fused GLU 1e-4 (f32 dot products over up to 4096
 terms in two orders -- 32-deep chunks against cuBLAS -- give ~1e-5 on
 outputs of magnitude up to ~5, and the GLU multiplies one such error by
-|u| up to ~5).  The three-sweep int flash (row 9): its words bitwise under an identity-v
+|u| up to ~5); the norm -> gated-GLU prologue (row 16) likewise 1e-4,
+its autograd gradients within 1e-4 of the dense graph's.  The
+three-sweep int flash (row 9): its words bitwise under an identity-v
 probe on grid-valued q and k, outputs within 5e-3 on random inputs (a
 score word can flip between two f32 dot orders).  Training (rows 10,
 11, 13 and the autograd Functions):
@@ -220,7 +222,7 @@ def test_kernel_registry(cuda):
                                    "flash_fwd", "flash_snap", "resnorm",
                                    "norm_linear", "glu", "flash_bwd_dq",
                                    "flash_bwd_dkdv", "glu_bwd",
-                                   "flash_int3"}
+                                   "flash_int3", "norm_glu"}
     x = torch.zeros(2, 3, device=cuda)
     with pytest.raises(ValueError):
         ds.softmax_rows(x.t())                  # not contiguous
@@ -491,3 +493,119 @@ def test_flash_int3_kernel_guard_shift(cuda):
         assert kw["guard_shift"] == 1
         assert torch.equal(fai.flash_int3(qf, k, v, qp, valid, **kw),
                            fai.flash_int3_plain(qf, k, v, qp, valid, **kw))
+
+
+# ---------------- llama-3.2-vision: row 16 and the cross shapes ----------
+
+@pytest.mark.parametrize("kind,mode", [("rms", "silu"), ("layer", "gelu")])
+@pytest.mark.parametrize("m,d,f", [(4, 4096, 14336), (512, 4096, 14336),
+                                   (5, 72, 1000), (67, 200, 130),
+                                   (1, 33, 1)])
+def test_norm_glu_kernel(cuda, kind, mode, m, d, f):
+    """Row 16 at the vision path's widths (a decode tick, a bucket-512
+    prefill) and ragged edges (M, F not a multiple of 32; d not a
+    multiple of the 32-deep K chunk; a layer norm with a bias)."""
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator().manual_seed(12)
+    x = _randn(gen, cuda, m, d, scale=2.0)
+    g = 1.0 + _randn(gen, cuda, d, scale=0.1)
+    b = _randn(gen, cuda, d, scale=0.1) if kind == "layer" else None
+    wg = _randn(gen, cuda, d, f, scale=d ** -0.5)
+    wu = _randn(gen, cuda, d, f, scale=d ** -0.5)
+    before = fn.NORM_GLU.launches
+    got = fn.fused_norm_glu(x, g, b, wg, wu, kind=kind, eps=1e-6, mode=mode)
+    assert fn.NORM_GLU.launches == before + 1
+    torch.testing.assert_close(
+        got, fn.fused_norm_glu_plain(x, g, b, wg, wu, kind=kind, eps=1e-6,
+                                     mode=mode), atol=1e-4, rtol=0)
+
+
+def test_norm_glu_autograd_on_cuda(cuda):
+    """The Function's gradients on CUDA tensors (the GLU backward kernel
+    inside) against torch.autograd of the dense graph."""
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator().manual_seed(13)
+    x = _randn(gen, cuda, 2, 33, 256)
+    g, b = 1.0 + _randn(gen, cuda, 256, scale=0.1), _randn(gen, cuda, 256)
+    wg = _randn(gen, cuda, 256, 300, scale=256 ** -0.5)
+    wu = _randn(gen, cuda, 256, 300, scale=256 ** -0.5)
+    dy = _randn(gen, cuda, 2, 33, 300)
+
+    def run(fused):
+        ins = [t.clone().requires_grad_(True) for t in (x, g, b, wg, wu)]
+        if fused:
+            y = fn.fused_norm_glu(*ins, kind="layer", eps=1e-6, mode="silu")
+        else:
+            h = fn._scaled(ins[0], ins[1], ins[2], kind="layer", eps=1e-6)
+            y = ff._glu_reference(h.reshape(66, 256), ins[3], ins[4],
+                                  "silu").reshape(2, 33, 300)
+        return torch.autograd.grad((y * dy).sum(), ins)
+    before = (fn.NORM_GLU.launches, ff.GLU_BWD.launches)
+    fused = run(True)
+    assert (fn.NORM_GLU.launches, ff.GLU_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b_ in zip(fused, run(False)):
+        torch.testing.assert_close(a, b_, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("s", [512, 67])
+def test_flash_kernels_at_cross_shape(cuda, s):
+    """Rows 7 and 8 as the cross sublayer runs them: non-causal over the
+    1601 image keys (a ragged last tile), q_pos 0, K 8 G 4 h 128."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    for grid in (False, True):
+        qf, k, v, _, _ = _attn(cuda, 1, s, 1601, 8, 4, 128, 128, grid=grid)
+        qp = torch.zeros(1, s, dtype=torch.int32, device=cuda)
+        valid = torch.ones(1, 1601, dtype=torch.uint8, device=cuda)
+        kw = dict(causal=False, block_kv=64)
+        args = (qf, k, v, qp, valid)
+        if not grid:
+            torch.testing.assert_close(fa.flash_fwd(*args, **kw),
+                                       fa.flash_fwd_plain(*args, **kw),
+                                       atol=1e-5, rtol=0)
+            continue
+        gs = fai.unit.guard_shift_for(1601)
+        got = fai.flash_snap(*args, guard_shift=gs, return_partial=True,
+                             **kw)
+        want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                    return_partial=True, **kw)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        torch.testing.assert_close(
+            fai.flash_snap(*args, guard_shift=gs, **kw),
+            fai.flash_snap_plain(*args, guard_shift=gs, **kw), atol=1e-5,
+            rtol=0)
+
+
+@pytest.mark.parametrize("num_splits", [1, 3, 8])
+def test_decode_dense_kernels_at_cross_shape(cuda, num_splits):
+    """Rows 5 and 6 as a cross decode tick runs them: 4 slots, K 8 G 4 h
+    128, 1601 keys (the last 128-key tile ragged), non-causal, q_pos 0."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_decode as fd
+    gen = torch.Generator().manual_seed(14)
+    b, t, kh, g, h = 4, 1601, 8, 4, 128
+    for grid in (False, True):
+        qf = _randn(gen, cuda, b, kh, g, h) * h ** -0.5
+        k = _randn(gen, cuda, b, t, kh, h)
+        if grid:
+            qf, k = torch.round(qf * 32) / 32, torch.round(k * 4) / 16
+        v = _randn(gen, cuda, b, t, kh, h)
+        qp = torch.zeros(b, dtype=torch.int32, device=cuda)
+        valid = torch.ones(b, t, dtype=torch.uint8, device=cuda)
+        args = (qf.contiguous(), k, v, qp, valid)
+        kw = dict(num_splits=num_splits, block_kv=128, causal=False,
+                  guard_shift=unit.guard_shift_for(t))
+        kf = fd.decode_dense_partials(*args, int_mode=False, **kw)
+        pf = fd.decode_dense_partials_plain(*args, int_mode=False, **kw)
+        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
+                                   fd.finish_partials(*pf, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        ki = fd.decode_dense_partials(*args, int_mode=True, **kw)
+        pi = fd.decode_dense_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
+        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
+                                   fd.finish_partials(*pi, int_mode=True),
+                                   atol=1e-5 if grid else 1e-4, rtol=0)
