@@ -33,7 +33,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             prologue and the fused GLU against their plain versions at the
             path's shapes (a decode tick's 4 rows and a prefill chunk's 64,
             d 4096, F 5120 and 11008) and at edge shapes, timed beside their
-            bounds; the unit and paged decode kernels at h 128, G 8.  Then,
+            bounds (the norm -> QKV prologue also under CUDA-graph replay,
+            and held to the same bits over two calls); the unit and paged
+            decode kernels at h 128, G 8.  Then,
             with the qwen weights freed, ServeEngine on full-width yi-6b
             (random weights from a seeded generator), float and dual-mode
             with norm_impl / ffn_impl 'fused_pallas', paged cache at max_seq
@@ -80,7 +82,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             16) against its plain version at d 4096, F 14336 and the
             path's rows (a decode tick's 4, a bucket-512 and a bucket-4096
             prefill) and at edge shapes (a layer norm with a bias, GELU,
-            ragged M and F, small d), its backward against the plain VJP;
+            ragged M and F, small d), held to the same bits over two calls,
+            timed also under CUDA-graph replay, its backward against the
+            plain VJP; the norm -> QKV prologue timed at M 4096, F 6144;
             the contiguous decode kernels (rows 5 / 6: 4 slots, 8 kv heads
             of 4 queries, h 128) and the blocked kernels (rows 7 / 8: S
             4096 and 512) non-causal over the 1601 image keys, as the
@@ -185,6 +189,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 10, iters: int = 5) -> float:
+    """Device time of one call: ``calls`` calls captured in a CUDA graph,
+    the graph replayed ``iters`` times, so host dispatch is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, iters=iters, warmup=1) / calls
+    del graph
+    return ms
+
+
 def max_err(a, b) -> float:
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
@@ -215,6 +236,31 @@ def check_rel(name: str, a, b, tol: float) -> float:
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def check_repeat(name: str, fn) -> None:
+    """Two calls on the same inputs give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{name}: two calls differ (max |diff| {max_err(a, b):.3e})")
+    log(f"  ok {name}: two calls bitwise equal")
+
+
+def norm_gemm_row(results, key: str, ms: float, plain: float, b_ms: float,
+                  b_by: str, lib: float, kernel_fn, lib_fn) -> None:
+    """One shape of rows 15 / 16 into results['norm_gemm_ms'], with the
+    kernel's and the library call's device times under CUDA-graph replay
+    beside the back-to-back times (which include host dispatch)."""
+    calls = 2 if b_ms > 1.0 else 10
+    results.setdefault("norm_gemm_ms", {})[key] = r_ = dict(
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        graph_ms=graph_ms(kernel_fn, calls),
+        library_graph_ms=graph_ms(lib_fn, calls))
+    log(f"  {key}: {ms * 1e3:.1f} us (graph {r_['graph_ms'] * 1e3:.1f}), "
+        f"plain {plain * 1e3:.1f} us, library {lib * 1e3:.1f} us (graph "
+        f"{r_['library_graph_ms'] * 1e3:.1f}), bound {b_ms * 1e3:.1f} us "
+        f"({b_by})")
 
 
 # ---------------- phase 2: kernels ----------------
@@ -964,6 +1010,9 @@ def yi_kernel_phase(dev, results):
     f = wcat.shape[1]
     for m in (4, 64):
         xs = x[:m].contiguous()
+        check_repeat(f"norm_linear rms ({m}, {d}) x {f} repeat",
+                     lambda: fn.fused_norm_linear(xs, g, None, ws, kind="rms",
+                                                  eps=eps))
         ms = time_ms(lambda: fn.fused_norm_linear(xs, g, None, ws, kind="rms",
                                                   eps=eps), iters=20)
         plain = time_ms(lambda: fn.fused_norm_linear_plain(
@@ -975,6 +1024,11 @@ def yi_kernel_phase(dev, results):
         log(f"  norm_linear rms M{m} d{d} F{f}: {ms * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, torch.matmul on the normed rows "
             f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})")
+        norm_gemm_row(results, f"norm_linear yi M{m} d{d} F{f}", ms, plain,
+                      b_ms, b_by, lib,
+                      lambda: fn.fused_norm_linear(xs, g, None, ws, kind="rms",
+                                                   eps=eps),
+                      lambda: torch.matmul(h, wcat))
         if m == 64:
             results["norm_linear"] = dict(max_abs_err=err, ms=ms,
                                           plain_ms=plain, bound_ms=b_ms,
@@ -1624,14 +1678,20 @@ def bert_kernel_phase(dev, results):
     wcat = torch.cat(ws, dim=1)
     hn = fn._scaled(x, g, bias, kind="layer", eps=eps)
     f = 3 * d
-    shapes[f"norm_linear layer ({m}, {d}) x {3 * d}"] = dict(
+    b_ms, b_by = bound((m * d + d * f + m * f + 2 * d) * 4,
+                       2 * m * d * f + 6 * m * d)
+    shapes[f"norm_linear layer ({m}, {d}) x {3 * d}"] = r_ = dict(
         ms=time_ms(lambda: fn.fused_norm_linear(x, g, bias, ws, kind="layer",
                                                 eps=eps), iters=20),
         plain_ms=time_ms(lambda: fn.fused_norm_linear_plain(
             x, g, bias, ws, kind="layer", eps=eps), iters=20),
-        bound_ms=bound((m * d + d * f + m * f + 2 * d) * 4,
-                       2 * m * d * f + 6 * m * d)[0],
+        bound_ms=b_ms,
         library_ms=time_ms(lambda: torch.matmul(hn, wcat), iters=20))
+    norm_gemm_row(results, f"norm_linear bert layer M{m} d{d} F{f}",
+                  r_["ms"], r_["plain_ms"], b_ms, b_by, r_["library_ms"],
+                  lambda: fn.fused_norm_linear(x, g, bias, ws, kind="layer",
+                                               eps=eps),
+                  lambda: torch.matmul(hn, wcat))
     for name, r_ in shapes.items():
         log(f"  {name}: {r_['ms'] * 1e3:.1f} us, plain "
             f"{r_['plain_ms'] * 1e3:.1f} us, bound {r_['bound_ms'] * 1e3:.2f}"
@@ -1858,6 +1918,16 @@ def vision_kernel_phase(dev, results):
             f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})")
         shapes[f"norm_glu M{m}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                         library_ms=lib)
+        norm_gemm_row(results, f"norm_glu vision M{m} d{d} F{dff}", ms,
+                      plain, b_ms, b_by, lib,
+                      lambda: fn.fused_norm_glu(xs, g, None, wg, wu,
+                                                kind="rms", eps=eps,
+                                                mode="silu"), library)
+        if m < max(rows):
+            check_repeat(f"norm_glu rms silu ({m}, {d}) x {dff} repeat",
+                         lambda: fn.fused_norm_glu(xs, g, None, wg, wu,
+                                                   kind="rms", eps=eps,
+                                                   mode="silu"))
         if m == rows[1]:
             results["norm_glu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                        bound_ms=b_ms, bound_by=b_by,
@@ -1988,6 +2058,23 @@ def vision_kernel_phase(dev, results):
             lambda: fn.fused_norm_linear(xs, g, None, (wq_, wk_, wv_),
                                          kind="rms", eps=eps),
             iters=5 if m == big else 20))
+        if m == big:
+            f = nq + 2 * nk
+            wcat = torch.cat((wq_, wk_, wv_), dim=1)
+            hn = fn._scaled(xs, g, None, kind="rms", eps=eps)
+            b_ms, b_by = bound((m * d + d * f + m * f + d) * 4,
+                               2 * m * d * f + 5 * m * d)
+            norm_gemm_row(
+                results, f"norm_linear vision M{m} d{d} F{f}",
+                shapes[f"norm_linear M{m}"]["ms"],
+                time_ms(lambda: fn.fused_norm_linear_plain(
+                    xs, g, None, (wq_, wk_, wv_), kind="rms", eps=eps),
+                    iters=5),
+                b_ms, b_by, time_ms(lambda: torch.matmul(hn, wcat), iters=5),
+                lambda: fn.fused_norm_linear(xs, g, None, (wq_, wk_, wv_),
+                                             kind="rms", eps=eps),
+                lambda: torch.matmul(hn, wcat))
+            del wcat, hn
         shapes[f"resnorm M{m}"] = dict(ms=time_ms(
             lambda: fn.fused_residual_norm(xs, xs, g, kind="rms",
                                            eps=eps)))
@@ -2026,6 +2113,8 @@ def vision_kernel_phase(dev, results):
                                            "flash_snap self"))
                          or " self T" in k_))
     results["vision_shape_ms"] = shapes
+    log("[norm gemm] rows 15 / 16 at every shape, ms: "
+        + json.dumps(results["norm_gemm_ms"]))
 
 
 def _plain_vision_kernels():
@@ -2220,7 +2309,8 @@ def main() -> int:
         f" s, cached={info['cached']}) -> {info['dir']}")
     for src, text in info["ptxas"].items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or (
+                    src.startswith("norm_") and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
 
     results: dict = {}

@@ -34,7 +34,7 @@ __global__ void __launch_bounds__(kThreads) glu_kernel(Args a) {
   const int c0 = blockIdx.x * kBN;
   const int n = a.mats[0].n;
   float acc_g[TM][kTN], acc_u[TM][kTN];
-  gemm_tile<TM, kBK, false, true>(a, m0, a.mats[0].w + c0, a.mats[1].w + c0, c0, n,
+  gemm_tile<TM, kBK, true>(a, m0, a.mats[0].w + c0, a.mats[1].w + c0, c0, n,
                                   sm, acc_g, acc_u);
   const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
 #pragma unroll
@@ -77,9 +77,8 @@ extern "C" int glu_launch(const float* x, const float* wg, const float* wu, floa
   a.M = M;
   a.K = K;
   a.ld_out = F;
-  a.n_mats = 2;
-  a.mats[0] = Matrix{wg, F, 0, 0};
-  a.mats[1] = Matrix{wu, F, 0, 0};
+  a.mats[0] = Matrix{wg, F};
+  a.mats[1] = Matrix{wu, F};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool gelu = mode == 0;
   if (bk != kBK) return static_cast<int>(cudaErrorInvalidValue);

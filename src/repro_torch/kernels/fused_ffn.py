@@ -89,7 +89,7 @@ def _glu_fwd(x, wg, wu, mode: str):
     if out.numel():
         GLU(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), m, k,
             wg.shape[1], MODES.index(mode),
-            *tiling.matmul_blocks(m, norm_prologue=False),
+            *tiling.matmul_blocks(m),
             _build.stream_ptr(x.device))
     return out
 
@@ -114,7 +114,7 @@ def glu_bwd(x, wg, wu, dy, *, mode: str):
         GLU_BWD(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), dy.data_ptr(),
                 d_gate.data_ptr(), d_up.data_ptr(), m, k, f,
                 MODES.index(mode),
-                *tiling.matmul_blocks(m, norm_prologue=False),
+                *tiling.matmul_blocks(m),
                 _build.stream_ptr(x.device))
     return d_gate, d_up
 

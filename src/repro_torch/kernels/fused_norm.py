@@ -10,8 +10,9 @@
                  (``csrc/resnorm.cu``).
   norm_linear    x, [W...] -> norm(x) @ [W0 | W1 | W2]
                  the norm -> QKV prologue: the normalized stream is made
-                 as the matmul stages x and never reaches device memory
-                 (``csrc/norm_linear.cu``).  The weights are read in
+                 in shared memory as each x chunk lands and never reaches
+                 device memory (``csrc/norm_linear.cu`` on the pipelined
+                 body ``csrc/norm_gemm_sm90.cuh``).  The weights are read in
                  place: ``ws`` is a sequence of up to three matrices
                  whose columns land side by side, so [wq|wk|wv] is never
                  concatenated on the card.
@@ -30,7 +31,10 @@ The plain versions below are the reference's kernel bodies in PyTorch
 the norm_glu one is that norm followed by ``fused_ffn._glu_reference``);
 each wrapper runs its plain version for CPU tensors and launches its
 CUDA kernel for CUDA tensors, or raises.  The kernels agree with the
-plain versions up to f32 summation order.
+plain versions up to f32 summation order.  norm_linear and norm_glu
+take their tile, K split and copy width from
+:func:`tiling.norm_gemm_plan`, and their scratch -- (mu, rs) a row, the
+split partials -- from ``torch.empty``; one call is one counted launch.
 
 The seams are ``torch.autograd.Function``s, on either device, with the
 reference's custom VJPs as their backwards: the norm's VJP is plain
@@ -58,12 +62,13 @@ RESNORM = _build.Kernel(
     replaces="src/repro/kernels/fused_norm.py:134")
 NORM_LINEAR = _build.Kernel(
     "norm_linear", "norm_linear_launch",
-    [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _F, _I, _I, _P],
+    [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _F]
+    + [_I] * 4 + [_P],
     source="src/repro_torch/csrc/norm_linear.cu",
     replaces="src/repro/kernels/fused_norm.py:217")
 NORM_GLU = _build.Kernel(
     "norm_glu", "norm_glu_launch",
-    [_P] * 6 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    [_P] * 8 + [_I] * 4 + [_F] + [_I] * 5 + [_P],
     source="src/repro_torch/csrc/norm_glu.cu",
     replaces="src/repro/kernels/fused_norm.py:302")
 
@@ -142,6 +147,21 @@ def _check(name: str, kind: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def _aligned(*tensors) -> bool:
+    """Whether every base pointer is a multiple of 16 bytes (None counts:
+    the kernel never reads it), as the 16-byte copies need."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _scratch(x, m: int, split: int, cols: int):
+    """The norm GEMM kernels' scratch: (mu, rs) of each row, and the
+    split-K partial sums (None for one split)."""
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    part = None if split == 1 else torch.empty(
+        (split, m, cols), dtype=torch.float32, device=x.device)
+    return stats, part
+
+
 def _resnorm_fwd(x, r, g, b, *, kind: str, eps: float):
     """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
     if x.device.type == "cpu":
@@ -173,19 +193,23 @@ def _norm_linear_fwd(x, g, b, ws, *, kind: str, eps: float):
             m.ndim != 2 or m.shape[0] != d for m in ws):
         raise ValueError(f"fused_norm_linear: x {tuple(x.shape)}, weights "
                          f"{[tuple(m.shape) for m in ws]}")
-    widths = [m.shape[1] for m in ws]
+    widths = tuple(m.shape[1] for m in ws)
     out = torch.empty(x.shape[:-1] + (sum(widths),), dtype=x.dtype,
                       device=x.device)
     if out.numel():
         m = out.numel() // out.shape[-1]
+        plan = tiling.norm_gemm_plan(m, d, widths,
+                                     aligned=_aligned(x, g, b, out, *ws))
+        stats, part = _scratch(x, m, plan.split, sum(widths))
         slots = [(t.data_ptr(), n) for t, n in zip(ws, widths)]
         slots += [(None, 0)] * (MAX_MATRICES - len(slots))
         NORM_LINEAR(x.data_ptr(), g.data_ptr(),
                     None if b is None else b.data_ptr(),
                     *[v for s in slots for v in s], len(ws), out.data_ptr(),
-                    m, d, KINDS.index(kind), eps,
-                    *tiling.matmul_blocks(m, norm_prologue=True),
-                    _build.stream_ptr(x.device))
+                    stats.data_ptr(),
+                    None if part is None else part.data_ptr(), m, d,
+                    KINDS.index(kind), eps, plan.bm, plan.bn, plan.split,
+                    plan.vec, _build.stream_ptr(x.device))
     return out
 
 
@@ -204,11 +228,15 @@ def _norm_glu_fwd(x, g, b, wg, wu, *, kind: str, eps: float, mode: str):
     out = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     if out.numel():
         m = out.numel() // f
+        plan = tiling.norm_gemm_plan(m, d, (f,), glu=True,
+                                     aligned=_aligned(x, g, b, out, wg, wu))
+        stats, part = _scratch(x, m, plan.split, 2 * f)
         NORM_GLU(x.data_ptr(), g.data_ptr(),
                  None if b is None else b.data_ptr(), wg.data_ptr(),
-                 wu.data_ptr(), out.data_ptr(), m, d, f, KINDS.index(kind),
-                 eps, fused_ffn.MODES.index(mode),
-                 *tiling.matmul_blocks(m, norm_prologue=True, glu=True),
+                 wu.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                 None if part is None else part.data_ptr(), m, d, f,
+                 KINDS.index(kind), eps, fused_ffn.MODES.index(mode),
+                 plan.bm, plan.bn, plan.split, plan.vec,
                  _build.stream_ptr(x.device))
     return out
 

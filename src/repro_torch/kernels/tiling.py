@@ -20,19 +20,25 @@ keys themselves instead of padding the operands in device memory.
 Results do not depend on the tile: int words are bitwise equal for any
 (bq, bkv), float outputs equal up to f32 summation order.
 
-Matmul-epilogue kernels (the fused GLU, the norm -> linear and norm ->
-gated-GLU prologues; ``csrc/norm_gemm.cuh``) take the place of the reference's
-``matmul_blocks`` (128 x 512 MXU tiles with the whole contraction dim
-in VMEM): 32-column output tiles, so a decode tick's few rows still give
-every SM a column tile at yi-6b's widths, row tiles of 16, 32 or 64
-sized to M, and K walked in chunks staged in shared memory, never held
-whole (:func:`matmul_blocks`).  The residual-norm epilogue takes one
-block per row, in place of the reference's ``norm_rows``.  The
-pad-and-slice rule is kept, done in registers: the kernels load the
-ragged rows, columns and K tail as zeros and never store them, so no
-operand is padded in device memory.
+The norm -> QKV and norm -> gated-GLU kernels (rows 15 and 16) run on
+``csrc/norm_gemm_sm90.cuh``, a pipelined f32 GEMM body sized for Hopper
+(:func:`norm_gemm_plan`): moments once per row, a cp.async ring of raw
+x / weight chunks in shared memory, the norm applied after landing, and
+register tiles of 128 rows from 128 rows up; smaller row tiles and a
+split K fill the SMs for a prefill chunk or a decode tick.  Edges are
+zero-filled by the copies, so no operand is padded in device memory.
+
+The fused GLU and its backward (rows 12 and 13) still run on the first
+body, ``csrc/norm_gemm.cuh`` (:func:`matmul_blocks`): 32-column output
+tiles, row tiles of 16, 32 or 64 sized to M, and K walked in 32-deep
+chunks staged through registers, ragged edges loaded as zeros.  They move
+to the new body in their own change.  The residual-norm epilogue takes
+one block per row, in place of the reference's ``norm_rows``.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -90,33 +96,68 @@ def pad_attention_operands(q, q_pos, k, v, kv_valid, bq: int, bkv: int):
             pad_dim(kv_valid.to(torch.int32), 1, bkv))
 
 
-def matmul_blocks(m: int, *, norm_prologue: bool,
-                  glu: bool | None = None) -> tuple[int, int]:
-    """(bm, bk) of the matmul-epilogue kernels for m rows: rows per tile
-    and the K chunk staged in shared memory (tiles are 32 columns wide).
-    ``glu`` says whether the kernel reads two weight matrices a chunk
-    (the GLU's gate and up); it defaults to ``not norm_prologue``, so
-    ``norm_prologue=True`` alone is the norm -> linear kernel and
-    ``norm_prologue=True, glu=True`` the norm -> gated-GLU kernel.
-
-    A decode tick (m <= 16) is bound by the weight bytes: one 16-row
-    tile, and the norm -> linear kernel (one weight matrix a tile) walks
-    K 128 deep to keep 16 KB of weights in flight a block; the GLU reads
-    two matrices a chunk and stays at 32 (at 128 its staging registers
-    leave one block an SM, and it ran slower).  More rows are bound by
-    the FMAs: 32-row tiles up to a prefill chunk for the norm -> linear
-    kernel (twice the blocks of 64-row ones at yi-6b's QKV width),
-    64-row tiles past 32 rows for the GLU.  The norm -> gated-GLU kernel
-    takes the GLU's pairs: its prologue adds shared memory for two words
-    a row, not staging registers.  The kernels instantiate exactly these
-    pairs (their H100 timings are in PERF.md)."""
-    if glu is None:
-        glu = not norm_prologue
+def matmul_blocks(m: int) -> tuple[int, int]:
+    """(bm, bk) of the fused GLU and its backward (rows 12 and 13, on
+    ``csrc/norm_gemm.cuh``) for m rows: rows per 32-column tile and the K
+    chunk staged in shared memory.  A decode tick (m <= 16) takes one
+    16-row tile, up to 32 rows 32-row tiles, more rows 64-row ones; K is
+    walked 32 deep (two weight chunks a stage).  ``csrc/glu.cu`` and
+    ``csrc/glu_bwd.cu`` instantiate exactly these pairs."""
     if m <= 16:
-        return 16, 32 if glu else 128
-    if m <= (32 if glu else 64):
+        return 16, 32
+    if m <= 32:
         return 32, 32
     return 64, 32
+
+
+NORM_GEMM_SLOTS = 2 * 132    # H100 SXM: two resident blocks on each SM
+NORM_GEMM_BK = 16            # K depth of a ring stage (csrc kBK)
+NORM_GEMM_MIN_CHUNKS = 8     # K chunks a split walks at least
+# (bm, bn) per band: one matrix a tile (row 15), or bn columns of each of
+# the two matrices (row 16); the 4-byte path takes the middle tile
+NORM_GEMM_TILES = {False: {"decode": (16, 256), "chunk": (64, 128),
+                           "prefill": (128, 128)},
+                   True: {"decode": (16, 128), "chunk": (64, 64),
+                          "prefill": (128, 64)}}
+
+
+class NormGemmPlan(NamedTuple):
+    band: str      # 'decode' (m <= 16), 'chunk' (m < 128), 'prefill'
+    bm: int        # rows of a tile
+    bn: int        # columns of a tile (of each matrix for the GLU)
+    split: int     # K ranges, summed in order by a second pass
+    vec: int       # floats a cp.async copy moves: 4 (16 bytes) or 1
+
+
+@functools.lru_cache(maxsize=1024)
+def norm_gemm_plan(m: int, k: int, widths: tuple[int, ...], *,
+                   glu: bool = False, aligned: bool = True) -> NormGemmPlan:
+    """The tile, K split and copy width of the norm -> QKV (``glu``
+    False: ``widths`` the matrices read side by side) or norm -> gated-GLU
+    kernel (``glu`` True: ``widths`` the one width F of Wg and Wu) for m
+    rows of depth k.  ``aligned`` says whether every base pointer is a
+    multiple of 16 bytes.
+
+    16-byte copies need k, every width and every pointer a multiple of
+    four floats; anything else takes 4-byte copies on the middle tile.
+    Bands of m: a decode tick (m <= 16) is bound by the weight bytes and
+    takes 16-row tiles over wide column strips; a prefill chunk (m < 128)
+    64-row tiles; a prefill bucket or an encoder batch 128-row tiles (8 x 8
+    outputs a thread).  Where the tiles leave resident-block slots free
+    (two blocks an SM: the kernels' registers and shared memory allow no
+    more), K is split into as many ranges as fill them in one wave, each
+    range at least NORM_GEMM_MIN_CHUNKS chunks deep.
+    ``csrc/norm_linear.cu`` / ``norm_glu.cu`` instantiate exactly these
+    (bm, bn, vec)."""
+    vec = 4 if aligned and k % 4 == 0 and all(n % 4 == 0 for n in widths) \
+        else 1
+    band = "decode" if m <= 16 else "chunk" if m < 128 else "prefill"
+    bm, bn = NORM_GEMM_TILES[glu]["chunk" if vec == 1 else band]
+    tiles = cdiv(m, bm) * sum(cdiv(n, bn) for n in widths)
+    chunks = cdiv(k, NORM_GEMM_BK)
+    split = max(1, min(NORM_GEMM_SLOTS // tiles,
+                       chunks // NORM_GEMM_MIN_CHUNKS))
+    return NormGemmPlan(band, bm, bn, split, vec)
 
 
 def decode_kv_block(t_kv: int, num_splits: int) -> int:

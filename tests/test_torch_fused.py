@@ -216,18 +216,72 @@ def test_ffn_and_norm_registries(monkeypatch):
 
 
 def test_matmul_tile_policy():
-    """The (rows, K chunk) pairs the wrappers hand the GEMM kernels: the
-    ones csrc/norm_linear.cu and csrc/glu.cu instantiate."""
+    """The tiles the wrappers hand the GEMM kernels: the (rows, K chunk)
+    pairs csrc/glu.cu and csrc/glu_bwd.cu instantiate (the first body),
+    and the (bm, bn, copy width) triples of csrc/norm_linear.cu (the
+    pipelined body), with its K splits at yi-6b's and bert-base's QKV."""
     from repro_torch.kernels import tiling
-    norm = {m: tiling.matmul_blocks(m, norm_prologue=True)
-            for m in (1, 4, 16, 17, 64, 65, 4096)}
-    glu = {m: tiling.matmul_blocks(m, norm_prologue=False)
+    glu = {m: tiling.matmul_blocks(m)
            for m in (1, 4, 16, 17, 32, 33, 64, 4096)}
-    assert set(norm.values()) <= {(16, 128), (32, 32), (64, 32)}
     assert set(glu.values()) <= {(16, 32), (32, 32), (64, 32)}
-    assert norm[4] == (16, 128) and norm[64] == (32, 32)
     assert glu[4] == (16, 32) and glu[64] == (64, 32)
-    assert all(bm >= min(m, 64) for m, (bm, _) in {**norm, **glu}.items())
+    assert all(bm >= min(m, 64) for m, (bm, _) in glu.items())
+    yi = (4096, 512, 512)
+    norm = {m: tiling.norm_gemm_plan(m, 4096, yi)
+            for m in (1, 4, 16, 17, 64, 65, 127, 128, 512, 4096)}
+    assert {(p.bm, p.bn, p.vec) for p in norm.values()} <= {
+        (128, 128, 4), (64, 128, 4), (16, 256, 4)}
+    assert norm[4] == ("decode", 16, 256, 13, 4)     # 20 strips x 13 splits
+    assert norm[64] == ("chunk", 64, 128, 6, 4)      # 40 tiles x 6 splits
+    assert norm[4096] == ("prefill", 128, 128, 1, 4)
+    assert tiling.norm_gemm_plan(4096, 768, (768,) * 3) == (
+        "prefill", 128, 128, 1, 4)                   # bert-base
+    for m in (1, 64, 4096):                          # 4-byte copies
+        p = tiling.norm_gemm_plan(m, 200, (130, 17, 40))
+        assert (p.bm, p.bn, p.vec) == (64, 128, 1)
+    assert all(p.bm >= min(m, 64) or p.band == "decode"
+               for m, p in norm.items())
+
+
+_PLAN_BAND = {1: "decode", 4: "decode", 16: "decode", 17: "chunk",
+              64: "chunk", 65: "chunk", 127: "chunk", 128: "prefill",
+              129: "prefill", 512: "prefill", 4096: "prefill"}
+
+
+@pytest.mark.parametrize("glu", [False, True])
+@pytest.mark.parametrize("k,widths", [
+    (4096, (4096, 512, 512)), (4096, (14336,)), (768, (768, 768, 768)),
+    (33, (64, 64)), (72, (5,)), (200, (130, 17, 40)), (64, (4, 6))])
+def test_norm_gemm_plan_bands_and_copy_width(glu, k, widths):
+    """tiling.norm_gemm_plan: the band follows M, the tile the band; the
+    4-byte copy path (on the middle tile) whenever K, a width or a pointer
+    is not a multiple of four floats, 16-byte copies otherwise; K is split
+    into as many ranges as fill the resident-block slots in one wave, each
+    range keeping its minimum of chunks."""
+    from repro_torch.kernels import tiling
+    if glu:
+        widths = widths[:1]
+    tiles = tiling.NORM_GEMM_TILES[glu]
+    chunks = tiling.cdiv(k, tiling.NORM_GEMM_BK)
+    for m, band in _PLAN_BAND.items():
+        for aligned in (True, False):
+            p = tiling.norm_gemm_plan(m, k, widths, glu=glu,
+                                      aligned=aligned)
+            four = aligned and k % 4 == 0 and all(n % 4 == 0
+                                                  for n in widths)
+            assert p.vec == (4 if four else 1)
+            assert p.band == band
+            assert (p.bm, p.bn) == tiles[band if four else "chunk"]
+            blocks = tiling.cdiv(m, p.bm) * sum(tiling.cdiv(n, p.bn)
+                                                for n in widths)
+            slots, least = (tiling.NORM_GEMM_SLOTS,
+                            tiling.NORM_GEMM_MIN_CHUNKS)
+            assert p.split >= 1
+            assert p.split == 1 or (blocks * p.split <= slots
+                                    and chunks >= p.split * least)
+            # one more range would spill into a second wave or starve
+            assert (blocks * (p.split + 1) > slots
+                    or chunks < (p.split + 1) * least)
 
 
 def test_wrappers_refuse_unknown_kind_and_mode():

@@ -16,10 +16,11 @@ word; int blocked attention on exact scores only.  The block's seams:
 the residual sum bitwise (one f32 add either way), the normalized row
 1e-5 (moment sum order, exp2/log2 ulps, unit-scale outputs); the norm ->
 QKV prologue and the fused GLU 1e-4 (f32 dot products over up to 4096
-terms in two orders -- 32-deep chunks against cuBLAS -- give ~1e-5 on
-outputs of magnitude up to ~5, and the GLU multiplies one such error by
-|u| up to ~5); the norm -> gated-GLU prologue (row 16) likewise 1e-4,
-its autograd gradients within 1e-4 of the dense graph's.  The
+terms in two orders -- the kernels' chunks and K splits against cuBLAS
+-- give ~1e-5 on outputs of magnitude up to ~5, and the GLU multiplies
+one such error by |u| up to ~5); the norm -> gated-GLU prologue (row
+16) likewise 1e-4, its autograd gradients within 1e-4 of the dense
+graph's.  The
 three-sweep int flash (row 9): its words bitwise under an identity-v
 probe on grid-valued q and k, outputs within 5e-3 on random inputs (a
 score word can flip between two f32 dot orders).  Training (rows 10,
@@ -30,6 +31,7 @@ gradients on CUDA tensors within 1e-4 of the dense graph's (the
 kernels' and cuBLAS's orders of f32 products).
 """
 import os
+from unittest import mock
 
 import pytest
 import torch
@@ -173,13 +175,19 @@ def test_resnorm_kernel(cuda, kind, m, d):
     torch.testing.assert_close(ho, pho, atol=1e-5, rtol=0)
 
 
+# every band of tiling.norm_gemm_plan: decode ticks (<= 16), prefill chunks
+# (< 128, split K), prefill buckets
+NORM_ROWS = (1, 4, 16, 17, 64, 65, 129, 512)
+# 4-byte copies (K or a width not a multiple of 4), three matrices of
+# unequal width, and bert-base's QKV
+NORM_LINEAR_EDGES = [(23, 200, (130, 17, 40)), (100, 72, (5,)),
+                     (1, 33, (64, 64)), (17, 33, (1, 5, 17)),
+                     (130, 200, (130,)), (4096, 768, (768, 768, 768))]
+
+
 @pytest.mark.parametrize("kind", ["rms", "layer"])
-@pytest.mark.parametrize("m,d,widths", [(4, 4096, (4096, 512, 512)),
-                                        (64, 4096, (4096, 512, 512)),
-                                        (23, 200, (130, 17, 40)),
-                                        (100, 72, (5,)),
-                                        (1, 33, (64, 64)),
-                                        (4096, 768, (768, 768, 768))])
+@pytest.mark.parametrize("m,d,widths", [
+    (m, 4096, (4096, 512, 512)) for m in NORM_ROWS] + NORM_LINEAR_EDGES)
 def test_norm_linear_kernel(cuda, kind, m, d, widths):
     from repro_torch.kernels import fused_norm as fn
     gen = torch.Generator().manual_seed(7)
@@ -498,13 +506,13 @@ def test_flash_int3_kernel_guard_shift(cuda):
 # ---------------- llama-3.2-vision: row 16 and the cross shapes ----------
 
 @pytest.mark.parametrize("kind,mode", [("rms", "silu"), ("layer", "gelu")])
-@pytest.mark.parametrize("m,d,f", [(4, 4096, 14336), (512, 4096, 14336),
-                                   (5, 72, 1000), (67, 200, 130),
-                                   (1, 33, 1)])
+@pytest.mark.parametrize("m,d,f", [(m, 4096, 14336) for m in NORM_ROWS] + [
+    (5, 72, 1000), (67, 200, 130), (1, 33, 1), (17, 33, 5), (130, 200, 17)])
 def test_norm_glu_kernel(cuda, kind, mode, m, d, f):
-    """Row 16 at the vision path's widths (a decode tick, a bucket-512
-    prefill) and ragged edges (M, F not a multiple of 32; d not a
-    multiple of the 32-deep K chunk; a layer norm with a bias)."""
+    """Row 16 at the vision path's widths in every band of M (decode
+    ticks, prefill chunks with a split K, prefill buckets) and ragged
+    edges on the 4-byte copies (M, F not a multiple of the tile; d or F not
+    a multiple of 4; a layer norm with a bias)."""
     from repro_torch.kernels import fused_norm as fn
     gen = torch.Generator().manual_seed(12)
     x = _randn(gen, cuda, m, d, scale=2.0)
@@ -518,6 +526,54 @@ def test_norm_glu_kernel(cuda, kind, mode, m, d, f):
     torch.testing.assert_close(
         got, fn.fused_norm_glu_plain(x, g, b, wg, wu, kind=kind, eps=1e-6,
                                      mode=mode), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_norm_kernels_repeat_bitwise(cuda, m):
+    """Rows 15 and 16 give the same bits twice on the same inputs, in each
+    band (a split K included): no float atomics, splits summed in order."""
+    from repro_torch.kernels import fused_norm as fn
+    gen = torch.Generator().manual_seed(14)
+    x = _randn(gen, cuda, m, 4096)
+    g, b = 1.0 + _randn(gen, cuda, 4096, scale=0.1), _randn(gen, cuda, 4096)
+    ws = [_randn(gen, cuda, 4096, n, scale=1 / 64) for n in (4096, 512, 512)]
+    wg, wu = (_randn(gen, cuda, 4096, 14336, scale=1 / 64) for _ in range(2))
+    for kind, b_ in (("rms", None), ("layer", b)):
+        assert torch.equal(fn.fused_norm_linear(x, g, b_, ws, kind=kind,
+                                                eps=1e-6),
+                           fn.fused_norm_linear(x, g, b_, ws, kind=kind,
+                                                eps=1e-6))
+        assert torch.equal(
+            fn.fused_norm_glu(x, g, b_, wg, wu, kind=kind, eps=1e-6,
+                              mode="silu"),
+            fn.fused_norm_glu(x, g, b_, wg, wu, kind=kind, eps=1e-6,
+                              mode="silu"))
+
+
+def test_norm_kernels_take_unaligned_pointers(cuda):
+    """Base pointers off the 16-byte grid (contiguous views one float in)
+    take the 4-byte copies, and the C side refuses 16-byte copies for
+    them."""
+    from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(15)
+    x = _randn(gen, cuda, 64 * 256 + 1)[1:].view(64, 256)
+    g = 1.0 + _randn(gen, cuda, 256, scale=0.1)
+    w = _randn(gen, cuda, 256 * 128 + 1, scale=1 / 16)[1:].view(256, 128)
+    assert x.data_ptr() % 16 == 4
+    torch.testing.assert_close(
+        fn.fused_norm_linear(x, g, None, [w, w], kind="rms", eps=1e-6),
+        fn.fused_norm_linear_plain(x, g, None, [w, w], kind="rms", eps=1e-6),
+        atol=1e-4, rtol=0)
+    torch.testing.assert_close(
+        fn.fused_norm_glu(x, g, None, w, w, kind="rms", eps=1e-6,
+                          mode="gelu"),
+        fn.fused_norm_glu_plain(x, g, None, w, w, kind="rms", eps=1e-6,
+                                mode="gelu"), atol=1e-4, rtol=0)
+    four = tiling.NormGemmPlan("chunk", 64, 128, 1, 4)
+    with mock.patch.object(tiling, "norm_gemm_plan", lambda *a, **k: four):
+        with pytest.raises(RuntimeError, match="norm_linear"):
+            fn.fused_norm_linear(x, g, None, [w], kind="rms", eps=1e-6)
 
 
 def test_norm_glu_autograd_on_cuda(cuda):

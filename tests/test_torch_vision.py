@@ -150,12 +150,19 @@ def test_norm_glu_keeps_leading_axes_and_refuses_unknown_mode():
 
 
 def test_matmul_tile_policy_of_norm_glu():
-    """The norm -> gated-GLU kernel takes the GLU's (rows, K chunk) pairs:
-    the ones csrc/norm_glu.cu instantiates."""
+    """The norm -> gated-GLU kernel's (bm, bn, copy width) triples: the
+    ones csrc/norm_glu.cu instantiates (bn columns of each of Wg and Wu),
+    and its K splits at the vision path's rows (d 4096, F 14336)."""
     from repro_torch.kernels import tiling
-    for m in (1, 4, 16, 17, 32, 33, 64, 512, 4096):
-        assert tiling.matmul_blocks(m, norm_prologue=True, glu=True) == \
-            tiling.matmul_blocks(m, norm_prologue=False)
+    plans = {m: tiling.norm_gemm_plan(m, 4096, (14336,), glu=True)
+             for m in (1, 4, 16, 17, 32, 33, 64, 512, 4096)}
+    assert {(p.bm, p.bn, p.vec) for p in plans.values()} <= {
+        (128, 64, 4), (64, 64, 4), (16, 128, 4)}
+    assert plans[4] == ("decode", 16, 128, 2, 4)     # 112 strips x 2 splits
+    assert plans[512] == ("prefill", 128, 64, 1, 4)
+    assert plans[4096] == ("prefill", 128, 64, 1, 4)
+    p = tiling.norm_gemm_plan(67, 72, (14336,), glu=True, aligned=False)
+    assert (p.bm, p.bn, p.vec) == (64, 64, 1)
 
 
 # ---------------- cross attention ----------------
