@@ -1239,65 +1239,110 @@ def train_kernel_phase(dev, results):
     # -- rows 10 / 11: the train path's shape, yi's heads, edge shapes
     log("[train] flash_bwd_dq / flash_bwd_dkdv")
     S_ = TRAIN["seq"]
-    path, kw = attn_case(TRAIN["batch"], S_, S_, 16, 1, 64, 64, True, 64)
-    err_q, err_kv = bwd_checks(f"path (2, {S_}, 16, 1, 64) causal", path, kw)
-    yi, ykw = attn_case(1, 2048, 2048, 4, 8, 128, 128, True, 64)
-    bwd_checks("yi heads (1, 2048, 4, 8, 128) causal", yi, ykw)
+    path_shape = (TRAIN["batch"], S_, S_, 16, 1, 64, 64)
+    yi_shape = (1, 2048, 2048, 4, 8, 128, 128)
+    path, kw = attn_case(*path_shape, True, 64)
+    err_q, err_kv = bwd_checks(f"path {path_shape} causal", path, kw)
+    check_repeat(f"flash_bwd_dq path {path_shape} repeat",
+                 lambda: fb.flash_bwd_dq(*path, **kw))
+    check_repeat(f"flash_bwd_dkdv path {path_shape} repeat",
+                 lambda: torch.cat([x.flatten() for x in
+                                    fb.flash_bwd_dkdv(*path, **kw)]))
+    yi, ykw = attn_case(*yi_shape, True, 64)
+    bwd_checks(f"yi heads {yi_shape} causal", yi, ykw)
     for (b, s, t, kh, g, h, hv, causal, bkv, ragged, allm) in (
             (2, 70, 200, 2, 2, 64, 64, True, 64, True, False),
             (2, 40, 300, 2, 2, 64, 64, True, 64, True, True),
             (1, 33, 129, 3, 4, 128, 72, True, 16, True, False),
             (2, 64, 100, 1, 3, 32, 32, False, 37, True, False),
-            (1, 130, 130, 2, 1, 64, 64, False, 64, False, False)):
+            (1, 130, 130, 2, 1, 64, 64, False, 64, False, False),
+            # the backward's tile edges (S G, T one off 128), G 8 at h
+            # 128, and a shape on the 4-byte copies (h 30, hv 62)
+            (1, 127, 127, 2, 1, 64, 64, True, 64, True, False),
+            (1, 43, 257, 2, 3, 64, 64, True, 64, True, False),
+            (1, 40, 300, 2, 8, 128, 128, True, 64, True, False),
+            (1, 50, 90, 2, 3, 30, 62, True, 64, True, False)):
         args, ekw = attn_case(b, s, t, kh, g, h, hv, causal, bkv, ragged,
                               allm)
         bwd_checks(f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} "
                    f"bkv={bkv} ragged={ragged} all-masked row={allm}",
                    args, ekw)
 
-    # timing at the path's shape; the bound counts the kept (q, k) pairs
-    b, kh, h = TRAIN["batch"], 16, 64
-    pairs = b * kh * S_ * (S_ + 1) // 2
-    rows = b * S_ * kh
-    q_bytes = rows * h * 4
-    common = 5 * q_bytes + 2 * rows * 4 + b * S_ * 4 + b * S_  # q k v o dO m l
-    bq_ms, bq_by = bound(common + q_bytes, pairs * (4 * h + 2 * h))
-    bkv_ms, bkv_by = bound(common + 2 * q_bytes, pairs * (4 * h + 4 * h))
-    # the library: SDPA's backward on the same work (forward + backward
-    # minus forward), B H S h layout, causal
-    q_l = path[0][:, :, :, 0].permute(0, 2, 1, 3).detach().clone()
-    k_l = path[1].permute(0, 2, 1, 3).detach().clone()
-    v_l = path[2].permute(0, 2, 1, 3).detach().clone()
-    do_l = path[6][:, :, :, 0].permute(0, 2, 1, 3).contiguous()
-    for t_ in (q_l, k_l, v_l):
-        t_.requires_grad_(True)
+    def bwd_bounds(b, s, t, kh, g, h, hv):
+        """(dq, dk/dv) bounds: each operand read once, each output
+        written once, the causal (q, k) pairs' FMAs (q_pos t - s ..)."""
+        rows, keys = b * s * kh * g, b * t * kh
+        pairs = b * kh * g * (s * (t - s) + s * (s + 1) // 2)
+        common = 4 * (rows * (h + 2 * hv + 2) + keys * (h + hv) + b * s) \
+            + b * t
+        return (bound(common + 4 * rows * h, 2 * pairs * (2 * h + hv)),
+                bound(common + 4 * keys * (h + hv),
+                      2 * pairs * (2 * h + 2 * hv)))
 
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q_l, k_l, v_l, is_causal=True, scale=1.0)
+    def sdpa_bwd_ms(args, g):
+        """SDPA's backward on the same work (forward + backward minus
+        forward), B H S h layout, causal; K / V expanded to the G query
+        heads of each kv head."""
+        qf_, k_, v_, do_ = args[0], args[1], args[2], args[6]
+        b_, s_, kh_, _, h_ = qf_.shape
 
-    def sdpa_fb():
-        torch.autograd.grad(sdpa(), (q_l, k_l, v_l), do_l)
-    lib = max(time_ms(sdpa_fb, iters=10) - time_ms(sdpa, iters=10), 0.0)
+        def heads(x):
+            return x.reshape(b_, s_, kh_ * g, x.shape[-1]).permute(
+                0, 2, 1, 3).detach().clone()
+        q_l, do_l = heads(qf_), heads(do_).contiguous()
+        k_l = k_.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).detach()
+        v_l = v_.permute(0, 2, 1, 3).repeat_interleave(g, dim=1).detach()
+        for t_ in (q_l, k_l, v_l):
+            t_.requires_grad_(True)
+
+        def fwd():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q_l, k_l, v_l, is_causal=True, scale=1.0)
+
+        def fwd_bwd():
+            torch.autograd.grad(fwd(), (q_l, k_l, v_l), do_l)
+        return max(time_ms(fwd_bwd, iters=10) - time_ms(fwd, iters=10), 0.0)
+
+    # timing at the path's shape and at yi's heads: back to back, under
+    # CUDA-graph replay, each kernel's share of its bound
+    flash_bwd = {}
+    step_ms = {}
+    for key, shape, args, akw in (("path", path_shape, path, kw),
+                                  ("yi", yi_shape, yi, ykw)):
+        lib = sdpa_bwd_ms(args, shape[4])
+        for name, b_ms_by in zip(("flash_bwd_dq", "flash_bwd_dkdv"),
+                                 bwd_bounds(*shape)):
+            kern = getattr(fb, name)
+            plain_fn = getattr(fb, name + "_plain")
+
+            def fn(kern=kern, args=args, akw=akw):
+                return kern(*args, **akw)
+            ms = time_ms(fn, iters=10, warmup=2)
+            r_ = dict(ms=ms, graph_ms=graph_ms(fn, calls=2),
+                      plain_ms=time_ms(lambda: plain_fn(*args, **akw),
+                                       iters=2, warmup=1),
+                      bound_ms=b_ms_by[0], bound_by=b_ms_by[1],
+                      library_ms=lib, bound_share=b_ms_by[0] / ms)
+            flash_bwd[f"{name} {key}"] = r_
+            log(f"  {name} {key} {shape} causal: {ms * 1e3:.1f} us (graph "
+                f"{r_['graph_ms'] * 1e3:.1f}), plain "
+                f"{r_['plain_ms'] * 1e3:.1f} us, bound "
+                f"{b_ms_by[0] * 1e3:.1f} us ({b_ms_by[1]}; "
+                f"{100 * r_['bound_share']:.1f}% of it reached), SDPA "
+                f"backward {lib * 1e3:.1f} us (dq + dk/dv together)")
+            if key == "path":
+                results[name] = dict(
+                    max_abs_err=err_q if name == "flash_bwd_dq" else err_kv,
+                    **{k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")})
+                step_ms[name] = ms
+    results["flash_bwd_ms"] = flash_bwd
+    log("[flash bwd] rows 10 / 11 at the path shape and yi's heads, ms: "
+        + json.dumps(flash_bwd))
     # the forward the train step runs (with stats) at the same shape
-    step_ms = {"flash_fwd": time_ms(lambda: fa.flash_fwd(
-        *path[:3], path[7], path[8], return_stats=True, **kw), iters=5)}
-    for name, fn, plain_fn, e, b_ms, b_by in (
-            ("flash_bwd_dq", lambda: fb.flash_bwd_dq(*path, **kw),
-             lambda: fb.flash_bwd_dq_plain(*path, **kw), err_q, bq_ms,
-             bq_by),
-            ("flash_bwd_dkdv", lambda: fb.flash_bwd_dkdv(*path, **kw),
-             lambda: fb.flash_bwd_dkdv_plain(*path, **kw), err_kv, bkv_ms,
-             bkv_by)):
-        ms = time_ms(fn, iters=10, warmup=2)
-        plain = time_ms(plain_fn, iters=2, warmup=1)
-        log(f"  {name} (B{b} S{S_} K{kh} G1 h{h} causal): {ms * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
-            f"({b_by}), SDPA backward {lib * 1e3:.1f} us")
-        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        step_ms[name] = ms
-    del path, yi, q_l, k_l, v_l, do_l
+    step_ms["flash_fwd"] = time_ms(lambda: fa.flash_fwd(
+        *path[:3], path[7], path[8], return_stats=True, **kw), iters=5)
+    del path, yi
 
     # -- row 13: the fused GLU backward
     log("[train] glu_bwd")
@@ -1416,12 +1461,15 @@ def train_phase(dev, launches, results):
         per_call = results["train_step_kernel_ms"]
         in_kernels = sum(per_call[k] * counts[k] for k in TRAIN_KERNELS
                          ) / steps
+        in_attn = sum(per_call[k] * counts[k] for k in (
+            "flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")) / steps
         log(f"[train] {steps} steps: median {ms_step * 1e3:.0f} ms a step "
             f"(first {trainer.step_times[0] * 1e3:.0f} ms), "
             f"{b * seq / ms_step:.0f} tokens/s, peak "
             f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
             f"launches {counts}; the port's kernels ~{in_kernels:.0f} ms a "
-            f"step (per-call times x launches, not a trace)")
+            f"step, attention (rows 7, 10, 11) ~{in_attn:.0f} ms of it "
+            f"(per-call times x launches, not a trace)")
         losses = [mt["loss"] for mt in hist]
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"train: loss not finite and falling: {losses}")
@@ -2310,7 +2358,8 @@ def main() -> int:
     for src, text in info["ptxas"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
-                    src.startswith("norm_") and "entry function" in line):
+                    src.startswith(("norm_", "flash_bwd"))
+                    and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
 
     results: dict = {}

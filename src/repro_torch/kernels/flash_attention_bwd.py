@@ -24,10 +24,16 @@ Causal tail: both kernels skip the (q tile, kv tile) pairs that lie
 wholly past the diagonal.  dq loses nothing there (dS is 0 at masked
 keys), but dV does: every key of a kv tile that starts past a row's
 q_pos receives that row's ``exp(MASK_VALUE - m) / l * dO``, the same
-vector for every key of the tile.  The dk/dv kernel sums those vectors
-over the q tiles it skips and adds the sum to every key's dV -- the dV
-twin of the forward's folded V tail.  The plain versions sweep every
-tile, as the reference does, and hold the fold to account.
+vector for every key of the tile.  Each entry point first runs a row
+pre-pass into scratch the wrapper allocates: every row's (m, 1 / l, D,
+q_pos) and, for dk/dv, each q tile's largest q_pos and its masked-tail
+vector (the sum of those vectors over its rows).  A dk/dv block adds
+the tail vectors of the q tiles it skips to every key's dV -- the dV
+twin of the forward's folded V tail.  The kernels' tiles are the
+policy's (:func:`tiling.flash_bwd_plan`), not the forward's
+``block_kv``; the mask is per key, so the results do not depend on
+them.  The plain versions sweep every tile, as the reference does, and
+hold the fold to account.
 """
 from __future__ import annotations
 
@@ -41,11 +47,11 @@ from .flash_attention import _check_operands, check_block_kv, masked_score_block
 _P, _I = _build.P, _build.I
 
 FLASH_BWD_DQ = _build.Kernel(
-    "flash_bwd_dq", "flash_bwd_dq_launch", [_P] * 10 + [_I] * 9 + [_P],
+    "flash_bwd_dq", "flash_bwd_dq_launch", [_P] * 11 + [_I] * 14 + [_P],
     source="src/repro_torch/csrc/flash_bwd.cu",
     replaces="src/repro/kernels/flash_attention_bwd.py:234")
 FLASH_BWD_DKDV = _build.Kernel(
-    "flash_bwd_dkdv", "flash_bwd_dkdv_launch", [_P] * 11 + [_I] * 9 + [_P],
+    "flash_bwd_dkdv", "flash_bwd_dkdv_launch", [_P] * 14 + [_I] * 14 + [_P],
     source="src/repro_torch/csrc/flash_bwd.cu",
     replaces="src/repro/kernels/flash_attention_bwd.py:266")
 
@@ -112,6 +118,19 @@ def _check_saved(name, qf, v, o, m, l, do):
                              f"{qf.device}")
 
 
+def _plan(kernel, qf, k, v, o, do, out, causal):
+    """The policy's plan, its ints as the C entry takes them, and the row
+    state scratch (B, K, S G, 4)."""
+    b, s_q, kh, g, h = qf.shape
+    aligned = all(x.data_ptr() % 16 == 0 for x in (qf, k, v, o, do, *out))
+    plan = tiling.flash_bwd_plan(kernel, h, v.shape[-1], causal=causal,
+                                 aligned=aligned)
+    rows = torch.empty((b, kh, s_q * g, 4), dtype=torch.float32,
+                       device=qf.device)
+    return plan, (plan.block_q, plan.block_kv, plan.stages, plan.vec,
+                  int(plan.reverse)), rows
+
+
 def flash_bwd_dq(qf, k, v, o, m, l, do, q_pos, kv_valid, *, causal: bool,
                  block_kv: int):
     """dq through the CUDA kernel (CUDA tensors) or the plain version (CPU
@@ -125,10 +144,12 @@ def flash_bwd_dq(qf, k, v, o, m, l, do, q_pos, kv_valid, *, causal: bool,
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     dq = torch.empty_like(qf)
+    _, ints, rows = _plan("dq", qf, k, v, o, do, (dq,), causal)
     FLASH_BWD_DQ(qf.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), m.data_ptr(), l.data_ptr(), q_pos.data_ptr(),
-                 kv_valid.data_ptr(), dq.data_ptr(), b, s_q, kh, g, h, hv, t,
-                 block_kv, int(causal), _build.stream_ptr(qf.device))
+                 kv_valid.data_ptr(), rows.data_ptr(), dq.data_ptr(), b, s_q,
+                 kh, g, h, hv, t, block_kv, int(causal), *ints,
+                 _build.stream_ptr(qf.device))
     return dq
 
 
@@ -145,11 +166,17 @@ def flash_bwd_dkdv(qf, k, v, o, m, l, do, q_pos, kv_valid, *, causal: bool,
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan, ints, rows = _plan("dkdv", qf, k, v, o, do, (dk, dv), causal)
+    n_qt = tiling.cdiv(s_q * g, plan.block_q)
+    qmax = torch.empty((b, n_qt), dtype=torch.int32, device=qf.device)
+    tail = torch.empty((b, n_qt, kh, hv), dtype=torch.float32,
+                       device=qf.device)
     FLASH_BWD_DKDV(qf.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    do.data_ptr(), m.data_ptr(), l.data_ptr(),
-                   q_pos.data_ptr(), kv_valid.data_ptr(), dk.data_ptr(),
+                   q_pos.data_ptr(), kv_valid.data_ptr(), rows.data_ptr(),
+                   qmax.data_ptr(), tail.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), b, s_q, kh, g, h, hv, t, block_kv,
-                   int(causal), _build.stream_ptr(qf.device))
+                   int(causal), *ints, _build.stream_ptr(qf.device))
     return dk, dv
 
 

@@ -28,6 +28,10 @@ register tiles of 128 rows from 128 rows up; smaller row tiles and a
 split K fill the SMs for a prefill chunk or a decode tick.  Edges are
 zero-filled by the copies, so no operand is padded in device memory.
 
+The flash backward (rows 10 and 11) runs on ``csrc/flash_bwd_sm90.cuh``
+with its own tiles (:func:`flash_bwd_plan`), not the forward's: a row
+pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
+
 The fused GLU and its backward (rows 12 and 13) still run on the first
 body, ``csrc/norm_gemm.cuh`` (:func:`matmul_blocks`): 32-column output
 tiles, row tiles of 16, 32 or 64 sized to M, and K walked in 32-deep
@@ -158,6 +162,47 @@ def norm_gemm_plan(m: int, k: int, widths: tuple[int, ...], *,
     split = max(1, min(NORM_GEMM_SLOTS // tiles,
                        chunks // NORM_GEMM_MIN_CHUNKS))
     return NormGemmPlan(band, bm, bn, split, vec)
+
+
+FLASH_BWD_TILES = {  # (kernel, head dims up to) -> (block_q, block_kv, stages)
+    ("dq", 64): (128, 64, 3), ("dq", 128): (64, 64, 2),
+    ("dkdv", 64): (64, 128, 2), ("dkdv", 128): (32, 64, 3)}
+
+
+class FlashBwdPlan(NamedTuple):
+    block_q: int    # rows of a q tile: dq holds it, dk/dv streams it
+    block_kv: int   # keys of a kv tile: dq streams it, dk/dv holds it
+    stages: int     # depth of the cp.async ring of the streamed operand
+    vec: int        # floats a cp.async copy moves: 4 (16 bytes) or 1
+    reverse: bool   # walk the grid's tiles from the last
+
+
+@functools.lru_cache(maxsize=256)
+def flash_bwd_plan(kernel: str, h: int, hv: int, *, causal: bool,
+                   aligned: bool = True) -> FlashBwdPlan:
+    """The tiles, ring depth, copy width and tile order of the flash
+    backward's ``kernel`` ('dq' or 'dkdv', rows 10 and 11, on
+    ``csrc/flash_bwd_sm90.cuh``) for head dims h (q, k) and hv (v).
+    ``aligned`` says whether every base pointer is a multiple of 16 bytes.
+
+    Head dims up to 64: dq holds 128 q rows and streams 64-key tiles
+    through three stages, dk/dv holds 128 keys and streams 64-row q tiles
+    through two -- the two accumulator sets of 128 x 64 fit the registers
+    of 256 threads.  Up to 128: 64 rows (dq) and 64 keys with 32-row q
+    tiles (dk/dv), so the K and V (or Q and dO) tiles fit shared memory.
+    16-byte copies need h, hv and every pointer a multiple of four
+    floats; anything else takes 4-byte copies on the same tiles.  A causal
+    dq grid runs its late q tiles first, since they visit the most keys;
+    a dk/dv grid already starts at its heaviest, the first key block.
+    The tiles are independent of the forward's ``block_kv``: the mask is
+    per key.  ``csrc/flash_bwd.cu`` instantiates exactly these."""
+    if kernel not in ("dq", "dkdv"):
+        raise ValueError(f"flash_bwd_plan: kernel {kernel!r} is not 'dq' "
+                         "or 'dkdv'")
+    width = 64 if max(h, hv) <= 64 else 128
+    bq, bkv, stages = FLASH_BWD_TILES[(kernel, width)]
+    vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
+    return FlashBwdPlan(bq, bkv, stages, vec, bool(causal) and kernel == "dq")
 
 
 def decode_kv_block(t_kv: int, num_splits: int) -> int:

@@ -333,7 +333,13 @@ def _close_rel(got, want, tol):
     (2, 33, 129, 3, 4, 128, 72, True, 16, None),     # GQA, hv != h
     (2, 40, 300, 2, 2, 64, 64, True, 64, 40),        # all-masked rows
     (2, 64, 100, 1, 3, 32, 32, False, 37, None),     # non-causal
-    (1, 256, 256, 2, 1, 64, 64, True, 64, None)])    # skipped tiles
+    (1, 256, 256, 2, 1, 64, 64, True, 64, None),     # skipped tiles
+    # the plan's tile edges: S G and T one below / above 128
+    (1, 127, 127, 2, 1, 64, 64, True, 64, None),
+    (1, 43, 129, 2, 3, 64, 64, True, 64, None),
+    (2, 255, 257, 1, 1, 64, 64, False, 64, None),
+    (1, 40, 300, 2, 8, 128, 128, True, 64, None),    # G 8, h 128
+    (1, 50, 90, 2, 3, 30, 62, True, 64, None)])      # 4-byte copies
 def test_flash_bwd_kernels(cuda, shape):
     """Rows 10 / 11: dq and dk/dv (causal skip and the folded dV tail)
     against the plain full sweeps."""
@@ -360,6 +366,28 @@ def test_flash_bwd_kernels(cuda, shape):
         _close_rel(got, want, 1e-5)
     again = fb.flash_bwd_dkdv(*args, **kw)          # no atomics: same bits
     assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    assert torch.equal(fb.flash_bwd_dq(*args, **kw), dq)
+
+
+def test_flash_bwd_refuses_16_byte_copies_when_unaligned(cuda):
+    """A head dim off four floats takes the 4-byte copies; the plan
+    forced to 16-byte copies there makes both C entries refuse."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fb
+    from repro_torch.kernels import tiling
+    qf, k, v, qp, valid = _attn(cuda, 1, 40, 70, 1, 2, 30, 30, False)
+    o, m, l = fa.flash_fwd(qf, k, v, qp, valid, causal=True, block_kv=64,
+                           return_stats=True)
+    args, kw = (qf, k, v, o, m, l, o, qp, valid), dict(causal=True,
+                                                       block_kv=64)
+    assert tiling.flash_bwd_plan("dq", 30, 30, causal=True).vec == 1
+    for name in ("dq", "dkdv"):
+        forced = tiling.flash_bwd_plan(name, 32, 32, causal=True)
+        assert forced.vec == 4
+        with mock.patch.object(tiling, "flash_bwd_plan",
+                               lambda *a, f=forced, **k_: f):
+            with pytest.raises(RuntimeError, match=f"flash_bwd_{name}"):
+                getattr(fb, f"flash_bwd_{name}")(*args, **kw)
 
 
 @pytest.mark.parametrize("mode", ["silu", "gelu"])
