@@ -21,7 +21,13 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 4. long     the long-context kernels (blocked float flash, one-sweep snapped
             int flash, contiguous split-KV decode float and int) against
             their plain versions at the long-context path's shapes and at
-            edge shapes, timed beside their bounds; then the contiguous
+            edge shapes (for the float forward and decode also their
+            Hopper bodies' tile edges, q_pos < 0, splits with no tile and
+            pointers one float off 16 bytes; both held to the same bits
+            over two calls), timed beside their bounds (the float forward
+            and decode at the tiles and split count the path's wrappers
+            pick, also under CUDA-graph replay, the decode beside a probe
+            of split counts); then the contiguous
             engine at max_seq 16384 (buckets 512 / 1024 / 4096, 4 slots),
             float and dual-mode, on 6 prompts of 1000-4000 tokens: prefill
             resolves to the blocked kernels and decode to the contiguous
@@ -49,7 +55,10 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             1024, F 2816), at yi-6b's heads (h 128, G 8) and widths, and at
             edge shapes (ragged kv_valid, a row whose visible keys are all
             masked, S != T, hv != h, non-causal, ragged M and F), timed
-            beside their bounds.  Then, with the serve weights freed, the
+            beside their bounds; the float forward with its statistics at
+            the training shape, held to its plain version and to the same
+            bits over two calls, timed beside SDPA's forward.  Then, with
+            the serve weights freed, the
             Trainer on full-width, full-depth qwen1.5-0.5b (norm / ffn
             'fused_pallas', float, remat) for 8 steps on 2 rows of 4096
             tokens: the loss is finite and falls, every kernel of the path
@@ -87,8 +96,13 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             plain VJP; the norm -> QKV prologue timed at M 4096, F 6144;
             the contiguous decode kernels (rows 5 / 6: 4 slots, 8 kv heads
             of 4 queries, h 128) and the blocked kernels (rows 7 / 8: S
-            4096 and 512) non-causal over the 1601 image keys, as the
-            cross sublayer runs them; each timed beside its bound.  Then,
+            4096 and 512, and S 67 against row 7's 64-row tile, also with
+            pointers one float off 16 bytes) non-causal over the 1601
+            image keys, as the cross sublayer runs them; each timed beside
+            its bound (rows 5 / 7 at the wrappers' tiles and splits, under
+            CUDA-graph replay, beside SDPA, also at the self-attention
+            shapes: a causal bucket-4096 prefill and a decode tick of a
+            4096-key cache).  Then,
             with the bert weights freed, ServeEngine on full-width
             llama-3.2-vision-11b (random weights from a seeded generator,
             every cross_gate 0.5), float (norm / ffn 'fused_pallas') and
@@ -103,8 +117,12 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             through the kernels against the plain versions.
 
 The last lines are the card's name and power limit, one JSON line with
-every kernel's numbers, and the result line.  Without a CUDA device the
-script exits non-zero before printing any result.
+every kernel's numbers, and the result line; before them, one JSON line
+each for rows 15 / 16 ("[norm gemm]"), row 7 ("[flash fwd]") and row 5
+("[decode dense]") at every shape they were timed at, and the bert phase
+logs row 1's int and float modes at bert's shape beside torch.softmax.
+Without a CUDA device the script exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -189,6 +207,21 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int = 50, warmup: int = 5) -> tuple[float, float]:
+    """(host, wall) ms a call: the host's time to issue ``iters`` calls
+    back to back, and the time until the card has finished them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3 / iters, (t2 - t0) * 1e3 / iters
+
+
 def graph_ms(fn, calls: int = 10, iters: int = 5) -> float:
     """Device time of one call: ``calls`` calls captured in a CUDA graph,
     the graph replayed ``iters`` times, so host dispatch is not timed."""
@@ -245,6 +278,47 @@ def check_repeat(name: str, fn) -> None:
     if not torch.equal(a, b):
         fail(f"{name}: two calls differ (max |diff| {max_err(a, b):.3e})")
     log(f"  ok {name}: two calls bitwise equal")
+
+
+def off_by_one_float(x):
+    """x's values in a contiguous tensor whose data pointer is one float past
+    a 16-byte boundary: the kernels take their 4-byte copies there."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def fwd_checks(fa, name: str, args, causal: bool, bkv: int) -> float:
+    """Row 7 with its statistics against the plain version: out, m and
+    l / plain l; returns the out error."""
+    got = fa.flash_fwd(*args, causal=causal, block_kv=bkv, return_stats=True)
+    want = fa.flash_fwd_plain(*args, causal=causal, block_kv=bkv,
+                              return_stats=True)
+    e = check(f"flash_fwd out {name}", got[0], want[0], TOL_FLASH_F)
+    check(f"flash_fwd m {name}", got[1], want[1], TOL_FLASH_F)
+    check(f"flash_fwd l / plain l {name}", got[2] / want[2],
+          torch.ones_like(want[2]), TOL_FLASH_F)
+    return e
+
+
+def kernel_row(table: dict, key: str, fn, plain_fn, b_ms: float, b_by: str,
+               lib_ms, iters: int = 10, plain_iters: int = 2, **extra):
+    """One shape of rows 5 / 7 into ``table``: back-to-back and CUDA-graph
+    replay times of the wrapper, the plain version's, the bound and the
+    library call's time; returns the entry."""
+    ms = time_ms(fn, iters=iters, warmup=2)
+    r_ = dict(ms=ms, graph_ms=graph_ms(fn, calls=2 if ms > 1.0 else 10),
+              plain_ms=time_ms(plain_fn, iters=plain_iters, warmup=1),
+              bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+              bound_share=b_ms / ms, **extra)
+    table[key] = r_
+    log(f"  {key}: {ms * 1e3:.1f} us (graph {r_['graph_ms'] * 1e3:.1f}), "
+        f"plain {r_['plain_ms'] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+        f"({b_by}; {100 * r_['bound_share']:.1f}% of it reached)"
+        + (f", library {lib_ms * 1e3:.1f} us" if lib_ms is not None else "")
+        + "".join(f", {k} {v}" for k, v in extra.items()))
+    return r_
 
 
 def norm_gemm_row(results, key: str, ms: float, plain: float, b_ms: float,
@@ -694,6 +768,33 @@ def long_kernel_phase(dev, results):
               fai.flash_snap(*long_row, **ekw),
               fai.flash_snap_plain(*long_row, **ekw), TOL_FLASH_F)
 
+    # row 7's tile edges (S G and T one off 128 / 64), a causal tail past
+    # one pre-pass chunk that carries all of a row's mass, q_pos < 0, G 4 at
+    # h 128 with S G off 64, the 4-byte copies (h 30 / hv 62, and a pointer
+    # one float off 16 bytes); two calls give the same bits
+    for (b, s, t, kh, g, h, hv, qpos, causal, bkv, allm) in (
+            (1, 127, 127, 2, 1, 64, 64, torch.arange(127), True, 64, False),
+            (1, 43, 257, 2, 3, 64, 64, torch.arange(214, 257), True, 64,
+             False),
+            (2, 40, 1300, 2, 2, 64, 64, torch.arange(40), True, 64, True),
+            (1, 20, 1100, 2, 1, 128, 128, torch.arange(-3, 17), True, 16,
+             False),
+            (1, 67, 1601, 2, 4, 128, 128, torch.full((67,), 1600), False,
+             64, False),
+            (1, 50, 90, 2, 3, 30, 62, torch.arange(40, 90), True, 37, False)):
+        args = attn_case(b, s, t, kh, g, h, hv, qpos, ragged=True)
+        if allm:
+            args[4][:, 0] = 0
+        fwd_checks(fa, f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} "
+                   f"bkv={bkv} all-masked row={allm}", args, causal, bkv)
+    args = attn_case(1, 70, 200, 2, 2, 64, 64, torch.arange(130, 200),
+                     ragged=True)
+    fwd_checks(fa, "(1,70,200,2,2,64,64) pointers one float off 16 bytes",
+               tuple(off_by_one_float(x) for x in args[:3]) + args[3:],
+               True, 64)
+    check_repeat(f"flash_fwd path (1, {S_}, 16, 1, 64) T {T_} repeat",
+                 lambda: fa.flash_fwd(*path, **kw))
+
     # timing at the path's shape, random inputs
     pairs = S_ * (S_ + 1) // 2 * 16                 # causal (q, k) pairs
     keys = S_                                       # keys the causal run needs
@@ -713,19 +814,24 @@ def long_kernel_phase(dev, results):
             - fa.flash_fwd(*path, **kw)[0]).abs().max().item()
     lib = time_ms(sdpa, iters=10)
     log(f"  SDPA (causal, {S_} keys) vs flash_fwd: max abs diff {diff:.3g}")
-    for name, fn, plain_fn, e, lib_ms in (
-            ("flash_fwd", lambda: fa.flash_fwd(*path, **kw),
-             lambda: fa.flash_fwd_plain(*path, **kw), err_f, lib),
-            ("flash_snap", lambda: fai.flash_snap(*path, guard_shift=0, **kw),
-             lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw), err_i,
-             None)):
-        ms = time_ms(fn, iters=10, warmup=2)
-        plain = time_ms(plain_fn, iters=2, warmup=1)
-        log(f"  {name} (B1 S{S_} K16 G1 h64 T{T_} causal): {ms * 1e3:.1f} "
-            f"us, plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
-            f"({b_by})" + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
-        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    r_ = kernel_row(results.setdefault("flash_fwd_ms", {}),
+                    f"path B1 S{S_} K16 G1 h64 T{T_} causal",
+                    lambda: fa.flash_fwd(*path, **kw),
+                    lambda: fa.flash_fwd_plain(*path, **kw), b_ms, b_by, lib,
+                    plan=tuple(tiling.flash_fwd_plan(64, 64, causal=True)))
+    results["flash_fwd"] = dict(max_abs_err=err_f, **{
+        k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")})
+    ms = time_ms(lambda: fai.flash_snap(*path, guard_shift=0, **kw), iters=10,
+                 warmup=2)
+    plain = time_ms(lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw),
+                    iters=2, warmup=1)
+    log(f"  flash_snap (B1 S{S_} K16 G1 h64 T{T_} causal): {ms * 1e3:.1f} "
+        f"us, plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+        f"({b_by})")
+    results["flash_snap"] = dict(max_abs_err=err_i, ms=ms, plain_ms=plain,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
 
     # -- rows 5 / 6 at the path's shape: 4 slots of a 16384-key cache at
     #    depths within 1000-4016
@@ -747,19 +853,23 @@ def long_kernel_phase(dev, results):
                       args[1].shape[1]))
 
     main_qpos = [x * BUCKET // 4096 for x in (1100, 2500, 3900, 4015)]
-    ns = fd.dense_decode_splits(T_, 4 * 16, dev)
-    bkv = tiling.decode_kv_block(T_, ns)
+    # the (splits, tile) the path's wrapper picks: the int kernel's rule,
+    # and the float kernel's plan
+    ns, bkv = fd.dense_decode_tiles(T_, 4 * 16, dev, int_mode=True)
+    ns_f, bkv_f = fd.dense_decode_tiles(T_, 4 * 16, dev,
+                                        int_mode=False)
     err_f = err_i = 0.0
     for g, grid_v in ((1, False), (1, True), (2, False), (4, True)):
         args = dec_case(4, T_, 16 // g, g, 64, main_qpos, grid=grid_v)
-        for n_s in (1, ns, 8):
-            pk = dparts(True, args, n_s, bkv, False)
-            pp = dparts(False, args, n_s, bkv, False)
-            e = check(f"decode_dense G={g} grid={grid_v} splits={n_s}",
-                      fd.finish_partials(*pk, int_mode=False),
+        for n_s, bk in ((ns_f, bkv_f), (1, bkv), (ns, bkv), (8, bkv)):
+            pk = dparts(True, args, n_s, bk, False)
+            pp = dparts(False, args, n_s, bk, False)
+            e = check(f"decode_dense G={g} grid={grid_v} splits={n_s} "
+                      f"bkv={bk}", fd.finish_partials(*pk, int_mode=False),
                       fd.finish_partials(*pp, int_mode=False), TOL_DECODE_F)
             if g == 1 and not grid_v:
                 err_f = max(err_f, e)
+        for n_s in (1, ns, 8):
             ik = dparts(True, args, n_s, bkv, True)
             ip = dparts(False, args, n_s, bkv, True)
             if grid_v:
@@ -780,12 +890,43 @@ def long_kernel_phase(dev, results):
               dparts(True, (qf, k, eye, qp, valid), n_s, bk, True)[2],
               dparts(False, (qf, k, eye, qp, valid), n_s, bk, True)[2],
               TOL_INT)
+    # row 5's edges: G 4 at h 128 with hv 96 and T off 64, q_pos < 0,
+    # splits with no tile, block_kv 16 / 37, non-causal, the 4-byte copies
+    # (h 30 / hv 62, and pointers one float off 16 bytes); each split's m
+    # and the folded outputs against the plain version
+    for (b, t, kh, g, h, hv, qpos, causal, n_s, bk) in (
+            (3, 1000, 2, 4, 128, 96, [-1, 500, 999], True, 8, 64),
+            (4, 600, 2, 1, 64, 64, [5, 127, 300, 599], True, 40, 16),
+            (2, 333, 2, 4, 128, 128, [0, 0], False, 7, 64),
+            (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37)):
+        qf_, k_, v_, qp_, _ = dec_case(b, t, kh, g, h, qpos, hv=hv)
+        valid_ = (torch.rand(b, t, generator=gen) > 0.25).to(torch.uint8).to(
+            dev)
+        for off in (False, True):
+            ops = (qf_, k_, v_)
+            if off:
+                ops = tuple(off_by_one_float(x) for x in ops)
+            dkw = dict(num_splits=n_s, block_kv=bk, causal=causal,
+                       int_mode=False, guard_shift=0)
+            pk = fd.decode_dense_partials(*ops, qp_, valid_, **dkw)
+            pp = fd.decode_dense_partials_plain(*ops, qp_, valid_, **dkw)
+            name = (f"({b},{t},{kh},{g},{h},{hv}) q_pos {qpos} causal="
+                    f"{causal} splits={n_s} bkv={bk} pointers off={off}")
+            check(f"decode_dense m {name}", pk[0], pp[0], TOL_DECODE_F)
+            check(f"decode_dense {name}",
+                  fd.finish_partials(*pk, int_mode=False),
+                  fd.finish_partials(*pp, int_mode=False), TOL_DECODE_F)
 
     args = dec_case(4, T_, 16, 1, 64, main_qpos)
+    check_repeat(f"decode_dense path B4 K16 G1 h64 T{T_} repeat",
+                 lambda: torch.cat([x.flatten() for x in dparts(
+                     True, args, ns_f, bkv_f, False)]))
     keys = sum(p + 1 for p in main_qpos)
-    nbytes = (keys * 16 * 128 * 4 + keys + args[0].numel() * 4 + 4 * 4
-              + 4 * ns * 16 * (64 + 2) * 4)
-    b_ms, b_by = bound(nbytes, keys * 16 * (4 * 64 + 4))
+
+    def dec_bound(n_s):
+        nbytes = (keys * 16 * 128 * 4 + keys + args[0].numel() * 4 + 4 * 4
+                  + 4 * n_s * 16 * (64 + 2) * 4)
+        return bound(nbytes, keys * 16 * (4 * 64 + 4))
     # the library on the same keys: the deepest slot's, masked per row
     live = max(main_qpos) + 1
     q_sdpa = args[0].reshape(4, 16, 1, 64)
@@ -797,30 +938,63 @@ def long_kernel_phase(dev, results):
         return torch.nn.functional.scaled_dot_product_attention(
             q_sdpa, k_sdpa, v_sdpa, attn_mask=mask, scale=1.0)
     diff = (sdpa().reshape(4, 1, 16, 1, 64) - fd.finish_partials(
-        *dparts(True, args, ns, bkv, False), int_mode=False)).abs().max()
+        *dparts(True, args, ns_f, bkv_f, False), int_mode=False)).abs().max()
     lib = time_ms(sdpa)
     log(f"  SDPA ({live} keys, masked) vs decode_dense: max abs diff "
         f"{diff.item():.3g}")
-    for name, int_mode, e, lib_ms in (("decode_dense", False, err_f, lib),
-                                      ("decode_dense_int", True, err_i, None)):
-        ms = time_ms(lambda: dparts(True, args, ns, bkv, int_mode))
-        plain = time_ms(lambda: dparts(False, args, ns, bkv, int_mode),
-                        iters=3, warmup=1)
-        fold = time_ms(lambda: fd.finish_partials(
-            *dparts(True, args, ns, bkv, int_mode), int_mode=int_mode))
-        log(f"  {name} (B4 K16 G1 h64 T{T_}, depths {main_qpos}, {ns} "
-            f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us (+fold "
-            f"{fold * 1e3:.1f} us total), plain {plain * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.1f} us ({b_by})"
-            + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
-        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
-    # the split count is the SM rule's; how the time moves with it
+    fold = time_ms(lambda: fd.finish_partials(
+        *dparts(True, args, ns_f, bkv_f, False), int_mode=False))
+    r_ = kernel_row(results.setdefault("decode_dense_ms", {}),
+                    f"path B4 K16 G1 h64 T{T_} depths {main_qpos}",
+                    lambda: dparts(True, args, ns_f, bkv_f, False),
+                    lambda: dparts(False, args, ns_f, bkv_f, False),
+                    *dec_bound(ns_f), lib, iters=50, plain_iters=3,
+                    splits=ns_f, block_kv=bkv_f, with_fold_ms=fold)
+    results["decode_dense"] = dict(max_abs_err=err_f, **{
+        k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")})
+    ms = time_ms(lambda: dparts(True, args, ns, bkv, True))
+    plain = time_ms(lambda: dparts(False, args, ns, bkv, True), iters=3,
+                    warmup=1)
+    fold = time_ms(lambda: fd.finish_partials(
+        *dparts(True, args, ns, bkv, True), int_mode=True))
+    b_ms, b_by = dec_bound(ns)
+    log(f"  decode_dense_int (B4 K16 G1 h64 T{T_}, depths {main_qpos}, {ns} "
+        f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us (+fold "
+        f"{fold * 1e3:.1f} us total), plain {plain * 1e3:.1f} us, bound "
+        f"{b_ms * 1e3:.1f} us ({b_by})")
+    results["decode_dense_int"] = dict(max_abs_err=err_i, ms=ms,
+                                       plain_ms=plain, bound_ms=b_ms,
+                                       bound_by=b_by, library_ms=None)
+    # how the float kernel's time moves with the split count (its plan's
+    # tile), and the int kernel's old 3-vs-8 probe
+    times = {n_s: (time_ms(lambda: dparts(True, args, n_s, bkv_f, False)),
+                   time_ms(lambda: fd.finish_partials(*dparts(
+                       True, args, n_s, bkv_f, False), int_mode=False)))
+             for n_s in sorted({8, ns_f, 32, 64})}
+    log(f"  decode_dense {bkv_f}-key tiles, splits: " + ", ".join(
+        f"{n_s} {a * 1e3:.1f} us (+fold {b_ * 1e3:.1f} us total)"
+        for n_s, (a, b_) in times.items()))
     for n_s in (ns, tiling.DECODE_MAX_SPLITS):
-        times = [time_ms(lambda: dparts(True, args, n_s, bkv, im))
-                 for im in (True, False, True, False)]
-        log(f"  decode_dense {n_s} splits, int / float / int / float: "
+        times = [time_ms(lambda: dparts(True, args, n_s, bkv, True))
+                 for _ in range(2)]
+        log(f"  decode_dense_int {n_s} splits, twice: "
             + " / ".join(f"{t * 1e3:.1f}" for t in times) + " us")
+    # the whole float wrapper as a tick calls it (plan, kernel, fold) at
+    # the int kernel's split count and at the plan's, in turns: host time a
+    # call (issuing the calls, the card not waited on) and wall time a call
+    q5, qp5 = args[0][:, None], args[3][:, None]
+    wrap = {}
+    for n_s in (ns, ns_f, ns, ns_f):
+        wrap.setdefault(n_s, []).append(host_ms(lambda: fd.flash_decode_pallas(
+            q5, args[1], args[2], q_pos=qp5, kv_valid=args[4], scale=1.0,
+            num_splits=n_s)))
+    results["decode_dense_wrapper_ms"] = {
+        f"{n_s} splits": x for n_s, x in wrap.items()}
+    log("  flash_decode_pallas float, host / wall us a call: " + ", ".join(
+        f"{n_s} splits " + " then ".join(
+            f"{h_ * 1e3:.1f} / {w_ * 1e3:.1f}" for h_, w_ in x)
+        for n_s, x in wrap.items()))
 
 
 def long_serve_phase(dev, launches):
@@ -1339,10 +1513,30 @@ def train_kernel_phase(dev, results):
     results["flash_bwd_ms"] = flash_bwd
     log("[flash bwd] rows 10 / 11 at the path shape and yi's heads, ms: "
         + json.dumps(flash_bwd))
-    # the forward the train step runs (with stats) at the same shape
-    step_ms["flash_fwd"] = time_ms(lambda: fa.flash_fwd(
-        *path[:3], path[7], path[8], return_stats=True, **kw), iters=5)
-    del path, yi
+    # row 7 as the train step runs it (with stats) at the same shape: held
+    # to its plain version, twice the same bits, timed beside SDPA's forward
+    fargs = (*path[:3], path[7], path[8])
+    fwd_checks(fa, f"with stats, train path {path_shape[:5]}", fargs, True,
+               64)
+    check_repeat("flash_fwd with stats, train path repeat",
+                 lambda: torch.cat([x.flatten() for x in fa.flash_fwd(
+                     *fargs, return_stats=True, **kw)]))
+    b_, s_, kh_ = TRAIN["batch"], S_, 16
+    pairs = b_ * kh_ * S_ * (S_ + 1) // 2
+    nbytes = 4 * (2 * b_ * S_ * kh_ * 64 * 2 + 2 * b_ * kh_ * S_ + b_ * S_) \
+        + b_ * S_
+    q_l = path[0].reshape(b_, S_, kh_, 64).permute(0, 2, 1, 3)
+    k_l, v_l = (x.permute(0, 2, 1, 3) for x in path[1:3])
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, is_causal=True, scale=1.0), iters=10)
+    r_ = kernel_row(results.setdefault("flash_fwd_ms", {}),
+                    f"train B{b_} S{S_} K{kh_} G1 h64 causal, with stats",
+                    lambda: fa.flash_fwd(*fargs, return_stats=True, **kw),
+                    lambda: fa.flash_fwd_plain(*fargs, return_stats=True,
+                                               **kw),
+                    *bound(nbytes, pairs * (4 * 64 + 4)), lib)
+    step_ms["flash_fwd"] = r_["ms"]
+    del path, yi, fargs, q_l, k_l, v_l
 
     # -- row 13: the fused GLU backward
     log("[train] glu_bwd")
@@ -1685,6 +1879,15 @@ def bert_kernel_phase(dev, results):
         plain_ms=time_ms(lambda: ds.softmax_rows_plain(x, "int"), iters=5),
         bound_ms=bound(8 * n, 80 * n)[0],
         library_ms=time_ms(lambda: torch.softmax(x, dim=-1)))
+    # its float mode, which torch.softmax computes
+    check(f"softmax_rows float ({b * kh * s}, {s})",
+          ds.softmax_rows(x, "float"), ds.softmax_rows_plain(x, "float"),
+          TOL_SOFTMAX_F)
+    shapes[f"softmax_rows float {tuple(x.shape)}"] = dict(
+        ms=time_ms(lambda: ds.softmax_rows(x, "float")),
+        plain_ms=time_ms(lambda: ds.softmax_rows_plain(x, "float"), iters=5),
+        bound_ms=bound(8 * n, 8 * n)[0],
+        library_ms=time_ms(lambda: torch.softmax(x, dim=-1)))
     del x
     z = randn(b * s, 3072, scale=3.0)         # one layer's FFN activation
     check(f"pair_act gelu int {tuple(z.shape)}", ds.pair_act(z, "gelu", "int"),
@@ -1892,6 +2095,8 @@ def vision_kernel_phase(dev, results):
     from repro_torch.kernels import tiling
     gen = torch.Generator(device="cpu").manual_seed(11)
     eps = 1e-5
+    results.setdefault("flash_fwd_ms", {})
+    results.setdefault("decode_dense_ms", {})
 
     def randn(*shape, scale=1.0, grid=False):
         x = torch.randn(shape, generator=gen) * scale
@@ -1988,8 +2193,9 @@ def vision_kernel_phase(dev, results):
     t, (kh, gq, h) = VISION_KERNEL["t"], VISION_KERNEL["heads"]
     b = VISION["n_slots"]
     gs = unit.guard_shift_for(t)
-    ns = fd.dense_decode_splits(t, b * kh, dev)
-    bkv = tiling.decode_kv_block(t, ns)
+    # the (splits, tile) a cross tick's wrapper picks: int rule, float plan
+    ns, bkv = fd.dense_decode_tiles(t, b * kh, dev, int_mode=True)
+    ns_f, bkv_f = fd.dense_decode_tiles(t, b * kh, dev, int_mode=False)
     qp = torch.zeros(b, dtype=torch.int32, device=dev)
     valid = torch.ones(b, t, dtype=torch.uint8, device=dev)
 
@@ -2001,12 +2207,15 @@ def vision_kernel_phase(dev, results):
     for grid in (True, False):          # the random operands are timed
         args = ((randn(b, kh, gq, h, grid=grid) * h ** -0.5).contiguous(),
                 randn(b, t, kh, h, grid=grid), randn(b, t, kh, h), qp, valid)
-        for n_s, bk in ((ns, bkv), (1, 128), (8, 128)):
-            check(f"decode_dense cross T{t} grid={grid} splits={n_s}",
+        for n_s, bk in ((ns_f, bkv_f), (ns, bkv), (1, 128), (8, 128)):
+            check(f"decode_dense cross T{t} grid={grid} splits={n_s} "
+                  f"bkv={bk}",
                   fd.finish_partials(*dparts(True, args, n_s, bk, False),
                                      int_mode=False),
                   fd.finish_partials(*dparts(False, args, n_s, bk, False),
                                      int_mode=False), TOL_DECODE_F)
+            if (n_s, bk) == (ns_f, bkv_f):
+                continue
             ik, ip = (dparts(True, args, n_s, bk, True),
                       dparts(False, args, n_s, bk, True))
             if grid:
@@ -2025,17 +2234,25 @@ def vision_kernel_phase(dev, results):
     v_l = args[2].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q_l, k_l, v_l, scale=1.0))
-    for name, int_mode in (("decode_dense", False),
-                           ("decode_dense_int", True)):
-        ms = time_ms(lambda: dparts(True, args, ns, bkv, int_mode))
-        plain = time_ms(lambda: dparts(False, args, ns, bkv, int_mode),
-                        iters=3, warmup=1)
-        log(f"  {name} cross (B{b} K{kh} G{gq} h{h} T{t} non-causal, {ns} "
-            f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us (bytes)"
-            + ("" if int_mode else f", SDPA {lib * 1e3:.1f} us"))
-        shapes[f"{name} cross"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                       library_ms=None if int_mode else lib)
+    check_repeat("decode_dense cross repeat", lambda: torch.cat(
+        [x.flatten() for x in dparts(True, args, ns_f, bkv_f, False)]))
+    fold = time_ms(lambda: fd.finish_partials(
+        *dparts(True, args, ns_f, bkv_f, False), int_mode=False))
+    shapes["decode_dense cross"] = kernel_row(
+        results["decode_dense_ms"],
+        f"cross B{b} K{kh} G{gq} h{h} T{t} non-causal",
+        lambda: dparts(True, args, ns_f, bkv_f, False),
+        lambda: dparts(False, args, ns_f, bkv_f, False), b_ms, "bytes", lib,
+        iters=50, plain_iters=3, splits=ns_f, block_kv=bkv_f,
+        with_fold_ms=fold)
+    ms = time_ms(lambda: dparts(True, args, ns, bkv, True))
+    plain = time_ms(lambda: dparts(False, args, ns, bkv, True), iters=3,
+                    warmup=1)
+    log(f"  decode_dense_int cross (B{b} K{kh} G{gq} h{h} T{t} non-causal, "
+        f"{ns} splits of {bkv}-key tiles): {ms * 1e3:.1f} us, plain "
+        f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us (bytes)")
+    shapes["decode_dense_int cross"] = dict(ms=ms, plain_ms=plain,
+                                            bound_ms=b_ms, library_ms=None)
 
     # -- rows 7 / 8 as a cross prefill runs them: B1, S 4096 and 512
     #    queries against the 1601 image keys, non-causal, K8 G4 h128
@@ -2072,22 +2289,35 @@ def vision_kernel_phase(dev, results):
         v_l = args[2].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
         lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q_l, k_l, v_l, scale=1.0), iters=10)
-        for name, fn_, plain_fn in (
-                ("flash_fwd", lambda: fa.flash_fwd(*args, **kw),
-                 lambda: fa.flash_fwd_plain(*args, **kw)),
-                ("flash_snap",
-                 lambda: fai.flash_snap(*args, guard_shift=gs, **kw),
-                 lambda: fai.flash_snap_plain(*args, guard_shift=gs, **kw))):
-            ms = time_ms(fn_, iters=10, warmup=2)
-            plain = time_ms(plain_fn, iters=2, warmup=1)
-            lib_ms = lib if name == "flash_fwd" else None
-            log(f"  {name} cross (B1 S{s_} K{kh} G{gq} h{h} T{t} "
-                f"non-causal): {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us,"
-                f" bound {b_ms * 1e3:.1f} us (operations)"
-                + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
-            shapes[f"{name} cross S{s_}"] = dict(ms=ms, plain_ms=plain,
+        shapes[f"flash_fwd cross S{s_}"] = kernel_row(
+            results["flash_fwd_ms"],
+            f"cross B1 S{s_} K{kh} G{gq} h{h} T{t} non-causal",
+            lambda: fa.flash_fwd(*args, **kw),
+            lambda: fa.flash_fwd_plain(*args, **kw), b_ms, "operations", lib)
+        ms = time_ms(lambda: fai.flash_snap(*args, guard_shift=gs, **kw),
+                     iters=10, warmup=2)
+        plain = time_ms(lambda: fai.flash_snap_plain(*args, guard_shift=gs,
+                                                     **kw), iters=2, warmup=1)
+        log(f"  flash_snap cross (B1 S{s_} K{kh} G{gq} h{h} T{t} "
+            f"non-causal): {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+            f"bound {b_ms * 1e3:.1f} us (operations)")
+        shapes[f"flash_snap cross S{s_}"] = dict(ms=ms, plain_ms=plain,
                                                  bound_ms=b_ms,
-                                                 library_ms=lib_ms)
+                                                 library_ms=None)
+    # row 7's edges at the cross heads: S G off the 64-row tile, the 4-byte
+    # copies (pointers one float off 16 bytes); two calls, the same bits
+    args = ((randn(1, 67, kh, gq, h) * h ** -0.5).contiguous(),
+            randn(1, t, kh, h), randn(1, t, kh, h),
+            torch.zeros(1, 67, dtype=torch.int32, device=dev),
+            (torch.rand(1, t, generator=gen) > 0.25).to(torch.uint8).to(dev))
+    fwd_checks(fa, f"cross (1,67,{t},{kh},{gq},{h},{h}) ragged", args, False,
+               64)
+    fwd_checks(fa, f"cross (1,67,{t},{kh},{gq},{h},{h}) pointers one float "
+               "off 16 bytes",
+               tuple(off_by_one_float(x) for x in args[:3]) + args[3:],
+               False, 64)
+    check_repeat("flash_fwd cross S67 repeat",
+                 lambda: fa.flash_fwd(*args, **kw))
     # -- the other path kernels at the vision forward's shapes (a decode
     #    tick's rows and a bucket-4096 prefill), timed only (each is held
     #    to its plain version above, in the phases that ported it): where
@@ -2131,28 +2361,71 @@ def vision_kernel_phase(dev, results):
     ks, vs = randn(1, big, kh, h), randn(1, big, kh, h)
     qps = torch.arange(big, dtype=torch.int32, device=dev)[None]
     vals = torch.ones(1, big, dtype=torch.uint8, device=dev)
-    shapes[f"flash_fwd self S{big} causal"] = dict(ms=time_ms(
-        lambda: fa.flash_fwd(qs, ks, vs, qps, vals, causal=True,
-                             block_kv=64), iters=5))
+    sargs = (qs, ks, vs, qps, vals)
+    q_l = qs[0].permute(1, 2, 0, 3).reshape(1, kh * gq, big, h)
+    k_l = ks.repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    v_l = vs.repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, is_causal=True, scale=1.0), iters=5)
+    del q_l, k_l, v_l
+    pairs = big * (big + 1) // 2 * kh * gq
+    # row 7 at the vision self-attention shape: 64-row tiles at h 128,
+    # causal, walked from the last, the V tail over several pre-pass chunks
+    e_self = fwd_checks(fa, f"self S{big} causal", sargs, True, 64)
+    check_repeat(f"flash_fwd self S{big} causal repeat",
+                 lambda: fa.flash_fwd(*sargs, causal=True, block_kv=64))
+    shapes[f"flash_fwd self S{big} causal"] = kernel_row(
+        results["flash_fwd_ms"], f"self B1 S{big} K{kh} G{gq} h{h} causal",
+        lambda: fa.flash_fwd(*sargs, causal=True, block_kv=64),
+        lambda: fa.flash_fwd_plain(*sargs, causal=True, block_kv=64),
+        *bound((2 * qs.numel() + 2 * ks.numel()) * 4 + 5 * big, pairs
+               * (4 * h + 4)), lib, iters=5, plain_iters=1,
+        max_abs_err=e_self)
     shapes[f"flash_snap self S{big} causal"] = dict(ms=time_ms(
-        lambda: fai.flash_snap(qs, ks, vs, qps, vals, causal=True,
-                               block_kv=64, guard_shift=0), iters=5))
-    del qs, ks, vs
+        lambda: fai.flash_snap(*sargs, causal=True, block_kv=64,
+                               guard_shift=0), iters=5))
+    del qs, ks, vs, sargs
     t_self = VISION["max_seq"]
-    ns_self = fd.dense_decode_splits(t_self, b * kh, dev)
     qpd = torch.tensor([375, 737, 1420, 2750][:b], dtype=torch.int32,
                        device=dev)
     dargs = ((randn(b, kh, gq, h) * h ** -0.5).contiguous(),
              randn(b, t_self, kh, h), randn(b, t_self, kh, h), qpd,
              (torch.arange(t_self, device=dev)[None] <= qpd[:, None]).to(
                  torch.uint8))
+    live = int(qpd.max()) + 1
+    q_l = dargs[0].reshape(b, kh * gq, 1, h)
+    k_l = dargs[1][:, :live].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    v_l = dargs[2][:, :live].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
+    mask = dargs[4][:, :live].bool()[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, attn_mask=mask, scale=1.0))
+    del q_l, k_l, v_l
+    keys = int(qpd.sum()) + b
     for name, int_mode in (("decode_dense", False),
                            ("decode_dense_int", True)):
-        shapes[f"{name} self T{t_self}"] = dict(ms=time_ms(
-            lambda: fd.decode_dense_partials(
-                *dargs, num_splits=ns_self,
-                block_kv=tiling.decode_kv_block(t_self, ns_self), causal=True,
-                int_mode=int_mode, guard_shift=0)))
+        n_s, bk = fd.dense_decode_tiles(t_self, b * kh, dev,
+                                        int_mode=int_mode)
+
+        def dfn(kern, n_s=n_s, bk=bk, int_mode=int_mode):
+            f_ = fd.decode_dense_partials if kern else \
+                fd.decode_dense_partials_plain
+            return f_(*dargs, num_splits=n_s, block_kv=bk, causal=True,
+                      int_mode=int_mode, guard_shift=0)
+        if int_mode:
+            shapes[f"{name} self T{t_self}"] = dict(ms=time_ms(
+                lambda: dfn(True)))
+            continue
+        check(f"decode_dense self T{t_self} splits={n_s} bkv={bk}",
+              fd.finish_partials(*dfn(True), int_mode=False),
+              fd.finish_partials(*dfn(False), int_mode=False), TOL_DECODE_F)
+        shapes[f"{name} self T{t_self}"] = kernel_row(
+            results["decode_dense_ms"],
+            f"self B{b} K{kh} G{gq} h{h} T{t_self} depths {qpd.tolist()}",
+            lambda: dfn(True), lambda: dfn(False),
+            *bound(keys * kh * 2 * h * 4 + keys + dargs[0].numel() * 4
+                   + 4 * n_s * kh * gq * (h + 2) * b, keys * kh * gq
+                   * (4 * h + 4)), lib, iters=50, plain_iters=3, splits=n_s,
+            block_kv=bk)
     del dargs
     log("  " + ", ".join(f"{k_} {v_['ms'] * 1e3:.1f} us"
                          for k_, v_ in shapes.items()
@@ -2163,6 +2436,10 @@ def vision_kernel_phase(dev, results):
     results["vision_shape_ms"] = shapes
     log("[norm gemm] rows 15 / 16 at every shape, ms: "
         + json.dumps(results["norm_gemm_ms"]))
+    log("[flash fwd] row 7 at every shape, ms: "
+        + json.dumps(results["flash_fwd_ms"]))
+    log("[decode dense] row 5 at every shape, ms: "
+        + json.dumps(results["decode_dense_ms"]))
 
 
 def _plain_vision_kernels():
@@ -2358,7 +2635,8 @@ def main() -> int:
     for src, text in info["ptxas"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
-                    src.startswith(("norm_", "flash_bwd"))
+                    src.startswith(("norm_", "flash_bwd", "flash_fwd",
+                                    "decode_dense"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
 

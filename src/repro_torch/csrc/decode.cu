@@ -6,10 +6,10 @@
 //                     pallas_call at :365, body _decode_body :68);
 //   decode_paged_int  flash_decode_paged, int (_flash_decode_paged_int_jit,
 //                     pallas_call at :440, body _decode_body_int :185);
-//   decode_dense      flash_decode_pallas, float (_flash_decode_jit,
-//                     pallas_call at :162);
 //   decode_dense_int  flash_decode_pallas, int (_flash_decode_int_jit,
 //                     pallas_call at :283).
+// (The contiguous float decode, flash_decode_pallas's _flash_decode_jit,
+// runs on its own body: decode_dense.cu.)
 // One kernel body, templated over the int/float state and over the
 // addressing (a block-table entry per tile vs (B, T) strides).  Each emits
 // per-split partials; the split fold (online_softmax_merge_n /
@@ -295,8 +295,8 @@ extern "C" int decode_paged_int_launch(DECODE_PARAMS) {
   return launch<true, true>(DECODE_ARGS, batch, stream);
 }
 
-// Contiguous cache: k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T); the
-// tile is bkv keys, the last one ragged; partials as the paged entries.
+// Contiguous cache, int: k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T);
+// the tile is bkv keys, the last one ragged; partials as the paged entries.
 #define DENSE_PARAMS                                                           \
   const float *q, const float *k, const float *v, const int32_t *q_pos,      \
       const uint8_t *kv_valid, void *part_m, void *part_l, float *part_acc,   \
@@ -306,10 +306,6 @@ extern "C" int decode_paged_int_launch(DECODE_PARAMS) {
   DecodeArgs{q, k, v, nullptr, q_pos, kv_valid, part_m, part_l, part_acc,     \
              0, bkv, kh, g, h, hv, (t_kv + bkv - 1) / bkv, num_splits, 0,     \
              causal, guard_shift, t_kv}
-
-extern "C" int decode_dense_launch(DENSE_PARAMS) {
-  return launch<false, false>(DENSE_ARGS, batch, stream);
-}
 
 extern "C" int decode_dense_int_launch(DENSE_PARAMS) {
   return launch<true, false>(DENSE_ARGS, batch, stream);

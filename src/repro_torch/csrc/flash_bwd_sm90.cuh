@@ -139,14 +139,7 @@ struct DkdvSmem {
 // off(r), columns past ``width`` and rows with off(r) < 0 as zeros.
 template <class C, int ROWS, class Off>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int width, Off off) {
-  constexpr int CH = C::D / C::VEC, N = ROWS * CH;
-#pragma unroll
-  for (int i0 = 0; i0 < N; i0 += kThreads) {
-    const int i = i0 + threadIdx.x, r = i / CH, c = (i % CH) * C::VEC;
-    const long long o = off(r);
-    const bool ok = o >= 0 && c < width;
-    cp_async<C::VEC>(dst + r * C::LD + c, ok ? src + o + c : src, ok);
-  }
+  sm90::copy_rows<ROWS, C::D, C::LD, C::VEC, kThreads>(dst, src, width, off, threadIdx.x);
 }
 
 // ---- index helpers ----------------------------------------------------------

@@ -1,0 +1,433 @@
+// The Hopper body of the float flash forward: flash_fwd.cu's main kernel
+// (row 7) and its V-sum pre-pass.
+//
+//   m' = max(m, max s);  p = 2^((s - m') log2 e);  c = 2^((m - m') log2 e)
+//   l' = l c + sum p;    acc' = acc c + p V;        out = acc / max(l, 1e-30)
+//
+// (datapath.online_softmax_update, as the reference's _flash_body.)  Rows
+// are the flattened (query position, group) axis of one kv head, r = s G +
+// g, so the G query heads that share a kv head share its K / V tiles.
+//
+// Bound: full float32 FMAs on the CUDA cores (the plain version's and the
+// reference's contract).  What the design does about it (it mirrors
+// flash_bwd_sm90.cuh's):
+//
+// 1. Tiles for the card.  A block holds BQ q rows (128 at head dims up to
+//    64, else 64) and streams 64-key K / V tiles through an NS-stage
+//    cp.async ring in dynamic shared memory; edges are zero-filled by the
+//    copy's src-size, so nothing is padded in device memory.  Copies move
+//    16 bytes where h, hv and every base pointer allow it
+//    (tiling.flash_fwd_plan), 4 bytes otherwise.
+// 2. Scores and row state in registers.  Thread (ty, tx) computes the
+//    scores of SR rows (frag_pos<SR, 16>(ty, .)) x 4 keys (tx + 16 c) from
+//    float4 reads, rows padded to D + 4 floats.  The 16 threads of a row
+//    set are 16 lanes of one warp: they take the row max and sum with xor
+//    shuffles, and each keeps the rows' m, l and correction in registers.
+// 3. p through shared memory once.  p goes to a [key][row] tile as float4s
+//    of four rows; the P V product reads it back into SR x 8 register tiles
+//    on the SAME rows, split by key halves over two groups of 8 threads a
+//    row set at head dims up to 64 (summed in group order at the end), so
+//    the correction never leaves the registers.  Two barriers a tile.
+// 4. Mask only where needed.  A thread applies the per-key mask on a tile
+//    only when one of its keys is invalid, past T, or past the smallest
+//    q_pos of its rows (causal); kv_valid of the next tile is read ahead.
+// 5. Heavy tiles first.  The tile index is the slowest grid coordinate;
+//    a causal grid walks its q tiles from the last.
+// 6. The causal tail at the kernel's width.  A block stops after the tile
+//    holding its largest q_pos; every key after it is past every row's
+//    q_pos, so it scores MASK_VALUE for every row, and the n keys fold in
+//    as one update with n times the mass and the sum of V over them.  The
+//    pre-pass (vsum_kernel) writes, for every 64-key tile, the sum of V from
+//    it to the end of its chunk of kChunk tiles; a block adds the chunk
+//    starts that follow.  A row whose visible keys are all masked still
+//    gets the tail's mass, as in the plain full sweep.
+// 7. Same contract as the plain version: (B, K, G, S) m / l statistics on
+//    request, dead rows past S G neither read nor written, any block_kv
+//    the reference takes (the mask is per key, so the result depends on
+//    the tiles only through f32 summation order).
+//
+// No float atomics: two calls on the same inputs give the same bits.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "block_reduce.cuh"
+#include "sm90_tile.cuh"
+#include "unit.cuh"
+
+namespace ffwd {
+
+using namespace sm90;
+
+constexpr int kThreads = 256;
+constexpr int kBK = 64;      // keys of a streamed tile (tiling.FLASH_FWD_BK)
+constexpr int kChunk = 16;   // tiles a pre-pass block sums
+constexpr int kDeadRow = -2147483647 - 1;  // q_pos of rows past S G
+
+struct Args {
+  const float* q;           // (B, S, K, G, h), pre-scaled
+  const float* k;           // (B, T, K, h)
+  const float* v;           // (B, T, K, hv)
+  const int32_t* q_pos;     // (B, S)
+  const uint8_t* kv_valid;  // (B, T)
+  float* vsum;              // (B, n_kt, K, hv), causal: chunk-local V suffix sums
+  float* out;               // (B, S, K, G, hv)
+  float* stat_m;            // (B, K, G, S) or null
+  float* stat_l;            // (B, K, G, S) or null
+  int S, K, G, h, hv, T, causal, reverse;
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// A tile shape.  D: h and hv padded to 64 or 128; BQ rows held, kBK keys a
+// tile, NS ring stages, VEC floats a global copy.  Scores: thread (ty, tx)
+// of TY x TX holds SR rows x SC keys.  P V: the TX threads of a row set
+// are NG key groups x PXN column groups of 8.
+template <int D_, int BQ_, int NS_, int VEC_>
+struct Cfg {
+  static constexpr int D = D_, BQ = BQ_, BK = kBK, NS = NS_, VEC = VEC_;
+  static constexpr int LD = D + 4;   // row stride of the Q, K, V tiles
+  static constexpr int TX = 16, TY = kThreads / TX, SR = BQ / TY, SC = BK / TX;
+  static constexpr int PXN = D / 8, NG = TX / PXN, KH = BK / NG;
+  static constexpr int LDT = BQ + 4;  // row stride of the [key][row] p tile
+  static_assert(SR == 4 || SR == 8, "four or eight rows a thread");
+  static_assert(NG * PXN == TX && (NG == 1 || NG == 2), "P V groups");
+  static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
+};
+
+// Shared memory, in floats: Q [BQ][LD]; the ring [NS][K, V][BK][LD]; the p
+// tile [BK][LDT].  At the end the ring holds the second group's
+// accumulator [BQ][LD] and the p tile the tail's V sums [D].
+template <class C>
+struct Smem {
+  static constexpr int Q = 0, RING = C::BQ * C::LD, STAGE = 2 * C::BK * C::LD;
+  static constexpr int P = RING + C::NS * STAGE;
+  static constexpr size_t BYTES = sizeof(float) * (P + C::BK * C::LDT);
+  static_assert(C::NS * STAGE >= C::BQ * C::LD, "the ring holds a group's acc");
+};
+
+// Element offset of flattened row ``flat`` in a (B, S, K, G, width) tensor.
+__device__ __forceinline__ long long row_offset(const Args& a, int b, int head, int flat,
+                                                int width) {
+  const int s = flat / a.G, g = flat - s * a.G;
+  return (((static_cast<long long>(b) * a.S + s) * a.K + head) * a.G + g) * width;
+}
+
+// t[i][c] = sum over d < depth (in order) of Q[row i][d] * K[key c][d], row i
+// = frag_pos<SR, TY>(ty, i), key c = tx + TX c; zero past depth up to a
+// multiple of 4.
+template <class C>
+__device__ __forceinline__ void score_tile(const float* qs, const float* ks, int depth, int ty,
+                                           int tx, float (&t)[C::SR][C::SC]) {
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+    for (int c = 0; c < C::SC; ++c) t[i][c] = 0.0f;
+  const int n4 = (depth + 3) >> 2;
+#pragma unroll 4
+  for (int d4 = 0; d4 < n4; ++d4) {
+    float4 av[C::SR];
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(qs + frag_pos<C::SR, C::TY>(ty, i) * C::LD +
+                                               4 * d4);
+#pragma unroll
+    for (int c = 0; c < C::SC; ++c) {
+      const float4 bv = *reinterpret_cast<const float4*>(ks + (tx + C::TX * c) * C::LD + 4 * d4);
+#pragma unroll
+      for (int i = 0; i < C::SR; ++i) {
+        float x = t[i][c];
+        x = fmaf(av[i].x, bv.x, x);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        t[i][c] = fmaf(av[i].w, bv.w, x);
+      }
+    }
+  }
+}
+
+// The 16 lanes of a row set combine their values.
+template <typename Op>
+__device__ __forceinline__ float row_reduce(float v, Op op) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The block's (q tile, kv head, batch row) from a 1-D grid whose tile index
+// is the slowest coordinate, walked from the last tile when reverse.
+__device__ __forceinline__ void block_coords(const Args& a, int n_tiles, int batch, int* tile,
+                                             int* head, int* b) {
+  const int per = a.K * batch, rank = blockIdx.x / per, rem = blockIdx.x - rank * per;
+  *head = rem % a.K;
+  *b = rem / a.K;
+  *tile = a.reverse ? n_tiles - 1 - rank : rank;
+}
+
+// ---- the V-sum pre-pass -----------------------------------------------------
+
+// One block per (chunk of kChunk tiles, kv head, batch row): for every tile
+// of the chunk, the sum of V over its keys and those of the chunk's later
+// tiles, tiles walked from the last.  Warp w sums keys w, w + 8, ... of a
+// tile; the warps' sums are added in warp order.
+__global__ void __launch_bounds__(kThreads) vsum_kernel(Args a) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float part[kWarps][128];
+  const int ch = blockIdx.x, head = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_kt = cdiv(a.T, kBK), t0 = ch * kChunk, t1 = min(n_kt, t0 + kChunk);
+  float run = 0.0f;  // thread c < hv: column c's sum from the current tile on
+  for (int t = t1 - 1; t >= t0; --t) {
+    const int key0 = t * kBK, nk = min(kBK, a.T - key0);
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < kBK / kWarps; ++i) {
+      const int j = warp + kWarps * i;
+      if (j >= nk) break;
+      const float* row = a.v + ((static_cast<size_t>(b) * a.T + key0 + j) * a.K + head) * a.hv;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (lane + 32 * u < a.hv) x[u] += row[lane + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) part[warp][lane + 32 * u] = x[u];
+    __syncthreads();
+    if (tid < a.hv) {
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += part[w][tid];
+      run += s;
+      a.vsum[((static_cast<size_t>(b) * n_kt + t) * a.K + head) * a.hv + tid] = run;
+    }
+    __syncthreads();
+  }
+}
+
+// ---- the forward ------------------------------------------------------------
+
+// One block per (q tile of BQ rows, kv head, batch row): Q stays in shared
+// memory, K / V tiles of kBK keys stream through the ring up to the causal
+// end.  Per tile: every thread computes its rows x keys, masks them where
+// needed, updates its rows' (m, l) and rescales its accumulators, and
+// writes p; then each thread adds its key group's p V to its SR x 8 outputs.
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
+  using L = Smem<C>;
+  extern __shared__ __align__(16) float sm[];
+  const int R = a.S * a.G, n_qt = cdiv(R, C::BQ), n_kt = cdiv(a.T, C::BK);
+  int qt, head, b;
+  block_coords(a, n_qt, batch, &qt, &head, &b);
+  const int q0 = qt * C::BQ;
+  const int tid = threadIdx.x, tx = tid % C::TX, ty = tid / C::TX;
+  const int grp = tx / C::PXN, px = tx % C::PXN;
+
+  copy_rows<C::BQ, C::D, C::LD, C::VEC, kThreads>(
+      sm + L::Q, a.q, a.h,
+      [&](int r) -> long long { return q0 + r < R ? row_offset(a, b, head, q0 + r, a.h) : -1; },
+      tid);
+  cp_commit();
+
+  // the rows' q_pos; the block's largest is the causal end
+  int32_t qp[C::SR];
+  int32_t qmin = 2147483647, qmax = kDeadRow;
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i) {
+    const int flat = q0 + frag_pos<C::SR, C::TY>(ty, i);
+    qp[i] = flat < R ? a.q_pos[static_cast<size_t>(b) * a.S + flat / a.G] : kDeadRow;
+    qmin = min(qmin, qp[i]);
+    qmax = max(qmax, qp[i]);
+  }
+  __shared__ int32_t qmax_s;
+  if (tid == 0) qmax_s = kDeadRow;
+  __syncthreads();
+  qmax = warp_reduce(qmax, MaxOp());
+  if ((tid & 31) == 0) atomicMax(&qmax_s, qmax);
+  __syncthreads();
+  const int n_tiles = !a.causal ? n_kt : qmax_s < 0 ? 0 : min(n_kt, qmax_s / C::BK + 1);
+
+  const auto fetch = [&](int t) {
+    float* st = sm + L::RING + (t % C::NS) * L::STAGE;
+    const int key0 = t * C::BK;
+    const auto k_row = [&](int width) {
+      return [&, width](int j) -> long long {
+        return key0 + j < a.T
+                   ? ((static_cast<long long>(b) * a.T + key0 + j) * a.K + head) * width
+                   : -1;
+      };
+    };
+    copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st, a.k, a.h, k_row(a.h), tid);
+    copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st + C::BK * C::LD, a.v, a.hv, k_row(a.hv),
+                                                   tid);
+  };
+#pragma unroll
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (s < n_tiles) fetch(s);
+    cp_commit();
+  }
+  // the thread's keys of tile t that are valid and below T
+  const uint8_t* vrow = a.kv_valid + static_cast<size_t>(b) * a.T;
+  const auto valid_bits = [&](int t) {
+    unsigned bits = 0;
+#pragma unroll
+    for (int c = 0; c < C::SC; ++c) {
+      const int j = t * C::BK + tx + C::TX * c;
+      if (j < a.T && vrow[j]) bits |= 1u << c;
+    }
+    return bits;
+  };
+  unsigned valid_next = n_tiles > 0 ? valid_bits(0) : 0u;
+
+  float m[C::SR], l[C::SR], acc[C::SR][8];
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i) {
+    m[i] = unit::MASK_VALUE;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  float* pt = sm + L::P;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<C::NS - 2>();
+    __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
+    if (t + C::NS - 1 < n_tiles) fetch(t + C::NS - 1);
+    cp_commit();
+    const unsigned valid = valid_next;
+    if (t + 1 < n_tiles) valid_next = valid_bits(t + 1);
+    const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
+    const float* vs = ks + C::BK * C::LD;
+    const int key0 = t * C::BK;
+
+    float s[C::SR][C::SC];
+    score_tile<C>(sm + L::Q, ks, a.h, ty, tx, s);
+    const int klast = key0 + tx + C::TX * (C::SC - 1);  // the thread's last key
+    if (klast >= a.T || valid != (1u << C::SC) - 1u || (a.causal && klast > qmin)) {
+#pragma unroll
+      for (int c = 0; c < C::SC; ++c) {
+        const int j = key0 + tx + C::TX * c;
+#pragma unroll
+        for (int i = 0; i < C::SR; ++i) {
+          if (j >= a.T)
+            s[i][c] = -INFINITY;  // a phantom: no mass
+          else if (!((valid >> c) & 1u) || (a.causal && j > qp[i]))
+            s[i][c] = unit::MASK_VALUE;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int c = 1; c < C::SC; ++c) mx = fmaxf(mx, s[i][c]);
+      const float m_new = fmaxf(m[i], row_reduce(mx, MaxOp()));
+      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C::SC; ++c) {
+        s[i][c] = exp2f((s[i][c] - m_new) * unit::LOG2E);
+        sum += s[i][c];
+      }
+      l[i] = l[i] * corr + row_reduce(sum, SumOp());
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+    }
+#pragma unroll
+    for (int c = 0; c < C::SC; ++c)
+#pragma unroll
+      for (int i4 = 0; i4 < C::SR; i4 += 4)
+        *reinterpret_cast<float4*>(pt + (tx + C::TX * c) * C::LDT +
+                                   frag_pos<C::SR, C::TY>(ty, i4)) =
+            make_float4(s[i4][c], s[i4 + 1][c], s[i4 + 2][c], s[i4 + 3][c]);
+    __syncthreads();  // p written
+
+    // acc += p V over the thread's key group
+#pragma unroll 8
+    for (int j = grp * C::KH; j < (grp + 1) * C::KH; ++j) {
+      float av[C::SR], bv[8];
+      load_frag<C::SR, C::TY>(pt + j * C::LDT, ty, av);
+      load_frag<8, C::PXN>(vs + j * C::LD, px, bv);
+#pragma unroll
+      for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring and the p tile are free
+
+  // the causal tail: keys [n_tiles kBK, T) score MASK_VALUE in every row
+  const int n_tail = a.causal ? a.T - n_tiles * C::BK : 0;
+  if (n_tail > 0) {
+    float* tail = pt;
+    for (int c = tid; c < C::D; c += kThreads) {
+      float x = 0.0f;
+      if (c < a.hv) {
+        const size_t step = static_cast<size_t>(a.K) * a.hv;
+        const float* vs0 = a.vsum + static_cast<size_t>(b) * n_kt * step + head * a.hv + c;
+        x = vs0[n_tiles * step];
+        for (int t = (n_tiles / kChunk + 1) * kChunk; t < n_kt; t += kChunk) x += vs0[t * step];
+      }
+      tail[c] = x;
+    }
+    __syncthreads();
+    float tv[8];
+    load_frag<8, C::PXN>(tail, px, tv);
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      const float m_new = fmaxf(m[i], unit::MASK_VALUE);
+      const float p = exp2f((unit::MASK_VALUE - m_new) * unit::LOG2E);
+      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
+      l[i] = l[i] * corr + static_cast<float>(n_tail) * p;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] * corr + (grp == 0 ? p * tv[j] : 0.0f);
+    }
+  }
+
+  // the key groups' sums, in group order
+  if constexpr (C::NG == 2) {
+    float* part = sm + L::RING;
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < C::SR; ++i) {
+        float* row = part + frag_pos<C::SR, C::TY>(ty, i) * C::LD;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float4*>(row + (j * C::PXN + px) * 4) =
+              make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+      }
+    }
+    __syncthreads();
+    if (grp == 1) return;
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      float other[8];
+      load_frag<8, C::PXN>(part + frag_pos<C::SR, C::TY>(ty, i) * C::LD, px, other);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] += other[j];
+    }
+  }
+
+  // finish: acc / max(l, 1e-30); the (m, l) statistics on request
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i) {
+    const int flat = q0 + frag_pos<C::SR, C::TY>(ty, i);
+    if (flat >= R) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = acc[i][j] / den;
+    store_frag<8, C::PXN, C::VEC>(a.out + row_offset(a, b, head, flat, a.hv), px, o, a.hv);
+    if (a.stat_m != nullptr && px == 0) {
+      const int s = flat / a.G, g = flat - s * a.G;
+      const size_t si = ((static_cast<size_t>(b) * a.K + head) * a.G + g) * a.S + s;
+      a.stat_m[si] = m[i];
+      a.stat_l[si] = l[i];
+    }
+  }
+}
+
+}  // namespace ffwd

@@ -1,10 +1,8 @@
-// The blocked-attention tile machinery shared by flash_fwd.cu (float
-// online softmax), flash_snap.cu (the unit's snapped int recurrence) and
-// flash_int3.cu (the unit's classic words in three sweeps):
-// the grid, the shared-memory layout, the tile loads, the masked score
-// tile and the P @ V update.  Only the per-row state update differs
-// between the two, as the reference's _flash_body and _flash_snap_body
-// differ only in it.
+// The blocked-attention tile machinery shared by flash_snap.cu (the unit's
+// snapped int recurrence) and flash_int3.cu (the unit's classic words in
+// three sweeps): the grid, the shared-memory layout, the tile loads, the
+// masked score tile and the P @ V update.  (The float forward, flash_fwd.cu,
+// runs on its own body, flash_fwd_sm90.cuh.)
 //
 // Grid: one block of 256 threads per (q tile, kv head, batch row).  A q
 // tile is kBQ = 64 rows of the flattened (query position, GQA group)
@@ -73,7 +71,6 @@ struct Smem {
   int32_t* qpos;  // kBQ
   int32_t* kval;  // kBKV
   float* row_c;   // kBQ: this tile's accumulator scale
-  float* row_f;   // kBQ x 2: float m, l
   int32_t* row_i; // kBQ x (1 + 2 * 16): int m, S, S of this tile
 };
 
@@ -81,7 +78,7 @@ __host__ __device__ inline size_t smem_bytes(int h, int hv) {
   return sizeof(float) * (static_cast<size_t>(kBQ) * (h + 1) +
                           static_cast<size_t>(kBKV) * (h + 1) +
                           static_cast<size_t>(kBKV) * hv + kBQ * (kBKV + 1) +
-                          kBQ + 2 * kBQ) +
+                          kBQ) +
          sizeof(int32_t) * (kBQ + kBKV + kBQ * (1 + 2 * unit::N_SNAP_BUCKETS));
 }
 
@@ -92,8 +89,7 @@ __device__ inline Smem carve(float* base, int h, int hv) {
   s.vs = s.ks + kBKV * (h + 1);
   s.ps = s.vs + kBKV * hv;
   s.row_c = s.ps + kBQ * (kBKV + 1);
-  s.row_f = s.row_c + kBQ;
-  s.qpos = reinterpret_cast<int32_t*>(s.row_f + 2 * kBQ);
+  s.qpos = reinterpret_cast<int32_t*>(s.row_c + kBQ);
   s.kval = s.qpos + kBQ;
   s.row_i = s.kval + kBKV;
   return s;

@@ -1,5 +1,6 @@
 // cp.async copies and register-tile fragments shared by the Hopper bodies:
-// norm_gemm_sm90.cuh (rows 15, 16) and flash_bwd_sm90.cuh (rows 10, 11).
+// norm_gemm_sm90.cuh (rows 15, 16), flash_bwd_sm90.cuh (rows 10, 11),
+// flash_fwd_sm90.cuh (row 7) and decode_dense_sm90.cuh (row 5).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,6 +33,23 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of D columns into dst (row stride LD), shared by NT threads of
+// index ``tid``, VEC floats a copy: row r from src + off(r), columns at or
+// past ``width`` and rows with off(r) < 0 as zeros.
+template <int ROWS, int D, int LD, int VEC, int NT, class Off>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int width, Off off,
+                                          int tid) {
+  constexpr int CH = D / VEC, N = ROWS * CH;
+  static_assert(N % NT == 0, "whole copy rounds");
+#pragma unroll
+  for (int i0 = 0; i0 < N; i0 += NT) {
+    const int i = i0 + tid, r = i / CH, c = (i % CH) * VEC;
+    const long long o = off(r);
+    const bool ok = o >= 0 && c < width;
+    cp_async<VEC>(dst + r * LD + c, ok ? src + o + c : src, ok);
+  }
 }
 
 // ---- a thread's positions in the tile --------------------------------------

@@ -4,11 +4,13 @@
 ``flash_fwd``  replaces the forward pallas_call of ``_flash_fwd_call``
                (flash_attention.py:192), registered as ``'flash_pallas'``
 
-The kernel (``csrc/flash_fwd.cu``) streams KV tiles through shared
-memory with the running (m, l, acc) state on chip, so the (S, T) score
-matrix never reaches device memory; its per-tile step is
+The kernel (``csrc/flash_fwd.cu`` on ``csrc/flash_fwd_sm90.cuh``)
+streams K / V tiles through a cp.async ring in shared memory with the
+running (m, l, acc) state in registers, so the (S, T) score matrix never
+reaches device memory; its per-tile step is
 ``datapath.online_softmax_update``, as the reference's.  It is bound by
-operations on the H100 (see the source note).
+operations on the H100 (see the source note).  Its tiles, copy width and
+tile order are :func:`tiling.flash_fwd_plan`'s, not ``block_kv``.
 
 Shapes (the reference's): q (B, S, K, G, h), k (B, T, K, h),
 v (B, T, K, hv) -> (B, S, K, G, hv).  Masking is
@@ -16,15 +18,17 @@ v (B, T, K, hv) -> (B, S, K, G, hv).  Masking is
 ``MASK_VALUE`` (as in naive attention), keys past T (tile padding) are
 phantoms scoring -inf.
 
-Causal tail: a row's keys from the first tile that starts past its q_pos
-up to T all score exactly MASK_VALUE, so the kernel skips those tiles and
-folds them in closed form at the end: n keys of one score update the
-state as n copies of one key, from per-tile sums of V
-(:func:`v_tail_sums`, computed here and passed in).  The plain version
-is the reference's full sweep of every tile (``models.flash``), so it
-holds the fold to account at any shape -- also for a row whose every
-visible key is masked, where that tail carries most of the mass.  The
-two agree up to f32 summation order.
+Causal tail: a block stops after the kernel tile that holds its q tile's
+largest q_pos; every later key is past every row's q_pos and scores
+exactly MASK_VALUE, so the kernel folds them in closed form at the end:
+n keys of one score update the state as n copies of one key, from sums
+of V at the kernel's tile width that its own pre-pass writes into a
+scratch this wrapper allocates.  The plain version is the reference's
+full sweep of every ``block_kv`` tile (``models.flash``), so it holds the
+fold to account at any shape -- also for a row whose every visible key is
+masked, where that tail carries most of the mass.  The two agree up to
+f32 summation order.  (:func:`v_tail_sums`, the same sums at
+``block_kv``, serves the int kernel ``flash_snap``.)
 
 Gradients: :func:`flash_attention_pallas` runs the kernel inside a
 ``torch.autograd.Function`` whenever grad is needed (on either device).
@@ -46,7 +50,7 @@ from . import dispatch, tiling
 _P, _I = _build.P, _build.I
 
 FLASH_FWD = _build.Kernel(
-    "flash_fwd", "flash_fwd_launch", [_P] * 9 + [_I] * 9 + [_P],
+    "flash_fwd", "flash_fwd_launch", [_P] * 9 + [_I] * 14 + [_P],
     source="src/repro_torch/csrc/flash_fwd.cu",
     replaces="src/repro/kernels/flash_attention.py:192")
 
@@ -147,13 +151,17 @@ def flash_fwd(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
     if return_stats:
         m = torch.empty((b, kh, g, s_q), device=qf.device)
         l = torch.empty_like(m)
-    tails = v_tail_sums(v, block_kv) if causal else None
-    FLASH_FWD(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
-              None if tails is None else tails.data_ptr(), q_pos.data_ptr(),
-              kv_valid.data_ptr(), out.data_ptr(),
-              None if m is None else m.data_ptr(),
+    aligned = all(x.data_ptr() % 16 == 0 for x in (qf, k, v, out))
+    plan = tiling.flash_fwd_plan(h, hv, causal=causal, aligned=aligned)
+    # the pre-pass's V sums, one row of hv a kernel tile
+    vsum = (torch.empty((b, tiling.cdiv(t, plan.block_kv), kh, hv),
+                        device=qf.device) if causal else None)
+    FLASH_FWD(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+              kv_valid.data_ptr(), None if vsum is None else vsum.data_ptr(),
+              out.data_ptr(), None if m is None else m.data_ptr(),
               None if l is None else l.data_ptr(),
-              b, s_q, kh, g, h, hv, t, block_kv, int(causal),
+              b, s_q, kh, g, h, hv, t, block_kv, int(causal), plan.block_q,
+              plan.block_kv, plan.stages, plan.vec, int(plan.reverse),
               _build.stream_ptr(qf.device))
     return (out, m, l) if return_stats else out
 
@@ -185,9 +193,10 @@ def flash_attention_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
                            return_stats: bool = False):
     """Blocked flash attention (the reference's contract): the scale is
     folded into q in f32 before the kernel; ``return_stats`` also returns
-    the (B, K, G, S) per-row (m, l) of the pre-scaled scores.  The q tile
-    is the kernel's own (``tiling.ATTN_BLOCK_Q`` rows); ``block_kv`` (at
-    most ``tiling.ATTN_BLOCK_KV``) defaults to the tiling policy.
+    the (B, K, G, S) per-row (m, l) of the pre-scaled scores.  The tiles
+    are the kernel's own (``tiling.flash_fwd_plan``); ``block_kv`` (at
+    most ``tiling.ATTN_BLOCK_KV``, the plain version's tile) defaults to
+    the tiling policy.
     Differentiable in q, k and v; ``return_stats`` is the forward-only
     form and raises ValueError when grad is needed."""
     scale = (1.0 / q.shape[-1] ** 0.5) if scale is None else scale

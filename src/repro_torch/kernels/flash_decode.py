@@ -6,13 +6,18 @@
 ``decode_dense``      replaces the contiguous float body (pallas_call at :162)
 ``decode_dense_int``  replaces the contiguous int body (pallas_call at :283)
 
-The kernels (``csrc/decode.cu``, one body templated over the state and
-the addressing) emit one partial state per KV split -- (m, l, o*l)
-float, or (m snapped, S[16] buckets, acc) int -- and the split fold runs
-here in PyTorch, as the reference runs it outside its kernel:
+The kernels emit one partial state per KV split -- (m, l, o*l) float, or
+(m snapped, S[16] buckets, acc) int -- and the split fold runs here in
+PyTorch, as the reference runs it outside its kernel:
 ``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
 ``online_finish_int`` + one f32 division.  The kernels are bound by
-memory on the H100: each visited K/V tile is read once.
+memory on the H100: each visited K/V tile is read once.  Three of them
+share ``csrc/decode.cu`` (one body templated over the state and the
+addressing) and the split rule :func:`tiling.decode_splits`; the float
+contiguous decode runs on its own Hopper body (``csrc/decode_dense.cu`` on
+``csrc/decode_dense_sm90.cuh``: per-warp key runs, each warp's cp.async
+ring and online state, a fixed-order merge of the warps) with the split
+count and tile of :func:`tiling.decode_dense_plan` on the GPU.
 
 Shapes (the reference's): q (B, 1, K, G, h); paged pools (N, bs, K,
 h|hv) with block_tables (B, nblk) int32 and kv_valid (B, nblk*bs);
@@ -33,6 +38,7 @@ from repro_torch.core.fixedpoint import T_FRAC, quantize
 from . import _build
 from . import datapath as dp
 from . import dispatch, tiling
+from .flash_attention import MAX_HEAD_DIM
 from .flash_attention_int import snap_tile_update
 
 _P, _I = _build.P, _build.I
@@ -46,17 +52,16 @@ DECODE_PAGED_INT = _build.Kernel(
     "decode_paged_int", "decode_paged_int_launch", _DECODE_ARGTYPES,
     source="src/repro_torch/csrc/decode.cu",
     replaces="src/repro/kernels/flash_decode.py:440")
-_DENSE_ARGTYPES = [_P] * 8 + [_I] * 10 + [_P]
 DECODE_DENSE = _build.Kernel(
-    "decode_dense", "decode_dense_launch", _DENSE_ARGTYPES,
-    source="src/repro_torch/csrc/decode.cu",
+    "decode_dense", "decode_dense_launch", [_P] * 8 + [_I] * 10 + [_P],
+    source="src/repro_torch/csrc/decode_dense.cu",
     replaces="src/repro/kernels/flash_decode.py:162")
 DECODE_DENSE_INT = _build.Kernel(
-    "decode_dense_int", "decode_dense_int_launch", _DENSE_ARGTYPES,
+    "decode_dense_int", "decode_dense_int_launch", [_P] * 8 + [_I] * 10 + [_P],
     source="src/repro_torch/csrc/decode.cu",
     replaces="src/repro/kernels/flash_decode.py:283")
 
-MAX_GROUPS = 8          # GQA rows per kv head the kernel holds (kMaxG)
+MAX_GROUPS = 8          # GQA rows per kv head the kernels hold (kMaxG)
 
 
 def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
@@ -306,7 +311,8 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
                           guard_shift: int):
     """Per-split partials of the contiguous decode through the CUDA
     kernel (CUDA tensors) or the plain version (CPU tensors); arguments
-    as :func:`decode_dense_partials_plain`."""
+    as :func:`decode_dense_partials_plain`.  The float kernel copies K / V
+    at :func:`tiling.decode_dense_vec`'s width."""
     if qf.device.type == "cpu":
         return decode_dense_partials_plain(
             qf, k, v, q_pos, kv_valid, num_splits=num_splits,
@@ -324,11 +330,19 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
                           device=dev, dtype=torch.int32) if int_mode
               else torch.empty((b, num_splits, kh, g), device=dev))
     part_acc = torch.empty((b, num_splits, kh, g, hv), device=dev)
-    kernel = DECODE_DENSE_INT if int_mode else DECODE_DENSE
-    kernel(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-           kv_valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-           part_acc.data_ptr(), b, t, kh, g, h, hv, block_kv, num_splits,
-           int(causal), guard_shift, _build.stream_ptr(dev))
+    ptrs = (qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            kv_valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            part_acc.data_ptr(), b, t, kh, g, h, hv, block_kv, num_splits,
+            int(causal))
+    if int_mode:
+        DECODE_DENSE_INT(*ptrs, guard_shift, _build.stream_ptr(dev))
+        return part_m, part_l, part_acc
+    if max(h, hv) > MAX_HEAD_DIM:
+        raise ValueError(f"decode_dense: head dims {h}/{hv}; the float kernel "
+                         f"takes 1..{MAX_HEAD_DIM}")
+    aligned = k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
+    DECODE_DENSE(*ptrs, tiling.decode_dense_vec(h, hv, aligned),
+                 _build.stream_ptr(dev))
     return part_m, part_l, part_acc
 
 
@@ -355,11 +369,28 @@ def _check_dense_operands(qf, k, v, q_pos, kv_valid):
 
 
 def dense_decode_splits(t: int, rows: int, device) -> int:
-    """Split count of the contiguous decode: on a GPU, from the SM count
-    over DECODE_BLOCK_KV-key tiles; on the CPU, the reference's off-TPU
-    rule (one split per DECODE_SPLIT_KEYS keys)."""
+    """Split count of the contiguous int decode (and of the float one on
+    the CPU): on a GPU, from the SM count over DECODE_BLOCK_KV-key tiles;
+    on the CPU, the reference's off-TPU rule (one split per
+    DECODE_SPLIT_KEYS keys)."""
     return tiling.decode_splits(tiling.cdiv(t, tiling.DECODE_BLOCK_KV),
                                 tiling.DECODE_BLOCK_KV, rows, device)
+
+
+def dense_decode_tiles(t: int, rows: int, device, *, int_mode: bool,
+                       num_splits: int | None = None):
+    """(num_splits, block_kv) of :func:`flash_decode_pallas` over a t-key
+    cache of ``rows`` (batch x kv heads) sweeps: the float kernel on a GPU
+    takes :func:`tiling.decode_dense_plan`'s; the int kernel, and the plain
+    version on the CPU, :func:`dense_decode_splits` and
+    :func:`tiling.decode_kv_block`.  A given ``num_splits`` is kept."""
+    if device.type == "cuda" and not int_mode:
+        plan = tiling.decode_dense_plan(t, rows, sms=tiling.sm_count(device))
+        return (plan.splits if num_splits is None else num_splits,
+                plan.block_kv)
+    if num_splits is None:
+        num_splits = dense_decode_splits(t, rows, device)
+    return num_splits, tiling.decode_kv_block(t, max(1, num_splits))
 
 
 def flash_decode_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
@@ -378,14 +409,14 @@ def flash_decode_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
                          ": expected 'float' or 'dualmode'")
     b, _, kh, _, h = q.shape
     t = k.shape[1]
-    if num_splits is None:
-        num_splits = dense_decode_splits(t, b * kh, q.device)
+    int_mode = softmax_impl == "dualmode"
+    num_splits, tile = dense_decode_tiles(t, b * kh, q.device,
+                                          int_mode=int_mode,
+                                          num_splits=num_splits)
     num_splits = max(1, num_splits)
-    if block_kv is None:
-        block_kv = tiling.decode_kv_block(t, num_splits)
+    block_kv = tile if block_kv is None else block_kv
     scale = (1.0 / h ** 0.5) if scale is None else scale
     qf = (q.to(torch.float32) * scale)[:, 0].contiguous()
-    int_mode = softmax_impl == "dualmode"
     parts = decode_dense_partials(
         qf, k.to(torch.float32).contiguous(), v.to(torch.float32).contiguous(),
         q_pos.reshape(b).to(torch.int32).contiguous(),

@@ -31,6 +31,14 @@ zero-filled by the copies, so no operand is padded in device memory.
 The flash backward (rows 10 and 11) runs on ``csrc/flash_bwd_sm90.cuh``
 with its own tiles (:func:`flash_bwd_plan`), not the forward's: a row
 pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
+The float flash forward (row 7) runs on ``csrc/flash_fwd_sm90.cuh`` with
+the tiles of :func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V
+tiles streamed); the int blocked kernels (rows 8, 9) keep ATTN_BLOCK_Q x
+ATTN_BLOCK_KV on ``csrc/flash_tile.cuh``.  The float contiguous decode
+(row 5) runs on ``csrc/decode_dense_sm90.cuh`` with the split count
+and tile of :func:`decode_dense_plan` and the copy width of
+:func:`decode_dense_vec`; the int and paged decodes (rows 3, 4, 6) keep
+:func:`decode_splits`.
 
 The fused GLU and its backward (rows 12 and 13) still run on the first
 body, ``csrc/norm_gemm.cuh`` (:func:`matmul_blocks`): 32-column output
@@ -240,3 +248,79 @@ def decode_splits(nblk: int, block_size: int, rows: int,
     else:
         want = nblk * block_size // DECODE_SPLIT_KEYS
     return int(max(1, min(want, DECODE_MAX_SPLITS, nblk)))
+
+
+FLASH_FWD_BK = 64    # keys of a streamed K / V tile of the float forward
+# head dims up to -> (block_q, stages) of the float forward
+FLASH_FWD_TILES = {64: (128, 3), 128: (64, 2)}
+
+
+class FlashFwdPlan(NamedTuple):
+    block_q: int    # rows of the q tile a block holds
+    block_kv: int   # keys of a K / V tile streamed through the ring
+    stages: int     # depth of the cp.async ring
+    vec: int        # floats a cp.async copy moves: 4 (16 bytes) or 1
+    reverse: bool   # walk the q tiles from the last
+
+
+@functools.lru_cache(maxsize=256)
+def flash_fwd_plan(h: int, hv: int, *, causal: bool,
+                   aligned: bool = True) -> FlashFwdPlan:
+    """The tiles, ring depth, copy width and tile order of the float flash
+    forward (row 7, ``csrc/flash_fwd_sm90.cuh``) for head dims h (q, k)
+    and hv (v); ``aligned`` says whether every base pointer is a multiple
+    of 16 bytes.
+
+    Head dims up to 64: a block holds 128 q rows (8 x 4 scores and 8 x 8
+    outputs a thread) and streams 64-key tiles through three stages; up
+    to 128: 64 rows and two stages, so Q, the ring and the p tile fit one
+    block's shared memory.  16-byte copies need h, hv and every pointer a
+    multiple of four floats; anything else takes 4-byte copies on the
+    same tiles.  A causal grid runs its late q tiles first, since they
+    visit the most keys.  The tiles are independent of the caller's
+    ``block_kv``: the mask is per key and the causal tail is folded at the
+    kernel's own width.  ``csrc/flash_fwd.cu`` instantiates exactly these."""
+    bq, stages = FLASH_FWD_TILES[64 if max(h, hv) <= 64 else 128]
+    vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
+    return FlashFwdPlan(bq, FLASH_FWD_BK, stages, vec, bool(causal))
+
+
+DECODE_DENSE_BLOCK_KV = 64   # float contiguous decode on a GPU: keys a tile
+DECODE_DENSE_SLOTS = 2       # resident blocks an SM (its shared memory)
+DECODE_DENSE_WAVES = 4       # blocks the split rule asks for, per slot
+DECODE_DENSE_MIN_KEYS = 256  # cache keys a split covers at least
+
+
+class DecodeDensePlan(NamedTuple):
+    splits: int     # KV splits, folded outside the kernel
+    block_kv: int   # keys of a tile: the unit the splits cut
+
+
+def decode_dense_vec(h: int, hv: int, aligned: bool) -> int:
+    """Floats a K / V copy of the float contiguous decode moves: 4 (16
+    bytes) where h, hv are multiples of four floats and ``aligned`` (the K
+    and V base pointers are multiples of 16 bytes; q is read a float at a
+    time), else 1.  The kernel's wrapper applies it at each launch, to the
+    pointers it is given."""
+    return 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def decode_dense_plan(t_kv: int, rows: int, *, sms: int) -> DecodeDensePlan:
+    """Split count and tile of the float contiguous decode (row 5,
+    ``csrc/decode_dense_sm90.cuh``; its copy width is
+    :func:`decode_dense_vec`'s) on a card of ``sms`` SMs: ``rows`` (batch
+    x kv heads) sweeps over a t_kv-key cache.
+
+    The kernel is bound by the K / V bytes, so the rule asks for enough
+    blocks to keep every SM's resident slots busy for several waves --
+    DECODE_DENSE_WAVES x DECODE_DENSE_SLOTS x sms blocks -- and for no
+    split of fewer than DECODE_DENSE_MIN_KEYS keys of the cache or of
+    less than one tile.  It may pass DECODE_MAX_SPLITS, the cap of the
+    other decode kernels' rule (:func:`decode_splits`).  The kernel's
+    warps and ring depth are fixed; ``csrc/decode_dense.cu`` instantiates
+    both copy widths and takes any split count and tile."""
+    nblk = cdiv(t_kv, DECODE_DENSE_BLOCK_KV)
+    want = cdiv(DECODE_DENSE_WAVES * DECODE_DENSE_SLOTS * sms, max(rows, 1))
+    splits = max(1, min(want, nblk, cdiv(t_kv, DECODE_DENSE_MIN_KEYS)))
+    return DecodeDensePlan(splits, DECODE_DENSE_BLOCK_KV)

@@ -321,6 +321,131 @@ def test_decode_dense_kernels(cuda, g, num_splits):
                                    atol=1e-5 if grid else 1e-4, rtol=0)
 
 
+def _off_by_one_float(x):
+    """x's values in a contiguous tensor whose data pointer is one float past
+    a 16-byte boundary (the kernels' 4-byte copies)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("shape", [
+    # (b, s, t, kh, g, h, hv, causal, block_kv, q_pos end, all-masked row)
+    (1, 127, 127, 2, 1, 64, 64, True, 64, None, False),     # S G one off 128
+    (1, 43, 257, 2, 3, 64, 64, True, 64, None, False),      # S G 129, T 257
+    (2, 40, 1300, 2, 2, 64, 64, True, 64, 40, True),        # tail past a chunk
+    (1, 20, 1100, 2, 1, 128, 128, True, 16, 17, False),     # q_pos < 0
+    (1, 67, 1601, 2, 4, 128, 128, False, 64, None, False),  # S G off 64, h 128
+    (1, 50, 90, 2, 3, 30, 62, True, 37, None, False)])      # 4-byte copies
+def test_flash_fwd_kernel_at_tile_edges(cuda, shape):
+    """Row 7 on its Hopper body across the plan's tile edges: out, m and
+    l / plain l within 1e-5 of the plain full sweep, one counted launch a
+    call, two calls the same bits; again with every pointer one float off
+    16 bytes (the 4-byte entries)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, t, kh, g, h, hv, causal, bkv, end, all_masked = shape
+    qf, k, v, qp, valid = _attn(cuda, b, s, t, kh, g, h, hv, False,
+                                causal_end=end)
+    if all_masked:
+        valid[:, 0] = 0
+    kw = dict(causal=causal, block_kv=bkv, return_stats=True)
+    for off in (False, True):
+        ops = tuple(_off_by_one_float(x) for x in (qf, k, v)) if off else (
+            qf, k, v)
+        before = fa.FLASH_FWD.launches
+        got = fa.flash_fwd(*ops, qp, valid, **kw)
+        assert fa.FLASH_FWD.launches == before + 1
+        want = fa.flash_fwd_plain(*ops, qp, valid, **kw)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[2] / want[2], torch.ones_like(want[2]),
+                                   atol=1e-5, rtol=0)
+        again = fa.flash_fwd(*ops, qp, valid, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_fwd_refuses_16_byte_copies_when_unaligned(cuda):
+    """A head dim off four floats takes the 4-byte copies; the plan forced
+    to 16-byte copies there makes the C entry refuse."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tiling
+    qf, k, v, qp, valid = _attn(cuda, 1, 40, 70, 1, 2, 30, 30, False)
+    assert tiling.flash_fwd_plan(30, 30, causal=True).vec == 1
+    forced = tiling.flash_fwd_plan(32, 32, causal=True)
+    assert forced.vec == 4
+    with mock.patch.object(tiling, "flash_fwd_plan", lambda *a, **k_: forced):
+        with pytest.raises(RuntimeError, match="flash_fwd"):
+            fa.flash_fwd(qf, k, v, qp, valid, causal=True, block_kv=64)
+
+
+@pytest.mark.parametrize("shape", [
+    # (b, t, kh, g, h, hv, q_pos, causal, splits, block_kv); None: the plan's
+    (4, 16384, 16, 1, 64, 64, [1100, 2500, 3900, 4015], True, None, None),
+    (4, 1601, 8, 4, 128, 128, [0, 0, 0, 0], False, None, None),
+    (3, 1000, 2, 4, 128, 96, [-1, 500, 999], True, 8, 64),
+    (4, 600, 2, 1, 64, 64, [5, 127, 300, 599], True, 40, 16),
+    (2, 333, 2, 4, 128, 128, [0, 0], False, 7, 64),
+    (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37)])
+def test_decode_dense_kernel_new_body(cuda, shape):
+    """Row 5 on its Hopper body at the path's and the cross tick's plan and
+    at edges (T off 64, q_pos < 0, splits with no tile, block_kv 16 / 37,
+    the 4-byte copies): each split's m and the folded output within 1e-5
+    of the plain version, one counted launch a call, two calls the same
+    bits; again with every pointer one float off 16 bytes."""
+    b, t, kh, g, h, hv, q_pos, causal, n_s, bkv = shape
+    if n_s is None:
+        n_s, bkv = fd.dense_decode_tiles(t, b * kh, cuda,
+                                         int_mode=False)
+    gen = torch.Generator().manual_seed(15)
+    qf = _randn(gen, cuda, b, kh, g, h) * h ** -0.5
+    k, v = _randn(gen, cuda, b, t, kh, h), _randn(gen, cuda, b, t, kh, hv)
+    qp = torch.tensor(q_pos, dtype=torch.int32).to(cuda)
+    valid = (torch.rand(b, t, generator=gen) > 0.25).to(torch.uint8).to(cuda)
+    kw = dict(num_splits=n_s, block_kv=bkv, causal=causal, int_mode=False,
+              guard_shift=0)
+    for off in (False, True):
+        ops = tuple(_off_by_one_float(x) for x in (qf.contiguous(), k, v)) \
+            if off else (qf.contiguous(), k, v)
+        before = fd.DECODE_DENSE.launches
+        got = fd.decode_dense_partials(*ops, qp, valid, **kw)
+        assert fd.DECODE_DENSE.launches == before + 1
+        want = fd.decode_dense_partials_plain(*ops, qp, valid, **kw)
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(fd.finish_partials(*got, int_mode=False),
+                                   fd.finish_partials(*want, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        again = fd.decode_dense_partials(*ops, qp, valid, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_decode_dense_refuses_16_byte_copies_when_unaligned(cuda):
+    """16-byte copies forced where h is off four floats, or where the K or
+    V pointer is off 16 bytes, raise; an unaligned q does not stop them
+    (it is read a float at a time)."""
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(16)
+    kw = dict(num_splits=2, block_kv=64, causal=True, int_mode=False,
+              guard_shift=0)
+    qp = torch.tensor([50, 199], dtype=torch.int32).to(cuda)
+    valid = torch.ones(2, 200, dtype=torch.uint8, device=cuda)
+    q30 = _randn(gen, cuda, 2, 2, 2, 30)
+    k30, v30 = (_randn(gen, cuda, 2, 200, 2, 30) for _ in range(2))
+    qf = _randn(gen, cuda, 2, 2, 2, 32)
+    k, v = _randn(gen, cuda, 2, 200, 2, 32), _randn(gen, cuda, 2, 200, 2, 32)
+    with mock.patch.object(tiling, "decode_dense_vec", lambda *a: 4):
+        for ops in ((q30, k30, v30), (qf, _off_by_one_float(k), v),
+                    (qf, k, _off_by_one_float(v))):
+            with pytest.raises(RuntimeError, match="decode_dense"):
+                fd.decode_dense_partials(*ops, qp, valid, **kw)
+        got = fd.decode_dense_partials(_off_by_one_float(qf), k, v, qp,
+                                       valid, **kw)
+    want = fd.decode_dense_partials_plain(qf, k, v, qp, valid, **kw)
+    torch.testing.assert_close(fd.finish_partials(*got, int_mode=False),
+                               fd.finish_partials(*want, int_mode=False),
+                               atol=1e-5, rtol=0)
+
+
 # ---------------- training: backward kernels and autograd ----------------
 
 def _close_rel(got, want, tol):

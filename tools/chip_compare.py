@@ -1,0 +1,125 @@
+"""Compares two trees of the PyTorch port on one GPU: run it once a tree,
+in turns (parent, change, change, parent), inside one call to the card.
+
+    python tools/chip_compare.py kernels TREE TAG   # rows 5 and 7
+    python tools/chip_compare.py tick TREE           # the long-context serve
+
+TREE is the root of a checkout (its ``src/`` holds ``repro_torch``); its
+kernels build into that checkout.  ``kernels`` times rows 7 (flash_fwd)
+and 5 (decode_dense, at several split counts) through the tree's
+wrappers at the paths' shapes, back to back and under CUDA-graph replay,
+one JSON line a shape, and the float ``flash_decode_pallas`` wrapper at
+the long-context path's shape on the host's clock; every tree on the
+timers of this checkout's chip_smoke.py.  ``tick`` runs the tree's own
+chip_smoke.py long-context serve phase (the contiguous engine at max_seq
+16384, float and dual-mode).
+"""
+from __future__ import annotations
+
+import importlib.util
+import json
+import os
+import sys
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _timers():
+    """This checkout's chip_smoke.py, for its timers (the same for every
+    tree compared)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_timers", os.path.join(_ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _load(tree: str):
+    root = os.path.abspath(tree)
+    sys.path[:0] = [os.path.join(root, "src"), root]
+    os.chdir(root)
+    import repro_torch  # noqa: F401  (sets the float32 matmul policy)
+    return root
+
+
+def kernels(tree: str, tag: str) -> None:
+    _load(tree)
+    import torch
+    timers = _timers()
+    time_ms, graph_ms = timers.time_ms, timers.graph_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    for name, (b, s, t, kh, g, h, causal, stats) in {
+            "path": (1, 4096, 16384, 16, 1, 64, True, False),
+            "train": (2, 4096, 4096, 16, 1, 64, True, True),
+            "cross": (1, 4096, 1601, 8, 4, 128, False, False),
+            "self": (1, 4096, 4096, 8, 4, 128, True, False)}.items():
+        qf = randn(b, s, kh, g, h, scale=h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h), randn(b, t, kh, h)
+        qp = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            b, s).contiguous()
+        valid = (torch.arange(t, device=dev)[None] < s) if causal else \
+            torch.ones(1, t, dtype=torch.bool, device=dev)
+        valid = valid.expand(b, t).to(torch.uint8).contiguous()
+
+        def fwd():
+            return fa.flash_fwd(qf, k, v, qp, valid, causal=causal,
+                                block_kv=64, return_stats=stats)
+        print(json.dumps(dict(tag=tag, kernel="flash_fwd", shape=name,
+                              ms=time_ms(fwd, iters=5, warmup=2),
+                              graph_ms=graph_ms(fwd, calls=2, iters=3))),
+              flush=True)
+        del qf, k, v
+
+    for name, (b, t, kh, g, h, qpos, causal) in {
+            "path": (4, 16384, 16, 1, 64, [1100, 2500, 3900, 4015], True),
+            "cross": (4, 1601, 8, 4, 128, [0, 0, 0, 0], False),
+            "self": (4, 4096, 8, 4, 128, [375, 737, 1420, 2750],
+                     True)}.items():
+        qf = randn(b, kh, g, h, scale=h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h), randn(b, t, kh, h)
+        qp = torch.tensor(qpos, dtype=torch.int32, device=dev)
+        valid = (torch.arange(t, device=dev)[None] <= qp[:, None]) if causal \
+            else torch.ones(b, t, dtype=torch.bool, device=dev)
+        valid = valid.to(torch.uint8).contiguous()
+        res = {}
+        for ns, bkv in ((3, 128), (8, 128), (8, 64), (17, 64), (32, 64)):
+            def dec(ns=ns, bkv=bkv):
+                return fd.decode_dense_partials(
+                    qf, k, v, qp, valid, num_splits=ns, block_kv=bkv,
+                    causal=causal, int_mode=False, guard_shift=0)
+            res[f"{ns}x{bkv}"] = (time_ms(dec) * 1e3, graph_ms(dec) * 1e3)
+        print(json.dumps(dict(tag=tag, kernel="decode_dense", shape=name,
+                              us_and_graph_us=res)), flush=True)
+        if name == "path":
+            # the whole wrapper as a tick calls it, at the tree's splits
+            def wrap():
+                return fd.flash_decode_pallas(
+                    qf[:, None], k, v, q_pos=qp[:, None], kv_valid=valid,
+                    causal=causal, scale=1.0)
+            runs = [timers.host_ms(wrap) for _ in range(3)]
+            print(json.dumps(dict(tag=tag, kernel="flash_decode_pallas",
+                                  shape=name, host_and_wall_ms=runs)),
+                  flush=True)
+
+
+def tick(tree: str) -> None:
+    root = _load(tree)
+    import torch
+    import chip_smoke
+    import repro_torch.kernels.dualmode_softmax  # noqa: F401  (registers)
+    import repro_torch.kernels.flash_attention_int  # noqa: F401
+    import repro_torch.kernels.flash_decode  # noqa: F401
+    print("tree", root, flush=True)
+    chip_smoke.long_serve_phase(torch.device("cuda"), {})
+
+
+if __name__ == "__main__":
+    mode, *args = sys.argv[1:]
+    {"kernels": kernels, "tick": tick}[mode](*args)
