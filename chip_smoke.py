@@ -39,8 +39,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             prologue and the fused GLU against their plain versions at the
             path's shapes (a decode tick's 4 rows and a prefill chunk's 64,
             d 4096, F 5120 and 11008) and at edge shapes, timed beside their
-            bounds (the norm -> QKV prologue also under CUDA-graph replay,
-            and held to the same bits over two calls); the unit and paged
+            bounds (the norm -> QKV prologue and the fused GLU also under
+            CUDA-graph replay, and held to the same bits over two calls;
+            the GLU's chunk also at each K split count); the unit and paged
             decode kernels at h 128, G 8.  Then,
             with the qwen weights freed, ServeEngine on full-width yi-6b
             (random weights from a seeded generator), float and dual-mode
@@ -55,7 +56,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             1024, F 2816), at yi-6b's heads (h 128, G 8) and widths, and at
             edge shapes (ragged kv_valid, a row whose visible keys are all
             masked, S != T, hv != h, non-causal, ragged M and F), timed
-            beside their bounds; the float forward with its statistics at
+            beside their bounds (the GLU backward also under CUDA-graph
+            replay, and held to the same bits over two calls); the float
+            forward with its statistics at
             the training shape, held to its plain version and to the same
             bits over two calls, timed beside SDPA's forward.  Then, with
             the serve weights freed, the
@@ -98,7 +101,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             of 4 queries, h 128) and the blocked kernels (rows 7 / 8: S
             4096 and 512, and S 67 against row 7's 64-row tile, also with
             pointers one float off 16 bytes) non-causal over the 1601
-            image keys, as the cross sublayer runs them; each timed beside
+            image keys, as the cross sublayer runs them; the fused GLU
+            (row 12) at the bucket-4096 prefill against its plain version,
+            held to the same bits over two calls; each timed beside
             its bound (rows 5 / 7 at the wrappers' tiles and splits, under
             CUDA-graph replay, beside SDPA, also at the self-attention
             shapes: a causal bucket-4096 prefill and a decode tick of a
@@ -118,9 +123,10 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
-each for rows 15 / 16 ("[norm gemm]"), row 7 ("[flash fwd]") and row 5
-("[decode dense]") at every shape they were timed at, and the bert phase
-logs row 1's int and float modes at bert's shape beside torch.softmax.
+each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]") and
+row 5 ("[decode dense]") at every shape they were timed at, and the bert
+phase logs row 1's int and float modes at bert's shape beside
+torch.softmax.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -321,10 +327,34 @@ def kernel_row(table: dict, key: str, fn, plain_fn, b_ms: float, b_by: str,
     return r_
 
 
+def glu_times(results, key: str, x, wg, wu, iters: int):
+    """Row 12 (silu) at one shape through norm_gemm_row, beside its plain
+    version and two torch.matmul; returns (ms, plain, bound, bound_by,
+    library)."""
+    from repro_torch.kernels import fused_ffn as ff
+    (m, k), f = x.shape, wg.shape[1]
+    ms = time_ms(lambda: ff.fused_glu(x, wg, wu, mode="silu"), iters=iters)
+    plain = time_ms(lambda: ff._glu_reference(x, wg, wu, "silu"),
+                    iters=iters)
+
+    def library():
+        return torch.matmul(x, wg), torch.matmul(x, wu)
+    lib = time_ms(library, iters=iters)
+    b_ms, b_by = bound((m * k + 2 * k * f + m * f) * 4,
+                       4 * m * k * f + 20 * m * f)
+    log(f"  glu silu M{m} d{k} F{f}: {ms * 1e3:.1f} us, plain "
+        f"{plain * 1e3:.1f} us, two torch.matmul {lib * 1e3:.1f} us, "
+        f"bound {b_ms * 1e3:.1f} us ({b_by})")
+    norm_gemm_row(results, key, ms, plain, b_ms, b_by, lib,
+                  lambda: ff.fused_glu(x, wg, wu, mode="silu"), library)
+    return ms, plain, b_ms, b_by, lib
+
+
 def norm_gemm_row(results, key: str, ms: float, plain: float, b_ms: float,
                   b_by: str, lib: float, kernel_fn, lib_fn) -> None:
-    """One shape of rows 15 / 16 into results['norm_gemm_ms'], with the
-    kernel's and the library call's device times under CUDA-graph replay
+    """One shape of rows 12, 13, 15 or 16 into results['norm_gemm_ms'],
+    with the kernel's and the library call's device times under CUDA-graph
+    replay
     beside the back-to-back times (which include host dispatch)."""
     calls = 2 if b_ms > 1.0 else 10
     results.setdefault("norm_gemm_ms", {})[key] = r_ = dict(
@@ -1225,20 +1255,26 @@ def yi_kernel_phase(dev, results):
     wg, wu = randn(d, dff, scale=d ** -0.5), randn(d, dff, scale=d ** -0.5)
     for m in (4, 64):
         xs = x[:m].contiguous()
-        ms = time_ms(lambda: ff.fused_glu(xs, wg, wu, mode="silu"), iters=20)
-        plain = time_ms(lambda: ff._glu_reference(xs, wg, wu, "silu"),
-                        iters=20)
-        lib = time_ms(lambda: (torch.matmul(xs, wg), torch.matmul(xs, wu)),
-                      iters=20)
-        b_ms, b_by = bound((m * d + 2 * d * dff + m * dff) * 4,
-                           4 * m * d * dff + 20 * m * dff)
-        log(f"  glu silu M{m} d{d} F{dff}: {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, two torch.matmul {lib * 1e3:.1f} us, "
-            f"bound {b_ms * 1e3:.1f} us ({b_by})")
+        check_repeat(f"glu silu ({m}, {d}) x {dff} repeat",
+                     lambda: ff.fused_glu(xs, wg, wu, mode="silu"))
+        ms, plain, b_ms, b_by, lib = glu_times(
+            results, f"glu yi M{m} d{d} F{dff}", xs, wg, wu, iters=20)
         if m == 64:
             results["glu"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                   bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib)
+    # the K split of the chunk's 172 column tiles, each split count under
+    # graph replay (the plan's rule picks one of them)
+    plan = tiling.norm_gemm_plan(64, d, (dff,), glu=True)
+    probe = {}
+    for split in (1, 2, 3, 4, 6, 8):
+        forced = plan._replace(split=split)
+        with mock.patch.object(tiling, "norm_gemm_plan",
+                               lambda *a, f_=forced, **k_: f_):
+            probe[split] = graph_ms(
+                lambda: ff.fused_glu(x, wg, wu, mode="silu")) * 1e3
+    log(f"[glu split probe] M64 d{d} F{dff}, plan split {plan.split}, us "
+        "under graph replay by split: " + json.dumps(probe))
 
     # -- rows 1-4 at yi's shapes: h 128, G 8 (4 kv heads of 8 query heads)
     log("[yi] unit and paged decode kernels at h 128, G 8")
@@ -1557,16 +1593,23 @@ def train_kernel_phase(dev, results):
     m, k, f = TRAIN["batch"] * S_, 1024, 2816
     x, dy = randn(m, k), randn(m, f)
     wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+    check_repeat(f"glu_bwd silu ({m}, {k}) x {f} repeat",
+                 lambda: torch.stack(ff.glu_bwd(x, wg, wu, dy, mode="silu")))
     ms = time_ms(lambda: ff.glu_bwd(x, wg, wu, dy, mode="silu"), iters=10)
     plain = time_ms(lambda: ff._glu_bwd_plain(x, wg, wu, dy, "silu"),
                     iters=10)
-    lib = time_ms(lambda: (torch.matmul(x, wg), torch.matmul(x, wu)),
-                  iters=10)
+
+    def library():
+        return torch.matmul(x, wg), torch.matmul(x, wu)
+    lib = time_ms(library, iters=10)
     b_ms, b_by = bound((m * k + 2 * k * f + 3 * m * f) * 4,
                        4 * m * k * f + 30 * m * f)
     log(f"  glu_bwd silu M{m} d{k} F{f}: {ms * 1e3:.1f} us, plain "
         f"{plain * 1e3:.1f} us, two torch.matmul {lib * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.1f} us ({b_by})")
+    norm_gemm_row(results, f"glu_bwd train M{m} d{k} F{f}", ms, plain, b_ms,
+                  b_by, lib, lambda: ff.glu_bwd(x, wg, wu, dy, mode="silu"),
+                  library)
     results["glu_bwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                               bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     step_ms["glu_bwd"] = ms
@@ -2330,8 +2373,21 @@ def vision_kernel_phase(dev, results):
     wg, wu = randn(d, dff, scale=d ** -0.5), randn(d, dff, scale=d ** -0.5)
     for m in (rows[0], big):
         xs = xp[:m].contiguous()
-        shapes[f"glu M{m}"] = dict(ms=time_ms(lambda: ff.fused_glu(
-            xs, wg, wu, mode="silu"), iters=5 if m == big else 20))
+        if m == big:
+            # row 12 at the self-attention layers' bucket-4096 prefill: the
+            # same products as row 16's without the norm prologue
+            check(f"glu silu ({m}, {d}) x {dff}",
+                  ff.fused_glu(xs, wg, wu, mode="silu"),
+                  ff._glu_reference(xs, wg, wu, "silu"), TOL_GEMM)
+            check_repeat(f"glu silu ({m}, {d}) x {dff} repeat",
+                         lambda: ff.fused_glu(xs, wg, wu, mode="silu"))
+            ms, plain, b_ms, _, lib = glu_times(
+                results, f"glu vision M{m} d{d} F{dff}", xs, wg, wu, iters=5)
+            shapes[f"glu M{m}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                       library_ms=lib)
+        else:
+            shapes[f"glu M{m}"] = dict(ms=time_ms(lambda: ff.fused_glu(
+                xs, wg, wu, mode="silu"), iters=20))
         shapes[f"norm_linear M{m}"] = dict(ms=time_ms(
             lambda: fn.fused_norm_linear(xs, g, None, (wq_, wk_, wv_),
                                          kind="rms", eps=eps),
@@ -2434,7 +2490,7 @@ def vision_kernel_phase(dev, results):
                                            "flash_snap self"))
                          or " self T" in k_))
     results["vision_shape_ms"] = shapes
-    log("[norm gemm] rows 15 / 16 at every shape, ms: "
+    log("[norm gemm] rows 12, 13, 15, 16 at every shape, ms: "
         + json.dumps(results["norm_gemm_ms"]))
     log("[flash fwd] row 7 at every shape, ms: "
         + json.dumps(results["flash_fwd_ms"]))
@@ -2635,8 +2691,8 @@ def main() -> int:
     for src, text in info["ptxas"].items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
-                    src.startswith(("norm_", "flash_bwd", "flash_fwd",
-                                    "decode_dense"))
+                    src.startswith(("norm_", "glu", "flash_bwd",
+                                    "flash_fwd", "decode_dense"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
 

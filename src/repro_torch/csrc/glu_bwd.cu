@@ -13,82 +13,43 @@
 // d 1024, F 2816): 4 M K F = 94.5 GFLOP of full float32 FMAs against
 // ~0.3 GB of operands -- operations, ~1.4 ms at 67 TFLOP/s.
 //
-// Design: glu.cu's kernel with another epilogue.  norm_gemm.cuh's tiled
-// body holds both products of the block's output tile in registers; the
-// epilogue reads the dY tile itself (each thread its TM rows x 2
-// columns) and writes the two cotangent tiles.  Tiles from
-// kernels/tiling.matmul_blocks, as the forward's.
+// Design: glu.cu's kernel (glu_sm90.cuh, no norm prologue) with the
+// backward epilogue: each thread reads its dY fragment of the tile (16
+// bytes at a time where the copies are) and writes its d_gate and d_up
+// fragments; with a split K the finish pass reads dY after the fixed-order
+// sum.  Tiles, K split and copy width from kernels/tiling.norm_gemm_plan
+// (glu=True), as the forward's: at the training shape 128 x 64 of each
+// matrix, 64 x 44 tiles, one K range.
 #include <cuda_runtime.h>
 
-#include "norm_gemm.cuh"
-#include "unit.cuh"
+#include "glu_sm90.cuh"
 
-namespace {
+using namespace ngemm;
 
-using namespace norm_gemm;
-
-constexpr int kBK = 32;
-
-template <int TM, bool kGelu>
-__global__ void __launch_bounds__(kThreads)
-    glu_bwd_kernel(Args a, const float* __restrict__ dy, float* __restrict__ d_up) {
-  __shared__ Smem<TM, kBK> sm;
-  const int m0 = blockIdx.y * (kTY * TM);
-  const int c0 = blockIdx.x * kBN;
-  const int n = a.mats[0].n;
-  float acc_g[TM][kTN], acc_u[TM][kTN];
-  gemm_tile<TM, kBK, true>(a, m0, a.mats[0].w + c0, a.mats[1].w + c0, c0, n,
-                                  sm, acc_g, acc_u);
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= a.M) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = c0 + tx * kTN + j;
-      if (c < n) {
-        const size_t off = static_cast<size_t>(m) * a.ld_out + c;
-        const float g = acc_g[i][j], d = dy[off];
-        a.out[off] = d * acc_u[i][j] * unit::pair_act_grad_f32<kGelu>(g);
-        d_up[off] = d * unit::pair_act_f32<kGelu>(g);
-      }
-    }
-  }
-}
-
-template <int TM>
-int launch(const Args& a, const float* dy, float* d_up, bool gelu, cudaStream_t st) {
-  const dim3 grid((a.mats[0].n + kBN - 1) / kBN, (a.M + kTY * TM - 1) / (kTY * TM));
-  if (gelu)
-    glu_bwd_kernel<TM, true><<<grid, kThreads, 0, st>>>(a, dy, d_up);
-  else
-    glu_bwd_kernel<TM, false><<<grid, kThreads, 0, st>>>(a, dy, d_up);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// x (M, K), wg / wu (K, F), dy / d_gate / d_up (M, F) f32, all
-// contiguous.  mode: 0 = gelu, 1 = silu.  (bm, bk): the tile, one of
-// (16, 32), (32, 32), (64, 32).
+// x (M, K), wg / wu (K, F), dy / d_gate / d_up (M, F), part (split, M, 2F)
+// scratch (null when split is 1); f32, contiguous.  mode: 0 = gelu, 1 =
+// silu.  (bm, bn, vec, split) as glu_launch's; vec 4 needs K, F and every
+// pointer a multiple of 16 bytes.
 extern "C" int glu_bwd_launch(const float* x, const float* wg, const float* wu,
-                              const float* dy, float* d_gate, float* d_up, int M,
-                              int K, int F, int mode, int bm, int bk, void* stream) {
-  if (M < 1 || K < 1 || F < 1 || mode < 0 || mode > 1 || bk != kBK)
+                              const float* dy, float* d_gate, float* d_up, float* part, int M,
+                              int K, int F, int mode, int bm, int bn, int split, int vec,
+                              void* stream) {
+  if (M < 1 || K < 1 || F < 1 || mode < 0 || mode > 1 || x == nullptr || wg == nullptr ||
+      wu == nullptr || dy == nullptr || d_gate == nullptr || d_up == nullptr || split < 1 ||
+      (split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_ok = K % 4 == 0 && F % 4 == 0 && aligned16(x) && aligned16(wg) &&
+                      aligned16(wu) && aligned16(dy) && aligned16(d_gate) && aligned16(d_up) &&
+                      aligned16(part);
+  if (vec == 4 && !vec_ok) return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   a.x = x;
-  a.out = d_gate;
   a.M = M;
   a.K = K;
-  a.ld_out = F;
-  a.mats[0] = Matrix{wg, F};
-  a.mats[1] = Matrix{wu, F};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool gelu = mode == 0;
-  if (bm == 16) return launch<1>(a, dy, d_up, gelu, st);
-  if (bm == 32) return launch<2>(a, dy, d_up, gelu, st);
-  if (bm == 64) return launch<4>(a, dy, d_up, gelu, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  a.mats[0] = Matrix{wg, F, 0, 0};
+  a.mats[1] = Matrix{wu, F, 0, 0};
+  const GluBwd epi{dy, d_gate, d_up, mode == 0};
+  return with_glu_tile<false>(bm, bn, vec, [&](auto tile) {
+    return launch_glu<decltype(tile)>(a, part, split, epi, static_cast<cudaStream_t>(stream));
+  });
 }

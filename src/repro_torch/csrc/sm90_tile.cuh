@@ -1,5 +1,5 @@
 // cp.async copies and register-tile fragments shared by the Hopper bodies:
-// norm_gemm_sm90.cuh (rows 15, 16), flash_bwd_sm90.cuh (rows 10, 11),
+// norm_gemm_sm90.cuh (rows 12, 13, 15, 16), flash_bwd_sm90.cuh (rows 10, 11),
 // flash_fwd_sm90.cuh (row 7) and decode_dense_sm90.cuh (row 5).
 #pragma once
 
@@ -98,6 +98,31 @@ __device__ __forceinline__ void store_frag(float* row, int tx, const float (&v)[
     for (int j = 0; j < TN; ++j) {
       const int c = frag_pos<TN, TX>(tx, j);
       if (c < n) row[c] = v[j];
+    }
+  }
+}
+
+// Load a thread's TN values of one row of a global (M, n) tensor, the
+// positions store_frag writes; columns at or past ``n`` read as zeros.
+template <int TN, int TX, int VEC>
+__device__ __forceinline__ void load_row_frag(const float* row, int tx, float (&v)[TN], int n) {
+  if constexpr (VEC == 4 && TN >= 4) {
+#pragma unroll
+    for (int j = 0; j < TN; j += 4) {
+      const int c = frag_pos<TN, TX>(tx, j);
+      const float4 t = c < n ? *reinterpret_cast<const float4*>(row + c)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[j] = t.x, v[j + 1] = t.y, v[j + 2] = t.z, v[j + 3] = t.w;
+    }
+  } else if constexpr (VEC == 4) {
+    const int c = frag_pos<TN, TX>(tx, 0);
+    const float2 t = c < n ? *reinterpret_cast<const float2*>(row + c) : make_float2(0.0f, 0.0f);
+    v[0] = t.x, v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = frag_pos<TN, TX>(tx, j);
+      v[j] = c < n ? row[c] : 0.0f;
     }
   }
 }

@@ -9,18 +9,25 @@
 
 ``pair_act`` is the float datapath's pair mode (Eq. 8 in the unit's
 log-domain float form, ``datapath.pair_act``).  The kernel
-(``csrc/glu.cu``) keeps both products of an output tile in registers,
-so the (M, F) gate activations never reach device memory.  The wrapper
-runs the plain version :func:`_glu_reference` (the reference's unfused
-graph with the same epilogue) for CPU tensors, and launches the kernel
-for CUDA tensors, or raises.  The two agree up to f32 summation order.
+(``csrc/glu.cu`` on the pipelined Hopper body ``csrc/norm_gemm_sm90.cuh``,
+without its norm prologue) keeps both products of an output tile in
+registers, so the (M, F) gate activations never reach device memory.
+The wrapper runs the plain version :func:`_glu_reference` (the
+reference's unfused graph with the same epilogue) for CPU tensors, and
+launches the kernel for CUDA tensors, or raises.  The two agree up to
+f32 summation order.
 
 ``fused_glu`` is a ``torch.autograd.Function`` (on either device) with
 the reference's custom VJP: ``glu_bwd`` recomputes the (g, u) tiles and
 writes d_gate = dY u pair_act'(g) and d_up = dY pair_act(g)
-(``csrc/glu_bwd.cu``, the same GEMM body with another epilogue; plain
+(``csrc/glu_bwd.cu``, the same kernel with another epilogue; plain
 version :func:`_glu_bwd_plain`); the four products around it (dx, dWg,
 dWu) are ``torch.matmul``, as they are plain XLA dots in the reference.
+
+Both kernels take their tile, K split and copy width from
+:func:`tiling.norm_gemm_plan` (``glu=True``: the bands of the norm ->
+gated-GLU kernel) and their split-K scratch from ``torch.empty``; one
+call is one counted launch.
 """
 from __future__ import annotations
 
@@ -33,12 +40,12 @@ from . import dispatch, tiling
 _P, _I = _build.P, _build.I
 
 GLU = _build.Kernel(
-    "glu", "glu_launch", [_P] * 4 + [_I] * 6 + [_P],
+    "glu", "glu_launch", [_P] * 5 + [_I] * 8 + [_P],
     source="src/repro_torch/csrc/glu.cu",
     replaces="src/repro/kernels/fused_ffn.py:133")
 
 GLU_BWD = _build.Kernel(
-    "glu_bwd", "glu_bwd_launch", [_P] * 6 + [_I] * 6 + [_P],
+    "glu_bwd", "glu_bwd_launch", [_P] * 7 + [_I] * 8 + [_P],
     source="src/repro_torch/csrc/glu_bwd.cu",
     replaces="src/repro/kernels/fused_ffn.py:79")
 
@@ -78,6 +85,14 @@ def _check_glu_shapes(name: str, x, wg, wu) -> None:
                          f"{tuple(wg.shape)}, wu {tuple(wu.shape)}")
 
 
+def _plan(x, wg, *outs):
+    """The kernels' tile, K split and copy width for x (M, K), wg (K, F)
+    and the tensors they write or read besides."""
+    return tiling.norm_gemm_plan(
+        x.shape[0], x.shape[1], (wg.shape[1],), glu=True,
+        aligned=tiling.aligned16(x, wg, *outs))
+
+
 def _glu_fwd(x, wg, wu, mode: str):
     """The forward kernel (CUDA tensors) or its plain version (CPU)."""
     if x.device.type == "cpu":
@@ -85,11 +100,14 @@ def _glu_fwd(x, wg, wu, mode: str):
     _check_2d("fused_glu", x.device, x=x, wg=wg, wu=wu)
     _check_glu_shapes("fused_glu", x, wg, wu)
     m, k = x.shape
-    out = torch.empty((m, wg.shape[1]), dtype=x.dtype, device=x.device)
+    f = wg.shape[1]
+    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
     if out.numel():
-        GLU(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(), m, k,
-            wg.shape[1], MODES.index(mode),
-            *tiling.matmul_blocks(m),
+        plan = _plan(x, wg, wu, out)
+        part = tiling.split_partials(x, plan.split, m, 2 * f)
+        GLU(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), m, k, f,
+            MODES.index(mode), plan.bm, plan.bn, plan.split, plan.vec,
             _build.stream_ptr(x.device))
     return out
 
@@ -111,10 +129,12 @@ def glu_bwd(x, wg, wu, dy, *, mode: str):
     d_gate = torch.empty((m, f), device=x.device)
     d_up = torch.empty_like(d_gate)
     if d_gate.numel():
+        plan = _plan(x, wg, wu, dy, d_gate, d_up)
+        part = tiling.split_partials(x, plan.split, m, 2 * f)
         GLU_BWD(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), dy.data_ptr(),
-                d_gate.data_ptr(), d_up.data_ptr(), m, k, f,
-                MODES.index(mode),
-                *tiling.matmul_blocks(m),
+                d_gate.data_ptr(), d_up.data_ptr(),
+                None if part is None else part.data_ptr(), m, k, f,
+                MODES.index(mode), plan.bm, plan.bn, plan.split, plan.vec,
                 _build.stream_ptr(x.device))
     return d_gate, d_up
 

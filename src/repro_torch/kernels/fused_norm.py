@@ -147,19 +147,11 @@ def _check(name: str, kind: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def _aligned(*tensors) -> bool:
-    """Whether every base pointer is a multiple of 16 bytes (None counts:
-    the kernel never reads it), as the 16-byte copies need."""
-    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
-
-
 def _scratch(x, m: int, split: int, cols: int):
     """The norm GEMM kernels' scratch: (mu, rs) of each row, and the
     split-K partial sums (None for one split)."""
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
-    part = None if split == 1 else torch.empty(
-        (split, m, cols), dtype=torch.float32, device=x.device)
-    return stats, part
+    return stats, tiling.split_partials(x, split, m, cols)
 
 
 def _resnorm_fwd(x, r, g, b, *, kind: str, eps: float):
@@ -198,8 +190,8 @@ def _norm_linear_fwd(x, g, b, ws, *, kind: str, eps: float):
                       device=x.device)
     if out.numel():
         m = out.numel() // out.shape[-1]
-        plan = tiling.norm_gemm_plan(m, d, widths,
-                                     aligned=_aligned(x, g, b, out, *ws))
+        plan = tiling.norm_gemm_plan(
+            m, d, widths, aligned=tiling.aligned16(x, g, b, out, *ws))
         stats, part = _scratch(x, m, plan.split, sum(widths))
         slots = [(t.data_ptr(), n) for t, n in zip(ws, widths)]
         slots += [(None, 0)] * (MAX_MATRICES - len(slots))
@@ -228,8 +220,9 @@ def _norm_glu_fwd(x, g, b, wg, wu, *, kind: str, eps: float, mode: str):
     out = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
     if out.numel():
         m = out.numel() // f
-        plan = tiling.norm_gemm_plan(m, d, (f,), glu=True,
-                                     aligned=_aligned(x, g, b, out, wg, wu))
+        plan = tiling.norm_gemm_plan(
+            m, d, (f,), glu=True,
+            aligned=tiling.aligned16(x, g, b, out, wg, wu))
         stats, part = _scratch(x, m, plan.split, 2 * f)
         NORM_GLU(x.data_ptr(), g.data_ptr(),
                  None if b is None else b.data_ptr(), wg.data_ptr(),

@@ -20,13 +20,15 @@ keys themselves instead of padding the operands in device memory.
 Results do not depend on the tile: int words are bitwise equal for any
 (bq, bkv), float outputs equal up to f32 summation order.
 
-The norm -> QKV and norm -> gated-GLU kernels (rows 15 and 16) run on
+The norm -> QKV and norm -> gated-GLU kernels (rows 15 and 16) and the
+fused GLU and its backward (rows 12 and 13) run on
 ``csrc/norm_gemm_sm90.cuh``, a pipelined f32 GEMM body sized for Hopper
-(:func:`norm_gemm_plan`): moments once per row, a cp.async ring of raw
-x / weight chunks in shared memory, the norm applied after landing, and
-register tiles of 128 rows from 128 rows up; smaller row tiles and a
-split K fill the SMs for a prefill chunk or a decode tick.  Edges are
-zero-filled by the copies, so no operand is padded in device memory.
+(:func:`norm_gemm_plan`): a cp.async ring of raw x / weight chunks in
+shared memory, moved k-major after landing (rows 15 / 16 compute the
+moments once per row first and normalize in that pass), and register
+tiles of 128 rows from 128 rows up; smaller row tiles and a split K fill
+the SMs for a prefill chunk or a decode tick.  Edges are zero-filled by
+the copies, so no operand is padded in device memory.
 
 The flash backward (rows 10 and 11) runs on ``csrc/flash_bwd_sm90.cuh``
 with its own tiles (:func:`flash_bwd_plan`), not the forward's: a row
@@ -40,12 +42,8 @@ and tile of :func:`decode_dense_plan` and the copy width of
 :func:`decode_dense_vec`; the int and paged decodes (rows 3, 4, 6) keep
 :func:`decode_splits`.
 
-The fused GLU and its backward (rows 12 and 13) still run on the first
-body, ``csrc/norm_gemm.cuh`` (:func:`matmul_blocks`): 32-column output
-tiles, row tiles of 16, 32 or 64 sized to M, and K walked in 32-deep
-chunks staged through registers, ragged edges loaded as zeros.  They move
-to the new body in their own change.  The residual-norm epilogue takes
-one block per row, in place of the reference's ``norm_rows``.
+The residual-norm epilogue takes one block per row, in place of the
+reference's ``norm_rows``.
 """
 from __future__ import annotations
 
@@ -108,29 +106,34 @@ def pad_attention_operands(q, q_pos, k, v, kv_valid, bq: int, bkv: int):
             pad_dim(kv_valid.to(torch.int32), 1, bkv))
 
 
-def matmul_blocks(m: int) -> tuple[int, int]:
-    """(bm, bk) of the fused GLU and its backward (rows 12 and 13, on
-    ``csrc/norm_gemm.cuh``) for m rows: rows per 32-column tile and the K
-    chunk staged in shared memory.  A decode tick (m <= 16) takes one
-    16-row tile, up to 32 rows 32-row tiles, more rows 64-row ones; K is
-    walked 32 deep (two weight chunks a stage).  ``csrc/glu.cu`` and
-    ``csrc/glu_bwd.cu`` instantiate exactly these pairs."""
-    if m <= 16:
-        return 16, 32
-    if m <= 32:
-        return 32, 32
-    return 64, 32
-
-
 NORM_GEMM_SLOTS = 2 * 132    # H100 SXM: two resident blocks on each SM
 NORM_GEMM_BK = 16            # K depth of a ring stage (csrc kBK)
 NORM_GEMM_MIN_CHUNKS = 8     # K chunks a split walks at least
+NORM_GEMM_CHUNK_SPLITS = 8   # a gated-GLU chunk's K ranges at most: past
+#                              that the partial sums' traffic outweighs
+#                              the fuller waves
 # (bm, bn) per band: one matrix a tile (row 15), or bn columns of each of
 # the two matrices (row 16); the 4-byte path takes the middle tile
 NORM_GEMM_TILES = {False: {"decode": (16, 256), "chunk": (64, 128),
                            "prefill": (128, 128)},
                    True: {"decode": (16, 128), "chunk": (64, 64),
                           "prefill": (128, 64)}}
+
+
+def aligned16(*tensors) -> bool:
+    """Whether every base pointer is a multiple of 16 bytes, as the GEMM
+    kernels' 16-byte copies need (None counts: the kernel never reads
+    it)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def split_partials(like: torch.Tensor, split: int, m: int, cols: int):
+    """The GEMM kernels' (split, m, cols) f32 scratch of split-K partial
+    sums on ``like``'s device, or None for one split."""
+    if split == 1:
+        return None
+    return torch.empty((split, m, cols), dtype=torch.float32,
+                       device=like.device)
 
 
 class NormGemmPlan(NamedTuple):
@@ -145,9 +148,10 @@ class NormGemmPlan(NamedTuple):
 def norm_gemm_plan(m: int, k: int, widths: tuple[int, ...], *,
                    glu: bool = False, aligned: bool = True) -> NormGemmPlan:
     """The tile, K split and copy width of the norm -> QKV (``glu``
-    False: ``widths`` the matrices read side by side) or norm -> gated-GLU
-    kernel (``glu`` True: ``widths`` the one width F of Wg and Wu) for m
-    rows of depth k.  ``aligned`` says whether every base pointer is a
+    False: ``widths`` the matrices read side by side) or of the gated-GLU
+    kernels -- norm -> gated GLU, the fused GLU and its backward (``glu``
+    True: ``widths`` the one width F of Wg and Wu) -- for m rows of depth
+    k.  ``aligned`` says whether every base pointer is a
     multiple of 16 bytes.
 
     16-byte copies need k, every width and every pointer a multiple of
@@ -158,8 +162,15 @@ def norm_gemm_plan(m: int, k: int, widths: tuple[int, ...], *,
     outputs a thread).  Where the tiles leave resident-block slots free
     (two blocks an SM: the kernels' registers and shared memory allow no
     more), K is split into as many ranges as fill them in one wave, each
-    range at least NORM_GEMM_MIN_CHUNKS chunks deep.
-    ``csrc/norm_linear.cu`` / ``norm_glu.cu`` instantiate exactly these
+    range at least NORM_GEMM_MIN_CHUNKS chunks deep.  A gated-GLU chunk is
+    bound by its FMAs and its blocks all walk one depth, so its time goes
+    in whole waves: it takes the split with the fewest waves per unit of
+    depth (the fewest ranges among equals, at most NORM_GEMM_CHUNK_SPLITS),
+    which may fill more than one wave -- yi-6b's 172 column tiles take
+    three ranges, two full waves of a third of K, where one range would
+    leave a wave 35% empty.
+    ``csrc/norm_linear.cu`` and ``csrc/glu_sm90.cuh`` (under
+    ``norm_glu.cu``, ``glu.cu``, ``glu_bwd.cu``) instantiate exactly these
     (bm, bn, vec)."""
     vec = 4 if aligned and k % 4 == 0 and all(n % 4 == 0 for n in widths) \
         else 1
@@ -167,8 +178,12 @@ def norm_gemm_plan(m: int, k: int, widths: tuple[int, ...], *,
     bm, bn = NORM_GEMM_TILES[glu]["chunk" if vec == 1 else band]
     tiles = cdiv(m, bm) * sum(cdiv(n, bn) for n in widths)
     chunks = cdiv(k, NORM_GEMM_BK)
-    split = max(1, min(NORM_GEMM_SLOTS // tiles,
-                       chunks // NORM_GEMM_MIN_CHUNKS))
+    most = max(1, chunks // NORM_GEMM_MIN_CHUNKS)
+    if glu and band == "chunk":
+        split = min(range(1, min(most, NORM_GEMM_CHUNK_SPLITS) + 1),
+                    key=lambda s: (cdiv(tiles * s, NORM_GEMM_SLOTS) / s, s))
+    else:
+        split = max(1, min(NORM_GEMM_SLOTS // tiles, most))
     return NormGemmPlan(band, bm, bn, split, vec)
 
 

@@ -216,16 +216,23 @@ def test_ffn_and_norm_registries(monkeypatch):
 
 
 def test_matmul_tile_policy():
-    """The tiles the wrappers hand the GEMM kernels: the (rows, K chunk)
-    pairs csrc/glu.cu and csrc/glu_bwd.cu instantiate (the first body),
-    and the (bm, bn, copy width) triples of csrc/norm_linear.cu (the
-    pipelined body), with its K splits at yi-6b's and bert-base's QKV."""
+    """The tiles the wrappers hand the GEMM kernels, all on the pipelined
+    body: the (bm, bn, copy width) and K split of the fused GLU and its
+    backward (csrc/glu.cu, csrc/glu_bwd.cu: the gated-GLU bands) at rows
+    12 / 13's shapes -- yi-6b's tick and chunk, llama-3.2-vision's
+    bucket-4096 prefill, qwen1.5-0.5b's training step -- and those of
+    csrc/norm_linear.cu, with its K splits at yi-6b's and bert-base's
+    QKV."""
     from repro_torch.kernels import tiling
-    glu = {m: tiling.matmul_blocks(m)
-           for m in (1, 4, 16, 17, 32, 33, 64, 4096)}
-    assert set(glu.values()) <= {(16, 32), (32, 32), (64, 32)}
-    assert glu[4] == (16, 32) and glu[64] == (64, 32)
-    assert all(bm >= min(m, 64) for m, (bm, _) in glu.items())
+
+    def glu(m, k, f):
+        return tiling.norm_gemm_plan(m, k, (f,), glu=True)
+    assert glu(4, 4096, 11008) == ("decode", 16, 128, 3, 4)  # 86 strips x 3
+    assert glu(64, 4096, 11008) == ("chunk", 64, 64, 3, 4)   # 172 tiles x 3
+    assert glu(4096, 4096, 14336) == ("prefill", 128, 64, 1, 4)
+    assert glu(8192, 1024, 2816) == ("prefill", 128, 64, 1, 4)  # 64 x 44
+    assert tiling.norm_gemm_plan(4096, 4096, (14336,), glu=True,
+                                 aligned=False) == ("prefill", 64, 64, 1, 1)
     yi = (4096, 512, 512)
     norm = {m: tiling.norm_gemm_plan(m, 4096, yi)
             for m in (1, 4, 16, 17, 64, 65, 127, 128, 512, 4096)}
@@ -257,7 +264,8 @@ def test_norm_gemm_plan_bands_and_copy_width(glu, k, widths):
     4-byte copy path (on the middle tile) whenever K, a width or a pointer
     is not a multiple of four floats, 16-byte copies otherwise; K is split
     into as many ranges as fill the resident-block slots in one wave, each
-    range keeping its minimum of chunks."""
+    range keeping its minimum of chunks; a gated-GLU chunk takes the split
+    of the fewest waves per unit of depth instead, up to its cap."""
     from repro_torch.kernels import tiling
     if glu:
         widths = widths[:1]
@@ -277,8 +285,19 @@ def test_norm_gemm_plan_bands_and_copy_width(glu, k, widths):
             slots, least = (tiling.NORM_GEMM_SLOTS,
                             tiling.NORM_GEMM_MIN_CHUNKS)
             assert p.split >= 1
-            assert p.split == 1 or (blocks * p.split <= slots
-                                    and chunks >= p.split * least)
+            assert p.split == 1 or chunks >= p.split * least
+            if glu and band == "chunk":
+                most = min(chunks // least, tiling.NORM_GEMM_CHUNK_SPLITS)
+                assert p.split <= max(1, most)
+
+                def waves(s):
+                    return tiling.cdiv(blocks * s, slots) / s
+                assert all(waves(p.split) < waves(s)
+                           for s in range(1, p.split))
+                assert all(waves(p.split) <= waves(s)
+                           for s in range(p.split, most + 1))
+                continue
+            assert p.split == 1 or blocks * p.split <= slots
             # one more range would spill into a second wave or starve
             assert (blocks * (p.split + 1) > slots
                     or chunks < (p.split + 1) * least)

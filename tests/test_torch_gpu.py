@@ -203,10 +203,18 @@ def test_norm_linear_kernel(cuda, kind, m, d, widths):
         atol=1e-4, rtol=0)
 
 
+# the fused GLU's (and its backward's) edges on the 4-byte copies: K or F
+# not a multiple of 4, ragged tiles, one column
+GLU_EDGES = [(23, 200, 130), (70, 37, 33), (1, 64, 1)]
+
+
 @pytest.mark.parametrize("mode", ["silu", "gelu"])
-@pytest.mark.parametrize("m,k,f", [(4, 4096, 11008), (64, 4096, 11008),
-                                   (23, 200, 130), (1, 64, 1), (70, 37, 33)])
+@pytest.mark.parametrize("m,k,f", [(m, 4096, 11008) for m in NORM_ROWS]
+                         + GLU_EDGES + [(4096, 4096, 14336)])
 def test_glu_kernel(cuda, mode, m, k, f):
+    """Row 12 at yi-6b's widths in every band of tiling.norm_gemm_plan
+    (decode ticks and prefill chunks with a split K among them), on the
+    4-byte edges, and at llama-3.2-vision's bucket-4096 prefill."""
     from repro_torch.kernels import fused_ffn as ff
     gen = torch.Generator().manual_seed(8)
     x = _randn(gen, cuda, m, k)
@@ -516,9 +524,13 @@ def test_flash_bwd_refuses_16_byte_copies_when_unaligned(cuda):
 
 
 @pytest.mark.parametrize("mode", ["silu", "gelu"])
-@pytest.mark.parametrize("m,k,f", [(8192, 1024, 2816), (64, 4096, 11008),
-                                   (23, 200, 130), (1, 64, 1)])
+@pytest.mark.parametrize("m,k,f", [(m, 1024, 2816) for m in NORM_ROWS]
+                         + GLU_EDGES + [(8192, 1024, 2816),
+                                        (64, 4096, 11008)])
 def test_glu_bwd_kernel(cuda, mode, m, k, f):
+    """Row 13 at qwen1.5-0.5b's training widths in every band of the plan
+    (a split K among them), at its training shape, at yi-6b's chunk and on
+    the 4-byte edges."""
     from repro_torch.kernels import fused_ffn as ff
     gen = torch.Generator().manual_seed(6)
     x, dy = _randn(gen, cuda, m, k), _randn(gen, cuda, m, f)
@@ -529,6 +541,49 @@ def test_glu_bwd_kernel(cuda, mode, m, k, f):
     assert ff.GLU_BWD.launches == before + 1
     for a, b in zip(got, ff._glu_bwd_plain(x, wg, wu, dy, mode)):
         _close_rel(a, b, 2e-5)
+
+
+@pytest.mark.parametrize("m", [4, 64, 512])
+def test_glu_kernels_repeat_bitwise(cuda, m):
+    """Rows 12 and 13 give the same bits twice on the same inputs, in each
+    band (a split K included): no float atomics, splits summed in order."""
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(16)
+    x, dy = _randn(gen, cuda, m, 4096), _randn(gen, cuda, m, 11008)
+    wg, wu = (_randn(gen, cuda, 4096, 11008, scale=1 / 64) for _ in range(2))
+    if m < 128:
+        assert tiling.norm_gemm_plan(m, 4096, (11008,), glu=True).split > 1
+    assert torch.equal(ff.fused_glu(x, wg, wu, mode="silu"),
+                       ff.fused_glu(x, wg, wu, mode="silu"))
+    for a, b in zip(ff.glu_bwd(x, wg, wu, dy, mode="gelu"),
+                    ff.glu_bwd(x, wg, wu, dy, mode="gelu")):
+        assert torch.equal(a, b)
+
+
+def test_glu_kernels_take_unaligned_pointers(cuda):
+    """Base pointers off the 16-byte grid (contiguous views one float in)
+    take the 4-byte copies, and the C entries refuse 16-byte copies for
+    them."""
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(17)
+    x = _randn(gen, cuda, 64 * 256 + 1)[1:].view(64, 256)
+    w = _randn(gen, cuda, 256 * 128, scale=1 / 16).view(256, 128)
+    dy = _randn(gen, cuda, 64, 128)
+    assert x.data_ptr() % 16 == 4
+    torch.testing.assert_close(ff.fused_glu(x, w, w, mode="gelu"),
+                               ff._glu_reference(x, w, w, "gelu"),
+                               atol=1e-4, rtol=0)
+    for a, b in zip(ff.glu_bwd(x, w, w, dy, mode="silu"),
+                    ff._glu_bwd_plain(x, w, w, dy, "silu")):
+        _close_rel(a, b, 2e-5)
+    four = tiling.NormGemmPlan("chunk", 64, 64, 1, 4)
+    with mock.patch.object(tiling, "norm_gemm_plan", lambda *a, **k: four):
+        with pytest.raises(RuntimeError, match="kernel glu:"):
+            ff.fused_glu(x, w, w, mode="gelu")
+        with pytest.raises(RuntimeError, match="kernel glu_bwd:"):
+            ff.glu_bwd(x, w, w, dy, mode="silu")
 
 
 def test_autograd_functions_on_cuda(cuda):

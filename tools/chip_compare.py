@@ -1,18 +1,23 @@
 """Compares two trees of the PyTorch port on one GPU: run it once a tree,
 in turns (parent, change, change, parent), inside one call to the card.
 
-    python tools/chip_compare.py kernels TREE TAG   # rows 5 and 7
-    python tools/chip_compare.py tick TREE           # the long-context serve
+    python tools/chip_compare.py kernels TREE TAG [ROWS]  # rows 5, 7, 12, 13
+    python tools/chip_compare.py tick TREE                # long-context serve
+    python tools/chip_compare.py yi TREE                  # yi-6b serve
 
 TREE is the root of a checkout (its ``src/`` holds ``repro_torch``); its
 kernels build into that checkout.  ``kernels`` times rows 7 (flash_fwd)
 and 5 (decode_dense, at several split counts) through the tree's
 wrappers at the paths' shapes, back to back and under CUDA-graph replay,
 one JSON line a shape, and the float ``flash_decode_pallas`` wrapper at
-the long-context path's shape on the host's clock; every tree on the
-timers of this checkout's chip_smoke.py.  ``tick`` runs the tree's own
+the long-context path's shape on the host's clock; rows 12 (fused_glu:
+yi-6b's tick and chunk, llama-3.2-vision's bucket-4096 prefill) and 13
+(glu_bwd, qwen1.5-0.5b's training shape) likewise; ROWS (a comma list,
+default all four) picks some.  Every tree runs on the timers of this
+checkout's chip_smoke.py.  ``tick`` runs the tree's own
 chip_smoke.py long-context serve phase (the contiguous engine at max_seq
-16384, float and dual-mode).
+16384, float and dual-mode), ``yi`` its yi-6b serve phase (the paged
+engine with the fused impls, float and dual-mode).
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ def _load(tree: str):
     return root
 
 
-def kernels(tree: str, tag: str) -> None:
+def kernels(tree: str, tag: str, rows: str = "5,7,12,13") -> None:
     _load(tree)
+    rows = {int(r) for r in rows.split(",")}
     import torch
     timers = _timers()
     time_ms, graph_ms = timers.time_ms, timers.graph_ms
@@ -55,11 +61,12 @@ def kernels(tree: str, tag: str) -> None:
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    for name, (b, s, t, kh, g, h, causal, stats) in {
-            "path": (1, 4096, 16384, 16, 1, 64, True, False),
-            "train": (2, 4096, 4096, 16, 1, 64, True, True),
-            "cross": (1, 4096, 1601, 8, 4, 128, False, False),
-            "self": (1, 4096, 4096, 8, 4, 128, True, False)}.items():
+    fwd_shapes = {"path": (1, 4096, 16384, 16, 1, 64, True, False),
+                  "train": (2, 4096, 4096, 16, 1, 64, True, True),
+                  "cross": (1, 4096, 1601, 8, 4, 128, False, False),
+                  "self": (1, 4096, 4096, 8, 4, 128, True, False)}
+    for name, (b, s, t, kh, g, h, causal, stats) in (
+            fwd_shapes.items() if 7 in rows else ()):
         qf = randn(b, s, kh, g, h, scale=h ** -0.5).contiguous()
         k, v = randn(b, t, kh, h), randn(b, t, kh, h)
         qp = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
@@ -77,11 +84,12 @@ def kernels(tree: str, tag: str) -> None:
               flush=True)
         del qf, k, v
 
-    for name, (b, t, kh, g, h, qpos, causal) in {
-            "path": (4, 16384, 16, 1, 64, [1100, 2500, 3900, 4015], True),
-            "cross": (4, 1601, 8, 4, 128, [0, 0, 0, 0], False),
-            "self": (4, 4096, 8, 4, 128, [375, 737, 1420, 2750],
-                     True)}.items():
+    dec_shapes = {
+        "path": (4, 16384, 16, 1, 64, [1100, 2500, 3900, 4015], True),
+        "cross": (4, 1601, 8, 4, 128, [0, 0, 0, 0], False),
+        "self": (4, 4096, 8, 4, 128, [375, 737, 1420, 2750], True)}
+    for name, (b, t, kh, g, h, qpos, causal) in (
+            dec_shapes.items() if 5 in rows else ()):
         qf = randn(b, kh, g, h, scale=h ** -0.5).contiguous()
         k, v = randn(b, t, kh, h), randn(b, t, kh, h)
         qp = torch.tensor(qpos, dtype=torch.int32, device=dev)
@@ -107,19 +115,63 @@ def kernels(tree: str, tag: str) -> None:
             print(json.dumps(dict(tag=tag, kernel="flash_decode_pallas",
                                   shape=name, host_and_wall_ms=runs)),
                   flush=True)
+        del qf, k, v
+    _glu_rows(tag, rows, timers, randn)
 
 
-def tick(tree: str) -> None:
+def _glu_rows(tag: str, rows: set, timers, randn) -> None:
+    """Rows 12 and 13 through the tree's wrappers at the paths' shapes."""
+    from repro_torch.kernels import fused_ffn as ff
+    time_ms, graph_ms = timers.time_ms, timers.graph_ms
+    for name, (row, m, k, f) in {"yi M4": (12, 4, 4096, 11008),
+                                 "yi M64": (12, 64, 4096, 11008),
+                                 "vision M4096": (12, 4096, 4096, 14336),
+                                 "train": (13, 8192, 1024, 2816)}.items():
+        if row not in rows:
+            continue
+        x, dy = randn(m, k), randn(m, f)
+        wg, wu = randn(k, f, scale=k ** -0.5), randn(k, f, scale=k ** -0.5)
+        if row == 12:
+            kernel = "fused_glu"
+
+            def fn():
+                return ff.fused_glu(x, wg, wu, mode="silu")
+        else:
+            kernel = "glu_bwd"
+
+            def fn():
+                return ff.glu_bwd(x, wg, wu, dy, mode="silu")
+        big = m * k * f > 1e10
+        print(json.dumps(dict(
+            tag=tag, kernel=kernel, shape=name,
+            ms=time_ms(fn, iters=5 if big else 20, warmup=2),
+            graph_ms=graph_ms(fn, calls=2 if big else 10, iters=3))),
+            flush=True)
+        del x, dy, wg, wu
+
+
+def _serve(tree: str, phase: str) -> None:
+    """The tree's own chip_smoke.py serve phase ``phase``."""
     root = _load(tree)
     import torch
     import chip_smoke
     import repro_torch.kernels.dualmode_softmax  # noqa: F401  (registers)
     import repro_torch.kernels.flash_attention_int  # noqa: F401
     import repro_torch.kernels.flash_decode  # noqa: F401
+    import repro_torch.kernels.fused_ffn  # noqa: F401
+    import repro_torch.kernels.fused_norm  # noqa: F401
     print("tree", root, flush=True)
-    chip_smoke.long_serve_phase(torch.device("cuda"), {})
+    getattr(chip_smoke, phase)(torch.device("cuda"), {})
+
+
+def tick(tree: str) -> None:
+    _serve(tree, "long_serve_phase")
+
+
+def yi(tree: str) -> None:
+    _serve(tree, "yi_serve_phase")
 
 
 if __name__ == "__main__":
     mode, *args = sys.argv[1:]
-    {"kernels": kernels, "tick": tick}[mode](*args)
+    {"kernels": kernels, "tick": tick, "yi": yi}[mode](*args)
