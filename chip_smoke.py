@@ -10,7 +10,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             the main path's shapes and at edge shapes, with the tolerances
             stated below; its time beside its bound, the plain version's
             time and a PyTorch library call's time where one computes the
-            same function.
+            same function.  Rows 1 and 2 at every edge of the row
+            softmax's plan and over every S5.10 word, on the 16-byte and
+            the 4-byte paths, held to the same bits over two calls.
 3. serve    repro_torch.serve.ServeEngine on full-width qwen1.5-0.5b (random
             weights from a seeded generator), float and dual-mode, paged
             cache, max_seq 2048: every request finishes, the pool drains,
@@ -124,9 +126,14 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
 each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]") and
-row 5 ("[decode dense]") at every shape they were timed at, and the bert
-phase logs row 1's int and float modes at bert's shape beside
-torch.softmax.
+row 5 ("[decode dense]") at every shape they were timed at, and a
+"[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
+qwen's and bert's shapes (int and float modes beside torch.softmax,
+F.silu, F.gelu) and row 14 at yi's and bert's (beside its two-call
+equivalent, torch.add then F.rms_norm / F.layer_norm: no one PyTorch call
+computes it, so its library_ms is null), each back to back and under
+CUDA-graph replay.  After the build, a "[sass]" line counts the
+instructions of rows 1 and 2's int entries (cuobjdump -sass).
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -367,6 +374,114 @@ def norm_gemm_row(results, key: str, ms: float, plain: float, b_ms: float,
         f"({b_by})")
 
 
+def unit_row(table: dict, key: str, fn, b_ms: float, lib_fn=None,
+             lib: str | None = None, iters: int = 50) -> dict:
+    """One shape of rows 1, 2 or 14 into ``table``: the wrapper's time back
+    to back and its device time under CUDA-graph replay, beside its bound
+    and, where ``lib_fn`` is given, the same two times of the PyTorch
+    call(s) ``lib`` names; returns the entry."""
+    ms = time_ms(fn, iters=iters)
+    r_ = dict(ms=ms, graph_ms=graph_ms(fn), bound_ms=b_ms)
+    if lib_fn is not None:
+        r_.update(library=lib, library_ms=time_ms(lib_fn, iters=iters),
+                  library_graph_ms=graph_ms(lib_fn))
+    r_["bound_share_graph"] = b_ms / r_["graph_ms"]
+    table[key] = r_
+    log(f"  {key}: {ms * 1e3:.1f} us (graph {r_['graph_ms'] * 1e3:.1f}), "
+        f"bound {b_ms * 1e3:.2f} us ({100 * r_['bound_share_graph']:.1f}% of "
+        "it reached under graph)" + (
+            f", {lib} {r_['library_ms'] * 1e3:.1f} us (graph "
+            f"{r_['library_graph_ms'] * 1e3:.1f})" if lib_fn else ""))
+    return r_
+
+
+_SASS_FAMILIES = {
+    "int": ("IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "ISETP",
+            "SEL", "IMNMX", "VIMNMX", "IABS", "FLO", "LEA", "PRMT", "SGXT",
+            "BMSK", "POPC", "BREV", "ICMP", "IMNMX3"),
+    "imad": ("IMAD", "IMUL", "IMADSP"),
+    "fp": ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK", "FADD32I",
+           "FMUL32I", "FFMA32I"),
+    "mufu": ("MUFU",),
+    "conv": ("F2I", "I2F", "F2F", "I2FP", "F2IP", "FRND"),
+    "mem": ("LDG", "STG", "LDS", "STS", "LD", "ST", "LDC", "ULDC"),
+}
+
+
+def sass_entries(text: str, keep) -> dict:
+    """Each entry of ``cuobjdump -sass`` output whose mangled name holds
+    one of ``keep``: its instructions (NOPs and the closing self-branch
+    left out), the length of each loop (a backward branch's span) and the
+    opcode mix of the longest loop, or of the whole entry where it has
+    none."""
+    import re
+    fam = {op: f for f, ops in _SASS_FAMILIES.items() for op in ops}
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split()[0]
+        if not any(k in name for k in keep):
+            continue
+        body, labels, pending = [], {}, []
+        for line in chunk.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m_ = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if not m_:
+                continue
+            a = int(m_.group(1), 16)
+            for lab_ in pending:
+                labels[lab_] = a
+            pending = []
+            t = re.sub(r"^@!?U?P\w+\s+", "", m_.group(2))
+            if not t.startswith("NOP"):
+                body.append((a, t))
+
+        def target(t):
+            b_ = re.match(r"BRA(?:\.\w+)*\s+(?:[!\w]+\s*,\s*)?"
+                          r"(?:0x([0-9a-f]+)|`\((\.L_x_\d+)\))", t)
+            if not b_:
+                return None
+            return int(b_.group(1), 16) if b_.group(1) else labels.get(
+                b_.group(2))
+        while body and target(body[-1][1]) == body[-1][0]:
+            body.pop()                           # the closing self-branch
+        loops = [(target(t), a) for a, t in body
+                 if target(t) is not None and target(t) <= a]
+        span = max(loops, key=lambda lo: lo[1] - lo[0], default=None)
+        mix: dict = {}
+        for a, t in body:
+            if span is None or span[0] <= a <= span[1]:
+                f = fam.get(t.split()[0].split(".")[0], "other")
+                mix[f] = mix.get(f, 0) + 1
+        short = re.sub(r"^_ZN12_GLOBAL__N_1\d+", "", name)
+        targs = re.findall(r"L[bi](\d+)E", short)
+        short = re.sub(r"I.*$|Ev.*$", "", short) + (
+            f"<{','.join(targs)}>" if targs else "")
+        out[short] = dict(n=len(body), loops=[
+            sum(1 for a, _ in body if lo <= a <= hi) for lo, hi in loops],
+            mix=mix)
+    return out
+
+
+def sass_report(build_dir: str, sources=("pair_act", "softmax_rows"),
+                keep=("Lb1ELb1E", "Lb0ELb1E", "softmax_held_kernelILb1E",
+                      "softmax_stream_kernelILb1E", "softmax_rows_int")) -> dict:
+    """:func:`sass_entries` of the int kernel entries of rows 1 and 2
+    (their objects ``sources`` in ``build_dir``), by source.  A loop run
+    once an element (or a float4) gives the instructions an element.  {}
+    where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    return {src: sass_entries(subprocess.run(
+        [tool, "-sass", os.path.join(build_dir, src + ".o")],
+        capture_output=True, text=True, timeout=120).stdout, keep)
+        for src in sources}
+
+
 # ---------------- phase 2: kernels ----------------
 
 def kernel_phase(dev, results):
@@ -390,24 +505,39 @@ def kernel_phase(dev, results):
                 ds.softmax_rows_plain(x, "int"), TOL_INT)
     check("softmax_rows float (1024, 2048)", ds.softmax_rows(x, "float"),
           ds.softmax_rows_plain(x, "float"), TOL_SOFTMAX_F)
-    for shape in ((3, 1), (5, 33), (7, 2049), (2, 70000)):
+    for prec in ("int", "float"):
+        check_repeat(f"softmax_rows {prec} (1024, 2048)",
+                     lambda: ds.softmax_rows(x, prec))
+    # the plan's edges (tiling.softmax_rows_plan): warp rows up to 1024,
+    # block rows up to 8192, streamed past it; odd n and a pointer one
+    # float off 16 bytes take the 4-byte loads
+    for shape in ((3, 1), (4, 31), (4, 32), (5, 33), (9, 512), (6, 513),
+                  (3, 1024), (3, 1025), (7, 2049), (3, 8192), (2, 8193),
+                  (2, 70000)):
         xe = randn(*shape, scale=8.0)
         xe[0, :] = -30.0                                     # all masked row
-        check(f"softmax_rows int {shape}", ds.softmax_rows(xe, "int"),
-              ds.softmax_rows_plain(xe, "int"), TOL_INT)
-        check(f"softmax_rows float {shape}", ds.softmax_rows(xe, "float"),
-              ds.softmax_rows_plain(xe, "float"), TOL_SOFTMAX_F)
-    ms = time_ms(lambda: ds.softmax_rows(x, "int"))
-    ms_f = time_ms(lambda: ds.softmax_rows(x, "float"))
+        for off in (False, True) if shape[1] in (512, 8192) else (False,):
+            xo = off_by_one_float(xe) if off else xe
+            what = f"{shape}{' off 16 B' if off else ''}"
+            check(f"softmax_rows int {what}", ds.softmax_rows(xo, "int"),
+                  ds.softmax_rows_plain(xe, "int"), TOL_INT)
+            check(f"softmax_rows float {what}",
+                  ds.softmax_rows(xo, "float"),
+                  ds.softmax_rows_plain(xe, "float"), TOL_SOFTMAX_F)
     plain = time_ms(lambda: ds.softmax_rows_plain(x, "int"), iters=10)
-    lib = time_ms(lambda: torch.softmax(x, dim=-1))
     n = x.numel()
     # int ops per element: 3 sweeps of quantize + log2-domain + PWL exp2
     # (~25 int ops each) plus the reductions; counted at the f32 rate
     b_ms, b_by = bound(8 * n, 80 * n)
-    log(f"  softmax_rows (1024, 2048): int {ms * 1e3:.1f} us, float "
-        f"{ms_f * 1e3:.1f} us, plain int {plain * 1e3:.1f} us, torch.softmax "
-        f"{lib * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by})")
+    unit_ms = results.setdefault("unit_rows", {})
+    ms = unit_row(unit_ms, "softmax_rows int (1024, 2048)",
+                  lambda: ds.softmax_rows(x, "int"), b_ms)["ms"]
+    lib = unit_row(unit_ms, "softmax_rows float (1024, 2048)",
+                   lambda: ds.softmax_rows(x, "float"), bound(8 * n, 8 * n)[0],
+                   lambda: torch.softmax(x, dim=-1), "torch.softmax")[
+        "library_ms"]
+    log(f"  softmax_rows (1024, 2048): plain int {plain * 1e3:.1f} us, "
+        f"bound {b_ms * 1e3:.1f} us ({b_by})")
     results["softmax_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                    bound_ms=b_ms, bound_by=b_by,
                                    library_ms=lib)
@@ -434,17 +564,40 @@ def kernel_phase(dev, results):
     for mode in ("silu", "gelu"):
         check(f"pair_act {mode} int rails/ties", ds.pair_act(edge, mode, "int"),
               ds.pair_act_plain(edge, mode, "int"), TOL_INT)
-    ms = time_ms(lambda: ds.pair_act(z, "silu", "int"))
-    ms_f = time_ms(lambda: ds.pair_act(z, "silu", "float"))
+    # every S5.10 word (the one-exponent pair form against the plain
+    # version's two exponents), on the 16-byte path with a 3-word tail and
+    # on the 4-byte path (a pointer one float off 16 bytes)
+    words = torch.arange(-32768, 32768 + 3, device=dev).remainder(65536)
+    words = (words - 32768).to(torch.float32) / 1024
+    for mode in ("silu", "gelu"):
+        want = ds.pair_act_plain(words, mode, "int")
+        check(f"pair_act {mode} int every S5.10 word",
+              ds.pair_act(words, mode, "int"), want, TOL_INT)
+        check(f"pair_act {mode} int every S5.10 word off 16 B",
+              ds.pair_act(off_by_one_float(words), mode, "int"), want,
+              TOL_INT)
+    for mode in ("silu", "gelu"):
+        check_repeat(f"pair_act {mode} int (64, 2816)",
+                     lambda: ds.pair_act(z, mode, "int"))
     plain = time_ms(lambda: ds.pair_act_plain(z, "silu", "int"), iters=10)
-    lib = time_ms(lambda: torch.nn.functional.silu(z))
-    lib_g = time_ms(lambda: torch.nn.functional.gelu(z, approximate="tanh"))
     n = z.numel()
     b_ms, b_by = bound(8 * n, 60 * n)
-    log(f"  pair_act silu (64, 2816): int {ms * 1e3:.1f} us, float "
-        f"{ms_f * 1e3:.1f} us, plain int {plain * 1e3:.1f} us, F.silu "
-        f"{lib * 1e3:.1f} us, F.gelu(tanh) {lib_g * 1e3:.1f} us, bound "
+    lib = None
+    for mode, lib_name, lib_fn in (
+            ("silu", "F.silu", lambda: torch.nn.functional.silu(z)),
+            ("gelu", "F.gelu(tanh)",
+             lambda: torch.nn.functional.gelu(z, approximate="tanh"))):
+        for prec in ("int", "float"):
+            r_ = unit_row(unit_ms, f"pair_act {mode} {prec} (64, 2816)",
+                          lambda: ds.pair_act(z, mode, prec), b_ms,
+                          lib_fn if prec == "float" else None, lib_name)
+            if mode == "silu" and prec == "int":
+                ms = r_["ms"]
+            if mode == "silu" and prec == "float":
+                lib = r_["library_ms"]
+    log(f"  pair_act silu (64, 2816): plain int {plain * 1e3:.1f} us, bound "
         f"{b_ms * 1e3:.2f} us ({b_by})")
+    log("[unit rows] qwen shapes: " + json.dumps(unit_ms))
     results["pair_act"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                bound_ms=b_ms, bound_by=b_by, library_ms=lib)
 
@@ -1172,22 +1325,28 @@ def yi_kernel_phase(dev, results):
         if dd == d and kind == "rms":
             err = max(err, e)
     x, r, g = randn(64, d, scale=3.0), randn(64, d), 1.0 + randn(d, scale=0.1)
+    unit_ms = {}
     for m in (4, 64):
         xs, rs = x[:m].contiguous(), r[:m].contiguous()
-        ms = time_ms(lambda: fn.fused_residual_norm(xs, rs, g, kind="rms",
-                                                    eps=eps))
         plain = time_ms(lambda: fn.fused_residual_norm_plain(
             xs, rs, g, kind="rms", eps=eps))
-        s_ = xs + rs
-        lib = time_ms(lambda: torch.nn.functional.rms_norm(s_, (d,), g, eps))
         b_ms, b_by = bound(4 * m * d * 4 + d * 4, 8 * m * d)
-        log(f"  resnorm rms M{m} d{d}: {ms * 1e3:.2f} us, plain "
-            f"{plain * 1e3:.2f} us, F.rms_norm on the sum {lib * 1e3:.2f} us, "
-            f"bound {b_ms * 1e3:.2f} us ({b_by})")
+
+        def two_calls():       # no one PyTorch call adds and normalizes
+            s_ = torch.add(xs, rs)
+            return s_, torch.nn.functional.rms_norm(s_, (d,), g, eps)
+        r_ = unit_row(unit_ms, f"resnorm rms M{m} d{d}",
+                      lambda: fn.fused_residual_norm(xs, rs, g, kind="rms",
+                                                     eps=eps),
+                      b_ms, two_calls, "torch.add + F.rms_norm (two calls)")
+        log(f"  resnorm rms M{m} d{d}: plain {plain * 1e3:.2f} us, bound "
+            f"{b_ms * 1e3:.2f} us ({b_by})")
         if m == 64:
-            results["resnorm"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                      bound_ms=b_ms, bound_by=b_by,
-                                      library_ms=lib)
+            # library_ms stays None: no single PyTorch call computes row 14
+            results["resnorm"] = dict(max_abs_err=err, ms=r_["ms"],
+                                      plain_ms=plain, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
+    log("[unit rows] yi shapes: " + json.dumps(unit_ms))
 
     # -- row 15: norm -> QKV prologue over [wq | wk | wv] read in place
     log("[yi] norm_linear")
@@ -1916,21 +2075,22 @@ def bert_kernel_phase(dev, results):
     x = randn(b * kh * s, s, scale=3.0)       # one layer's score rows
     check(f"softmax_rows int ({b * kh * s}, {s})", ds.softmax_rows(x, "int"),
           ds.softmax_rows_plain(x, "int"), TOL_INT)
-    n = x.numel()
-    shapes[f"softmax_rows int {tuple(x.shape)}"] = dict(
-        ms=time_ms(lambda: ds.softmax_rows(x, "int")),
-        plain_ms=time_ms(lambda: ds.softmax_rows_plain(x, "int"), iters=5),
-        bound_ms=bound(8 * n, 80 * n)[0],
-        library_ms=time_ms(lambda: torch.softmax(x, dim=-1)))
     # its float mode, which torch.softmax computes
     check(f"softmax_rows float ({b * kh * s}, {s})",
           ds.softmax_rows(x, "float"), ds.softmax_rows_plain(x, "float"),
           TOL_SOFTMAX_F)
-    shapes[f"softmax_rows float {tuple(x.shape)}"] = dict(
-        ms=time_ms(lambda: ds.softmax_rows(x, "float")),
-        plain_ms=time_ms(lambda: ds.softmax_rows_plain(x, "float"), iters=5),
-        bound_ms=bound(8 * n, 8 * n)[0],
-        library_ms=time_ms(lambda: torch.softmax(x, dim=-1)))
+    for prec in ("int", "float"):
+        check_repeat(f"softmax_rows {prec} {tuple(x.shape)}",
+                     lambda: ds.softmax_rows(x, prec))
+    n = x.numel()
+    unit_ms = {}
+    for prec, ops in (("int", 80), ("float", 8)):
+        shapes[f"softmax_rows {prec} {tuple(x.shape)}"] = r_ = unit_row(
+            unit_ms, f"softmax_rows {prec} {tuple(x.shape)}",
+            lambda: ds.softmax_rows(x, prec), bound(8 * n, ops * n)[0],
+            lambda: torch.softmax(x, dim=-1), "torch.softmax")
+        r_["plain_ms"] = time_ms(lambda: ds.softmax_rows_plain(x, prec),
+                                 iters=5)
     del x
     z = randn(b * s, 3072, scale=3.0)         # one layer's FFN activation
     check(f"pair_act gelu int {tuple(z.shape)}", ds.pair_act(z, "gelu", "int"),
@@ -1938,15 +2098,21 @@ def bert_kernel_phase(dev, results):
     check(f"pair_act gelu float {tuple(z.shape)}",
           ds.pair_act(z, "gelu", "float"),
           ds.pair_act_plain(z, "gelu", "float"), TOL_PAIR_F)
+    check_repeat(f"pair_act gelu int {tuple(z.shape)}",
+                 lambda: ds.pair_act(z, "gelu", "int"))
     n = z.numel()
-    for prec in ("int", "float"):
-        shapes[f"pair_act gelu {prec} {tuple(z.shape)}"] = dict(
-            ms=time_ms(lambda: ds.pair_act(z, "gelu", prec)),
-            plain_ms=time_ms(lambda: ds.pair_act_plain(z, "gelu", prec),
-                             iters=5),
-            bound_ms=bound(8 * n, 60 * n)[0],
-            library_ms=time_ms(lambda: torch.nn.functional.gelu(
-                z, approximate="tanh")))
+    for mode, lib_name, lib_fn in (
+            ("gelu", "F.gelu(tanh)",
+             lambda: torch.nn.functional.gelu(z, approximate="tanh")),
+            ("silu", "F.silu", lambda: torch.nn.functional.silu(z))):
+        for prec in ("int", "float"):
+            key = f"pair_act {mode} {prec} {tuple(z.shape)}"
+            shapes[key] = r_ = unit_row(
+                unit_ms, key, lambda: ds.pair_act(z, mode, prec),
+                bound(8 * n, 60 * n)[0], lib_fn, lib_name)
+            if mode == "gelu":
+                r_["plain_ms"] = time_ms(
+                    lambda: ds.pair_act_plain(z, mode, prec), iters=5)
     del z
     m, d, eps = b * s, 768, 1e-12
     x, r = randn(m, d, scale=3.0), randn(m, d)
@@ -1955,15 +2121,18 @@ def bert_kernel_phase(dev, results):
     want = fn.fused_residual_norm_plain(x, r, g, bias, kind="layer", eps=eps)
     check(f"resnorm sum layer ({m}, {d})", got[0], want[0], TOL_INT)
     check(f"resnorm h layer ({m}, {d})", got[1], want[1], TOL_NORM)
-    s_ = x + r
-    shapes[f"resnorm layer ({m}, {d})"] = dict(
-        ms=time_ms(lambda: fn.fused_residual_norm(x, r, g, bias,
-                                                  kind="layer", eps=eps)),
-        plain_ms=time_ms(lambda: fn.fused_residual_norm_plain(
-            x, r, g, bias, kind="layer", eps=eps)),
-        bound_ms=bound(4 * m * d * 4 + 2 * d * 4, 10 * m * d)[0],
-        library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
-            s_, (d,), g, bias, eps)))
+
+    def two_calls():           # no one PyTorch call adds and normalizes
+        s_ = torch.add(x, r)
+        return s_, torch.nn.functional.layer_norm(s_, (d,), g, bias, eps)
+    shapes[f"resnorm layer ({m}, {d})"] = r_ = unit_row(
+        unit_ms, f"resnorm layer ({m}, {d})",
+        lambda: fn.fused_residual_norm(x, r, g, bias, kind="layer", eps=eps),
+        bound(4 * m * d * 4 + 2 * d * 4, 10 * m * d)[0], two_calls,
+        "torch.add + F.layer_norm (two calls)")
+    r_["plain_ms"] = time_ms(lambda: fn.fused_residual_norm_plain(
+        x, r, g, bias, kind="layer", eps=eps))
+    log("[unit rows] bert shapes: " + json.dumps(unit_ms))
     ws = [randn(d, d, scale=d ** -0.5) for _ in range(3)]
     check(f"norm_linear layer ({m}, {d}) x {3 * d}",
           fn.fused_norm_linear(x, g, bias, ws, kind="layer", eps=eps),
@@ -1988,8 +2157,10 @@ def bert_kernel_phase(dev, results):
                   lambda: torch.matmul(hn, wcat))
     for name, r_ in shapes.items():
         log(f"  {name}: {r_['ms'] * 1e3:.1f} us, plain "
-            f"{r_['plain_ms'] * 1e3:.1f} us, bound {r_['bound_ms'] * 1e3:.2f}"
-            f" us, library {r_['library_ms'] * 1e3:.1f} us")
+            + (f"{r_['plain_ms'] * 1e3:.1f} us" if "plain_ms" in r_
+               else "not timed")
+            + f", bound {r_['bound_ms'] * 1e3:.2f} us, library "
+            f"{r_['library_ms'] * 1e3:.1f} us")
     results["bert_shape_ms"] = shapes
 
 
@@ -2692,9 +2863,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
                     src.startswith(("norm_", "glu", "flash_bwd",
-                                    "flash_fwd", "decode_dense"))
+                                    "flash_fwd", "decode_dense",
+                                    "softmax_rows", "pair_act"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
+    log("[sass] rows 1 / 2 int entries, instructions (total, loops, mix of "
+        "the longest loop or the entry): " + json.dumps(
+            sass_report(info["dir"])))
 
     results: dict = {}
     kernel_phase(dev, results)

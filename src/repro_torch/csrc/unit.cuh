@@ -58,26 +58,56 @@ __device__ __forceinline__ int32_t mantissa_frac(int32_t s, int32_t e_pos) {
   return shl_wrap(rem, up) >> down;
 }
 
-// 8-segment PWL: one mux (the generated rom_* select chains), one
-// multiply, one shift, one add
-__device__ __forceinline__ int32_t pwl_combine(int32_t a, int32_t b,
-                                               int32_t frac, int frac_bits,
-                                               int out_frac) {
-  int32_t prod = mul_wrap(a, frac) >> (PWL_COEF_FRAC + frac_bits - out_frac);
-  return prod + (PWL_COEF_FRAC >= out_frac ? (b >> (PWL_COEF_FRAC - out_frac))
-                                           : shl_wrap(b, out_frac - PWL_COEF_FRAC));
+// ---- the PWL ROMs ---------------------------------------------------------
+//
+// A lookup gives one segment's (slope, intercept) Q2.14 pair.  RomChain is
+// the generated select chains (two 8-way chains a lookup, no state): every
+// kernel's default.  RomTable reads the same 16 pairs from the block's
+// shared memory (rom_fill, then a barrier): one 8-byte shared load a lookup.
+// Rows 1 and 2 (softmax_rows.cu, pair_act.cu), whose int bodies are bound by
+// int32 issue, take the table; the other int kernels keep the chains.  Both
+// give the same words: every caller's segment lies in [0, 8) (v is in
+// [0, 2^T_FRAC), and so is f, since every log2_int caller clamps s >= 1),
+// where the chains' fall-through to entry 0 never fires.
+struct RomChain {
+  __device__ __forceinline__ int2 exp2(int32_t seg) const {
+    return make_int2(rom_exp2_slope(seg), rom_exp2_intercept(seg));
+  }
+  __device__ __forceinline__ int2 log2(int32_t seg) const {
+    return make_int2(rom_log2_slope(seg), rom_log2_intercept(seg));
+  }
+};
+
+struct RomTable {
+  const int2* tab;  // 16 pairs in shared memory: exp2's 8, then log2's 8
+  __device__ __forceinline__ int2 exp2(int32_t seg) const { return tab[seg & 7]; }
+  __device__ __forceinline__ int2 log2(int32_t seg) const {
+    return tab[8 + (seg & 7)];
+  }
+};
+
+// entry i (< 16) of a RomTable, from the chains; the caller syncs after
+__device__ __forceinline__ void rom_fill(int2* tab, int i) {
+  const RomChain chain;
+  tab[i] = i < 8 ? chain.exp2(i) : chain.log2(i - 8);
 }
 
-__device__ __forceinline__ int32_t exp2_frac_int(int32_t v) {
-  int32_t seg = v >> (T_FRAC - 3);
-  return pwl_combine(rom_exp2_slope(seg), rom_exp2_intercept(seg), v, T_FRAC,
-                     EXP_FRAC);
+// 8-segment PWL: one lookup, one multiply, one shift, one add
+__device__ __forceinline__ int32_t pwl_combine(int2 ab, int32_t frac,
+                                               int frac_bits, int out_frac) {
+  int32_t prod = mul_wrap(ab.x, frac) >> (PWL_COEF_FRAC + frac_bits - out_frac);
+  return prod + (PWL_COEF_FRAC >= out_frac ? (ab.y >> (PWL_COEF_FRAC - out_frac))
+                                           : shl_wrap(ab.y, out_frac - PWL_COEF_FRAC));
 }
 
-__device__ __forceinline__ int32_t log2_mant_int(int32_t f) {
-  int32_t seg = f >> (T_FRAC - 3);
-  return pwl_combine(rom_log2_slope(seg), rom_log2_intercept(seg), f, T_FRAC,
-                     T_FRAC);
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t exp2_frac_int(int32_t v, const Rom& rom = Rom()) {
+  return pwl_combine(rom.exp2(v >> (T_FRAC - 3)), v, T_FRAC, EXP_FRAC);
+}
+
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t log2_mant_int(int32_t f, const Rom& rom = Rom()) {
+  return pwl_combine(rom.log2(f >> (T_FRAC - 3)), f, T_FRAC, T_FRAC);
 }
 
 // t = d*log2(e) @ 2^-T_FRAC for d <= 0 @ 2^-in_frac, saturated at -32
@@ -87,28 +117,37 @@ __device__ __forceinline__ int32_t to_log2_domain(int32_t d, int in_frac) {
   return mul_wrap(d, LOG2E_Q) >> (in_frac + LOG2E_FRAC - T_FRAC);
 }
 
-// 2^t for t <= 0: a right shift (by -floor(t), clamped) of the PWL 2^frac
-__device__ __forceinline__ int32_t exp2_int(int32_t t) {
-  int32_t u = t >> T_FRAC;
-  int32_t v = t - shl_wrap(u, T_FRAC);
-  return sat_rshift(exp2_frac_int(v), -u);
+// 2^t for t <= 0: a right shift (by -floor(t), clamped) of the PWL 2^frac;
+// the fraction t - (floor(t) << T_FRAC) is t's low T_FRAC bits
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t exp2_int(int32_t t, const Rom& rom = Rom()) {
+  return sat_rshift(exp2_frac_int(t & ((1 << T_FRAC) - 1), rom), -(t >> T_FRAC));
 }
 
-__device__ __forceinline__ int32_t log2_int(int32_t s, int s_frac) {
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t log2_int(int32_t s, int s_frac,
+                                            const Rom& rom = Rom()) {
   int32_t e_pos = floor_log2(s);
-  int32_t log2m = log2_mant_int(mantissa_frac(s, e_pos));
+  int32_t log2m = log2_mant_int(mantissa_frac(s, e_pos), rom);
   return shl_wrap(e_pos - s_frac, T_FRAC) + log2m;
 }
 
-// sigma(2k) = softmax_1^2([k, -k]) @ 2^-EXP_FRAC, k @ 2^-k_frac
-__device__ __forceinline__ int32_t pair_softmax_first_int(int32_t k, int k_frac) {
-  int32_t amax = k < 0 ? -k : k;
-  int32_t t1 = to_log2_domain(k - amax, k_frac);
-  int32_t t2 = to_log2_domain(-k - amax, k_frac);
-  int32_t s = exp2_int(t1) + exp2_int(t2);
-  s = s < 1 ? 1 : s;
-  int32_t w = t1 - log2_int(s, EXP_FRAC);
-  return exp2_int(w < 0 ? w : 0);
+// sigma(2k) = softmax_1^2([k, -k]) @ 2^-EXP_FRAC, k @ 2^-k_frac.
+// The reference evaluates both exponents; here amax = |k|, so one of
+// k - amax and -k - amax is 0, whose exp2_int is the constant PAIR_C0 (the
+// PWL at 0, generated from core/pwl.py), and the other is -2|k|.  The
+// same words with one to_log2_domain and one exp2_int less (held bitwise
+// to the reference over every S5.10 word, tests/test_torch_unit_rows.py).
+// The sum is at least PAIR_C0 >= 1, so the reference's clamp never acts.
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t pair_softmax_first_int(int32_t k, int k_frac,
+                                                          const Rom& rom = Rom()) {
+  static_assert(PAIR_C0 >= 1, "the pair sum's clamp is dropped");
+  const int32_t a = k < 0 ? -k : k;
+  const int32_t t = to_log2_domain(-a - a, k_frac);
+  const int32_t s = PAIR_C0 + exp2_int(t, rom);
+  const int32_t w = (k < 0 ? t : 0) - log2_int(s, EXP_FRAC, rom);
+  return exp2_int(w < 0 ? w : 0, rom);
 }
 
 __device__ __forceinline__ int32_t gelu_k_int(int32_t z) {
@@ -120,13 +159,15 @@ __device__ __forceinline__ int32_t gelu_k_int(int32_t z) {
   return mul_wrap(z + az3, GELU_C_Q) >> 14;
 }
 
-__device__ __forceinline__ int32_t gelu_int(int32_t z) {
-  int32_t sig = pair_softmax_first_int(gelu_k_int(z), IN_FRAC);
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t gelu_int(int32_t z, const Rom& rom = Rom()) {
+  int32_t sig = pair_softmax_first_int(gelu_k_int(z), IN_FRAC, rom);
   return mul_wrap(z, sig) >> EXP_FRAC;
 }
 
-__device__ __forceinline__ int32_t silu_int(int32_t z) {
-  int32_t sig = pair_softmax_first_int(z, IN_FRAC + 1);
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t silu_int(int32_t z, const Rom& rom = Rom()) {
+  int32_t sig = pair_softmax_first_int(z, IN_FRAC + 1, rom);
   return mul_wrap(z, sig) >> EXP_FRAC;
 }
 

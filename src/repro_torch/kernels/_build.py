@@ -10,7 +10,9 @@ rebuilds and an unchanged tree reuses the library.
 
 ``unit_constants.h`` is generated here from the Python modules: the PWL
 ROM tables of ``core/pwl.py`` (as select-chain muxes, the reference's
-segment mux) and the unit's constants, so they are written down once.
+segment mux), the unit's constants and ``PAIR_C0``, the unit's exp2 of 0
+(the pair mode's constant exponent, ``csrc/unit.cuh``), so they are
+written down once.
 
 Each C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; :class:`Kernel` raises on a non-zero
@@ -26,6 +28,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from repro_torch.core import fixedpoint as fx
 from repro_torch.core import pwl
@@ -48,6 +52,11 @@ def _rom(name: str, table) -> str:
             f"{body}  return r;\n}}\n")
 
 
+def pair_c0() -> int:
+    """exp2_int(0) of the unit: the word of the pair mode's zero exponent."""
+    return int(unit._exp2_int(torch.zeros(1, dtype=fx.I32))[0])
+
+
 def generated_header() -> str:
     """The text of ``unit_constants.h``, from the Python sources."""
     ints = {
@@ -58,6 +67,7 @@ def generated_header() -> str:
         "PHANTOM_Q": unit.PHANTOM_Q, "SNAP_MIN": unit.SNAP_MIN,
         "N_SNAP_BUCKETS": unit.N_SNAP_BUCKETS,
         "PWL_N_SEG": pwl.N_SEG, "PWL_COEF_FRAC": pwl.COEF_FRAC,
+        "PAIR_C0": pair_c0(),
     }
     floats = {"MASK_VALUE": dp.MASK_VALUE, "LOG2E": dp.LOG2E,
               "SQRT_2_OVER_PI": dp.SQRT_2_OVER_PI,

@@ -6,10 +6,13 @@
 
 Each wrapper launches its CUDA kernel (``csrc/softmax_rows.cu``,
 ``csrc/pair_act.cu``) for a CUDA tensor, or raises; for a CPU tensor it
-runs the plain version below.  Both kernels are bound by memory on the
-H100 (see the notes in the CUDA sources); the int words are bitwise the
-plain versions' on any input, since the kernels take the float input as
-given and every int reduction is exact.
+runs the plain version below.  The float modes are bound by memory on
+the H100, the int modes near int32 issue (see the notes in the CUDA
+sources); the int words are bitwise the plain versions' on any input,
+since the kernels take the float input as given and every int reduction
+is exact.  ``softmax_rows`` covers a row as ``tiling.softmax_rows_plan``
+says (held by a warp or a block, or streamed); both kernels move 16
+bytes at a time where the pointers allow.
 """
 from __future__ import annotations
 
@@ -28,12 +31,12 @@ _P, _I = _build.P, _build.I
 
 SOFTMAX_ROWS = _build.Kernel(
     "softmax_rows", "softmax_rows_launch",
-    [_P, _P, _I, _I, _I, _I, _P],
+    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     source="src/repro_torch/csrc/softmax_rows.cu",
     replaces="src/repro/kernels/dualmode_softmax.py:82")
 PAIR_ACT = _build.Kernel(
     "pair_act", "pair_act_launch",
-    [_P, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    [_P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P],
     source="src/repro_torch/csrc/pair_act.cu",
     replaces="src/repro/kernels/dualmode_softmax.py:121")
 
@@ -85,8 +88,10 @@ def softmax_rows(x: torch.Tensor, precision: str = "int") -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("softmax_rows: input must be contiguous")
     y = torch.empty_like(x)
+    plan = tiling.softmax_rows_plan(n, tiling.aligned16(x, y))
     SOFTMAX_ROWS(x.data_ptr(), y.data_ptr(), rows, n,
                  1 if precision == "int" else 0, unit.guard_shift_for(n),
+                 plan.row_threads, plan.words, plan.vec,
                  _build.stream_ptr(x.device))
     return y
 
@@ -107,6 +112,7 @@ def pair_act(z: torch.Tensor, mode: str = "gelu",
     y = torch.empty_like(z)
     if z.numel():
         PAIR_ACT(z.data_ptr(), y.data_ptr(), z.numel(), _MODES.index(mode),
-                 1 if precision == "int" else 0, tiling.sm_count(z.device),
-                 _build.stream_ptr(z.device))
+                 1 if precision == "int" else 0,
+                 4 if tiling.aligned16(z, y) else 1,
+                 tiling.sm_count(z.device), _build.stream_ptr(z.device))
     return y

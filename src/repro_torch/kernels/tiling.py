@@ -43,7 +43,9 @@ and tile of :func:`decode_dense_plan` and the copy width of
 :func:`decode_splits`.
 
 The residual-norm epilogue takes one block per row, in place of the
-reference's ``norm_rows``.
+reference's ``norm_rows``.  The unit's row softmax (row 1) holds each row
+in registers -- a warp a row, or a block a row -- up to the lengths of
+:func:`softmax_rows_plan`, and streams longer rows.
 """
 from __future__ import annotations
 
@@ -121,10 +123,47 @@ NORM_GEMM_TILES = {False: {"decode": (16, 256), "chunk": (64, 128),
 
 
 def aligned16(*tensors) -> bool:
-    """Whether every base pointer is a multiple of 16 bytes, as the GEMM
-    kernels' 16-byte copies need (None counts: the kernel never reads
-    it)."""
+    """Whether every base pointer is a multiple of 16 bytes, as the
+    kernels' 16-byte copies, loads and stores need (None counts: the
+    kernel never reads it)."""
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+SOFTMAX_ROWS_THREADS = 256    # threads of a block of the unit's row softmax
+SOFTMAX_WARP_WORDS = 1024     # longest row a warp holds (32 words a lane)
+SOFTMAX_BLOCK_WORDS = 8192    # longest row a block holds (32 a thread)
+
+
+class SoftmaxRowsPlan(NamedTuple):
+    scheme: str        # 'warp', 'block' (the row held) or 'stream'
+    row_threads: int   # threads that share a row: 32 or 256
+    words: int         # words a thread holds (0: streamed)
+    vec: int           # floats a load or store moves: 4 (16 bytes) or 1
+
+
+@functools.lru_cache(maxsize=256)
+def softmax_rows_plan(n: int, aligned: bool = True) -> SoftmaxRowsPlan:
+    """How the unit's row softmax (row 1, ``csrc/softmax_rows.cu``) covers
+    rows of ``n`` words; ``aligned`` says whether both base pointers are
+    multiples of 16 bytes.
+
+    Rows up to SOFTMAX_WARP_WORDS: a warp a row, 8 rows a block; up to
+    SOFTMAX_BLOCK_WORDS: a block of SOFTMAX_ROWS_THREADS a row.  Either
+    way each thread holds ``words`` words (a power of two, at least
+    ``vec``) read once from device memory, so the row is read once and
+    written once.  Longer rows are streamed: three sweeps of one block
+    that re-read the row, a float at a time.  A held row takes 16-byte
+    loads and stores where n % 4 == 0 (every row then starts on 16 bytes)
+    and ``aligned``; anything else moves a float at a time, the ragged
+    edge masked in the kernel.
+    ``csrc/softmax_rows.cu`` instantiates exactly these."""
+    if n > SOFTMAX_BLOCK_WORDS:
+        return SoftmaxRowsPlan("stream", SOFTMAX_ROWS_THREADS, 0, 1)
+    vec = 4 if aligned and n % 4 == 0 else 1
+    threads = 32 if n <= SOFTMAX_WARP_WORDS else SOFTMAX_ROWS_THREADS
+    words = max(vec, 1 << (cdiv(n, threads) - 1).bit_length())
+    return SoftmaxRowsPlan("warp" if threads == 32 else "block", threads,
+                           words, vec)
 
 
 def split_partials(like: torch.Tensor, split: int, m: int, cols: int):

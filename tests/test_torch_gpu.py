@@ -83,6 +83,71 @@ def test_pair_act_kernel(cuda, mode):
                                atol=2e-6, rtol=0)
 
 
+# every edge of tiling.softmax_rows_plan: warp rows (1-1024), block rows
+# (1025-8192), streamed rows past that; odd n takes the 4-byte loads
+@pytest.mark.parametrize("off", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 512, 513, 1024, 1025, 2048,
+                               2049, 8192, 8193, 70000])
+def test_softmax_rows_kernel_at_plan_edges(cuda, n, off):
+    gen = torch.Generator().manual_seed(n)
+    rows = 2 if n > 8192 else 11
+    x = _randn(gen, cuda, rows, n, scale=6.0)
+    x[0] = -30.0                                 # an all-masked row
+    x[1, : n // 2] = -30.0
+    xin = _off_by_one_float(x) if off else x
+    for prec in ("int", "float"):
+        before = ds.SOFTMAX_ROWS.launches
+        a, b = ds.softmax_rows(xin, prec), ds.softmax_rows(xin, prec)
+        assert ds.SOFTMAX_ROWS.launches == before + 2
+        assert torch.equal(a, b)                 # two calls, the same bits
+        want = ds.softmax_rows_plain(x, prec)
+        if prec == "int":
+            assert torch.equal(a, want)
+        else:
+            torch.testing.assert_close(a, want, atol=1e-6, rtol=0)
+
+
+def test_softmax_rows_refuses_16_byte_loads_when_unaligned(cuda):
+    from repro_torch.kernels import tiling
+    x = torch.randn(9, 512, device=cuda)
+    four = tiling.softmax_rows_plan(512, True)
+    assert four.vec == 4
+    with mock.patch.object(tiling, "softmax_rows_plan", lambda *a: four):
+        with pytest.raises(RuntimeError):
+            ds.softmax_rows(_off_by_one_float(x), "int")     # a pointer off 16 bytes
+        with pytest.raises(RuntimeError):
+            ds.softmax_rows(torch.randn(9, 510, device=cuda), "int")
+        assert torch.equal(ds.softmax_rows(x, "int"),
+                           ds.softmax_rows_plain(x, "int"))
+
+
+@pytest.mark.parametrize("off", [False, True])
+@pytest.mark.parametrize("mode", ["gelu", "silu"])
+def test_pair_act_kernel_every_word(cuda, mode, off):
+    """Every S5.10 word (and a 3-word tail past the last float4), bitwise
+    to the plain version: the one-exponent pair form against the plain
+    version's two exponents."""
+    w = torch.arange(65536 + 3, device=cuda).remainder(65536) - 32768
+    z = w.to(torch.float32) / 1024
+    zin = _off_by_one_float(z) if off else z
+    before = ds.PAIR_ACT.launches
+    a, b = ds.pair_act(zin, mode, "int"), ds.pair_act(zin, mode, "int")
+    assert ds.PAIR_ACT.launches == before + 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, ds.pair_act_plain(z, mode, "int"))
+    torch.testing.assert_close(ds.pair_act(zin, mode, "float"),
+                               ds.pair_act_plain(z, mode, "float"),
+                               atol=2e-6, rtol=0)
+
+
+def test_pair_act_refuses_16_byte_copies_when_unaligned(cuda):
+    from repro_torch.kernels import tiling
+    z = _off_by_one_float(torch.randn(1000, device=cuda))
+    with mock.patch.object(tiling, "aligned16", lambda *a: True):
+        with pytest.raises(RuntimeError):
+            ds.pair_act(z, "gelu", "int")
+
+
 def _case(dev, g, grid, seed=2, b=4, kh=4, h=64, bs=128, nblk=16):
     gen = torch.Generator().manual_seed(seed)
     n_pool = 1 + b * nblk

@@ -1,9 +1,11 @@
 """Compares two trees of the PyTorch port on one GPU: run it once a tree,
 in turns (parent, change, change, parent), inside one call to the card.
 
-    python tools/chip_compare.py kernels TREE TAG [ROWS]  # rows 5, 7, 12, 13
+    python tools/chip_compare.py kernels TREE TAG [ROWS]  # rows 1, 2, 5, 7,
+                                                          # 12, 13
     python tools/chip_compare.py tick TREE                # long-context serve
     python tools/chip_compare.py yi TREE                  # yi-6b serve
+    python tools/chip_compare.py bert TREE                # bert-base forward
 
 TREE is the root of a checkout (its ``src/`` holds ``repro_torch``); its
 kernels build into that checkout.  ``kernels`` times rows 7 (flash_fwd)
@@ -12,12 +14,17 @@ wrappers at the paths' shapes, back to back and under CUDA-graph replay,
 one JSON line a shape, and the float ``flash_decode_pallas`` wrapper at
 the long-context path's shape on the host's clock; rows 12 (fused_glu:
 yi-6b's tick and chunk, llama-3.2-vision's bucket-4096 prefill) and 13
-(glu_bwd, qwen1.5-0.5b's training shape) likewise; ROWS (a comma list,
-default all four) picks some.  Every tree runs on the timers of this
+(glu_bwd, qwen1.5-0.5b's training shape) likewise, and rows 1
+(softmax_rows, int and float: qwen1.5-0.5b's chunk rows and bert-base's
+score rows) and 2 (pair_act: qwen's SiLU gate, bert's GELU activation),
+with the static SASS counts of their int entries in the tree's build;
+ROWS (a comma list, default all six) picks some.  Every tree runs on the timers of this
 checkout's chip_smoke.py.  ``tick`` runs the tree's own
 chip_smoke.py long-context serve phase (the contiguous engine at max_seq
 16384, float and dual-mode), ``yi`` its yi-6b serve phase (the paged
-engine with the fused impls, float and dual-mode).
+engine with the fused impls, float and dual-mode), ``bert`` its bert-base
+phase (full-width forwards of 8 x 512 tokens: float, dual-mode, row 9,
+i-GELU).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ def _load(tree: str):
     return root
 
 
-def kernels(tree: str, tag: str, rows: str = "5,7,12,13") -> None:
+def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
     _load(tree)
     rows = {int(r) for r in rows.split(",")}
     import torch
@@ -117,6 +124,50 @@ def kernels(tree: str, tag: str, rows: str = "5,7,12,13") -> None:
                   flush=True)
         del qf, k, v
     _glu_rows(tag, rows, timers, randn)
+    _unit_rows(tag, rows, timers, randn)
+
+
+def _unit_rows(tag: str, rows: set, timers, randn) -> None:
+    """Rows 1 and 2 through the tree's wrappers at the paths' shapes, and
+    the SASS counts of their int entries in the tree's build."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import dualmode_softmax as ds
+    time_ms, graph_ms = timers.time_ms, timers.graph_ms
+    if 1 in rows:
+        for name, (r, n) in {"qwen": (1024, 2048),
+                             "bert": (49152, 512)}.items():
+            x = randn(r, n, scale=3.0)
+            if name == "qwen":   # the chunk's causal MASK_VALUE tail
+                qpos = torch.arange(r, device=x.device) % 64 + 1000
+                keep = torch.arange(n, device=x.device)[None] <= qpos[:, None]
+                x = torch.where(keep, x, torch.full_like(x, -30.0))
+            for prec in ("int", "float"):
+                def fn(prec=prec):
+                    return ds.softmax_rows(x, prec)
+                print(json.dumps(dict(
+                    tag=tag, kernel="softmax_rows", shape=name,
+                    precision=prec, ms=time_ms(fn), graph_ms=graph_ms(fn))),
+                    flush=True)
+            del x
+    if 2 in rows:
+        for name, (m, f, modes) in {"qwen": (64, 2816, ("silu",)),
+                                    "bert": (4096, 3072, ("gelu", "silu"))
+                                    }.items():
+            z = randn(m, f, scale=3.0)
+            for mode in modes:
+                for prec in ("int", "float"):
+                    def fn(mode=mode, prec=prec):
+                        return ds.pair_act(z, mode, prec)
+                    print(json.dumps(dict(
+                        tag=tag, kernel="pair_act", shape=name, mode=mode,
+                        precision=prec, ms=time_ms(fn),
+                        graph_ms=graph_ms(fn))), flush=True)
+            del z
+    if rows & {1, 2}:
+        _build.LIBRARY.get()
+        print(json.dumps(dict(tag=tag, sass=timers.sass_report(
+            _build.LIBRARY.info["dir"]))), flush=True)
 
 
 def _glu_rows(tag: str, rows: set, timers, randn) -> None:
@@ -172,6 +223,10 @@ def yi(tree: str) -> None:
     _serve(tree, "yi_serve_phase")
 
 
+def bert(tree: str) -> None:
+    _serve(tree, "bert_phase")
+
+
 if __name__ == "__main__":
     mode, *args = sys.argv[1:]
-    {"kernels": kernels, "tick": tick, "yi": yi}[mode](*args)
+    {"kernels": kernels, "tick": tick, "yi": yi, "bert": bert}[mode](*args)
