@@ -23,13 +23,15 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 4. long     the long-context kernels (blocked float flash, one-sweep snapped
             int flash, contiguous split-KV decode float and int) against
             their plain versions at the long-context path's shapes and at
-            edge shapes (for the float forward and decode also their
-            Hopper bodies' tile edges, q_pos < 0, splits with no tile and
-            pointers one float off 16 bytes; both held to the same bits
-            over two calls), timed beside their bounds (the float forward
-            and decode at the tiles and split count the path's wrappers
-            pick, also under CUDA-graph replay, the decode beside a probe
-            of split counts); then the contiguous
+            edge shapes (their Hopper bodies' tile edges, q_pos < 0,
+            splits with no tile and pointers one float off 16 bytes; the
+            int kernels' m and S words bitwise on grid-valued q and k; all
+            held to the same bits over two calls), timed beside their
+            bounds at the tiles and split count the path's wrappers pick,
+            also under CUDA-graph replay (the decodes also with their split
+            fold, beside a probe of split counts; row 8 with each of its
+            bucket schemes, a "[snap buckets probe]" line); then the
+            contiguous
             engine at max_seq 16384 (buckets 512 / 1024 / 4096, 4 slots),
             float and dual-mode, on 6 prompts of 1000-4000 tokens: prefill
             resolves to the blocked kernels and decode to the contiguous
@@ -106,10 +108,11 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             image keys, as the cross sublayer runs them; the fused GLU
             (row 12) at the bucket-4096 prefill against its plain version,
             held to the same bits over two calls; each timed beside
-            its bound (rows 5 / 7 at the wrappers' tiles and splits, under
-            CUDA-graph replay, beside SDPA, also at the self-attention
-            shapes: a causal bucket-4096 prefill and a decode tick of a
-            4096-key cache).  Then,
+            its bound (rows 5-8 at the wrappers' tiles and splits, under
+            CUDA-graph replay, rows 5 / 7 beside SDPA), also at the
+            self-attention shapes: a causal bucket-4096 prefill (row 8's
+            words there too, and its bucket schemes) and a decode tick of
+            a 4096-key cache.  Then,
             with the bert weights freed, ServeEngine on full-width
             llama-3.2-vision-11b (random weights from a seeded generator,
             every cross_gate 0.5), float (norm / ffn 'fused_pallas') and
@@ -125,15 +128,18 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
-each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]") and
-row 5 ("[decode dense]") at every shape they were timed at, and a
+each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]"),
+row 5 ("[decode dense]"), row 8 ("[flash snap]") and row 6 ("[decode
+dense int]") at every shape they were timed at, and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
 F.silu, F.gelu) and row 14 at yi's and bert's (beside its two-call
 equivalent, torch.add then F.rms_norm / F.layer_norm: no one PyTorch call
 computes it, so its library_ms is null), each back to back and under
 CUDA-graph replay.  After the build, a "[sass]" line counts the
-instructions of rows 1 and 2's int entries (cuobjdump -sass).
+instructions of rows 1 and 2's int entries (cuobjdump -sass), and another
+the int instructions a score that row 8's entries add over row 7's, which
+row 8's bound counts at the f32 rate.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
@@ -315,9 +321,69 @@ def fwd_checks(fa, name: str, args, causal: bool, bkv: int) -> float:
     return e
 
 
+def snap_checks(fai, name: str, args, causal: bool, bkv: int,
+                gs: int = 0) -> None:
+    """Row 8 against the plain version on grid-valued q and k (exact
+    scores): the partial's m and S words bitwise, the output within
+    TOL_FLASH_F; two calls give the same bits."""
+    kw = dict(causal=causal, block_kv=bkv, guard_shift=gs)
+    got = fai.flash_snap(*args, return_partial=True, **kw)
+    want = fai.flash_snap_plain(*args, return_partial=True, **kw)
+    check(f"flash_snap m {name}", got[1], want[1], TOL_INT)
+    check(f"flash_snap S {name}", got[2], want[2], TOL_INT)
+    check(f"flash_snap out {name}", fai.flash_snap(*args, **kw),
+          fai.flash_snap_plain(*args, **kw), TOL_FLASH_F)
+    check_repeat(f"flash_snap {name} repeat", lambda: torch.cat(
+        [x.flatten().to(torch.float32) for x in fai.flash_snap(
+            *args, return_partial=True, **kw)]
+        + [fai.flash_snap(*args, **kw).flatten()]))
+
+
+def snap_int_a_score(results, h: int, hv: int, causal: bool) -> float:
+    """The int instructions a score of the row-8 entry the plan picks for
+    16-byte copies at head dims h, hv (:func:`snap_int_ops`)."""
+    from repro_torch.kernels import tiling
+    plan = tiling.flash_snap_plan(h, hv, causal=causal)
+    key = ",".join(str(x) for x in (
+        64 if max(h, hv) <= 64 else 128, plan.block_q, plan.stages, plan.vec,
+        tiling.FLASH_SNAP_BUCKETS.index(plan.buckets)))
+    if key not in results["snap_sass"]:
+        fail(f"no SASS count of row 8's entry {key}: its bound needs one")
+    return results["snap_sass"][key]["int_ops_a_score"]
+
+
+def snap_bucket_probe(fai, key: str, args, want, kw, results) -> None:
+    """Row 8 with each bucket scheme its entry instantiates (the plan
+    patched), on the plan's other choices: the grid-valued case's words
+    ``want`` bitwise, then the random case ``args`` back to back and under
+    CUDA-graph replay; one "[snap buckets probe]" line."""
+    from repro_torch.kernels import tiling
+    grid, rand = args
+    h, hv = grid[0].shape[-1], grid[2].shape[-1]
+    res = {}
+    for buckets in tiling.FLASH_SNAP_BUCKETS:
+        plan = tiling.flash_snap_plan(h, hv, causal=kw["causal"])._replace(
+            buckets=buckets)
+        with mock.patch.object(tiling, "flash_snap_plan",
+                               lambda *a, plan=plan, **k_: plan):
+            got = fai.flash_snap(*grid, return_partial=True, **kw)
+            check(f"flash_snap {buckets} buckets {key} m words", got[1],
+                  want[1], TOL_INT)
+            check(f"flash_snap {buckets} buckets {key} S words", got[2],
+                  want[2], TOL_INT)
+
+            def fn():
+                return fai.flash_snap(*rand, **kw)
+            ms = time_ms(fn, iters=5, warmup=2)
+            res[buckets] = dict(ms=ms, graph_ms=graph_ms(
+                fn, calls=2 if ms > 1.0 else 10, iters=3))
+    results.setdefault("snap_buckets_probe", {})[key] = res
+    log(f"[snap buckets probe] {key}, ms: " + json.dumps(res))
+
+
 def kernel_row(table: dict, key: str, fn, plain_fn, b_ms: float, b_by: str,
                lib_ms, iters: int = 10, plain_iters: int = 2, **extra):
-    """One shape of rows 5 / 7 into ``table``: back-to-back and CUDA-graph
+    """One shape of rows 5-8 into ``table``: back-to-back and CUDA-graph
     replay times of the wrapper, the plain version's, the bound and the
     library call's time; returns the entry."""
     ms = time_ms(fn, iters=iters, warmup=2)
@@ -480,6 +546,38 @@ def sass_report(build_dir: str, sources=("pair_act", "softmax_rows"),
         [tool, "-sass", os.path.join(build_dir, src + ".o")],
         capture_output=True, text=True, timeout=120).stdout, keep)
         for src in sources}
+
+
+SNAP_INT_FAMILIES = ("int", "imad", "conv")
+
+
+def snap_int_ops(build_dir: str) -> dict:
+    """Row 8's int instructions a score, by entry: the int-ALU, IMAD and
+    conversion instructions (:data:`SNAP_INT_FAMILIES`) in the key-tile
+    loop of each ``flash_snap`` entry (the longest loop of ``fwd_kernel``)
+    less those of row 7's entry of the same tile shape, over the SR x SC
+    scores a thread computes a tile.  The two loops share the score, P V and
+    ring code, so the difference is what the snapped recurrence adds.
+    Keys: "D,BQ,NS,VEC,buckets"; each with the count, the two mixes and the
+    scores a trip.  {} where the toolkit has no cuobjdump."""
+    rep = sass_report(build_dir, sources=("flash_fwd", "flash_snap"),
+                      keep=("fwd_kernel",))
+    if not rep:
+        return {}
+    fwd = {k.split("<")[1].rstrip(">"): v
+           for k, v in rep["flash_fwd"].items()}
+    out = {}
+    for name, e in rep["flash_snap"].items():
+        args = name.split("<")[1].rstrip(">")
+        d, bq = (int(x) for x in args.split(",")[:2])
+        base = fwd[",".join(args.split(",")[:4])]
+        scores = (bq // 16) * 4            # SR x SC of the thread
+        extra = sum(e["mix"].get(f, 0) - base["mix"].get(f, 0)
+                    for f in SNAP_INT_FAMILIES)
+        out[args] = dict(int_ops_a_score=extra / scores, scores=scores,
+                         mix=e["mix"], fwd_mix=base["mix"],
+                         loops=e["loops"], fwd_loops=base["loops"])
+    return out
 
 
 # ---------------- phase 2: kernels ----------------
@@ -892,10 +990,12 @@ def long_kernel_phase(dev, results):
                   TOL_FLASH_I)
     grid = attn_case(1, S_, T_, 16, 1, 64, 64, torch.arange(S_), grid=True)
     got = fai.flash_snap(*grid, guard_shift=0, return_partial=True, **kw)
-    want = fai.flash_snap_plain(*grid, guard_shift=0, return_partial=True,
-                                **kw)
-    check("flash_snap path m words (exact scores)", got[1], want[1], TOL_INT)
-    check("flash_snap path S words (exact scores)", got[2], want[2], TOL_INT)
+    want_grid = fai.flash_snap_plain(*grid, guard_shift=0,
+                                     return_partial=True, **kw)
+    check("flash_snap path m words (exact scores)", got[1], want_grid[1],
+          TOL_INT)
+    check("flash_snap path S words (exact scores)", got[2], want_grid[2],
+          TOL_INT)
     for (b, s, t, kh, g, h, hv, qpos, causal, bkv, ragged) in (
             (2, 70, 200, 2, 2, 64, 64, torch.arange(130, 200), True, 64,
              True),
@@ -951,25 +1051,34 @@ def long_kernel_phase(dev, results):
               fai.flash_snap(*long_row, **ekw),
               fai.flash_snap_plain(*long_row, **ekw), TOL_FLASH_F)
 
-    # row 7's tile edges (S G and T one off 128 / 64), a causal tail past
-    # one pre-pass chunk that carries all of a row's mass, q_pos < 0, G 4 at
-    # h 128 with S G off 64, the 4-byte copies (h 30 / hv 62, and a pointer
-    # one float off 16 bytes); two calls give the same bits
-    for (b, s, t, kh, g, h, hv, qpos, causal, bkv, allm) in (
-            (1, 127, 127, 2, 1, 64, 64, torch.arange(127), True, 64, False),
-            (1, 43, 257, 2, 3, 64, 64, torch.arange(214, 257), True, 64,
-             False),
-            (2, 40, 1300, 2, 2, 64, 64, torch.arange(40), True, 64, True),
-            (1, 20, 1100, 2, 1, 128, 128, torch.arange(-3, 17), True, 16,
-             False),
-            (1, 67, 1601, 2, 4, 128, 128, torch.full((67,), 1600), False,
-             64, False),
-            (1, 50, 90, 2, 3, 30, 62, torch.arange(40, 90), True, 37, False)):
+    # the Hopper body's tile edges (S G and T one off 128 / 64), a causal
+    # tail past one pre-pass chunk that carries all of a row's mass, q_pos <
+    # 0, G 4 at h 128 with S G off 64, the 4-byte copies (h 30 / hv 62, and
+    # a pointer one float off 16 bytes); two calls give the same bits.  Row
+    # 8 on grid-valued q and k, its words bitwise
+    edges = (
+        (1, 127, 127, 2, 1, 64, 64, torch.arange(127), True, 64, False),
+        (1, 43, 257, 2, 3, 64, 64, torch.arange(214, 257), True, 64, False),
+        (2, 40, 1300, 2, 2, 64, 64, torch.arange(40), True, 64, True),
+        (1, 20, 1100, 2, 1, 128, 128, torch.arange(-3, 17), True, 16, False),
+        (1, 33, 129, 3, 4, 128, 72, torch.arange(96, 129), True, 16, False),
+        (1, 67, 1601, 2, 4, 128, 128, torch.full((67,), 1600), False, 64,
+         False),
+        (1, 50, 90, 2, 3, 30, 62, torch.arange(40, 90), True, 37, False))
+    for (b, s, t, kh, g, h, hv, qpos, causal, bkv, allm) in edges:
+        name = (f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} bkv={bkv} "
+                f"all-masked row={allm}")
         args = attn_case(b, s, t, kh, g, h, hv, qpos, ragged=True)
         if allm:
             args[4][:, 0] = 0
-        fwd_checks(fa, f"({b},{s},{t},{kh},{g},{h},{hv}) causal={causal} "
-                   f"bkv={bkv} all-masked row={allm}", args, causal, bkv)
+        fwd_checks(fa, name, args, causal, bkv)
+        args = attn_case(b, s, t, kh, g, h, hv, qpos, grid=True, ragged=True)
+        if allm:
+            args[4][:, 0] = 0
+        snap_checks(fai, name, args, causal, bkv)
+        snap_checks(fai, name + " pointers one float off 16 bytes",
+                    tuple(off_by_one_float(x) for x in args[:3]) + args[3:],
+                    causal, bkv)
     args = attn_case(1, 70, 200, 2, 2, 64, 64, torch.arange(130, 200),
                      ragged=True)
     fwd_checks(fa, "(1,70,200,2,2,64,64) pointers one float off 16 bytes",
@@ -1005,16 +1114,23 @@ def long_kernel_phase(dev, results):
     results["flash_fwd"] = dict(max_abs_err=err_f, **{
         k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")})
-    ms = time_ms(lambda: fai.flash_snap(*path, guard_shift=0, **kw), iters=10,
-                 warmup=2)
-    plain = time_ms(lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw),
-                    iters=2, warmup=1)
-    log(f"  flash_snap (B1 S{S_} K16 G1 h64 T{T_} causal): {ms * 1e3:.1f} "
-        f"us, plain {plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
-        f"({b_by})")
-    results["flash_snap"] = dict(max_abs_err=err_i, ms=ms, plain_ms=plain,
-                                 bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=None)
+    # row 8: the same pairs and bytes, plus the int instructions a score
+    # its entry adds (counted from its SASS) at the f32 rate
+    n_int = snap_int_a_score(results, 64, 64, True)
+    check_repeat(f"flash_snap path (1, {S_}, 16, 1, 64) T {T_} repeat",
+                 lambda: fai.flash_snap(*path, guard_shift=0, **kw))
+    r_ = kernel_row(results.setdefault("flash_snap_ms", {}),
+                    f"path B1 S{S_} K16 G1 h64 T{T_} causal",
+                    lambda: fai.flash_snap(*path, guard_shift=0, **kw),
+                    lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw),
+                    *bound(nbytes, pairs * (4 * 64 + 4 + n_int)), None,
+                    int_ops_a_score=n_int,
+                    plan=tuple(tiling.flash_snap_plan(64, 64, causal=True)))
+    results["flash_snap"] = dict(max_abs_err=err_i, **{
+        k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")})
+    snap_bucket_probe(fai, "path", (grid, path), want_grid,
+                      dict(causal=True, block_kv=64, guard_shift=0), results)
 
     # -- rows 5 / 6 at the path's shape: 4 slots of a 16384-key cache at
     #    depths within 1000-4016
@@ -1036,15 +1152,15 @@ def long_kernel_phase(dev, results):
                       args[1].shape[1]))
 
     main_qpos = [x * BUCKET // 4096 for x in (1100, 2500, 3900, 4015)]
-    # the (splits, tile) the path's wrapper picks: the int kernel's rule,
-    # and the float kernel's plan
-    ns, bkv = fd.dense_decode_tiles(T_, 4 * 16, dev, int_mode=True)
-    ns_f, bkv_f = fd.dense_decode_tiles(T_, 4 * 16, dev,
-                                        int_mode=False)
+    # the (splits, tile) the path's wrappers pick (the plan's, float and
+    # int), then fewer splits, and the 3 splits of 128 keys of the old int
+    # rule
+    ns, bkv = fd.dense_decode_tiles(T_, 4 * 16, dev)
+    grids = ((ns, bkv), (1, bkv), (8, bkv), (3, 128))
     err_f = err_i = 0.0
     for g, grid_v in ((1, False), (1, True), (2, False), (4, True)):
         args = dec_case(4, T_, 16 // g, g, 64, main_qpos, grid=grid_v)
-        for n_s, bk in ((ns_f, bkv_f), (1, bkv), (ns, bkv), (8, bkv)):
+        for n_s, bk in grids:
             pk = dparts(True, args, n_s, bk, False)
             pp = dparts(False, args, n_s, bk, False)
             e = check(f"decode_dense G={g} grid={grid_v} splits={n_s} "
@@ -1052,16 +1168,16 @@ def long_kernel_phase(dev, results):
                       fd.finish_partials(*pp, int_mode=False), TOL_DECODE_F)
             if g == 1 and not grid_v:
                 err_f = max(err_f, e)
-        for n_s in (1, ns, 8):
-            ik = dparts(True, args, n_s, bkv, True)
-            ip = dparts(False, args, n_s, bkv, True)
+            ik = dparts(True, args, n_s, bk, True)
+            ip = dparts(False, args, n_s, bk, True)
             if grid_v:
-                check(f"decode_dense_int m G={g} splits={n_s}", ik[0], ip[0],
-                      TOL_INT)
-                check(f"decode_dense_int S G={g} splits={n_s}", ik[1], ip[1],
-                      TOL_INT)
+                check(f"decode_dense_int m G={g} splits={n_s} bkv={bk}",
+                      ik[0], ip[0], TOL_INT)
+                check(f"decode_dense_int S G={g} splits={n_s} bkv={bk}",
+                      ik[1], ip[1], TOL_INT)
             e = check(f"decode_dense_int out G={g} grid={grid_v} "
-                      f"splits={n_s}", fd.finish_partials(*ik, int_mode=True),
+                      f"splits={n_s} bkv={bk}",
+                      fd.finish_partials(*ik, int_mode=True),
                       fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
             if g == 1 and not grid_v:
                 err_i = max(err_i, e)
@@ -1073,42 +1189,55 @@ def long_kernel_phase(dev, results):
               dparts(True, (qf, k, eye, qp, valid), n_s, bk, True)[2],
               dparts(False, (qf, k, eye, qp, valid), n_s, bk, True)[2],
               TOL_INT)
-    # row 5's edges: G 4 at h 128 with hv 96 and T off 64, q_pos < 0,
-    # splits with no tile, block_kv 16 / 37, non-causal, the 4-byte copies
-    # (h 30 / hv 62, and pointers one float off 16 bytes); each split's m
-    # and the folded outputs against the plain version
+    # rows 5 / 6's edges: G 4 at h 128 with hv 96 and T off 64, q_pos < 0,
+    # splits with no tile, block_kv 16 / 37, non-causal, G 8, the 4-byte
+    # copies (h 30 / hv 62, and pointers one float off 16 bytes); each
+    # split's m and the folded outputs against the plain version, row 6 on
+    # grid-valued q and k with its m and S words bitwise
     for (b, t, kh, g, h, hv, qpos, causal, n_s, bk) in (
             (3, 1000, 2, 4, 128, 96, [-1, 500, 999], True, 8, 64),
             (4, 600, 2, 1, 64, 64, [5, 127, 300, 599], True, 40, 16),
             (2, 333, 2, 4, 128, 128, [0, 0], False, 7, 64),
-            (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37)):
-        qf_, k_, v_, qp_, _ = dec_case(b, t, kh, g, h, qpos, hv=hv)
+            (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37),
+            (2, 120, 2, 8, 128, 96, [70, 119], True, 2, 37)):
         valid_ = (torch.rand(b, t, generator=gen) > 0.25).to(torch.uint8).to(
             dev)
-        for off in (False, True):
-            ops = (qf_, k_, v_)
-            if off:
-                ops = tuple(off_by_one_float(x) for x in ops)
-            dkw = dict(num_splits=n_s, block_kv=bk, causal=causal,
-                       int_mode=False, guard_shift=0)
-            pk = fd.decode_dense_partials(*ops, qp_, valid_, **dkw)
-            pp = fd.decode_dense_partials_plain(*ops, qp_, valid_, **dkw)
-            name = (f"({b},{t},{kh},{g},{h},{hv}) q_pos {qpos} causal="
-                    f"{causal} splits={n_s} bkv={bk} pointers off={off}")
-            check(f"decode_dense m {name}", pk[0], pp[0], TOL_DECODE_F)
-            check(f"decode_dense {name}",
-                  fd.finish_partials(*pk, int_mode=False),
-                  fd.finish_partials(*pp, int_mode=False), TOL_DECODE_F)
+        for int_mode in (False, True):
+            qf_, k_, v_, qp_, _ = dec_case(b, t, kh, g, h, qpos, hv=hv,
+                                           grid=int_mode)
+            for off in (False, True):
+                ops = (qf_, k_, v_)
+                if off:
+                    ops = tuple(off_by_one_float(x) for x in ops)
+                dkw = dict(num_splits=n_s, block_kv=bk, causal=causal,
+                           int_mode=int_mode,
+                           guard_shift=fai.unit.guard_shift_for(t))
+                pk = fd.decode_dense_partials(*ops, qp_, valid_, **dkw)
+                pp = fd.decode_dense_partials_plain(*ops, qp_, valid_, **dkw)
+                name = (f"({b},{t},{kh},{g},{h},{hv}) q_pos {qpos} causal="
+                        f"{causal} splits={n_s} bkv={bk} pointers off={off}")
+                kern = "decode_dense_int" if int_mode else "decode_dense"
+                if int_mode:
+                    check(f"{kern} S {name}", pk[1], pp[1], TOL_INT)
+                check(f"{kern} m {name}", pk[0], pp[0],
+                      TOL_INT if int_mode else TOL_DECODE_F)
+                check(f"{kern} {name}",
+                      fd.finish_partials(*pk, int_mode=int_mode),
+                      fd.finish_partials(*pp, int_mode=int_mode),
+                      TOL_DECODE_F)
 
     args = dec_case(4, T_, 16, 1, 64, main_qpos)
-    check_repeat(f"decode_dense path B4 K16 G1 h64 T{T_} repeat",
-                 lambda: torch.cat([x.flatten() for x in dparts(
-                     True, args, ns_f, bkv_f, False)]))
+    for int_mode in (False, True):
+        check_repeat(f"decode_dense int_mode={int_mode} path B4 K16 G1 h64 "
+                     f"T{T_} repeat", lambda: torch.cat(
+                         [x.flatten().to(torch.float32) for x in dparts(
+                             True, args, ns, bkv, int_mode)]))
     keys = sum(p + 1 for p in main_qpos)
 
-    def dec_bound(n_s):
+    def dec_bound(n_s, int_mode):
+        state = 17 if int_mode else 2      # m and S[16], or m and l
         nbytes = (keys * 16 * 128 * 4 + keys + args[0].numel() * 4 + 4 * 4
-                  + 4 * n_s * 16 * (64 + 2) * 4)
+                  + 4 * n_s * 16 * (64 + state) * 4)
         return bound(nbytes, keys * 16 * (4 * 64 + 4))
     # the library on the same keys: the deepest slot's, masked per row
     live = max(main_qpos) + 1
@@ -1121,54 +1250,42 @@ def long_kernel_phase(dev, results):
         return torch.nn.functional.scaled_dot_product_attention(
             q_sdpa, k_sdpa, v_sdpa, attn_mask=mask, scale=1.0)
     diff = (sdpa().reshape(4, 1, 16, 1, 64) - fd.finish_partials(
-        *dparts(True, args, ns_f, bkv_f, False), int_mode=False)).abs().max()
+        *dparts(True, args, ns, bkv, False), int_mode=False)).abs().max()
     lib = time_ms(sdpa)
     log(f"  SDPA ({live} keys, masked) vs decode_dense: max abs diff "
         f"{diff.item():.3g}")
-    fold = time_ms(lambda: fd.finish_partials(
-        *dparts(True, args, ns_f, bkv_f, False), int_mode=False))
-    r_ = kernel_row(results.setdefault("decode_dense_ms", {}),
-                    f"path B4 K16 G1 h64 T{T_} depths {main_qpos}",
-                    lambda: dparts(True, args, ns_f, bkv_f, False),
-                    lambda: dparts(False, args, ns_f, bkv_f, False),
-                    *dec_bound(ns_f), lib, iters=50, plain_iters=3,
-                    splits=ns_f, block_kv=bkv_f, with_fold_ms=fold)
-    results["decode_dense"] = dict(max_abs_err=err_f, **{
-        k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms")})
-    ms = time_ms(lambda: dparts(True, args, ns, bkv, True))
-    plain = time_ms(lambda: dparts(False, args, ns, bkv, True), iters=3,
-                    warmup=1)
-    fold = time_ms(lambda: fd.finish_partials(
-        *dparts(True, args, ns, bkv, True), int_mode=True))
-    b_ms, b_by = dec_bound(ns)
-    log(f"  decode_dense_int (B4 K16 G1 h64 T{T_}, depths {main_qpos}, {ns} "
-        f"splits of {bkv}-key tiles): {ms * 1e3:.1f} us (+fold "
-        f"{fold * 1e3:.1f} us total), plain {plain * 1e3:.1f} us, bound "
-        f"{b_ms * 1e3:.1f} us ({b_by})")
-    results["decode_dense_int"] = dict(max_abs_err=err_i, ms=ms,
-                                       plain_ms=plain, bound_ms=b_ms,
-                                       bound_by=b_by, library_ms=None)
-    # how the float kernel's time moves with the split count (its plan's
-    # tile), and the int kernel's old 3-vs-8 probe
-    times = {n_s: (time_ms(lambda: dparts(True, args, n_s, bkv_f, False)),
-                   time_ms(lambda: fd.finish_partials(*dparts(
-                       True, args, n_s, bkv_f, False), int_mode=False)))
-             for n_s in sorted({8, ns_f, 32, 64})}
-    log(f"  decode_dense {bkv_f}-key tiles, splits: " + ", ".join(
-        f"{n_s} {a * 1e3:.1f} us (+fold {b_ * 1e3:.1f} us total)"
-        for n_s, (a, b_) in times.items()))
-    for n_s in (ns, tiling.DECODE_MAX_SPLITS):
-        times = [time_ms(lambda: dparts(True, args, n_s, bkv, True))
-                 for _ in range(2)]
-        log(f"  decode_dense_int {n_s} splits, twice: "
-            + " / ".join(f"{t * 1e3:.1f}" for t in times) + " us")
+    for name, int_mode, err in (("decode_dense", False, err_f),
+                                ("decode_dense_int", True, err_i)):
+        fold = time_ms(lambda: fd.finish_partials(
+            *dparts(True, args, ns, bkv, int_mode), int_mode=int_mode))
+        r_ = kernel_row(results.setdefault(f"{name}_ms", {}),
+                        f"path B4 K16 G1 h64 T{T_} depths {main_qpos}",
+                        lambda: dparts(True, args, ns, bkv, int_mode),
+                        lambda: dparts(False, args, ns, bkv, int_mode),
+                        *dec_bound(ns, int_mode), None if int_mode else lib,
+                        iters=50, plain_iters=3, splits=ns, block_kv=bkv,
+                        with_fold_ms=fold)
+        results[name] = dict(max_abs_err=err, **{
+            k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")})
+    # how the kernels' times move with the split count at the plan's tile,
+    # and at the old int rule's 3 splits of 128 keys
+    for int_mode in (False, True):
+        times = {f"{n_s}x{bk}": (
+            time_ms(lambda: dparts(True, args, n_s, bk, int_mode)),
+            time_ms(lambda: fd.finish_partials(*dparts(
+                True, args, n_s, bk, int_mode), int_mode=int_mode)))
+            for n_s, bk in ((3, 128), (8, bkv), (ns, bkv), (32, bkv),
+                            (64, bkv))}
+        log(f"  decode_dense int_mode={int_mode} splits x tile: " + ", ".join(
+            f"{k_} {a * 1e3:.1f} us (+fold {b_ * 1e3:.1f} us total)"
+            for k_, (a, b_) in times.items()))
     # the whole float wrapper as a tick calls it (plan, kernel, fold) at
-    # the int kernel's split count and at the plan's, in turns: host time a
+    # the old int rule's 3 splits and at the plan's, in turns: host time a
     # call (issuing the calls, the card not waited on) and wall time a call
     q5, qp5 = args[0][:, None], args[3][:, None]
     wrap = {}
-    for n_s in (ns, ns_f, ns, ns_f):
+    for n_s in (3, ns, 3, ns):
         wrap.setdefault(n_s, []).append(host_ms(lambda: fd.flash_decode_pallas(
             q5, args[1], args[2], q_pos=qp5, kv_valid=args[4], scale=1.0,
             num_splits=n_s)))
@@ -2407,9 +2524,8 @@ def vision_kernel_phase(dev, results):
     t, (kh, gq, h) = VISION_KERNEL["t"], VISION_KERNEL["heads"]
     b = VISION["n_slots"]
     gs = unit.guard_shift_for(t)
-    # the (splits, tile) a cross tick's wrapper picks: int rule, float plan
-    ns, bkv = fd.dense_decode_tiles(t, b * kh, dev, int_mode=True)
-    ns_f, bkv_f = fd.dense_decode_tiles(t, b * kh, dev, int_mode=False)
+    # the (splits, tile) a cross tick's wrappers pick (the plan's)
+    ns, bkv = fd.dense_decode_tiles(t, b * kh, dev)
     qp = torch.zeros(b, dtype=torch.int32, device=dev)
     valid = torch.ones(b, t, dtype=torch.uint8, device=dev)
 
@@ -2421,24 +2537,22 @@ def vision_kernel_phase(dev, results):
     for grid in (True, False):          # the random operands are timed
         args = ((randn(b, kh, gq, h, grid=grid) * h ** -0.5).contiguous(),
                 randn(b, t, kh, h, grid=grid), randn(b, t, kh, h), qp, valid)
-        for n_s, bk in ((ns_f, bkv_f), (ns, bkv), (1, 128), (8, 128)):
+        for n_s, bk in ((ns, bkv), (1, 128), (8, 128)):
             check(f"decode_dense cross T{t} grid={grid} splits={n_s} "
                   f"bkv={bk}",
                   fd.finish_partials(*dparts(True, args, n_s, bk, False),
                                      int_mode=False),
                   fd.finish_partials(*dparts(False, args, n_s, bk, False),
                                      int_mode=False), TOL_DECODE_F)
-            if (n_s, bk) == (ns_f, bkv_f):
-                continue
             ik, ip = (dparts(True, args, n_s, bk, True),
                       dparts(False, args, n_s, bk, True))
             if grid:
-                check(f"decode_dense_int cross m words splits={n_s}", ik[0],
-                      ip[0], TOL_INT)
-                check(f"decode_dense_int cross S words splits={n_s}", ik[1],
-                      ip[1], TOL_INT)
-            check(f"decode_dense_int cross T{t} grid={grid} splits={n_s}",
-                  fd.finish_partials(*ik, int_mode=True),
+                check(f"decode_dense_int cross m words splits={n_s} "
+                      f"bkv={bk}", ik[0], ip[0], TOL_INT)
+                check(f"decode_dense_int cross S words splits={n_s} "
+                      f"bkv={bk}", ik[1], ip[1], TOL_INT)
+            check(f"decode_dense_int cross T{t} grid={grid} splits={n_s} "
+                  f"bkv={bk}", fd.finish_partials(*ik, int_mode=True),
                   fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
     keys = b * t
     nbytes = keys * kh * 2 * h * 4 + args[0].numel() * 4 + keys + 4 * b
@@ -2448,30 +2562,27 @@ def vision_kernel_phase(dev, results):
     v_l = args[2].repeat_interleave(gq, dim=2).permute(0, 2, 1, 3)
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q_l, k_l, v_l, scale=1.0))
-    check_repeat("decode_dense cross repeat", lambda: torch.cat(
-        [x.flatten() for x in dparts(True, args, ns_f, bkv_f, False)]))
-    fold = time_ms(lambda: fd.finish_partials(
-        *dparts(True, args, ns_f, bkv_f, False), int_mode=False))
-    shapes["decode_dense cross"] = kernel_row(
-        results["decode_dense_ms"],
-        f"cross B{b} K{kh} G{gq} h{h} T{t} non-causal",
-        lambda: dparts(True, args, ns_f, bkv_f, False),
-        lambda: dparts(False, args, ns_f, bkv_f, False), b_ms, "bytes", lib,
-        iters=50, plain_iters=3, splits=ns_f, block_kv=bkv_f,
-        with_fold_ms=fold)
-    ms = time_ms(lambda: dparts(True, args, ns, bkv, True))
-    plain = time_ms(lambda: dparts(False, args, ns, bkv, True), iters=3,
-                    warmup=1)
-    log(f"  decode_dense_int cross (B{b} K{kh} G{gq} h{h} T{t} non-causal, "
-        f"{ns} splits of {bkv}-key tiles): {ms * 1e3:.1f} us, plain "
-        f"{plain * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us (bytes)")
-    shapes["decode_dense_int cross"] = dict(ms=ms, plain_ms=plain,
-                                            bound_ms=b_ms, library_ms=None)
+    results.setdefault("decode_dense_int_ms", {})
+    for name, int_mode in (("decode_dense", False),
+                           ("decode_dense_int", True)):
+        check_repeat(f"{name} cross repeat", lambda: torch.cat(
+            [x.flatten().to(torch.float32)
+             for x in dparts(True, args, ns, bkv, int_mode)]))
+        fold = time_ms(lambda: fd.finish_partials(
+            *dparts(True, args, ns, bkv, int_mode), int_mode=int_mode))
+        shapes[f"{name} cross"] = kernel_row(
+            results[f"{name}_ms"],
+            f"cross B{b} K{kh} G{gq} h{h} T{t} non-causal",
+            lambda: dparts(True, args, ns, bkv, int_mode),
+            lambda: dparts(False, args, ns, bkv, int_mode), b_ms, "bytes",
+            None if int_mode else lib, iters=50, plain_iters=3, splits=ns,
+            block_kv=bkv, with_fold_ms=fold)
 
     # -- rows 7 / 8 as a cross prefill runs them: B1, S 4096 and 512
     #    queries against the 1601 image keys, non-causal, K8 G4 h128
     log("[vision] flash_fwd / flash_snap at the cross shape")
     kw = dict(causal=False, block_kv=64)
+    results.setdefault("flash_snap_ms", {})
     for s_ in VISION_KERNEL["s"]:
         for grid in (True, False):      # the random operands are timed
             args = ((randn(1, s_, kh, gq, h, grid=grid)
@@ -2508,16 +2619,16 @@ def vision_kernel_phase(dev, results):
             f"cross B1 S{s_} K{kh} G{gq} h{h} T{t} non-causal",
             lambda: fa.flash_fwd(*args, **kw),
             lambda: fa.flash_fwd_plain(*args, **kw), b_ms, "operations", lib)
-        ms = time_ms(lambda: fai.flash_snap(*args, guard_shift=gs, **kw),
-                     iters=10, warmup=2)
-        plain = time_ms(lambda: fai.flash_snap_plain(*args, guard_shift=gs,
-                                                     **kw), iters=2, warmup=1)
-        log(f"  flash_snap cross (B1 S{s_} K{kh} G{gq} h{h} T{t} "
-            f"non-causal): {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
-            f"bound {b_ms * 1e3:.1f} us (operations)")
-        shapes[f"flash_snap cross S{s_}"] = dict(ms=ms, plain_ms=plain,
-                                                 bound_ms=b_ms,
-                                                 library_ms=None)
+        n_int = snap_int_a_score(results, h, h, False)
+        check_repeat(f"flash_snap cross S{s_} repeat",
+                     lambda: fai.flash_snap(*args, guard_shift=gs, **kw))
+        shapes[f"flash_snap cross S{s_}"] = kernel_row(
+            results["flash_snap_ms"],
+            f"cross B1 S{s_} K{kh} G{gq} h{h} T{t} non-causal",
+            lambda: fai.flash_snap(*args, guard_shift=gs, **kw),
+            lambda: fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+            *bound(nbytes, pairs * (4 * h + 4 + n_int)), None,
+            int_ops_a_score=n_int)
     # row 7's edges at the cross heads: S G off the 64-row tile, the 4-byte
     # copies (pointers one float off 16 bytes); two calls, the same bits
     args = ((randn(1, 67, kh, gq, h) * h ** -0.5).contiguous(),
@@ -2608,10 +2719,28 @@ def vision_kernel_phase(dev, results):
         *bound((2 * qs.numel() + 2 * ks.numel()) * 4 + 5 * big, pairs
                * (4 * h + 4)), lib, iters=5, plain_iters=1,
         max_abs_err=e_self)
-    shapes[f"flash_snap self S{big} causal"] = dict(ms=time_ms(
-        lambda: fai.flash_snap(*sargs, causal=True, block_kv=64,
-                               guard_shift=0), iters=5))
-    del qs, ks, vs, sargs
+    # row 8 there: its words on grid-valued q and k, its output on random
+    # ones, the bound with its entry's int instructions a score, and both
+    # bucket schemes
+    gargs = ((torch.round(qs * 32) / 32).contiguous(),
+             torch.round(ks * 4) / 16) + sargs[2:]
+    snap_checks(fai, f"self S{big} causal", gargs, True, 64)
+    skw = dict(causal=True, block_kv=64, guard_shift=0)
+    e_snap = check(f"flash_snap self S{big} causal, random scores",
+                   fai.flash_snap(*sargs, **skw),
+                   fai.flash_snap_plain(*sargs, **skw), TOL_FLASH_I)
+    n_int = snap_int_a_score(results, h, h, True)
+    shapes[f"flash_snap self S{big} causal"] = kernel_row(
+        results["flash_snap_ms"], f"self B1 S{big} K{kh} G{gq} h{h} causal",
+        lambda: fai.flash_snap(*sargs, **skw),
+        lambda: fai.flash_snap_plain(*sargs, **skw),
+        *bound((2 * qs.numel() + 2 * ks.numel()) * 4 + 5 * big, pairs
+               * (4 * h + 4 + n_int)), None, iters=5, plain_iters=1,
+        max_abs_err=e_snap, int_ops_a_score=n_int)
+    snap_bucket_probe(fai, "vision self", (gargs, sargs),
+                      fai.flash_snap_plain(*gargs, return_partial=True,
+                                           **skw), skw, results)
+    del qs, ks, vs, sargs, gargs
     t_self = VISION["max_seq"]
     qpd = torch.tensor([375, 737, 1420, 2750][:b], dtype=torch.int32,
                        device=dev)
@@ -2630,29 +2759,26 @@ def vision_kernel_phase(dev, results):
     keys = int(qpd.sum()) + b
     for name, int_mode in (("decode_dense", False),
                            ("decode_dense_int", True)):
-        n_s, bk = fd.dense_decode_tiles(t_self, b * kh, dev,
-                                        int_mode=int_mode)
+        n_s, bk = fd.dense_decode_tiles(t_self, b * kh, dev)
 
         def dfn(kern, n_s=n_s, bk=bk, int_mode=int_mode):
             f_ = fd.decode_dense_partials if kern else \
                 fd.decode_dense_partials_plain
             return f_(*dargs, num_splits=n_s, block_kv=bk, causal=True,
                       int_mode=int_mode, guard_shift=0)
-        if int_mode:
-            shapes[f"{name} self T{t_self}"] = dict(ms=time_ms(
-                lambda: dfn(True)))
-            continue
-        check(f"decode_dense self T{t_self} splits={n_s} bkv={bk}",
-              fd.finish_partials(*dfn(True), int_mode=False),
-              fd.finish_partials(*dfn(False), int_mode=False), TOL_DECODE_F)
+        check(f"{name} self T{t_self} splits={n_s} bkv={bk}",
+              fd.finish_partials(*dfn(True), int_mode=int_mode),
+              fd.finish_partials(*dfn(False), int_mode=int_mode),
+              TOL_DECODE_I if int_mode else TOL_DECODE_F)
+        state = 17 if int_mode else 2
         shapes[f"{name} self T{t_self}"] = kernel_row(
-            results["decode_dense_ms"],
+            results[f"{name}_ms"],
             f"self B{b} K{kh} G{gq} h{h} T{t_self} depths {qpd.tolist()}",
             lambda: dfn(True), lambda: dfn(False),
             *bound(keys * kh * 2 * h * 4 + keys + dargs[0].numel() * 4
-                   + 4 * n_s * kh * gq * (h + 2) * b, keys * kh * gq
-                   * (4 * h + 4)), lib, iters=50, plain_iters=3, splits=n_s,
-            block_kv=bk)
+                   + 4 * n_s * kh * gq * (h + state) * b, keys * kh * gq
+                   * (4 * h + 4)), None if int_mode else lib, iters=50,
+            plain_iters=3, splits=n_s, block_kv=bk)
     del dargs
     log("  " + ", ".join(f"{k_} {v_['ms'] * 1e3:.1f} us"
                          for k_, v_ in shapes.items()
@@ -2667,6 +2793,10 @@ def vision_kernel_phase(dev, results):
         + json.dumps(results["flash_fwd_ms"]))
     log("[decode dense] row 5 at every shape, ms: "
         + json.dumps(results["decode_dense_ms"]))
+    log("[flash snap] row 8 at every shape, ms: "
+        + json.dumps(results["flash_snap_ms"]))
+    log("[decode dense int] row 6 at every shape, ms: "
+        + json.dumps(results["decode_dense_int_ms"]))
 
 
 def _plain_vision_kernels():
@@ -2863,15 +2993,19 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
                     src.startswith(("norm_", "glu", "flash_bwd",
-                                    "flash_fwd", "decode_dense",
+                                    "flash_fwd", "flash_snap", "decode_dense",
                                     "softmax_rows", "pair_act"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
     log("[sass] rows 1 / 2 int entries, instructions (total, loops, mix of "
         "the longest loop or the entry): " + json.dumps(
             sass_report(info["dir"])))
+    snap_sass = snap_int_ops(info["dir"])
+    log("[sass] row 8 entries, int instructions a score over row 7's "
+        "(D,BQ,NS,VEC,buckets: count, key-tile loop mixes): "
+        + json.dumps(snap_sass))
 
-    results: dict = {}
+    results: dict = {"snap_sass": snap_sass}
     kernel_phase(dev, results)
     launches: dict = {}
     serve_phase(dev, launches)

@@ -1,17 +1,14 @@
-// Split-KV s_q=1 decode, float and the unit's snapped int recurrence,
-// over a paged KV cache (block tables) or a contiguous one ((B, T) rows).
+// Split-KV s_q=1 decode over a paged KV cache (block tables), float and
+// the unit's snapped int recurrence.
 //
 // Replaces repro/kernels/flash_decode.py --
 //   decode_paged      flash_decode_paged, float (_flash_decode_paged_jit,
 //                     pallas_call at :365, body _decode_body :68);
 //   decode_paged_int  flash_decode_paged, int (_flash_decode_paged_int_jit,
-//                     pallas_call at :440, body _decode_body_int :185);
-//   decode_dense_int  flash_decode_pallas, int (_flash_decode_int_jit,
-//                     pallas_call at :283).
-// (The contiguous float decode, flash_decode_pallas's _flash_decode_jit,
-// runs on its own body: decode_dense.cu.)
-// One kernel body, templated over the int/float state and over the
-// addressing (a block-table entry per tile vs (B, T) strides).  Each emits
+//                     pallas_call at :440, body _decode_body_int :185).
+// (The contiguous decodes, flash_decode_pallas's, run on their own body:
+// decode_dense.cu.)
+// One kernel body, templated over the int/float state.  Each emits
 // per-split partials; the split fold (online_softmax_merge_n /
 // online_merge_n_int + online_finish_int) runs outside, in PyTorch, as
 // the reference runs it outside its kernel.
@@ -22,22 +19,18 @@
 //
 // Design: one block of 128 threads (4 warps) per (split, kv-head, batch
 // row).  The TPU kernel's sequential kv-tile grid axis becomes a loop
-// inside the block over the split's tiles; paged, each iteration reads
-// its table entry and fetches the K and V tile through it (the scalar-
-// prefetch index map of the TPU kernel becomes pointer arithmetic here).
+// inside the block over the split's tiles; each iteration reads its table
+// entry and fetches the K and V tile through it (the scalar-prefetch index
+// map of the TPU kernel becomes pointer arithmetic here).
 //   scores   a warp per key: lanes stride over the head dim (coalesced
 //            256-byte rows), one warp-shuffle sum per GQA row;
 //   state    a warp per GQA row: max, exponentials and sums over the tile;
 //   acc      a thread per (row, value dim), looping over the tile's keys
 //            (coalesced across the value dim).
 // Causal tiles past a row's q_pos are skipped (the reference's per-row
-// tile skip).  Paged, the splits cut the table into fixed ranges and the
-// tiles past the table (the reference's phantom padding of a short last
-// split) are not visited.  Contiguous, the splits cut each row's LIVE
-// range (tiles up to its q_pos when causal): a slot at depth 4000 of a
-// 16k-key cache spreads its 32 tiles over every split instead of leaving
-// all but the first idle; keys of the last tile past T are phantoms.  In
-// the reference, skipped tiles and phantoms score -inf (float) /
+// tile skip).  The splits cut the table into fixed ranges and the tiles
+// past the table (the reference's phantom padding of a short last split)
+// are not visited.  In the reference, skipped tiles score -inf (float) /
 // PHANTOM_Q (int) and are exact no-ops, up to the exp(MASK_VALUE) mass of
 // fully masked tiles that its decode also drops.  A split with no tile to
 // visit writes the merge identity (MASK_VALUE, 0, 0) / (SNAP_MIN, 0, 0).
@@ -64,21 +57,20 @@ constexpr int kNB = unit::N_SNAP_BUCKETS;
 
 struct DecodeArgs {
   const float* q;          // (B, K, G, h), pre-scaled
-  const float* k_pool;     // paged (N, bs, K, h); contiguous (B, T, K, h)
-  const float* v_pool;     // paged (N, bs, K, hv); contiguous (B, T, K, hv)
-  const int32_t* tables;   // paged (B, nblk); contiguous unused
+  const float* k_pool;     // (N, bs, K, h)
+  const float* v_pool;     // (N, bs, K, hv)
+  const int32_t* tables;   // (B, nblk)
   const int32_t* q_pos;    // (B,)
   const uint8_t* kv_valid; // (B, nblk * bs)
   void* part_m;            // (B, S, K, G) f32 | i32
   void* part_l;            // (B, S, K, G) f32 | (B, S, K, G, 16) i32
   float* part_acc;         // (B, S, K, G, hv)
-  // paged: n_pool blocks of bs keys, nblk table entries, t_kv = nblk * bs;
-  // contiguous: n_pool unused, bs the tile width, nblk = cdiv(t_kv, bs)
+  // n_pool blocks of bs keys, nblk table entries, t_kv = nblk * bs
   int n_pool, bs, kh, g, h, hv, nblk, num_splits, inner, causal, guard_shift;
   int t_kv;
 };
 
-template <bool kInt, bool kPaged>
+template <bool kInt>
 __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
   extern __shared__ float smem[];
   const int split = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
@@ -109,26 +101,12 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
 
   const int qpos = a.q_pos[b];
   const int t_kv = a.t_kv;
-  int tile0, tile1;
-  if (kPaged) {
-    tile0 = split * a.inner;
-    tile1 = min(tile0 + a.inner, a.nblk);
-  } else {
-    const int live = !a.causal ? a.nblk : (qpos < 0 ? 0 : min(a.nblk, qpos / bs + 1));
-    const int inner = (live + a.num_splits - 1) / a.num_splits;
-    tile0 = min(split * inner, live);
-    tile1 = min(tile0 + inner, live);
-  }
+  const int tile0 = split * a.inner, tile1 = min(tile0 + a.inner, a.nblk);
   for (int jt = tile0; jt < tile1; ++jt) {
     if (a.causal && jt * bs > qpos) break;  // later tiles start later still
-    size_t base;                            // row of the tile's first key
-    if (kPaged) {
-      int blk = a.tables[static_cast<size_t>(b) * a.nblk + jt];
-      if (blk < 0 || blk >= a.n_pool) blk = 0;
-      base = static_cast<size_t>(blk) * bs;
-    } else {
-      base = static_cast<size_t>(b) * t_kv + static_cast<size_t>(jt) * bs;
-    }
+    int blk = a.tables[static_cast<size_t>(b) * a.nblk + jt];
+    if (blk < 0 || blk >= a.n_pool) blk = 0;
+    const size_t base = static_cast<size_t>(blk) * bs;  // row of the tile's first key
     const int nk = min(bs, t_kv - jt * bs);  // keys past t_kv are phantoms
 
     // ---- scores: one warp per key ----
@@ -255,19 +233,19 @@ size_t smem_bytes(int G, int h, int hv, int bs) {
          sizeof(int32_t) * (static_cast<size_t>(G) * bs + G + 2 * G * kNB);
 }
 
-template <bool kInt, bool kPaged>
+template <bool kInt>
 int launch(const DecodeArgs& a, int batch, void* stream) {
   if (a.g < 1 || a.g > kMaxG || a.bs < 1 || a.num_splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(a.g, a.h, a.hv, a.bs);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_kernel<kInt, kPaged>,
+    cudaError_t e = cudaFuncSetAttribute(decode_kernel<kInt>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   dim3 grid(a.num_splits, a.kh, batch);
-  decode_kernel<kInt, kPaged><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  decode_kernel<kInt><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,25 +266,9 @@ int launch(const DecodeArgs& a, int batch, void* stream) {
              causal, guard_shift, nblk * bs}
 
 extern "C" int decode_paged_launch(DECODE_PARAMS) {
-  return launch<false, true>(DECODE_ARGS, batch, stream);
+  return launch<false>(DECODE_ARGS, batch, stream);
 }
 
 extern "C" int decode_paged_int_launch(DECODE_PARAMS) {
-  return launch<true, true>(DECODE_ARGS, batch, stream);
-}
-
-// Contiguous cache, int: k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T);
-// the tile is bkv keys, the last one ragged; partials as the paged entries.
-#define DENSE_PARAMS                                                           \
-  const float *q, const float *k, const float *v, const int32_t *q_pos,      \
-      const uint8_t *kv_valid, void *part_m, void *part_l, float *part_acc,   \
-      int batch, int t_kv, int kh, int g, int h, int hv, int bkv,             \
-      int num_splits, int causal, int guard_shift, void *stream
-#define DENSE_ARGS                                                             \
-  DecodeArgs{q, k, v, nullptr, q_pos, kv_valid, part_m, part_l, part_acc,     \
-             0, bkv, kh, g, h, hv, (t_kv + bkv - 1) / bkv, num_splits, 0,     \
-             causal, guard_shift, t_kv}
-
-extern "C" int decode_dense_int_launch(DENSE_PARAMS) {
-  return launch<true, false>(DENSE_ARGS, batch, stream);
+  return launch<true>(DECODE_ARGS, batch, stream);
 }

@@ -1,15 +1,17 @@
-// The Hopper body of the float split-KV decode over a contiguous cache:
-// decode_dense.cu's kernel (row 5).  Each block writes the partial state
-// (m, l, acc) of one KV split of one (batch row, kv head); the fold of the
-// splits runs outside, in PyTorch, as the reference runs it outside its
-// kernel.
+// The Hopper body of the split-KV decode over a contiguous cache:
+// decode_dense.cu's kernels, float (row 5) and the unit's snapped int
+// recurrence (row 6), through a row-state policy.  Each block writes the
+// partial state of one KV split of one (batch row, kv head) -- (m, l, acc)
+// float, (m snapped, S[16] buckets, acc) int; the fold of the splits runs
+// outside, in PyTorch, as the reference runs it outside its kernel.
 //
 // Keys: the split covers the tiles of bkv keys that dense_split_tiles
 // gives it -- its share of the row's LIVE tiles (up to the tile holding
 // q_pos when causal) -- up to T.  A key that kv_valid marks invalid, or
 // (causal) that lies past q_pos, scores MASK_VALUE and carries mass as in
 // the plain version; keys past T are not visited; a split with no tile
-// writes the merge identity (MASK_VALUE, 0, 0).
+// writes the merge identity ((MASK_VALUE, 0, 0) float, (SNAP_MIN, 0, 0)
+// int).
 //
 // Bound: the K / V bytes (4 flops a key and head dim against 8 bytes).
 // What the design does about it:
@@ -26,12 +28,20 @@
 //    D + D / 8 floats, so the reads fall in distinct banks) and dotting them
 //    with every row's q from shared memory; LPK - 1 shuffles finish a dot.
 // 4. No block barrier in the key loop.  Each warp keeps its own online
-//    state (m, l in registers on every lane, acc with the value columns
-//    spread over the lanes, D / 32 a lane), synchronised by __syncwarp: p
-//    passes through a per-warp buffer once a step.
+//    state (the policy's, on every lane; acc with the value columns spread
+//    over the lanes, D / 32 a lane), synchronised by __syncwarp: p passes
+//    through a per-warp buffer once a step.
+//      float  m, l in registers;
+//      int    the snapped m of each GQA row in registers, and lane b < 16
+//             holds bucket b of each row (G <= 8 registers); the slide is
+//             one shuffle, and a step's words go to a per-warp [G][16]
+//             tile by shared int32 atomics, read back by the owning lanes.
+//             The PWL exp2 lookup reads the ROM from shared memory.
 // 5. Fixed-order merge.  At the end each warp writes its state into its
 //    own ring, and after the one block barrier every (row, column) folds
-//    the warps' states in warp order into the split's partial.
+//    the warps' states in warp order into the split's partial.  The int
+//    words merge exactly in any order (monoid), so m and S are the plain
+//    version's sequential words; acc rescales by exact powers of two.
 //
 // No float atomics: two calls on the same inputs give the same bits.
 #pragma once
@@ -56,10 +66,11 @@ struct Args {
   const float* v;           // (B, T, K, hv)
   const int32_t* q_pos;     // (B,)
   const uint8_t* kv_valid;  // (B, T)
-  float* part_m;            // (B, splits, K, G)
-  float* part_l;            // (B, splits, K, G)
+  void* part_m;             // (B, splits, K, G): f32 | int32 snapped m
+  void* part_l;             // f32 (B, splits, K, G) | int32 (B, splits, K, G, 16)
   float* part_acc;          // (B, splits, K, G, hv)
   int T, K, G, h, hv, bkv, splits, causal;
+  int guard_shift;          // int: 0-31
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -78,20 +89,217 @@ struct Cfg {
   static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
 };
 
-// Shared memory, in floats: q [kMaxG][D]; per warp: the ring [NS][STAGE]
-// and p [kMaxG][KW].  At the end a warp's ring holds its acc [kMaxG][D],
-// then m, l [kMaxG].
-template <class C>
+// Shared memory, in floats: q [kMaxG][D]; the policy's block words [BX];
+// per warp: the ring [NS][STAGE], p [kMaxG][KW] and the policy's warp words
+// [WX].  At the end a warp's ring holds its acc [kMaxG][D], then the
+// policy's state (STATE words).
+template <class C, class Rows>
 struct Smem {
-  static constexpr int Q = 0, RING = kMaxG * C::D;
-  static constexpr int P = C::NS * C::STAGE, WARP = P + kMaxG * C::KW;
+  static constexpr int Q = 0, X = kMaxG * C::D, RING = X + Rows::BX;
+  static constexpr int P = C::NS * C::STAGE, W0 = P + kMaxG * C::KW;
+  static constexpr int WARP = W0 + Rows::WX;
   static constexpr size_t BYTES = sizeof(float) * (RING + C::W * WARP);
-  static_assert(C::NS * C::STAGE >= kMaxG * (C::D + 2), "the ring holds the state");
+  static_assert(C::NS * C::STAGE >= kMaxG * C::D + Rows::STATE, "the ring holds the state");
 };
 
+// A row-state policy (FloatDec, SnapDec): prepare the block's shared words
+// (every thread, before a barrier); init the state; step row g at the
+// step's keys (p of the lane's key out, acc rescaled); end_step after the
+// step's __syncwarp; store row g's state after its acc; merge the warps'
+// states into the split's partial.
+//
+// The float online softmax's state (row 5): m, l of each GQA row in
+// registers on every lane.
 template <class C>
+struct FloatDec {
+  static constexpr int BX = 0, WX = 0, STATE = 2 * kMaxG;
+  float m[kMaxG], l[kMaxG];
+
+  __device__ __forceinline__ void prepare(float*, float*, int) {}
+
+  __device__ __forceinline__ void init(const Args&, float*, float*, int) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      m[g] = unit::MASK_VALUE;
+      l[g] = 0.0f;
+    }
+  }
+
+  // Row g at the step's keys, s the lane's key's masked score: p of that
+  // key, acc rescaled.
+  __device__ __forceinline__ float step(int g, float s, float (&acc)[C::CPL]) {
+    float mx = s;
+#pragma unroll
+    for (int o = C::LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float m_new = fmaxf(m[g], mx);
+    const float corr = exp2f((m[g] - m_new) * unit::LOG2E);
+    const float p = exp2f((s - m_new) * unit::LOG2E);
+    float sum = p;
+#pragma unroll
+    for (int o = C::LPK; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    l[g] = l[g] * corr + sum;
+    m[g] = m_new;
+#pragma unroll
+    for (int c = 0; c < C::CPL; ++c) acc[c] *= corr;
+    return p;
+  }
+
+  __device__ __forceinline__ void end_step(int) {}
+
+  // row g's m, l after the warp's acc: st[g], st[kMaxG + g]
+  __device__ __forceinline__ void store(float* st, int g, int lane) const {
+    if (lane == 0) {
+      st[g] = m[g];
+      st[kMaxG + g] = l[g];
+    }
+  }
+
+  // The warps' states (warp w's acc at ws(w), its state at ws(w) + kMaxG D)
+  // folded in warp order into the split's partial rows row0 + g.
+  template <class WS>
+  __device__ static void merge(const Args& a, WS ws, size_t row0, int tid, int nt) {
+    const int G = a.G;
+    for (int i = tid; i < G * a.hv; i += nt) {
+      const int g = i / a.hv, c = i - g * a.hv;
+      float m_all = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < C::W; ++w) m_all = fmaxf(m_all, ws(w)[kMaxG * C::D + g]);
+      float l_all = 0.0f, acc_all = 0.0f;
+#pragma unroll
+      for (int w = 0; w < C::W; ++w) {
+        const float* st = ws(w);
+        const float sc = exp2f((st[kMaxG * C::D + g] - m_all) * unit::LOG2E);
+        l_all += st[kMaxG * C::D + kMaxG + g] * sc;
+        acc_all += st[g * C::D + c] * sc;
+      }
+      a.part_acc[(row0 + g) * a.hv + c] = acc_all;
+      if (c == 0) {
+        static_cast<float*>(a.part_m)[row0 + g] = m_all;
+        static_cast<float*>(a.part_l)[row0 + g] = l_all;
+      }
+    }
+  }
+};
+
+// The unit's snapped int state (row 6): the snapped m of each GQA row on
+// every lane, bucket b of each row on lane b < 16.  Per step and row, in
+// the reference's order: t = to_snap_domain(quantize(s)) (keys past the
+// run SNAP_MIN), m' = max(m, snap_max_int(max t)), k = (m' - m) >> T_FRAC,
+// p = snap_prob_word(t, guard), d = (m' >> T_FRAC) - (t >> T_FRAC);
+// S' = slide(S, k) + the step's per-depth sums of p; acc = acc 2^-k +
+// (p 2^-d) V.
+template <class C>
+struct SnapDec {
+  static constexpr int kNB = unit::N_SNAP_BUCKETS;
+  // block: the ROM's 16 pairs; warp: the step's [kMaxG][16] bucket tile;
+  // state: m [kMaxG], then S [kMaxG][16]
+  static constexpr int BX = 32, WX = kMaxG * kNB, STATE = kMaxG * (1 + kNB);
+  int32_t m[kMaxG], S[kMaxG];
+  int32_t* wb;
+  unit::RomTable rom;
+  int guard, part, bucket;
+
+  // the ROM's pairs; this warp's bucket tile zeroed
+  __device__ __forceinline__ void prepare(float* bx, float* wx, int tid) {
+    if (tid < 16) unit::rom_fill(reinterpret_cast<int2*>(bx), tid);
+    for (int j = tid & 31; j < WX; j += 32) reinterpret_cast<int32_t*>(wx)[j] = 0;
+  }
+
+  __device__ __forceinline__ void init(const Args& a, float* bx, float* wx, int lane) {
+    rom.tab = reinterpret_cast<const int2*>(bx);
+    wb = reinterpret_cast<int32_t*>(wx);
+    guard = a.guard_shift;
+    part = lane % C::LPK;
+    bucket = lane & (kNB - 1);
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      m[g] = unit::SNAP_MIN;
+      S[g] = 0;
+    }
+  }
+
+  __device__ __forceinline__ float step(int g, float s, float (&acc)[C::CPL]) {
+    const int32_t t = s == -INFINITY ? unit::SNAP_MIN
+                                     : unit::to_snap_domain(unit::quantize(s, unit::IN_FRAC));
+    int32_t mx = t;
+#pragma unroll
+    for (int o = C::LPK; o < 32; o <<= 1) mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const int32_t m_new = max(m[g], unit::snap_max_int(mx));
+    const int32_t k = (m_new - m[g]) >> unit::T_FRAC;
+    m[g] = m_new;
+    const int32_t p = unit::snap_prob_word(t, guard, rom);
+    const int32_t d = (m_new >> unit::T_FRAC) - (t >> unit::T_FRAC);
+    if (part == 0 && p != 0 && d < kNB) atomicAdd(wb + g * kNB + d, p);
+    // S'[b] = S[b - k], zero where b < k (lanes past 16 carry copies)
+    const int32_t v = __shfl_sync(0xffffffffu, S[g], bucket >= k ? bucket - k : bucket, kNB);
+    S[g] = bucket >= k ? v : 0;
+    const float corr = unit::snap_scale_f32(k);
+#pragma unroll
+    for (int c = 0; c < C::CPL; ++c) acc[c] *= corr;
+    return static_cast<float>(p) * unit::snap_scale_f32(d);
+  }
+
+  // After the step's __syncwarp: the owning lanes take the step's sums
+  // (the next step's adds follow the next __syncwarp).
+  __device__ __forceinline__ void end_step(int G) {
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) break;
+      if ((threadIdx.x & 31) < kNB) {
+        int32_t* w = wb + g * kNB + bucket;
+        S[g] += *w;
+        *w = 0;
+      }
+    }
+  }
+
+  // row g's m, then its buckets, after the warp's acc
+  __device__ __forceinline__ void store(float* st, int g, int lane) const {
+    int32_t* sti = reinterpret_cast<int32_t*>(st);
+    if (lane == 0) sti[g] = m[g];
+    if (lane < kNB) sti[kMaxG + g * kNB + lane] = S[g];
+  }
+
+  template <class WS>
+  __device__ static void merge(const Args& a, WS ws, size_t row0, int tid, int nt) {
+    const int G = a.G;
+    const auto m_of = [&](int w, int g) {
+      return reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::D)[g];
+    };
+    const auto m_all = [&](int g) {
+      int32_t x = unit::SNAP_MIN;
+#pragma unroll
+      for (int w = 0; w < C::W; ++w) x = max(x, m_of(w, g));
+      return x;
+    };
+    for (int i = tid; i < G * a.hv; i += nt) {
+      const int g = i / a.hv, c = i - g * a.hv;
+      const int32_t mg = m_all(g);
+      float acc_all = 0.0f;
+#pragma unroll
+      for (int w = 0; w < C::W; ++w)
+        acc_all += ws(w)[g * C::D + c] * unit::snap_scale_f32((mg - m_of(w, g)) >> unit::T_FRAC);
+      a.part_acc[(row0 + g) * a.hv + c] = acc_all;
+      if (c == 0) static_cast<int32_t*>(a.part_m)[row0 + g] = mg;
+    }
+    for (int i = tid; i < G * kNB; i += nt) {
+      const int g = i / kNB, d = i - g * kNB;
+      const int32_t mg = m_all(g);
+      int32_t x = 0;
+#pragma unroll
+      for (int w = 0; w < C::W; ++w) {
+        const int32_t k = (mg - m_of(w, g)) >> unit::T_FRAC;
+        const int32_t* sw = reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::D + kMaxG);
+        x += d >= k ? sw[g * kNB + d - k] : 0;
+      }
+      static_cast<int32_t*>(a.part_l)[(row0 + g) * kNB + d] = x;
+    }
+  }
+};
+
+template <class C, class Rows>
 __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
-  using L = Smem<C>;
+  using L = Smem<C, Rows>;
   constexpr int kThreads = C::W * 32;
   extern __shared__ __align__(16) float sm[];
   const int split = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
@@ -104,6 +312,8 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
     const int g = i / C::D, d = i - g * C::D;
     sm[L::Q + i] = g < G && d < a.h ? qrow[g * a.h + d] : 0.0f;
   }
+  Rows rows;
+  rows.prepare(sm + L::X, sm + L::RING + warp * L::WARP + L::W0, threadIdx.x);
   __syncthreads();
 
   // the split's keys [k0, k1), the warp's run [r0, r1) of them
@@ -147,14 +357,12 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
   };
   int kind_next = steps > 0 ? key_kind(0) : -1;
 
-  float m[kMaxG], l[kMaxG], acc[kMaxG][C::CPL];
+  rows.init(a, sm + L::X, ring + L::W0, lane);
+  float acc[kMaxG][C::CPL];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = unit::MASK_VALUE;
-    l[g] = 0.0f;
+  for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
     for (int c = 0; c < C::CPL; ++c) acc[g][c] = 0.0f;
-  }
   for (int st = 0; st < steps; ++st) {
     cp_wait<C::NS - 2>();
     __syncwarp();  // step st landed; step st - 1's slot and p are free
@@ -185,22 +393,11 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
 #pragma unroll
       for (int o = 1; o < C::LPK; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
       const float s = kind > 0 ? x : kind == 0 ? unit::MASK_VALUE : -INFINITY;
-      float mx = s;
-#pragma unroll
-      for (int o = C::LPK; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[g], mx);
-      const float corr = exp2f((m[g] - m_new) * unit::LOG2E);
-      const float p = exp2f((s - m_new) * unit::LOG2E);
-      float sum = p;
-#pragma unroll
-      for (int o = C::LPK; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      l[g] = l[g] * corr + sum;
-      m[g] = m_new;
-#pragma unroll
-      for (int c = 0; c < C::CPL; ++c) acc[g][c] *= corr;
+      const float p = rows.step(g, s, acc[g]);
       if (part == 0) pb[g * C::KW + kk] = p;
     }
     __syncwarp();  // p written
+    rows.end_step(G);
 
     // acc += p V: the lane's CPL value columns, four keys at a time
 #pragma unroll
@@ -235,40 +432,29 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
   cp_wait<0>();
   __syncwarp();  // the warp's ring is free
 
-  float* st = ring;  // acc [kMaxG][D], then m, l [kMaxG]
+  float* st = ring;  // acc [kMaxG][D], then the policy's state
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g >= G) break;
 #pragma unroll
     for (int c = 0; c < C::CPL; ++c) st[g * C::D + lane * C::CPL + c] = acc[g][c];
-    if (lane == 0) {
-      st[kMaxG * C::D + g] = m[g];
-      st[kMaxG * C::D + kMaxG + g] = l[g];
-    }
+    rows.store(st + kMaxG * C::D, g, lane);
   }
   __syncthreads();  // every warp's state written
 
   const size_t row0 = ((static_cast<size_t>(b) * a.splits + split) * a.K + head) * G;
-  for (int i = threadIdx.x; i < G * a.hv; i += kThreads) {
-    const int g = i / a.hv, c = i - g * a.hv;
-    float m_all = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < C::W; ++w)
-      m_all = fmaxf(m_all, sm[L::RING + w * L::WARP + kMaxG * C::D + g]);
-    float l_all = 0.0f, acc_all = 0.0f;
-#pragma unroll
-    for (int w = 0; w < C::W; ++w) {
-      const float* ws = sm + L::RING + w * L::WARP;
-      const float sc = exp2f((ws[kMaxG * C::D + g] - m_all) * unit::LOG2E);
-      l_all += ws[kMaxG * C::D + kMaxG + g] * sc;
-      acc_all += ws[g * C::D + c] * sc;
-    }
-    a.part_acc[(row0 + g) * a.hv + c] = acc_all;
-    if (c == 0) {
-      a.part_m[row0 + g] = m_all;
-      a.part_l[row0 + g] = l_all;
-    }
-  }
+  Rows::merge(a, [&](int w) -> const float* { return sm + L::RING + w * L::WARP; }, row0,
+              threadIdx.x, kThreads);
+}
+
+// The kernel with the row policy Rows, one block a (split, kv head, batch row).
+template <class C, class Rows>
+int launch(const Args& a, int batch, cudaStream_t st) {
+  const size_t smem = Smem<C, Rows>::BYTES;
+  cudaError_t e = allow_smem(decode_kernel<C, Rows>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decode_kernel<C, Rows><<<dim3(a.splits, a.K, batch), C::W * 32, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace ddec

@@ -23,16 +23,7 @@
 // through f32 summation order.
 #include "flash_fwd_sm90.cuh"
 
-namespace {
-
 using namespace ffwd;
-
-bool vec_ok(const Args& a) {
-  return a.h % 4 == 0 && a.hv % 4 == 0 && aligned16(a.q) && aligned16(a.k) &&
-         aligned16(a.v) && aligned16(a.out);
-}
-
-}  // namespace
 
 // Shapes as in ffwd::Args; every tensor contiguous f32 (q_pos int32,
 // kv_valid uint8), h and hv <= 128, 1 <= bkv <= 64.  vsum: a (B, cdiv(T,
@@ -48,29 +39,12 @@ extern "C" int flash_fwd_launch(const float* q, const float* k, const float* v,
                                 void* stream) {
   if (h < 1 || h > 128 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
       T < 1 || K < 1 || batch < 1 || (causal && vsum == nullptr) ||
-      (stat_m == nullptr) != (stat_l == nullptr) || bk != kBK)
+      (stat_m == nullptr) != (stat_l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q, k, v, q_pos, kv_valid, vsum, out, stat_m, stat_l, S, K, G, h, hv, T, causal,
-         reverse};
-  if (vec == 4 && !vec_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto go = [&](auto cfg) {
+  const Args a{q, k,  v,  q_pos, kv_valid, vsum,   out,     stat_m,  stat_l, S,
+               K, G,  h,  hv,    T,        causal, reverse, nullptr, nullptr, 0};
+  return with_cfg(a, bq, bk, stages, vec, [&](auto cfg) {
     using C = decltype(cfg);
-    if (causal) {
-      vsum_kernel<<<dim3(cdiv(cdiv(T, kBK), kChunk), K, batch), kThreads, 0, st>>>(a);
-      cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    const size_t smem = Smem<C>::BYTES;
-    cudaError_t e = allow_smem(fwd_kernel<C>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    fwd_kernel<C><<<cdiv(S * G, C::BQ) * K * batch, kThreads, smem, st>>>(a, batch);
-    return static_cast<int>(cudaGetLastError());
-  };
-  const bool narrow = h <= 64 && hv <= 64;
-  if (narrow && bq == 128 && stages == 3)
-    return vec == 4 ? go(Cfg<64, 128, 3, 4>{}) : go(Cfg<64, 128, 3, 1>{});
-  if (!narrow && bq == 64 && stages == 2)
-    return vec == 4 ? go(Cfg<128, 64, 2, 4>{}) : go(Cfg<128, 64, 2, 1>{});
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch<C, FloatRows<C>>(a, batch, static_cast<cudaStream_t>(stream));
+  });
 }

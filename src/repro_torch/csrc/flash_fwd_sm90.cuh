@@ -1,5 +1,7 @@
-// The Hopper body of the float flash forward: flash_fwd.cu's main kernel
-// (row 7) and its V-sum pre-pass.
+// The Hopper body of the blocked flash forward: flash_fwd.cu's main kernel
+// (row 7, the float online softmax) and, through its row-state policy,
+// flash_snap.cu's (row 8, the unit's snapped int recurrence,
+// flash_snap_sm90.cuh); and their V-sum pre-pass.
 //
 //   m' = max(m, max s);  p = 2^((s - m') log2 e);  c = 2^((m - m') log2 e)
 //   l' = l c + sum p;    acc' = acc c + p V;        out = acc / max(l, 1e-30)
@@ -20,9 +22,11 @@
 //    (tiling.flash_fwd_plan), 4 bytes otherwise.
 // 2. Scores and row state in registers.  Thread (ty, tx) computes the
 //    scores of SR rows (frag_pos<SR, 16>(ty, .)) x 4 keys (tx + 16 c) from
-//    float4 reads, rows padded to D + 4 floats.  The 16 threads of a row
-//    set are 16 lanes of one warp: they take the row max and sum with xor
-//    shuffles, and each keeps the rows' m, l and correction in registers.
+//    float4 reads, rows padded to D + 4 floats, each score one FMA chain
+//    over the head dim in index order.  The 16 threads of a row set are 16
+//    lanes of one warp: they take the row max and sum with xor shuffles,
+//    and each keeps the rows' state in registers (the policy's: m, l and
+//    the correction here).
 // 3. p through shared memory once.  p goes to a [key][row] tile as float4s
 //    of four rows; the P V product reads it back into SR x 8 register tiles
 //    on the SAME rows, split by key halves over two groups of 8 threads a
@@ -45,6 +49,11 @@
 //    request, dead rows past S G neither read nor written, any block_kv
 //    the reference takes (the mask is per key, so the result depends on
 //    the tiles only through f32 summation order).
+//
+// The per-tile row-state step, the tail's update and the finish are a
+// policy's (Rows): FloatRows here, SnapRows in flash_snap_sm90.cuh.
+// Everything else -- the Q load, the ring, score_tile, the mask, the p
+// tile, the P V product, the pre-pass and the tile order -- is shared.
 //
 // No float atomics: two calls on the same inputs give the same bits.
 #pragma once
@@ -78,6 +87,9 @@ struct Args {
   float* stat_m;            // (B, K, G, S) or null
   float* stat_l;            // (B, K, G, S) or null
   int S, K, G, h, hv, T, causal, reverse;
+  int32_t* word_m;          // snap: (B, K, G, S) snapped m, or null
+  int32_t* word_s;          // snap: (B, K, G, S, 16) buckets, or null
+  int guard_shift;          // snap: 0-31
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -99,13 +111,14 @@ struct Cfg {
 };
 
 // Shared memory, in floats: Q [BQ][LD]; the ring [NS][K, V][BK][LD]; the p
-// tile [BK][LDT].  At the end the ring holds the second group's
-// accumulator [BQ][LD] and the p tile the tail's V sums [D].
-template <class C>
+// tile [BK][LDT]; the row-state policy's own words [EXTRA].  At the end the
+// ring holds the second group's accumulator [BQ][LD] and the p tile the
+// tail's V sums [D].
+template <class C, int EXTRA = 0>
 struct Smem {
   static constexpr int Q = 0, RING = C::BQ * C::LD, STAGE = 2 * C::BK * C::LD;
-  static constexpr int P = RING + C::NS * STAGE;
-  static constexpr size_t BYTES = sizeof(float) * (P + C::BK * C::LDT);
+  static constexpr int P = RING + C::NS * STAGE, X = P + C::BK * C::LDT;
+  static constexpr size_t BYTES = sizeof(float) * (X + EXTRA);
   static_assert(C::NS * STAGE >= C::BQ * C::LD, "the ring holds a group's acc");
 };
 
@@ -149,9 +162,15 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* ks, int
   }
 }
 
+// Index of flattened row ``flat`` in the (B, K, G, S) row-statistic layout.
+__device__ __forceinline__ size_t stat_index(const Args& a, int b, int head, int flat) {
+  const int s = flat / a.G, g = flat - s * a.G;
+  return ((static_cast<size_t>(b) * a.K + head) * a.G + g) * a.S + s;
+}
+
 // The 16 lanes of a row set combine their values.
-template <typename Op>
-__device__ __forceinline__ float row_reduce(float v, Op op) {
+template <typename T, typename Op>
+__device__ __forceinline__ T row_reduce(T v, Op op) {
 #pragma unroll
   for (int o = 1; o < 16; o <<= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -172,8 +191,9 @@ __device__ __forceinline__ void block_coords(const Args& a, int n_tiles, int bat
 // One block per (chunk of kChunk tiles, kv head, batch row): for every tile
 // of the chunk, the sum of V over its keys and those of the chunk's later
 // tiles, tiles walked from the last.  Warp w sums keys w, w + 8, ... of a
-// tile; the warps' sums are added in warp order.
-__global__ void __launch_bounds__(kThreads) vsum_kernel(Args a) {
+// tile; the warps' sums are added in warp order.  (Static: each source that
+// includes this header launches its own copy.)
+static __global__ void __launch_bounds__(kThreads) vsum_kernel(Args a) {
   constexpr int kWarps = kThreads / 32;
   __shared__ float part[kWarps][128];
   const int ch = blockIdx.x, head = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
@@ -206,16 +226,89 @@ __global__ void __launch_bounds__(kThreads) vsum_kernel(Args a) {
   }
 }
 
+// ---- the float row state (row 7) ------------------------------------------
+
+// m, l of each of the thread's rows, in registers on every lane of the row
+// set.  prepare: the block's shared words (before a barrier); init: the
+// rows' state; step: the masked scores in, p out, acc rescaled; tail: n keys
+// of MASK_VALUE whose V sums are tv, added by the lanes that ``add``;
+// publish (every lane, before the key groups merge); den: the divisor of
+// row i; stats: its statistics on request.
+template <class C>
+struct FloatRows {
+  static constexpr int EXTRA = 0;  // shared-memory floats of its own
+  float m[C::SR], l[C::SR];
+
+  __device__ __forceinline__ void prepare(float*, int) {}
+
+  __device__ __forceinline__ void init(const Args&, float*, int) {
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      m[i] = unit::MASK_VALUE;
+      l[i] = 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ void step(float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int c = 1; c < C::SC; ++c) mx = fmaxf(mx, s[i][c]);
+      const float m_new = fmaxf(m[i], row_reduce(mx, MaxOp()));
+      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C::SC; ++c) {
+        s[i][c] = exp2f((s[i][c] - m_new) * unit::LOG2E);
+        sum += s[i][c];
+      }
+      l[i] = l[i] * corr + row_reduce(sum, SumOp());
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+    }
+  }
+
+  __device__ __forceinline__ void tail(int n_tail, const float (&tv)[8], bool add,
+                                       float (&acc)[C::SR][8]) {
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i) {
+      const float m_new = fmaxf(m[i], unit::MASK_VALUE);
+      const float p = exp2f((unit::MASK_VALUE - m_new) * unit::LOG2E);
+      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
+      l[i] = l[i] * corr + static_cast<float>(n_tail) * p;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] * corr + (add ? p * tv[j] : 0.0f);
+    }
+  }
+
+  __device__ __forceinline__ void publish(const Args&, int, int, int, int, int) {}
+
+  __device__ __forceinline__ float den(int i) const { return fmaxf(l[i], 1e-30f); }
+
+  __device__ __forceinline__ void stats(const Args& a, int b, int head, int flat, int i,
+                                        int px) const {
+    if (a.stat_m != nullptr && px == 0) {
+      const size_t si = stat_index(a, b, head, flat);
+      a.stat_m[si] = m[i];
+      a.stat_l[si] = l[i];
+    }
+  }
+};
+
 // ---- the forward ------------------------------------------------------------
 
 // One block per (q tile of BQ rows, kv head, batch row): Q stays in shared
 // memory, K / V tiles of kBK keys stream through the ring up to the causal
 // end.  Per tile: every thread computes its rows x keys, masks them where
-// needed, updates its rows' (m, l) and rescales its accumulators, and
-// writes p; then each thread adds its key group's p V to its SR x 8 outputs.
-template <class C>
+// needed, and the policy updates its rows' state, rescales its accumulators
+// and leaves p in the scores; then each thread writes p and adds its key
+// group's p V to its SR x 8 outputs.
+template <class C, class Rows>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
-  using L = Smem<C>;
+  using L = Smem<C, Rows::EXTRA>;
   extern __shared__ __align__(16) float sm[];
   const int R = a.S * a.G, n_qt = cdiv(R, C::BQ), n_kt = cdiv(a.T, C::BK);
   int qt, head, b;
@@ -240,6 +333,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     qmin = min(qmin, qp[i]);
     qmax = max(qmax, qp[i]);
   }
+  Rows rows;
+  rows.prepare(sm + L::X, tid);
   __shared__ int32_t qmax_s;
   if (tid == 0) qmax_s = kDeadRow;
   __syncthreads();
@@ -280,14 +375,12 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
   };
   unsigned valid_next = n_tiles > 0 ? valid_bits(0) : 0u;
 
-  float m[C::SR], l[C::SR], acc[C::SR][8];
+  rows.init(a, sm + L::X, tid);
+  float acc[C::SR][8];
 #pragma unroll
-  for (int i = 0; i < C::SR; ++i) {
-    m[i] = unit::MASK_VALUE;
-    l[i] = 0.0f;
+  for (int i = 0; i < C::SR; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
   float* pt = sm + L::P;
   for (int t = 0; t < n_tiles; ++t) {
     cp_wait<C::NS - 2>();
@@ -316,24 +409,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < C::SR; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int c = 1; c < C::SC; ++c) mx = fmaxf(mx, s[i][c]);
-      const float m_new = fmaxf(m[i], row_reduce(mx, MaxOp()));
-      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C::SC; ++c) {
-        s[i][c] = exp2f((s[i][c] - m_new) * unit::LOG2E);
-        sum += s[i][c];
-      }
-      l[i] = l[i] * corr + row_reduce(sum, SumOp());
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
-    }
+    rows.step(s, acc);
 #pragma unroll
     for (int c = 0; c < C::SC; ++c)
 #pragma unroll
@@ -375,17 +451,9 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     __syncthreads();
     float tv[8];
     load_frag<8, C::PXN>(tail, px, tv);
-#pragma unroll
-    for (int i = 0; i < C::SR; ++i) {
-      const float m_new = fmaxf(m[i], unit::MASK_VALUE);
-      const float p = exp2f((unit::MASK_VALUE - m_new) * unit::LOG2E);
-      const float corr = exp2f((m[i] - m_new) * unit::LOG2E);
-      l[i] = l[i] * corr + static_cast<float>(n_tail) * p;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] * corr + (grp == 0 ? p * tv[j] : 0.0f);
-    }
+    rows.tail(n_tail, tv, grp == 0, acc);
   }
+  rows.publish(a, b, head, q0, ty, tx);
 
   // the key groups' sums, in group order
   if constexpr (C::NG == 2) {
@@ -411,23 +479,55 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     }
   }
 
-  // finish: acc / max(l, 1e-30); the (m, l) statistics on request
+  // finish: acc over the policy's divisor; its statistics on request
 #pragma unroll
   for (int i = 0; i < C::SR; ++i) {
     const int flat = q0 + frag_pos<C::SR, C::TY>(ty, i);
     if (flat >= R) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = rows.den(i);
     float o[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[j] = acc[i][j] / den;
     store_frag<8, C::PXN, C::VEC>(a.out + row_offset(a, b, head, flat, a.hv), px, o, a.hv);
-    if (a.stat_m != nullptr && px == 0) {
-      const int s = flat / a.G, g = flat - s * a.G;
-      const size_t si = ((static_cast<size_t>(b) * a.K + head) * a.G + g) * a.S + s;
-      a.stat_m[si] = m[i];
-      a.stat_l[si] = l[i];
-    }
+    rows.stats(a, b, head, flat, i, px);
   }
+}
+
+// ---- the launch -------------------------------------------------------------
+
+inline bool vec_ok(const Args& a) {
+  return a.h % 4 == 0 && a.hv % 4 == 0 && aligned16(a.q) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(a.out);
+}
+
+// The V-sum pre-pass (causal), then the main kernel with the row policy Rows.
+template <class C, class Rows>
+int launch(const Args& a, int batch, cudaStream_t st) {
+  if (a.causal) {
+    vsum_kernel<<<dim3(cdiv(cdiv(a.T, kBK), kChunk), a.K, batch), kThreads, 0, st>>>(a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const size_t smem = Smem<C, Rows::EXTRA>::BYTES;
+  cudaError_t e = allow_smem(fwd_kernel<C, Rows>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fwd_kernel<C, Rows><<<cdiv(a.S * a.G, C::BQ) * a.K * batch, kThreads, smem, st>>>(a, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// go(Cfg) for the tile shape the plan names -- (128, 64, 3, vec) where h, hv
+// <= 64, else (64, 64, 2, vec) -- or cudaErrorInvalidValue for any other
+// (bq, bk, stages, vec), and for 16-byte copies on unaligned shapes.
+template <class Go>
+int with_cfg(const Args& a, int bq, int bk, int stages, int vec, Go go) {
+  if (bk != kBK || (vec != 4 && vec != 1) || (vec == 4 && !vec_ok(a)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool narrow = a.h <= 64 && a.hv <= 64;
+  if (narrow && bq == 128 && stages == 3)
+    return vec == 4 ? go(Cfg<64, 128, 3, 4>{}) : go(Cfg<64, 128, 3, 1>{});
+  if (!narrow && bq == 64 && stages == 2)
+    return vec == 4 ? go(Cfg<128, 64, 2, 4>{}) : go(Cfg<128, 64, 2, 1>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace ffwd

@@ -26,7 +26,7 @@
 // keys tx + 16 c of the score tile, so a row's 16 threads are one half
 // warp and reduce by shuffles; m, l and log2(l) live in registers.
 //
-// Bound on the H100: operations, as flash_snap.cu -- one q.k per pair in
+// Bound on the H100: operations, as flash_fwd.cu -- one q.k per pair in
 // each of three sweeps and one p.v, plus ~40 int ops a score word per
 // sweep -- against one q.k and one p.v a pair in the bound.
 #include "flash_tile.cuh"
@@ -157,8 +157,7 @@ extern "C" int flash_int3_launch(const float* q, const float* k, const float* v,
   if (h < 1 || h > kMaxHD || hv < 1 || hv > kMaxHD || bkv < 1 || bkv > kBKV ||
       G < 1 || S < 1 || T < 1 || guard_shift < 0 || guard_shift > 31)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, nullptr, q_pos, kv_valid, out, nullptr, nullptr,
-               S, K, G, h, hv, T, bkv, causal, guard_shift};
+  const Args a{q, k, v, q_pos, kv_valid, out, S, K, G, h, hv, T, bkv, causal, guard_shift};
   const size_t smem = smem_bytes(h, hv);
   cudaError_t e = allow_smem(flash_int3_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);

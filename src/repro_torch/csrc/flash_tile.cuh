@@ -1,8 +1,8 @@
-// The blocked-attention tile machinery shared by flash_snap.cu (the unit's
-// snapped int recurrence) and flash_int3.cu (the unit's classic words in
-// three sweeps): the grid, the shared-memory layout, the tile loads, the
-// masked score tile and the P @ V update.  (The float forward, flash_fwd.cu,
-// runs on its own body, flash_fwd_sm90.cuh.)
+// The blocked-attention tile machinery of flash_int3.cu (row 9, the unit's
+// classic words in three sweeps): the grid, the shared-memory layout, the
+// tile loads, the masked score tile and the P @ V update.  (The float and
+// snapped int forwards, flash_fwd.cu and flash_snap.cu, run on their own
+// body, flash_fwd_sm90.cuh.)
 //
 // Grid: one block of 256 threads per (q tile, kv head, batch row).  A q
 // tile is kBQ = 64 rows of the flattened (query position, GQA group)
@@ -17,19 +17,8 @@
 // finite MASK_VALUE and carries mass exactly as in naive attention; a
 // key at or past T (the ragged edge of the last tile) is a phantom and
 // carries none.  The kernel never pads in device memory: it reads
-// phantoms as zeros and marks them itself.
-//
-// Causal skip: the kv loop stops after the tile holding the q tile's
-// largest q_pos, and a row leaves its state untouched on every tile that
-// starts past its own q_pos.  Its keys from that tile up to T all score
-// exactly MASK_VALUE (masked by causality whatever kv_valid says), so
-// after the loop each row folds that tail in closed form -- n keys of one
-// score are one state update with n times the mass -- from per-tile sums
-// of V that the wrapper computes (v_tail).  The reference visits every
-// tile; the fold gives its words exactly (int) and its values up to f32
-// summation order (float), also for a row whose visible keys are all
-// masked, where the tail carries most of the mass.  The per-row rule
-// makes the result independent of the q tile.
+// phantoms as zeros and marks them itself.  Every kv tile is swept,
+// causal or not.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,12 +42,9 @@ struct Args {
   const float* q;           // (B, S, K, G, h), pre-scaled
   const float* k;           // (B, T, K, h)
   const float* v;           // (B, T, K, hv)
-  const float* v_tail;      // (B, n_tiles + 1, K, hv), causal only
   const int32_t* q_pos;     // (B, S)
   const uint8_t* kv_valid;  // (B, T)
   float* out;               // (B, S, K, G, hv)
-  void* stat_m;             // (B, K, G, S) or null
-  void* stat_l;             // (B, K, G, S) f32 | (B, K, G, S, 16) i32, or null
   int S, K, G, h, hv, T, bkv, causal, guard_shift;
 };
 
@@ -67,11 +53,10 @@ struct Smem {
   float* qs;      // kBQ x (h + 1)
   float* ks;      // kBKV x (h + 1)
   float* vs;      // kBKV x hv
-  float* ps;      // kBQ x (kBKV + 1): scores, then p (float) / num (int)
+  float* ps;      // kBQ x (kBKV + 1): scores, then p
   int32_t* qpos;  // kBQ
   int32_t* kval;  // kBKV
   float* row_c;   // kBQ: this tile's accumulator scale
-  int32_t* row_i; // kBQ x (1 + 2 * 16): int m, S, S of this tile
 };
 
 __host__ __device__ inline size_t smem_bytes(int h, int hv) {
@@ -79,7 +64,7 @@ __host__ __device__ inline size_t smem_bytes(int h, int hv) {
                           static_cast<size_t>(kBKV) * (h + 1) +
                           static_cast<size_t>(kBKV) * hv + kBQ * (kBKV + 1) +
                           kBQ) +
-         sizeof(int32_t) * (kBQ + kBKV + kBQ * (1 + 2 * unit::N_SNAP_BUCKETS));
+         sizeof(int32_t) * (kBQ + kBKV);
 }
 
 __device__ inline Smem carve(float* base, int h, int hv) {
@@ -91,7 +76,6 @@ __device__ inline Smem carve(float* base, int h, int hv) {
   s.row_c = s.ps + kBQ * (kBKV + 1);
   s.qpos = reinterpret_cast<int32_t*>(s.row_c + kBQ);
   s.kval = s.qpos + kBQ;
-  s.row_i = s.kval + kBKV;
   return s;
 }
 
@@ -129,16 +113,9 @@ __device__ inline int32_t load_q_tile(const Args& a, const Smem& sm, int b,
   return mx;
 }
 
-// Number of kv tiles the block visits (the causal skip).
-__device__ inline int tiles_to_visit(const Args& a, int32_t qmax) {
-  const int n = (a.T + a.bkv - 1) / a.bkv;
-  if (!a.causal) return n;
-  return qmax < 0 ? 0 : min(n, qmax / a.bkv + 1);
-}
-
 // Keys [key0, key0 + nk) of this (b, head) into shared memory; the rest
 // of the tile reads as zeros.  With load_v false only K and the validity
-// words are loaded (the int3 kernel's max and sum sweeps read no V).
+// words are loaded (the max and sum sweeps read no V).
 __device__ inline void load_kv_tile(const Args& a, const Smem& sm, int b,
                                     int head, int key0, int nk,
                                     bool load_v = true) {
@@ -202,41 +179,6 @@ __device__ inline void score_tile(const Args& a, const Smem& sm, int key0,
   }
 }
 
-// First kv tile a causal row skips: the one after the tile holding its
-// q_pos (0 for a negative q_pos), at most n_tiles.
-__device__ inline int tail_start(const Args& a, int32_t qpos) {
-  const int n = (a.T + a.bkv - 1) / a.bkv;
-  return qpos < 0 ? 0 : min(n, qpos / a.bkv + 1);
-}
-
-// acc <- acc * row_c + row_p * v_tail[first] for this thread's rows, where
-// row_p / row_first (in the free score tile) hold each row's tail weight
-// and first skipped tile.
-__device__ inline void tail_acc_update(const Args& a, const Smem& sm, int b,
-                                       int head, float acc[4][kCols]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int n_tiles = (a.T + a.bkv - 1) / a.bkv;
-  const int32_t* first = reinterpret_cast<const int32_t*>(sm.ps);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    const float corr = sm.row_c[r], p = sm.ps[r * (kBKV + 1) + 1];
-    const float* vt = a.v_tail +
-        ((static_cast<size_t>(b) * (n_tiles + 1) + first[r * (kBKV + 1)]) * a.K +
-         head) * a.hv;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.hv) acc[i][c] = acc[i][c] * corr + p * vt[col];
-    }
-  }
-}
-
-// Whether row r updates its state on the tile starting at key0.
-__device__ inline bool row_live(const Args& a, const Smem& sm, int r, int key0) {
-  return !a.causal || key0 <= sm.qpos[r];
-}
-
 // acc <- acc * row_c + ps @ V for this thread's rows 4 ty + i and value
 // columns tx + 16 c.
 __device__ inline void pv_update(const Args& a, const Smem& sm, int nk,
@@ -275,21 +217,6 @@ __device__ inline float* out_row(const Args& a, int b, int head, int qt, int r) 
   int s, g;
   if (!row_coords(a, qt, r, &s, &g)) return nullptr;
   return a.out + (((static_cast<size_t>(b) * a.S + s) * a.K + head) * a.G + g) * a.hv;
-}
-
-// Index of tile row r in the (B, K, G, S) row-statistic layout.
-__device__ inline size_t stat_index(const Args& a, int b, int head, int qt, int r) {
-  int s, g;
-  row_coords(a, qt, r, &s, &g);
-  return ((static_cast<size_t>(b) * a.K + head) * a.G + g) * a.S + s;
-}
-
-// The 4 threads of a row (consecutive lanes) combine their values.
-template <typename T, typename Op>
-__device__ inline T quad_reduce(T v, Op op) {
-  v = op(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = op(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return v;
 }
 
 // Set the dynamic shared-memory limit when a launch needs more than 48 KB.

@@ -65,7 +65,9 @@ __device__ __forceinline__ int32_t mantissa_frac(int32_t s, int32_t e_pos) {
 // kernel's default.  RomTable reads the same 16 pairs from the block's
 // shared memory (rom_fill, then a barrier): one 8-byte shared load a lookup.
 // Rows 1 and 2 (softmax_rows.cu, pair_act.cu), whose int bodies are bound by
-// int32 issue, take the table; the other int kernels keep the chains.  Both
+// int32 issue, and the snapped int flash and contiguous decode (rows 8 and 6,
+// flash_snap_sm90.cuh, decode_dense_sm90.cuh), where the words ride on the
+// f32 dot products, take the table; the other int kernels keep the chains.  Both
 // give the same words: every caller's segment lies in [0, 8) (v is in
 // [0, 2^T_FRAC), and so is f, since every log2_int caller clamps s >= 1),
 // where the chains' fall-through to entry 0 never fires.
@@ -214,9 +216,11 @@ __device__ __forceinline__ int32_t snap_max_int(int32_t t) {
   return shl_wrap((t + ((1 << T_FRAC) - 1)) >> T_FRAC, T_FRAC);
 }
 
-__device__ __forceinline__ int32_t snap_prob_word(int32_t t, int guard_shift) {
+template <class Rom = RomChain>
+__device__ __forceinline__ int32_t snap_prob_word(int32_t t, int guard_shift,
+                                                  const Rom& rom = Rom()) {
   if (t <= SNAP_MIN) return 0;
-  return exp2_frac_int(t & ((1 << T_FRAC) - 1)) >> guard_shift;
+  return exp2_frac_int(t & ((1 << T_FRAC) - 1), rom) >> guard_shift;
 }
 
 // exact float 2^-d (d >= 0) by exponent-field construction; +0.0 past range

@@ -27,8 +27,8 @@ scratch this wrapper allocates.  The plain version is the reference's
 full sweep of every ``block_kv`` tile (``models.flash``), so it holds the
 fold to account at any shape -- also for a row whose every visible key is
 masked, where that tail carries most of the mass.  The two agree up to
-f32 summation order.  (:func:`v_tail_sums`, the same sums at
-``block_kv``, serves the int kernel ``flash_snap``.)
+f32 summation order.  (The int kernel ``flash_snap`` runs on the same body
+and folds its tail the same way.)
 
 Gradients: :func:`flash_attention_pallas` runs the kernel inside a
 ``torch.autograd.Function`` whenever grad is needed (on either device).
@@ -76,19 +76,6 @@ def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
     if return_mask:
         return s, mask & (kv_pos < t_kv)
     return s
-
-
-def v_tail_sums(v, block_kv: int):
-    """(B, n_tiles + 1, K, hv) f32: the sum of V over keys [j * block_kv, T)
-    for every tile j, and 0 at j = n_tiles -- what a causal row's skipped
-    tail adds to the accumulator, per unit of probability."""
-    b, t, kh, hv = v.shape
-    n = tiling.cdiv(t, block_kv)
-    per_tile = tiling.pad_dim(v.to(torch.float32), 1, block_kv).reshape(
-        b, n, block_kv, kh, hv).sum(dim=2)
-    tails = torch.flip(torch.cumsum(torch.flip(per_tile, [1]), dim=1), [1])
-    return torch.cat([tails, torch.zeros_like(tails[:, :1])],
-                     dim=1).contiguous()
 
 
 def flash_fwd_plain(qf, k, v, q_pos, kv_valid, *, causal: bool,

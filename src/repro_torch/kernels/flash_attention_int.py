@@ -15,16 +15,22 @@ buckets) and the f32 accumulator rescales by exact powers of two.  The
 output is the naive ``softmax_impl='dualmode_snap'`` attention with
 identical (p, d, l) words; only the f32 numerator @ v summation order
 differs, and not at all under an identity-v probe.  The kernel
-(``csrc/flash_snap.cu``) shares the tile machinery of the float kernel.
+(``csrc/flash_snap.cu``) runs on the float forward's Hopper body
+(``csrc/flash_fwd_sm90.cuh``: its tiles, ring, scores, mask, p tile, P V
+product and pre-pass) with the snapped int row state in registers
+(``csrc/flash_snap_sm90.cuh``); its tiles, copy width, tile order and
+bucket scheme are :func:`tiling.flash_snap_plan`'s, not ``block_kv``.
 
 Masking is the float kernel's (:mod:`.flash_attention`): invalid or
 causally masked keys score ``MASK_VALUE`` before quantization, phantom
 keys take ``PHANTOM_Q``, whose exponential is the literal 0 word; scores
 quantize as ``quantize((q * scale) . k)``, the naive path's order.  The
-kernel folds a causal row's skipped tail (every key past its q_pos tile,
-one score word each) in closed form as the float kernel does: its (m, S)
-words are the full sweep's exactly.  The plain version is that full
-sweep of every tile, so the fold is held to it at any shape.
+kernel folds the causal tail (every key past its q tile's causal end,
+one score word each) in closed form as the float kernel does, from the
+chunk-local V sums of its own pre-pass (a scratch this wrapper
+allocates): its (m, S) words are the full sweep's exactly.  The plain
+version is that full sweep of every tile, so the fold is held to it at
+any shape.
 
 Three sweeps of the classic unit: the unsnapped rescale is not
 multiplicative in words, so ``flash_int3`` runs the row max, the
@@ -46,12 +52,12 @@ from repro_torch.core.fixedpoint import EXP_FRAC, T_FRAC, dequantize, quantize
 from . import _build
 from . import dispatch, tiling
 from .flash_attention import (_check_operands, check_block_kv,
-                              masked_score_block, v_tail_sums)
+                              masked_score_block)
 
 _P, _I = _build.P, _build.I
 
 FLASH_SNAP = _build.Kernel(
-    "flash_snap", "flash_snap_launch", [_P] * 9 + [_I] * 11 + [_P],
+    "flash_snap", "flash_snap_launch", [_P] * 9 + [_I] * 16 + [_P],
     source="src/repro_torch/csrc/flash_snap.cu",
     replaces="src/repro/kernels/flash_attention_int.py:218")
 FLASH_INT3 = _build.Kernel(
@@ -159,14 +165,19 @@ def flash_snap(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
         m = torch.empty((b, kh, g, s_q), dtype=torch.int32, device=dev)
         S = torch.empty((b, kh, g, s_q, unit.N_SNAP_BUCKETS),
                         dtype=torch.int32, device=dev)
-    tails = v_tail_sums(v, block_kv) if causal else None
-    FLASH_SNAP(qf.data_ptr(), k.data_ptr(), v.data_ptr(),
-               None if tails is None else tails.data_ptr(), q_pos.data_ptr(),
-               kv_valid.data_ptr(), out.data_ptr(),
-               None if m is None else m.data_ptr(),
+    plan = tiling.flash_snap_plan(h, hv, causal=causal,
+                                  aligned=tiling.aligned16(qf, k, v, out))
+    # the pre-pass's V sums, one row of hv a kernel tile
+    vsum = (torch.empty((b, tiling.cdiv(t, plan.block_kv), kh, hv),
+                        device=dev) if causal else None)
+    FLASH_SNAP(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+               kv_valid.data_ptr(), None if vsum is None else vsum.data_ptr(),
+               out.data_ptr(), None if m is None else m.data_ptr(),
                None if S is None else S.data_ptr(),
                b, s_q, kh, g, h, hv, t, block_kv, int(causal), guard_shift,
-               int(return_partial), _build.stream_ptr(dev))
+               plan.block_q, plan.block_kv, plan.stages, plan.vec,
+               int(plan.reverse), tiling.FLASH_SNAP_BUCKETS.index(plan.buckets),
+               _build.stream_ptr(dev))
     return (out, m, S) if return_partial else out
 
 

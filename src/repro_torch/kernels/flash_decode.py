@@ -11,13 +11,13 @@ The kernels emit one partial state per KV split -- (m, l, o*l) float, or
 PyTorch, as the reference runs it outside its kernel:
 ``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
 ``online_finish_int`` + one f32 division.  The kernels are bound by
-memory on the H100: each visited K/V tile is read once.  Three of them
-share ``csrc/decode.cu`` (one body templated over the state and the
-addressing) and the split rule :func:`tiling.decode_splits`; the float
-contiguous decode runs on its own Hopper body (``csrc/decode_dense.cu`` on
-``csrc/decode_dense_sm90.cuh``: per-warp key runs, each warp's cp.async
-ring and online state, a fixed-order merge of the warps) with the split
-count and tile of :func:`tiling.decode_dense_plan` on the GPU.
+memory on the H100: each visited K/V tile is read once.  The paged two
+share ``csrc/decode.cu`` (one body templated over the state) and the split
+rule :func:`tiling.decode_splits`; the contiguous two run on a Hopper body
+(``csrc/decode_dense.cu`` on ``csrc/decode_dense_sm90.cuh``: per-warp key
+runs, each warp's cp.async ring and online state -- float, or the snapped
+m and a bucket a lane -- and a fixed-order merge of the warps) with the
+split count and tile of :func:`tiling.decode_dense_plan` on the GPU.
 
 Shapes (the reference's): q (B, 1, K, G, h); paged pools (N, bs, K,
 h|hv) with block_tables (B, nblk) int32 and kv_valid (B, nblk*bs);
@@ -57,8 +57,8 @@ DECODE_DENSE = _build.Kernel(
     source="src/repro_torch/csrc/decode_dense.cu",
     replaces="src/repro/kernels/flash_decode.py:162")
 DECODE_DENSE_INT = _build.Kernel(
-    "decode_dense_int", "decode_dense_int_launch", [_P] * 8 + [_I] * 10 + [_P],
-    source="src/repro_torch/csrc/decode.cu",
+    "decode_dense_int", "decode_dense_int_launch", [_P] * 8 + [_I] * 11 + [_P],
+    source="src/repro_torch/csrc/decode_dense.cu",
     replaces="src/repro/kernels/flash_decode.py:283")
 
 MAX_GROUPS = 8          # GQA rows per kv head the kernels hold (kMaxG)
@@ -311,8 +311,8 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
                           guard_shift: int):
     """Per-split partials of the contiguous decode through the CUDA
     kernel (CUDA tensors) or the plain version (CPU tensors); arguments
-    as :func:`decode_dense_partials_plain`.  The float kernel copies K / V
-    at :func:`tiling.decode_dense_vec`'s width."""
+    as :func:`decode_dense_partials_plain`.  The kernels copy K / V at
+    :func:`tiling.decode_dense_vec`'s width."""
     if qf.device.type == "cpu":
         return decode_dense_partials_plain(
             qf, k, v, q_pos, kv_valid, num_splits=num_splits,
@@ -323,6 +323,9 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
     _check_dense_operands(qf, k, v, q_pos, kv_valid)
     if num_splits < 1 or not 1 <= block_kv <= 1024:
         raise ValueError(f"num_splits={num_splits}, block_kv={block_kv}")
+    if max(h, hv) > MAX_HEAD_DIM:
+        raise ValueError(f"decode_dense: head dims {h}/{hv}; the kernels "
+                         f"take 1..{MAX_HEAD_DIM}")
     dev = qf.device
     part_m = torch.empty((b, num_splits, kh, g), device=dev,
                          dtype=torch.int32 if int_mode else torch.float32)
@@ -334,15 +337,11 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
             kv_valid.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), b, t, kh, g, h, hv, block_kv, num_splits,
             int(causal))
+    vec = tiling.decode_dense_vec(h, hv, tiling.aligned16(k, v))
     if int_mode:
-        DECODE_DENSE_INT(*ptrs, guard_shift, _build.stream_ptr(dev))
-        return part_m, part_l, part_acc
-    if max(h, hv) > MAX_HEAD_DIM:
-        raise ValueError(f"decode_dense: head dims {h}/{hv}; the float kernel "
-                         f"takes 1..{MAX_HEAD_DIM}")
-    aligned = k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0
-    DECODE_DENSE(*ptrs, tiling.decode_dense_vec(h, hv, aligned),
-                 _build.stream_ptr(dev))
+        DECODE_DENSE_INT(*ptrs, guard_shift, vec, _build.stream_ptr(dev))
+    else:
+        DECODE_DENSE(*ptrs, vec, _build.stream_ptr(dev))
     return part_m, part_l, part_acc
 
 
@@ -369,22 +368,21 @@ def _check_dense_operands(qf, k, v, q_pos, kv_valid):
 
 
 def dense_decode_splits(t: int, rows: int, device) -> int:
-    """Split count of the contiguous int decode (and of the float one on
-    the CPU): on a GPU, from the SM count over DECODE_BLOCK_KV-key tiles;
-    on the CPU, the reference's off-TPU rule (one split per
-    DECODE_SPLIT_KEYS keys)."""
+    """Split count of the contiguous decode's plain version on the CPU:
+    the reference's off-TPU rule (one split per DECODE_SPLIT_KEYS keys of
+    DECODE_BLOCK_KV-key tiles)."""
     return tiling.decode_splits(tiling.cdiv(t, tiling.DECODE_BLOCK_KV),
                                 tiling.DECODE_BLOCK_KV, rows, device)
 
 
-def dense_decode_tiles(t: int, rows: int, device, *, int_mode: bool,
+def dense_decode_tiles(t: int, rows: int, device, *,
                        num_splits: int | None = None):
     """(num_splits, block_kv) of :func:`flash_decode_pallas` over a t-key
-    cache of ``rows`` (batch x kv heads) sweeps: the float kernel on a GPU
-    takes :func:`tiling.decode_dense_plan`'s; the int kernel, and the plain
-    version on the CPU, :func:`dense_decode_splits` and
+    cache of ``rows`` (batch x kv heads) sweeps: the kernels on a GPU, float
+    and int, take :func:`tiling.decode_dense_plan`'s; the plain version on
+    the CPU keeps the reference's rule, :func:`dense_decode_splits` and
     :func:`tiling.decode_kv_block`.  A given ``num_splits`` is kept."""
-    if device.type == "cuda" and not int_mode:
+    if device.type == "cuda":
         plan = tiling.decode_dense_plan(t, rows, sms=tiling.sm_count(device))
         return (plan.splits if num_splits is None else num_splits,
                 plan.block_kv)
@@ -411,7 +409,6 @@ def flash_decode_pallas(q, k, v, *, q_pos, kv_valid, causal: bool = True,
     t = k.shape[1]
     int_mode = softmax_impl == "dualmode"
     num_splits, tile = dense_decode_tiles(t, b * kh, q.device,
-                                          int_mode=int_mode,
                                           num_splits=num_splits)
     num_splits = max(1, num_splits)
     block_kv = tile if block_kv is None else block_kv

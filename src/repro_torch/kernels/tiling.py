@@ -33,14 +33,15 @@ the copies, so no operand is padded in device memory.
 The flash backward (rows 10 and 11) runs on ``csrc/flash_bwd_sm90.cuh``
 with its own tiles (:func:`flash_bwd_plan`), not the forward's: a row
 pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
-The float flash forward (row 7) runs on ``csrc/flash_fwd_sm90.cuh`` with
-the tiles of :func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V
-tiles streamed); the int blocked kernels (rows 8, 9) keep ATTN_BLOCK_Q x
-ATTN_BLOCK_KV on ``csrc/flash_tile.cuh``.  The float contiguous decode
-(row 5) runs on ``csrc/decode_dense_sm90.cuh`` with the split count
-and tile of :func:`decode_dense_plan` and the copy width of
-:func:`decode_dense_vec`; the int and paged decodes (rows 3, 4, 6) keep
-:func:`decode_splits`.
+The float flash forward (row 7) and the one-sweep snapped int flash (row
+8) run on ``csrc/flash_fwd_sm90.cuh`` with the tiles of
+:func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V tiles
+streamed; row 8 through :func:`flash_snap_plan`); the three-sweep int
+kernel (row 9) keeps ATTN_BLOCK_Q x ATTN_BLOCK_KV on
+``csrc/flash_tile.cuh``.  The contiguous decodes (rows 5 and 6) run on
+``csrc/decode_dense_sm90.cuh`` with the split count and tile of
+:func:`decode_dense_plan` and the copy width of :func:`decode_dense_vec`;
+the paged decodes (rows 3, 4) keep :func:`decode_splits`.
 
 The residual-norm epilogue takes one block per row, in place of the
 reference's ``norm_rows``.  The unit's row softmax (row 1) holds each row
@@ -61,7 +62,7 @@ PAGED_MIN_BLOCK = 8          # block-size window of the paged pool
 PAGED_MAX_BLOCK = 128
 ATTN_BLOCK_Q = 64            # blocked attention: query rows per tile
 ATTN_BLOCK_KV = 64           # blocked attention: keys per tile
-DECODE_BLOCK_KV = 128        # contiguous split-KV decode: keys per tile
+DECODE_BLOCK_KV = 128        # contiguous decode's plain version: keys a tile
 
 
 def cdiv(a: int, b: int) -> int:
@@ -339,7 +340,40 @@ def flash_fwd_plan(h: int, hv: int, *, causal: bool,
     return FlashFwdPlan(bq, FLASH_FWD_BK, stages, vec, bool(causal))
 
 
-DECODE_DENSE_BLOCK_KV = 64   # float contiguous decode on a GPU: keys a tile
+# how the snapped int flash fills its 16 depth buckets a tile, by the C
+# entry's index (csrc/flash_snap_sm90.cuh kBucketsAtomic, kBucketsShuffle)
+FLASH_SNAP_BUCKETS = ("atomic", "shuffle")
+
+
+class FlashSnapPlan(NamedTuple):
+    block_q: int    # rows of the q tile a block holds
+    block_kv: int   # keys of a K / V tile streamed through the ring
+    stages: int     # depth of the cp.async ring
+    vec: int        # floats a cp.async copy moves: 4 (16 bytes) or 1
+    reverse: bool   # walk the q tiles from the last
+    buckets: str    # one of FLASH_SNAP_BUCKETS
+
+
+@functools.lru_cache(maxsize=256)
+def flash_snap_plan(h: int, hv: int, *, causal: bool,
+                    aligned: bool = True) -> FlashSnapPlan:
+    """The tiles, ring depth, copy width, tile order and bucket scheme of
+    the one-sweep snapped int flash (row 8, ``csrc/flash_snap.cu`` on the
+    body of row 7) for head dims h and hv; ``aligned`` as
+    :func:`flash_fwd_plan`.
+
+    The tiles are row 7's (:func:`flash_fwd_plan`): the snapped state --
+    the row's m and one of its 16 buckets a lane -- is the float state's m
+    and l in size.  The words do not depend on the tiles.  The buckets fill
+    by shared int32 atomics into a per-warp tile ('atomic'); the register
+    histogram and reduce-scatter ('shuffle', 16-byte copies only) is the
+    other exact scheme the entry instantiates, for the probe that times
+    both."""
+    return FlashSnapPlan(*flash_fwd_plan(h, hv, causal=causal,
+                                         aligned=aligned), "atomic")
+
+
+DECODE_DENSE_BLOCK_KV = 64   # contiguous decode on a GPU: keys a tile
 DECODE_DENSE_SLOTS = 2       # resident blocks an SM (its shared memory)
 DECODE_DENSE_WAVES = 4       # blocks the split rule asks for, per slot
 DECODE_DENSE_MIN_KEYS = 256  # cache keys a split covers at least
@@ -351,7 +385,7 @@ class DecodeDensePlan(NamedTuple):
 
 
 def decode_dense_vec(h: int, hv: int, aligned: bool) -> int:
-    """Floats a K / V copy of the float contiguous decode moves: 4 (16
+    """Floats a K / V copy of the contiguous decodes moves: 4 (16
     bytes) where h, hv are multiples of four floats and ``aligned`` (the K
     and V base pointers are multiples of 16 bytes; q is read a float at a
     time), else 1.  The kernel's wrapper applies it at each launch, to the
@@ -361,8 +395,8 @@ def decode_dense_vec(h: int, hv: int, aligned: bool) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def decode_dense_plan(t_kv: int, rows: int, *, sms: int) -> DecodeDensePlan:
-    """Split count and tile of the float contiguous decode (row 5,
-    ``csrc/decode_dense_sm90.cuh``; its copy width is
+    """Split count and tile of the contiguous decodes (rows 5 and 6,
+    ``csrc/decode_dense_sm90.cuh``; their copy width is
     :func:`decode_dense_vec`'s) on a card of ``sms`` SMs: ``rows`` (batch
     x kv heads) sweeps over a t_kv-key cache.
 
@@ -373,7 +407,10 @@ def decode_dense_plan(t_kv: int, rows: int, *, sms: int) -> DecodeDensePlan:
     less than one tile.  It may pass DECODE_MAX_SPLITS, the cap of the
     other decode kernels' rule (:func:`decode_splits`).  The kernel's
     warps and ring depth are fixed; ``csrc/decode_dense.cu`` instantiates
-    both copy widths and takes any split count and tile."""
+    both copy widths and takes any split count and tile.  The int words
+    differ from the reference decode's 128-key tiles only through the
+    masked keys past q_pos inside the last visited tile (ROADMAP Queue
+    3)."""
     nblk = cdiv(t_kv, DECODE_DENSE_BLOCK_KV)
     want = cdiv(DECODE_DENSE_WAVES * DECODE_DENSE_SLOTS * sms, max(rows, 1))
     splits = max(1, min(want, nblk, cdiv(t_kv, DECODE_DENSE_MIN_KEYS)))

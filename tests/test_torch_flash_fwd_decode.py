@@ -89,16 +89,13 @@ def test_decode_dense_copy_width(h, hv, aligned, want):
 def test_decode_tiles_on_cpu_keep_the_reference_rule():
     """The plain version on the CPU folds the reference's off-TPU split
     rule, float and int alike, so CPU parity with the JAX package does not
-    move; the plan applies to the float kernel on a GPU only."""
+    move; the plan applies to the kernels on a GPU only."""
     cpu = torch.device("cpu")
     for t in (1601, 4096, 16384):
-        for int_mode in (False, True):
-            ns = fd.dense_decode_splits(t, 64, cpu)
-            assert fd.dense_decode_tiles(t, 64, cpu,
-                                         int_mode=int_mode) == (
-                ns, tiling.decode_kv_block(t, ns))
-        assert fd.dense_decode_tiles(t, 64, cpu, int_mode=False,
-                                     num_splits=3) == (
+        ns = fd.dense_decode_splits(t, 64, cpu)
+        assert fd.dense_decode_tiles(t, 64, cpu) == (
+            ns, tiling.decode_kv_block(t, ns))
+        assert fd.dense_decode_tiles(t, 64, cpu, num_splits=3) == (
             3, tiling.decode_kv_block(t, 3))
 
 

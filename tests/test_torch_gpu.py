@@ -468,8 +468,7 @@ def test_decode_dense_kernel_new_body(cuda, shape):
     bits; again with every pointer one float off 16 bytes."""
     b, t, kh, g, h, hv, q_pos, causal, n_s, bkv = shape
     if n_s is None:
-        n_s, bkv = fd.dense_decode_tiles(t, b * kh, cuda,
-                                         int_mode=False)
+        n_s, bkv = fd.dense_decode_tiles(t, b * kh, cuda)
     gen = torch.Generator().manual_seed(15)
     qf = _randn(gen, cuda, b, kh, g, h) * h ** -0.5
     k, v = _randn(gen, cuda, b, t, kh, h), _randn(gen, cuda, b, t, kh, hv)
@@ -517,6 +516,178 @@ def test_decode_dense_refuses_16_byte_copies_when_unaligned(cuda):
     torch.testing.assert_close(fd.finish_partials(*got, int_mode=False),
                                fd.finish_partials(*want, int_mode=False),
                                atol=1e-5, rtol=0)
+
+
+# ---- rows 8 / 6: the snapped int flash and contiguous decode, Hopper bodies
+
+SNAP_EDGES = [
+    # (b, s, t, kh, g, h, hv, causal, block_kv, q_pos end, all-masked row)
+    (1, 127, 127, 2, 1, 64, 64, True, 64, None, False),     # S G one off 128
+    (1, 43, 257, 2, 3, 64, 64, True, 64, None, False),      # S G 129, T 257
+    (2, 40, 1300, 2, 2, 64, 64, True, 64, 40, True),        # tail past a chunk
+    (1, 20, 1100, 2, 1, 128, 128, True, 16, 17, False),     # q_pos < 0
+    (1, 33, 129, 3, 4, 128, 72, True, 16, None, False),     # G 4 at h 128
+    (1, 67, 1601, 2, 4, 128, 128, False, 64, None, False),  # S G off 64
+    (1, 50, 90, 2, 3, 30, 62, True, 37, None, False)]       # 4-byte copies
+
+
+def _snap_call(fai, ops, kw):
+    """Row 8's partial (acc, m, S) and output, one counted launch each."""
+    before = fai.FLASH_SNAP.launches
+    part = fai.flash_snap(*ops, return_partial=True, **kw)
+    out = fai.flash_snap(*ops, **kw)
+    assert fai.FLASH_SNAP.launches == before + 2
+    return part, out
+
+
+@pytest.mark.parametrize("shape", SNAP_EDGES)
+def test_flash_snap_kernel_at_tile_edges(cuda, shape):
+    """Row 8 on row 7's Hopper body across the plan's tile edges, on
+    grid-valued q and k (exact scores): the m and S words bitwise the plain
+    full sweep's, the output within 1e-5, two calls the same bits; again
+    with every pointer one float off 16 bytes (the 4-byte entries)."""
+    from repro_torch.kernels import flash_attention_int as fai
+    b, s, t, kh, g, h, hv, causal, bkv, end, all_masked = shape
+    qf, k, v, qp, valid = _attn(cuda, b, s, t, kh, g, h, hv, True,
+                                causal_end=end)
+    if all_masked:
+        valid[:, 0] = 0
+    kw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+    want = fai.flash_snap_plain(qf, k, v, qp, valid, return_partial=True,
+                                **kw)
+    want_out = fai.flash_snap_plain(qf, k, v, qp, valid, **kw)
+    for off in (False, True):
+        ops = tuple(_off_by_one_float(x) for x in (qf, k, v)) if off else (
+            qf, k, v)
+        part, out = _snap_call(fai, ops + (qp, valid), kw)
+        assert torch.equal(part[1], want[1]) and torch.equal(part[2], want[2])
+        torch.testing.assert_close(out, want_out, atol=1e-5, rtol=0)
+        again = _snap_call(fai, ops + (qp, valid), kw)
+        assert all(torch.equal(x, y) for x, y in zip(part, again[0]))
+        assert torch.equal(out, again[1])
+
+
+@pytest.mark.parametrize("causal,bkv", [(True, 64), (True, 16), (False, 37)])
+def test_flash_snap_identity_v_bitwise(cuda, causal, bkv):
+    """V the identity: every output is one exact probability word over the
+    row's l, so the kernel's output is the plain version's bit for bit."""
+    from repro_torch.kernels import flash_attention_int as fai
+    qf, k, _, qp, valid = _attn(cuda, 2, 40, 128, 2, 2, 64, 64, True,
+                                causal_end=128)
+    eye = torch.eye(128, device=cuda)[None, :, None, :].expand(
+        2, 128, 2, 128).contiguous()
+    kw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+    assert torch.equal(fai.flash_snap(qf, k, eye, qp, valid, **kw),
+                       fai.flash_snap_plain(qf, k, eye, qp, valid, **kw))
+
+
+@pytest.mark.parametrize("h", [64, 128])
+def test_flash_snap_bucket_schemes_agree(cuda, h):
+    """The plan's bucket scheme and the other one the entry instantiates
+    (16-byte copies) give the same words, and accumulators within 1e-5 of
+    the plain version's over the row's l."""
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+    args = _attn(cuda, 1, 150, 300, 2, 2, h, h, True)
+    kw = dict(causal=True, block_kv=64, guard_shift=0, return_partial=True)
+    got = {}
+    for buckets in tiling.FLASH_SNAP_BUCKETS:
+        plan = tiling.flash_snap_plan(h, h, causal=True)._replace(
+            buckets=buckets)
+        with mock.patch.object(tiling, "flash_snap_plan",
+                               lambda *a, plan=plan, **k_: plan):
+            got[buckets] = fai.flash_snap(*args, **kw)
+    want = fai.flash_snap_plain(*args, **kw)
+    l = fai.unit.online_finish_int(want[2]).to(torch.float32)
+    l = l.permute(0, 3, 1, 2)[..., None]                  # (B, S, K, G, 1)
+    for res in got.values():
+        assert torch.equal(res[1], want[1]) and torch.equal(res[2], want[2])
+        torch.testing.assert_close(res[0] / l, want[0] / l, atol=1e-5,
+                                   rtol=0)
+
+
+def test_flash_snap_refuses_what_it_does_not_instantiate(cuda):
+    """16-byte copies forced where h is off four floats, and the shuffle
+    bucket scheme on the 4-byte copies, make the C entry refuse."""
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+    args = _attn(cuda, 1, 40, 70, 1, 2, 30, 30, False)
+    assert tiling.flash_snap_plan(30, 30, causal=True).vec == 1
+    for plan in (tiling.flash_snap_plan(32, 32, causal=True),
+                 tiling.flash_snap_plan(30, 30, causal=True)._replace(
+                     buckets="shuffle")):
+        with mock.patch.object(tiling, "flash_snap_plan",
+                               lambda *a, plan=plan, **k_: plan):
+            with pytest.raises(RuntimeError, match="flash_snap"):
+                fai.flash_snap(*args, causal=True, block_kv=64, guard_shift=0)
+
+
+@pytest.mark.parametrize("shape", [
+    # (b, t, kh, g, h, hv, q_pos, causal, splits, block_kv); None: the plan's
+    (4, 16384, 16, 1, 64, 64, [1100, 2500, 3900, 4015], True, None, None),
+    (4, 1601, 8, 4, 128, 128, [0, 0, 0, 0], False, None, None),
+    (3, 1000, 2, 4, 128, 96, [-1, 500, 999], True, 8, 64),
+    (4, 600, 2, 1, 64, 64, [5, 127, 300, 599], True, 40, 16),
+    (2, 333, 2, 4, 128, 128, [0, 0], False, 7, 64),
+    (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37),
+    (2, 120, 2, 8, 128, 96, [70, 119], True, 2, 37)])
+def test_decode_dense_int_kernel_new_body(cuda, shape):
+    """Row 6 on row 5's Hopper body at the plan's splits and 64-key tiles
+    (the path, the cross tick) and at edges (T off 64, q_pos < 0, splits
+    with no tile, G 4 and 8 at h 128, block_kv 16 / 37, the 4-byte copies),
+    on grid-valued q and k: each split's m and S words bitwise the plain
+    version's at the same (splits, tile), the folded output within 1e-5,
+    one counted launch a call, two calls the same bits; again with every
+    pointer one float off 16 bytes."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import tiling
+    b, t, kh, g, h, hv, q_pos, causal, n_s, bkv = shape
+    if n_s is None:
+        n_s, bkv = fd.dense_decode_tiles(t, b * kh, cuda)
+        assert (n_s, bkv) == tuple(tiling.decode_dense_plan(
+            t, b * kh, sms=tiling.sm_count(cuda)))
+    gen = torch.Generator().manual_seed(17)
+    qf = torch.round(_randn(gen, cuda, b, kh, g, h) * h ** -0.5 * 32) / 32
+    k = torch.round(_randn(gen, cuda, b, t, kh, h) * 4) / 16
+    v = _randn(gen, cuda, b, t, kh, hv)
+    qp = torch.tensor(q_pos, dtype=torch.int32).to(cuda)
+    valid = (torch.rand(b, t, generator=gen) > 0.25).to(torch.uint8).to(cuda)
+    kw = dict(num_splits=n_s, block_kv=bkv, causal=causal, int_mode=True,
+              guard_shift=unit.guard_shift_for(t))
+    want = fd.decode_dense_partials_plain(qf.contiguous(), k, v, qp, valid,
+                                          **kw)
+    for off in (False, True):
+        ops = tuple(_off_by_one_float(x) for x in (qf.contiguous(), k, v)) \
+            if off else (qf.contiguous(), k, v)
+        before = fd.DECODE_DENSE_INT.launches
+        got = fd.decode_dense_partials(*ops, qp, valid, **kw)
+        assert fd.DECODE_DENSE_INT.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        torch.testing.assert_close(fd.finish_partials(*got, int_mode=True),
+                                   fd.finish_partials(*want, int_mode=True),
+                                   atol=1e-5, rtol=0)
+        again = fd.decode_dense_partials(*ops, qp, valid, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_decode_dense_int_refuses_16_byte_copies_when_unaligned(cuda):
+    """16-byte copies forced where h is off four floats, or where the K or
+    V pointer is off 16 bytes, raise."""
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(18)
+    kw = dict(num_splits=2, block_kv=64, causal=True, int_mode=True,
+              guard_shift=0)
+    qp = torch.tensor([50, 199], dtype=torch.int32).to(cuda)
+    valid = torch.ones(2, 200, dtype=torch.uint8, device=cuda)
+    q30 = _randn(gen, cuda, 2, 2, 2, 30)
+    k30, v30 = (_randn(gen, cuda, 2, 200, 2, 30) for _ in range(2))
+    qf = _randn(gen, cuda, 2, 2, 2, 32)
+    k, v = _randn(gen, cuda, 2, 200, 2, 32), _randn(gen, cuda, 2, 200, 2, 32)
+    with mock.patch.object(tiling, "decode_dense_vec", lambda *a: 4):
+        for ops in ((q30, k30, v30), (qf, _off_by_one_float(k), v),
+                    (qf, k, _off_by_one_float(v))):
+            with pytest.raises(RuntimeError, match="decode_dense_int"):
+                fd.decode_dense_partials(*ops, qp, valid, **kw)
 
 
 # ---------------- training: backward kernels and autograd ----------------

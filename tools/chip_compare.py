@@ -1,33 +1,45 @@
 """Compares two trees of the PyTorch port on one GPU: run it once a tree,
 in turns (parent, change, change, parent), inside one call to the card.
 
-    python tools/chip_compare.py kernels TREE TAG [ROWS]  # rows 1, 2, 5, 7,
-                                                          # 12, 13
-    python tools/chip_compare.py tick TREE                # long-context serve
-    python tools/chip_compare.py yi TREE                  # yi-6b serve
-    python tools/chip_compare.py bert TREE                # bert-base forward
+    python tools/chip_compare.py kernels TREE TAG [ROWS [DIR]]  # rows 1-8,
+                                                  # 12, 13
+    python tools/chip_compare.py words DIR TAG TAG  # words two trees saved
+    python tools/chip_compare.py tick TREE          # long-context serve
+    python tools/chip_compare.py yi TREE            # yi-6b serve
+    python tools/chip_compare.py bert TREE          # bert-base forward
+    python tools/chip_compare.py vision TREE        # llama-3.2-vision serve
 
 TREE is the root of a checkout (its ``src/`` holds ``repro_torch``); its
-kernels build into that checkout.  ``kernels`` times rows 7 (flash_fwd)
-and 5 (decode_dense, at several split counts) through the tree's
+kernels build into that checkout.  ``kernels`` times, through the tree's
 wrappers at the paths' shapes, back to back and under CUDA-graph replay,
-one JSON line a shape, and the float ``flash_decode_pallas`` wrapper at
-the long-context path's shape on the host's clock; rows 12 (fused_glu:
-yi-6b's tick and chunk, llama-3.2-vision's bucket-4096 prefill) and 13
-(glu_bwd, qwen1.5-0.5b's training shape) likewise, and rows 1
-(softmax_rows, int and float: qwen1.5-0.5b's chunk rows and bert-base's
-score rows) and 2 (pair_act: qwen's SiLU gate, bert's GELU activation),
-with the static SASS counts of their int entries in the tree's build;
-ROWS (a comma list, default all six) picks some.  Every tree runs on the timers of this
-checkout's chip_smoke.py.  ``tick`` runs the tree's own
-chip_smoke.py long-context serve phase (the contiguous engine at max_seq
-16384, float and dual-mode), ``yi`` its yi-6b serve phase (the paged
-engine with the fused impls, float and dual-mode), ``bert`` its bert-base
-phase (full-width forwards of 8 x 512 tokens: float, dual-mode, row 9,
-i-GELU).
+one JSON line a shape: rows 7 (flash_fwd) and 8 (flash_snap) at the
+long-context path's, the vision cross and the vision self shapes, with a
+digest of row 7's outputs and of row 8's (m, S) words on seeded random
+inputs; rows 5 (decode_dense, at several split counts) and 6
+(decode_dense_int, at the tree's own splits and tile, with the split fold,
+and a digest of its words at two fixed (splits, tile)) at the long-context
+tick and the vision cross and self ticks, and the float and dual-mode
+``flash_decode_pallas`` wrappers at the long-context tick on the host's
+clock; rows 3 and 4 (decode_paged, float and int) at qwen1.5-0.5b's
+paged tick, with a digest of their partials; rows 12 (fused_glu: yi-6b's tick and chunk, llama-3.2-vision's
+bucket-4096 prefill) and 13 (glu_bwd, qwen1.5-0.5b's training shape)
+likewise, and rows 1 (softmax_rows, int and float: qwen1.5-0.5b's chunk
+rows and bert-base's score rows) and 2 (pair_act: qwen's SiLU gate,
+bert's GELU activation), with the static SASS counts of their int entries
+in the tree's build.  ROWS (a comma list, default all ten) picks some;
+with DIR, the digested words also go to DIR/words_TAG.pt, and ``words``
+counts the words that differ between two tags' files.  Every tree runs on
+the timers of this checkout's chip_smoke.py.  ``tick`` runs the tree's
+own chip_smoke.py long-context serve phase (the contiguous engine at
+max_seq 16384, float and dual-mode), ``yi`` its yi-6b serve phase (the
+paged engine with the fused impls, float and dual-mode), ``bert`` its
+bert-base phase (full-width forwards of 8 x 512 tokens: float, dual-mode,
+row 9, i-GELU), ``vision`` its llama-3.2-vision-11b serve phase (float
+and dual-mode prefills of buckets 512 / 1024 / 4096 and ticks).
 """
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -54,7 +66,17 @@ def _load(tree: str):
     return root
 
 
-def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
+def _digest(*xs) -> str:
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kernels(tree: str, tag: str, rows: str = "1,2,3,4,5,6,7,8,12,13",
+            words_dir: str | None = None) -> None:
+    if words_dir is not None:
+        words_dir = os.path.abspath(words_dir)   # before _load's chdir
     _load(tree)
     rows = {int(r) for r in rows.split(",")}
     import torch
@@ -64,6 +86,7 @@ def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
     from repro_torch.kernels import flash_decode as fd
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(7)
+    saved = {}                  # the digested words, by entry
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
@@ -85,11 +108,15 @@ def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
         def fwd():
             return fa.flash_fwd(qf, k, v, qp, valid, causal=causal,
                                 block_kv=64, return_stats=stats)
+        res = fwd()
         print(json.dumps(dict(tag=tag, kernel="flash_fwd", shape=name,
                               ms=time_ms(fwd, iters=5, warmup=2),
-                              graph_ms=graph_ms(fwd, calls=2, iters=3))),
+                              graph_ms=graph_ms(fwd, calls=2, iters=3),
+                              digest=_digest(*(res if stats else (res,))))),
               flush=True)
-        del qf, k, v
+        del qf, k, v, res
+    if 8 in rows:
+        _snap_rows(tag, timers, randn, fwd_shapes, saved)
 
     dec_shapes = {
         "path": (4, 16384, 16, 1, 64, [1100, 2500, 3900, 4015], True),
@@ -112,6 +139,9 @@ def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
             res[f"{ns}x{bkv}"] = (time_ms(dec) * 1e3, graph_ms(dec) * 1e3)
         print(json.dumps(dict(tag=tag, kernel="decode_dense", shape=name,
                               us_and_graph_us=res)), flush=True)
+        if 6 in rows:
+            _dense_int_row(tag, timers, name, (qf, k, v, qp, valid), causal,
+                           saved)
         if name == "path":
             # the whole wrapper as a tick calls it, at the tree's splits
             def wrap():
@@ -123,8 +153,134 @@ def kernels(tree: str, tag: str, rows: str = "1,2,5,7,12,13") -> None:
                                   shape=name, host_and_wall_ms=runs)),
                   flush=True)
         del qf, k, v
+    if 6 in rows and 5 not in rows:
+        raise SystemExit("row 6 is timed on row 5's operands: give 5 too")
+    _paged_rows(tag, rows, timers, randn)
     _glu_rows(tag, rows, timers, randn)
     _unit_rows(tag, rows, timers, randn)
+    if words_dir is not None:
+        os.makedirs(words_dir, exist_ok=True)
+        torch.save(saved, os.path.join(words_dir, f"words_{tag}.pt"))
+
+
+def _snap_rows(tag: str, timers, randn, shapes: dict, saved: dict) -> None:
+    """Row 8 through the tree's wrapper at row 7's shapes (training's left
+    out), with the digest of its (m, S) words and output on seeded random
+    q, k, v (the same draws in every tree)."""
+    import torch
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_attention_int as fai
+    dev = torch.device("cuda")
+    for name, (b, s, t, kh, g, h, causal, stats) in shapes.items():
+        if stats:
+            continue
+        qf = randn(b, s, kh, g, h, scale=h ** -0.5).contiguous()
+        k, v = randn(b, t, kh, h), randn(b, t, kh, h)
+        qp = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(
+            b, s).contiguous()
+        valid = (torch.arange(t, device=dev)[None] < s) if causal else \
+            torch.ones(1, t, dtype=torch.bool, device=dev)
+        valid = valid.expand(b, t).to(torch.uint8).contiguous()
+        kw = dict(causal=causal, block_kv=64,
+                  guard_shift=0 if causal else unit.guard_shift_for(t))
+
+        def snap():
+            return fai.flash_snap(qf, k, v, qp, valid, **kw)
+        acc, m, S = fai.flash_snap(qf, k, v, qp, valid, return_partial=True,
+                                   **kw)
+        saved[f"flash_snap {name}"] = (m.cpu(), S.cpu())
+        print(json.dumps(dict(tag=tag, kernel="flash_snap", shape=name,
+                              ms=timers.time_ms(snap, iters=5, warmup=2),
+                              graph_ms=timers.graph_ms(snap, calls=2,
+                                                       iters=3),
+                              words_digest=_digest(m, S),
+                              out_digest=_digest(snap()))), flush=True)
+        del qf, k, v, acc, m, S
+
+
+def _dense_int_row(tag: str, timers, name: str, args, causal: bool,
+                   saved: dict) -> None:
+    """Row 6 through the tree's wrappers on row 5's operands: the kernel at
+    the tree's own (splits, tile), alone and with the split fold, and the
+    whole dual-mode ``flash_decode_pallas`` at the long-context tick; the
+    digest of its words at (3, 128) and (17, 64)."""
+    import torch
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_decode as fd
+    qf, k, v, qp, valid = args
+    b, kh, t = qf.shape[0], qf.shape[1], k.shape[1]
+    try:
+        ns, bkv = fd.dense_decode_tiles(t, b * kh, qf.device)
+    except TypeError:          # a tree whose int decode keeps its own rule
+        ns, bkv = fd.dense_decode_tiles(t, b * kh, qf.device, int_mode=True)
+    kw = dict(causal=causal, int_mode=True, guard_shift=unit.guard_shift_for(t))
+
+    def dec(ns=ns, bkv=bkv):
+        return fd.decode_dense_partials(qf, k, v, qp, valid, num_splits=ns,
+                                        block_kv=bkv, **kw)
+
+    def fold():
+        return fd.finish_partials(*dec(), int_mode=True)
+    digests = {}
+    for ns_, bkv_ in ((3, 128), (17, 64)):
+        m, S, _ = dec(ns_, bkv_)
+        saved[f"decode_dense_int {name} {ns_}x{bkv_}"] = (m.cpu(), S.cpu())
+        digests[f"{ns_}x{bkv_}"] = _digest(m, S)
+    line = dict(tag=tag, kernel="decode_dense_int", shape=name,
+                splits=ns, block_kv=bkv, ms=timers.time_ms(dec),
+                graph_ms=timers.graph_ms(dec), with_fold_ms=timers.time_ms(
+                    fold), with_fold_graph_ms=timers.graph_ms(fold),
+                words_digest=digests)
+    if name == "path":
+        line["wrapper_host_and_wall_ms"] = [timers.host_ms(
+            lambda: fd.flash_decode_pallas(
+                qf[:, None], k, v, q_pos=qp[:, None], kv_valid=valid,
+                causal=causal, scale=1.0, softmax_impl="dualmode"))
+            for _ in range(3)]
+    print(json.dumps(line), flush=True)
+
+
+def _paged_rows(tag: str, rows: set, timers, randn) -> None:
+    """Rows 3 and 4 through the tree's wrapper at qwen1.5-0.5b's paged tick
+    (B4 K16 G1 h64, 16 blocks of 128 keys a row, 4 splits), with a digest
+    of their partials."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    dev = torch.device("cuda")
+    b, kh, h, bs, nblk = 4, 16, 64, 128, 16
+    n_pool = 1 + b * nblk
+    qf = randn(b, kh, 1, h, scale=h ** -0.5).contiguous()
+    kp, vp = randn(n_pool, bs, kh, h), randn(n_pool, bs, kh, h)
+    tables = (torch.arange(b * nblk, dtype=torch.int32, device=dev)
+              + 1).reshape(b, nblk)
+    qp = torch.tensor([300, 800, 1400, 2000], dtype=torch.int32, device=dev)
+    valid = (torch.arange(nblk * bs, device=dev)[None] <= qp[:, None]).to(
+        torch.uint8)
+    for row, int_mode in ((3, False), (4, True)):
+        if row not in rows:
+            continue
+
+        def dec(int_mode=int_mode):
+            return fd.decode_paged_partials(qf, kp, vp, tables, qp, valid,
+                                            num_splits=4, causal=True,
+                                            int_mode=int_mode, guard_shift=0)
+        print(json.dumps(dict(
+            tag=tag, kernel="decode_paged_int" if int_mode else "decode_paged",
+            shape="qwen tick", ms=timers.time_ms(dec),
+            graph_ms=timers.graph_ms(dec), digest=_digest(*dec()))),
+            flush=True)
+
+
+def words(words_dir: str, tag_a: str, tag_b: str) -> None:
+    """The words two trees saved (``kernels ... DIR``): how many differ, by
+    entry, one JSON line."""
+    import torch
+    a, b = (torch.load(os.path.join(words_dir, f"words_{t}.pt"))
+            for t in (tag_a, tag_b))
+    print(json.dumps({key: dict(
+        words=sum(x.numel() for x in a[key]),
+        differ=sum(int((x != y).sum()) for x, y in zip(a[key], b[key])))
+        for key in a if key in b}), flush=True)
 
 
 def _unit_rows(tag: str, rows: set, timers, randn) -> None:
@@ -227,6 +383,11 @@ def bert(tree: str) -> None:
     _serve(tree, "bert_phase")
 
 
+def vision(tree: str) -> None:
+    _serve(tree, "vision_serve_phase")
+
+
 if __name__ == "__main__":
     mode, *args = sys.argv[1:]
-    {"kernels": kernels, "tick": tick, "yi": yi, "bert": bert}[mode](*args)
+    {"kernels": kernels, "words": words, "tick": tick, "yi": yi,
+     "bert": bert, "vision": vision}[mode](*args)
