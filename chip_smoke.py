@@ -29,9 +29,7 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             held to the same bits over two calls), timed beside their
             bounds at the tiles and split count the path's wrappers pick,
             also under CUDA-graph replay (the decodes also with their split
-            fold, beside a probe of split counts; row 8 with each of its
-            bucket schemes, a "[snap buckets probe]" line); then the
-            contiguous
+            fold, beside a probe of split counts); then the contiguous
             engine at max_seq 16384 (buckets 512 / 1024 / 4096, 4 slots),
             float and dual-mode, on 6 prompts of 1000-4000 tokens: prefill
             resolves to the blocked kernels and decode to the contiguous
@@ -111,7 +109,7 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             its bound (rows 5-8 at the wrappers' tiles and splits, under
             CUDA-graph replay, rows 5 / 7 beside SDPA), also at the
             self-attention shapes: a causal bucket-4096 prefill (row 8's
-            words there too, and its bucket schemes) and a decode tick of
+            words there too) and a decode tick of
             a 4096-key cache.  Then,
             with the bert weights freed, ServeEngine on full-width
             llama-3.2-vision-11b (random weights from a seeded generator,
@@ -343,42 +341,12 @@ def snap_int_a_score(results, h: int, hv: int, causal: bool) -> float:
     """The int instructions a score of the row-8 entry the plan picks for
     16-byte copies at head dims h, hv (:func:`snap_int_ops`)."""
     from repro_torch.kernels import tiling
-    plan = tiling.flash_snap_plan(h, hv, causal=causal)
+    plan = tiling.flash_fwd_plan(h, hv, causal=causal)
     key = ",".join(str(x) for x in (
-        64 if max(h, hv) <= 64 else 128, plan.block_q, plan.stages, plan.vec,
-        tiling.FLASH_SNAP_BUCKETS.index(plan.buckets)))
+        64 if max(h, hv) <= 64 else 128, plan.block_q, plan.stages, plan.vec))
     if key not in results["snap_sass"]:
         fail(f"no SASS count of row 8's entry {key}: its bound needs one")
     return results["snap_sass"][key]["int_ops_a_score"]
-
-
-def snap_bucket_probe(fai, key: str, args, want, kw, results) -> None:
-    """Row 8 with each bucket scheme its entry instantiates (the plan
-    patched), on the plan's other choices: the grid-valued case's words
-    ``want`` bitwise, then the random case ``args`` back to back and under
-    CUDA-graph replay; one "[snap buckets probe]" line."""
-    from repro_torch.kernels import tiling
-    grid, rand = args
-    h, hv = grid[0].shape[-1], grid[2].shape[-1]
-    res = {}
-    for buckets in tiling.FLASH_SNAP_BUCKETS:
-        plan = tiling.flash_snap_plan(h, hv, causal=kw["causal"])._replace(
-            buckets=buckets)
-        with mock.patch.object(tiling, "flash_snap_plan",
-                               lambda *a, plan=plan, **k_: plan):
-            got = fai.flash_snap(*grid, return_partial=True, **kw)
-            check(f"flash_snap {buckets} buckets {key} m words", got[1],
-                  want[1], TOL_INT)
-            check(f"flash_snap {buckets} buckets {key} S words", got[2],
-                  want[2], TOL_INT)
-
-            def fn():
-                return fai.flash_snap(*rand, **kw)
-            ms = time_ms(fn, iters=5, warmup=2)
-            res[buckets] = dict(ms=ms, graph_ms=graph_ms(
-                fn, calls=2 if ms > 1.0 else 10, iters=3))
-    results.setdefault("snap_buckets_probe", {})[key] = res
-    log(f"[snap buckets probe] {key}, ms: " + json.dumps(res))
 
 
 def kernel_row(table: dict, key: str, fn, plain_fn, b_ms: float, b_by: str,
@@ -558,7 +526,7 @@ def snap_int_ops(build_dir: str) -> dict:
     less those of row 7's entry of the same tile shape, over the SR x SC
     scores a thread computes a tile.  The two loops share the score, P V and
     ring code, so the difference is what the snapped recurrence adds.
-    Keys: "D,BQ,NS,VEC,buckets"; each with the count, the two mixes and the
+    Keys: "D,BQ,NS,VEC"; each with the count, the two mixes and the
     scores a trip.  {} where the toolkit has no cuobjdump."""
     rep = sass_report(build_dir, sources=("flash_fwd", "flash_snap"),
                       keep=("fwd_kernel",))
@@ -996,6 +964,7 @@ def long_kernel_phase(dev, results):
           TOL_INT)
     check("flash_snap path S words (exact scores)", got[2], want_grid[2],
           TOL_INT)
+    del grid, got, want_grid
     for (b, s, t, kh, g, h, hv, qpos, causal, bkv, ragged) in (
             (2, 70, 200, 2, 2, 64, 64, torch.arange(130, 200), True, 64,
              True),
@@ -1125,12 +1094,10 @@ def long_kernel_phase(dev, results):
                     lambda: fai.flash_snap_plain(*path, guard_shift=0, **kw),
                     *bound(nbytes, pairs * (4 * 64 + 4 + n_int)), None,
                     int_ops_a_score=n_int,
-                    plan=tuple(tiling.flash_snap_plan(64, 64, causal=True)))
+                    plan=tuple(tiling.flash_fwd_plan(64, 64, causal=True)))
     results["flash_snap"] = dict(max_abs_err=err_i, **{
         k_: r_[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")})
-    snap_bucket_probe(fai, "path", (grid, path), want_grid,
-                      dict(causal=True, block_kv=64, guard_shift=0), results)
 
     # -- rows 5 / 6 at the path's shape: 4 slots of a 16384-key cache at
     #    depths within 1000-4016
@@ -2720,8 +2687,7 @@ def vision_kernel_phase(dev, results):
                * (4 * h + 4)), lib, iters=5, plain_iters=1,
         max_abs_err=e_self)
     # row 8 there: its words on grid-valued q and k, its output on random
-    # ones, the bound with its entry's int instructions a score, and both
-    # bucket schemes
+    # ones, and the bound with its entry's int instructions a score
     gargs = ((torch.round(qs * 32) / 32).contiguous(),
              torch.round(ks * 4) / 16) + sargs[2:]
     snap_checks(fai, f"self S{big} causal", gargs, True, 64)
@@ -2737,9 +2703,6 @@ def vision_kernel_phase(dev, results):
         *bound((2 * qs.numel() + 2 * ks.numel()) * 4 + 5 * big, pairs
                * (4 * h + 4 + n_int)), None, iters=5, plain_iters=1,
         max_abs_err=e_snap, int_ops_a_score=n_int)
-    snap_bucket_probe(fai, "vision self", (gargs, sargs),
-                      fai.flash_snap_plain(*gargs, return_partial=True,
-                                           **skw), skw, results)
     del qs, ks, vs, sargs, gargs
     t_self = VISION["max_seq"]
     qpd = torch.tensor([375, 737, 1420, 2750][:b], dtype=torch.int32,
@@ -3002,7 +2965,7 @@ def main() -> int:
             sass_report(info["dir"])))
     snap_sass = snap_int_ops(info["dir"])
     log("[sass] row 8 entries, int instructions a score over row 7's "
-        "(D,BQ,NS,VEC,buckets: count, key-tile loop mixes): "
+        "(D,BQ,NS,VEC: count, key-tile loop mixes): "
         + json.dumps(snap_sass))
 
     results: dict = {"snap_sass": snap_sass}

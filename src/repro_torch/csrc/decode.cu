@@ -107,11 +107,16 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(DecodeArgs a) {
     int blk = a.tables[static_cast<size_t>(b) * a.nblk + jt];
     if (blk < 0 || blk >= a.n_pool) blk = 0;
     const size_t base = static_cast<size_t>(blk) * bs;  // row of the tile's first key
-    const int nk = min(bs, t_kv - jt * bs);  // keys past t_kv are phantoms
+    // The paged tables give t_kv = nblk * bs, so nk is always bs and the
+    // phantom branch below never runs.  It is dead code kept on purpose:
+    // removing it moved ptxas's schedule (row 3 +13%, row 4 -9% in one
+    // paired run on the H100, PERF.md section 6).  Drop it when rows 3 / 4
+    // are redesigned.
+    const int nk = min(bs, t_kv - jt * bs);
 
     // ---- scores: one warp per key ----
     for (int j = warp; j < bs; j += kWarps) {
-      if (j >= nk) {                       // phantom: no mass, no max
+      if (j >= nk) {                       // dead: see nk above
         if (lane < G) {
           if (kInt) ti[lane * bs + j] = unit::SNAP_MIN;
           else sc[lane * bs + j] = -INFINITY;

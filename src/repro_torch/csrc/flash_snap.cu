@@ -14,8 +14,8 @@
 // f32 rate; chip_smoke.py counts them from this entry's SASS.
 //
 // The entry launches, when causal, the V-sum pre-pass, then the main
-// kernel (one call).  Tiles, ring depth, copy width, tile order and bucket
-// scheme are the plan's (tiling.flash_snap_plan); the entry refuses any it
+// kernel (one call).  Tiles, ring depth, copy width and tile order are row
+// 7's plan (tiling.flash_fwd_plan); the entry refuses any it
 // does not instantiate, and 16-byte copies where h, hv or a base pointer
 // is not a multiple of 16 bytes.  block_kv, the caller's tile, is checked
 // as the reference checks it; the words do not depend on it.
@@ -28,14 +28,13 @@ using namespace ffwd;
 // 0 <= guard_shift <= 31.  vsum: a (B, cdiv(T, 64), K, hv) f32 scratch
 // when causal.  word_m / word_s: both null, or the partial's (B, K, G, S)
 // and (B, K, G, S, 16) int32 words, out then receiving the unnormalized
-// acc.  (bq, bk, stages, vec, reverse) as flash_fwd_launch; buckets
-// kBucketsAtomic, or kBucketsShuffle with 16-byte copies.
+// acc.  (bq, bk, stages, vec, reverse) as flash_fwd_launch.
 extern "C" int flash_snap_launch(const float* q, const float* k, const float* v,
                                  const int32_t* q_pos, const uint8_t* kv_valid, float* vsum,
                                  float* out, int32_t* word_m, int32_t* word_s, int batch,
                                  int S, int K, int G, int h, int hv, int T, int bkv,
                                  int causal, int guard_shift, int bq, int bk, int stages,
-                                 int vec, int reverse, int buckets, void* stream) {
+                                 int vec, int reverse, void* stream) {
   if (h < 1 || h > 128 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
       T < 1 || K < 1 || batch < 1 || guard_shift < 0 || guard_shift > 31 ||
       (causal && vsum == nullptr) || (word_m == nullptr) != (word_s == nullptr))
@@ -45,11 +44,6 @@ extern "C" int flash_snap_launch(const float* q, const float* k, const float* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_cfg(a, bq, bk, stages, vec, [&](auto cfg) {
     using C = decltype(cfg);
-    if (buckets == kBucketsAtomic) return launch<C, SnapRows<C, kBucketsAtomic>>(a, batch, st);
-    if constexpr (C::VEC == 4) {
-      if (buckets == kBucketsShuffle)
-        return launch<C, SnapRows<C, kBucketsShuffle>>(a, batch, st);
-    }
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<C, SnapRows<C>>(a, batch, st);
   });
 }

@@ -28,14 +28,10 @@
 // S'[d] = S[d - k] is one shuffle within the row set, zero where d < k.
 // p 2^-d goes to the p tile as f32 and 2^-k stays in registers.
 //
-// Filling the buckets, two exact schemes (the C entry's ``buckets``):
-//  kBucketsAtomic   shared int32 atomics into a per-warp [SR][2][16] tile,
-//                   read back by the owning lanes after a __syncwarp;
-//  kBucketsShuffle  a register histogram of the thread's SC keys (compile-
-//                   time indices), then a 16-lane reduce-scatter (15
-//                   shuffles a row a tile).
-// The plan (tiling.flash_snap_plan) picks one; the other is kept for the
-// probe that measures both (chip_smoke.py).
+// The buckets fill by shared int32 atomics into a per-warp [SR][2][16]
+// tile, read back by the owning lanes after a __syncwarp.  (A register
+// histogram of the thread's keys and a 16-lane reduce-scatter, the other
+// exact scheme, ran 10-17% slower on the H100; PERF.md section 6.)
 //
 // The PWL exp2 lookup reads the ROM's 16 pairs from shared memory
 // (unit::RomTable): one 8-byte load a score instead of two select chains.
@@ -45,9 +41,7 @@
 
 namespace ffwd {
 
-enum { kBucketsAtomic = 0, kBucketsShuffle = 1 };
-
-template <class C, int kScheme>
+template <class C>
 struct SnapRows {
   static constexpr int kNB = unit::N_SNAP_BUCKETS;
   static constexpr int kWarpWords = C::SR * 2 * kNB;  // a warp's bucket tile
@@ -86,37 +80,6 @@ struct SnapRows {
     return tx >= k ? v : 0;
   }
 
-  // One reduce-scatter step of width W: a lane keeps the W buckets of its
-  // half (h[0, W)) and adds its partner's share of them.
-  template <int W>
-  __device__ __forceinline__ void scatter_step(int32_t (&h)[kNB]) const {
-    const bool up = (tx & W) != 0;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const int32_t send = up ? h[j] : h[j + W];
-      h[j] = (up ? h[j + W] : h[j]) + __shfl_xor_sync(0xffffffffu, send, W);
-    }
-  }
-
-  // Lane tx: the sum of the row's words p at depth tx over the row set's
-  // 16 x SC keys, by a register histogram and a reduce-scatter.
-  __device__ __forceinline__ int32_t bucket_sum(const int32_t (&p)[C::SC],
-                                                const int32_t (&d)[C::SC]) const {
-    int32_t h[kNB];
-#pragma unroll
-    for (int b = 0; b < kNB; ++b) {
-      int32_t x = 0;
-#pragma unroll
-      for (int c = 0; c < C::SC; ++c) x += d[c] == b ? p[c] : 0;
-      h[b] = x;
-    }
-    scatter_step<8>(h);
-    scatter_step<4>(h);
-    scatter_step<2>(h);
-    scatter_step<1>(h);
-    return h[0];
-  }
-
   __device__ __forceinline__ void step(float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
 #pragma unroll
     for (int i = 0; i < C::SR; ++i) {
@@ -139,25 +102,19 @@ struct SnapRows {
         s[i][c] = static_cast<float>(p[c]) * unit::snap_scale_f32(d[c]);
       }
       S[i] = slide(S[i], k);
-      if constexpr (kScheme == kBucketsAtomic) {
 #pragma unroll
-        for (int c = 0; c < C::SC; ++c)
-          if (p[c] != 0 && d[c] < kNB) atomicAdd(bk + i * 2 * kNB + d[c], p[c]);
-      } else {
-        S[i] += bucket_sum(p, d);
-      }
+      for (int c = 0; c < C::SC; ++c)
+        if (p[c] != 0 && d[c] < kNB) atomicAdd(bk + i * 2 * kNB + d[c], p[c]);
       const float corr = unit::snap_scale_f32(k);
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
     }
-    if constexpr (kScheme == kBucketsAtomic) {
-      __syncwarp();  // the warp's adds landed; the next tile's come after a barrier
+    __syncwarp();  // the warp's adds landed; the next tile's come after a barrier
 #pragma unroll
-      for (int i = 0; i < C::SR; ++i) {
-        int32_t* w = bk + i * 2 * kNB + tx;
-        S[i] += *w;
-        *w = 0;
-      }
+    for (int i = 0; i < C::SR; ++i) {
+      int32_t* w = bk + i * 2 * kNB + tx;
+      S[i] += *w;
+      *w = 0;
     }
   }
 

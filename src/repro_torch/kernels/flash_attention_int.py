@@ -18,8 +18,8 @@ differs, and not at all under an identity-v probe.  The kernel
 (``csrc/flash_snap.cu``) runs on the float forward's Hopper body
 (``csrc/flash_fwd_sm90.cuh``: its tiles, ring, scores, mask, p tile, P V
 product and pre-pass) with the snapped int row state in registers
-(``csrc/flash_snap_sm90.cuh``); its tiles, copy width, tile order and
-bucket scheme are :func:`tiling.flash_snap_plan`'s, not ``block_kv``.
+(``csrc/flash_snap_sm90.cuh``); its tiles, copy width and tile order
+are row 7's, :func:`tiling.flash_fwd_plan`'s, not ``block_kv``.
 
 Masking is the float kernel's (:mod:`.flash_attention`): invalid or
 causally masked keys score ``MASK_VALUE`` before quantization, phantom
@@ -57,7 +57,7 @@ from .flash_attention import (_check_operands, check_block_kv,
 _P, _I = _build.P, _build.I
 
 FLASH_SNAP = _build.Kernel(
-    "flash_snap", "flash_snap_launch", [_P] * 9 + [_I] * 16 + [_P],
+    "flash_snap", "flash_snap_launch", [_P] * 9 + [_I] * 15 + [_P],
     source="src/repro_torch/csrc/flash_snap.cu",
     replaces="src/repro/kernels/flash_attention_int.py:218")
 FLASH_INT3 = _build.Kernel(
@@ -165,8 +165,8 @@ def flash_snap(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
         m = torch.empty((b, kh, g, s_q), dtype=torch.int32, device=dev)
         S = torch.empty((b, kh, g, s_q, unit.N_SNAP_BUCKETS),
                         dtype=torch.int32, device=dev)
-    plan = tiling.flash_snap_plan(h, hv, causal=causal,
-                                  aligned=tiling.aligned16(qf, k, v, out))
+    plan = tiling.flash_fwd_plan(h, hv, causal=causal,
+                                 aligned=tiling.aligned16(qf, k, v, out))
     # the pre-pass's V sums, one row of hv a kernel tile
     vsum = (torch.empty((b, tiling.cdiv(t, plan.block_kv), kh, hv),
                         device=dev) if causal else None)
@@ -176,8 +176,7 @@ def flash_snap(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
                None if S is None else S.data_ptr(),
                b, s_q, kh, g, h, hv, t, block_kv, int(causal), guard_shift,
                plan.block_q, plan.block_kv, plan.stages, plan.vec,
-               int(plan.reverse), tiling.FLASH_SNAP_BUCKETS.index(plan.buckets),
-               _build.stream_ptr(dev))
+               int(plan.reverse), _build.stream_ptr(dev))
     return (out, m, S) if return_partial else out
 
 

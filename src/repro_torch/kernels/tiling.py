@@ -36,7 +36,7 @@ pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
 The float flash forward (row 7) and the one-sweep snapped int flash (row
 8) run on ``csrc/flash_fwd_sm90.cuh`` with the tiles of
 :func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V tiles
-streamed; row 8 through :func:`flash_snap_plan`); the three-sweep int
+streamed); the three-sweep int
 kernel (row 9) keeps ATTN_BLOCK_Q x ATTN_BLOCK_KV on
 ``csrc/flash_tile.cuh``.  The contiguous decodes (rows 5 and 6) run on
 ``csrc/decode_dense_sm90.cuh`` with the split count and tile of
@@ -338,39 +338,6 @@ def flash_fwd_plan(h: int, hv: int, *, causal: bool,
     bq, stages = FLASH_FWD_TILES[64 if max(h, hv) <= 64 else 128]
     vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
     return FlashFwdPlan(bq, FLASH_FWD_BK, stages, vec, bool(causal))
-
-
-# how the snapped int flash fills its 16 depth buckets a tile, by the C
-# entry's index (csrc/flash_snap_sm90.cuh kBucketsAtomic, kBucketsShuffle)
-FLASH_SNAP_BUCKETS = ("atomic", "shuffle")
-
-
-class FlashSnapPlan(NamedTuple):
-    block_q: int    # rows of the q tile a block holds
-    block_kv: int   # keys of a K / V tile streamed through the ring
-    stages: int     # depth of the cp.async ring
-    vec: int        # floats a cp.async copy moves: 4 (16 bytes) or 1
-    reverse: bool   # walk the q tiles from the last
-    buckets: str    # one of FLASH_SNAP_BUCKETS
-
-
-@functools.lru_cache(maxsize=256)
-def flash_snap_plan(h: int, hv: int, *, causal: bool,
-                    aligned: bool = True) -> FlashSnapPlan:
-    """The tiles, ring depth, copy width, tile order and bucket scheme of
-    the one-sweep snapped int flash (row 8, ``csrc/flash_snap.cu`` on the
-    body of row 7) for head dims h and hv; ``aligned`` as
-    :func:`flash_fwd_plan`.
-
-    The tiles are row 7's (:func:`flash_fwd_plan`): the snapped state --
-    the row's m and one of its 16 buckets a lane -- is the float state's m
-    and l in size.  The words do not depend on the tiles.  The buckets fill
-    by shared int32 atomics into a per-warp tile ('atomic'); the register
-    histogram and reduce-scatter ('shuffle', 16-byte copies only) is the
-    other exact scheme the entry instantiates, for the probe that times
-    both."""
-    return FlashSnapPlan(*flash_fwd_plan(h, hv, causal=causal,
-                                         aligned=aligned), "atomic")
 
 
 DECODE_DENSE_BLOCK_KV = 64   # contiguous decode on a GPU: keys a tile

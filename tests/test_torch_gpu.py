@@ -582,44 +582,32 @@ def test_flash_snap_identity_v_bitwise(cuda, causal, bkv):
 
 
 @pytest.mark.parametrize("h", [64, 128])
-def test_flash_snap_bucket_schemes_agree(cuda, h):
-    """The plan's bucket scheme and the other one the entry instantiates
-    (16-byte copies) give the same words, and accumulators within 1e-5 of
-    the plain version's over the row's l."""
+def test_flash_snap_partial_vs_plain(cuda, h):
+    """The partial at both tile shapes: the words bitwise and the
+    accumulators within 1e-5 of the plain version's over the row's l."""
     from repro_torch.kernels import flash_attention_int as fai
-    from repro_torch.kernels import tiling
     args = _attn(cuda, 1, 150, 300, 2, 2, h, h, True)
     kw = dict(causal=True, block_kv=64, guard_shift=0, return_partial=True)
-    got = {}
-    for buckets in tiling.FLASH_SNAP_BUCKETS:
-        plan = tiling.flash_snap_plan(h, h, causal=True)._replace(
-            buckets=buckets)
-        with mock.patch.object(tiling, "flash_snap_plan",
-                               lambda *a, plan=plan, **k_: plan):
-            got[buckets] = fai.flash_snap(*args, **kw)
+    got = fai.flash_snap(*args, **kw)
     want = fai.flash_snap_plain(*args, **kw)
     l = fai.unit.online_finish_int(want[2]).to(torch.float32)
     l = l.permute(0, 3, 1, 2)[..., None]                  # (B, S, K, G, 1)
-    for res in got.values():
-        assert torch.equal(res[1], want[1]) and torch.equal(res[2], want[2])
-        torch.testing.assert_close(res[0] / l, want[0] / l, atol=1e-5,
-                                   rtol=0)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[0] / l, want[0] / l, atol=1e-5, rtol=0)
 
 
 def test_flash_snap_refuses_what_it_does_not_instantiate(cuda):
-    """16-byte copies forced where h is off four floats, and the shuffle
-    bucket scheme on the 4-byte copies, make the C entry refuse."""
+    """16-byte copies forced where h is off four floats make the C entry
+    refuse."""
     from repro_torch.kernels import flash_attention_int as fai
     from repro_torch.kernels import tiling
     args = _attn(cuda, 1, 40, 70, 1, 2, 30, 30, False)
-    assert tiling.flash_snap_plan(30, 30, causal=True).vec == 1
-    for plan in (tiling.flash_snap_plan(32, 32, causal=True),
-                 tiling.flash_snap_plan(30, 30, causal=True)._replace(
-                     buckets="shuffle")):
-        with mock.patch.object(tiling, "flash_snap_plan",
-                               lambda *a, plan=plan, **k_: plan):
-            with pytest.raises(RuntimeError, match="flash_snap"):
-                fai.flash_snap(*args, causal=True, block_kv=64, guard_shift=0)
+    assert tiling.flash_fwd_plan(30, 30, causal=True).vec == 1
+    plan = tiling.flash_fwd_plan(32, 32, causal=True)
+    with mock.patch.object(tiling, "flash_fwd_plan",
+                           lambda *a, **k_: plan):
+        with pytest.raises(RuntimeError, match="flash_snap"):
+            fai.flash_snap(*args, causal=True, block_kv=64, guard_shift=0)
 
 
 @pytest.mark.parametrize("shape", [

@@ -10,9 +10,8 @@ plain version (the reference's sweeps):
 - row 8: per q tile of the plan's rows, the 64-key tiles up to the tile
   holding the tile's largest q_pos (causal) with the per-key mask; a
   lane a bucket -- lane tx holds bucket tx of its rows -- slid by one
-  shuffle (S'[tx] = S[tx - k], zero where tx < k) and filled by either
-  scheme the entry instantiates (shared atomics, or a register histogram of
-  the lane's keys tx + 16 c and a 16-lane reduce-scatter); p V in the
+  shuffle (S'[tx] = S[tx - k], zero where tx < k) and filled by shared
+  atomics (a scatter-add of each key's word at its depth); p V in the
   plan's key groups summed at the end; the causal tail folded from the
   pre-pass's chunk-local V sums at the kernel's width; the partial;
 - row 6: per split, the warps' key runs (whole steps of 16 keys at head
@@ -49,26 +48,7 @@ cdiv = tiling.cdiv
 I32 = torch.int32
 
 
-# ---------------- (a) the plans ----------------
-
-@pytest.mark.parametrize("h,hv,causal,aligned,want", [
-    # row 7's tiles: 128 rows and three stages at head dims up to 64, a
-    # causal grid from its last q tile; atomic buckets
-    (64, 64, True, True, (128, 64, 3, 4, True, "atomic")),
-    (32, 48, False, True, (128, 64, 3, 4, False, "atomic")),
-    (128, 128, False, True, (64, 64, 2, 4, False, "atomic")),
-    (128, 72, True, True, (64, 64, 2, 4, True, "atomic")),
-    # 4-byte copies: a head dim or a pointer off 16 bytes, same tiles
-    (30, 62, True, True, (128, 64, 3, 1, True, "atomic")),
-    (64, 64, True, False, (128, 64, 3, 1, True, "atomic")),
-])
-def test_flash_snap_plan(h, hv, causal, aligned, want):
-    plan = tiling.flash_snap_plan(h, hv, causal=causal, aligned=aligned)
-    assert tuple(plan) == want
-    assert tuple(plan)[:5] == tuple(tiling.flash_fwd_plan(
-        h, hv, causal=causal, aligned=aligned))
-    assert plan.buckets in tiling.FLASH_SNAP_BUCKETS
-
+# ---------------- (a) the decode tiles ----------------
 
 @pytest.mark.parametrize("t,rows,want_gpu,want_cpu", [
     # the long-context tick (B4 K16) and the vision cross / self ticks
@@ -99,34 +79,17 @@ def lane_slide(S, k):
     return torch.where(src >= 0, take, torch.zeros_like(take))
 
 
-def bucket_fill(p, d, buckets):
-    """Lane tx's share of a tile, (R, 16): the sum of the row's words p
-    whose depth d is tx, over the row's 64 keys; lane tx holds keys
-    tx + 16 c."""
-    if buckets == "atomic":            # atomicAdd(tile[row][d], p) a key
-        out = torch.zeros(p.shape[0], NB + 1, dtype=I32)
-        keep = (p != 0) & (d < NB)
-        return out.scatter_add_(1, torch.where(keep, d, NB).long(),
-                                torch.where(keep, p, 0))[:, :NB]
-    # a histogram of each lane's keys, compile-time bucket indices ...
-    r, n = p.shape
-    pl = p.reshape(r, n // NB, NB).transpose(1, 2)          # (R, lane, c)
-    dl = d.reshape(r, n // NB, NB).transpose(1, 2)
-    h = torch.stack([torch.where(dl == b, pl, 0).sum(-1, dtype=I32)
-                     for b in range(NB)], dim=-1)           # (R, lane, b)
-    # ... then the reduce-scatter: at width w a lane keeps the w buckets of
-    # its half and adds its partner's (lane ^ w) share of them
-    lane = torch.arange(NB)
-    for w in (8, 4, 2, 1):
-        up = ((lane & w) != 0)[None, :, None]
-        send = torch.where(up, h[..., :w], h[..., w:2 * w])
-        keep = torch.where(up, h[..., w:2 * w], h[..., :w])
-        h = keep + send[:, lane ^ w]
-    return h[..., 0]
+def bucket_fill(p, d):
+    """A tile's words by depth, (R, 16): atomicAdd(tile[row][d], p) a key
+    whose word is nonzero and whose depth is a bucket's."""
+    out = torch.zeros(p.shape[0], NB + 1, dtype=I32)
+    keep = (p != 0) & (d < NB)
+    return out.scatter_add_(1, torch.where(keep, d, NB).long(),
+                            torch.where(keep, p, 0))[:, :NB]
 
 
 def emulate_flash_snap(qf, k, v, q_pos, kv_valid, *, causal, guard_shift,
-                       bq, bk=64, chunk=16, groups=2, buckets="atomic"):
+                       bq, bk=64, chunk=16, groups=2):
     """(acc, m, S) and out as the kernel computes them, rows flattened r =
     s G + g; ``groups`` key groups of the p V product."""
     b, s, kh, g, h = qf.shape
@@ -180,7 +143,7 @@ def emulate_flash_snap(qf, k, v, q_pos, kv_valid, *, causal, guard_shift,
                     p = unit.snap_prob_word(tw, guard_shift)
                     d = (m_new >> T_FRAC)[:, None] - (tw >> T_FRAC)
                     num = p.to(torch.float32) * unit.snap_scale_f32(d)
-                    S = lane_slide(S, kc) + bucket_fill(p, d, buckets)
+                    S = lane_slide(S, kc) + bucket_fill(p, d)
                     m = m_new
                     half = bk // groups
                     corr = unit.snap_scale_f32(kc)[:, None]
@@ -262,20 +225,21 @@ SNAP = [
 ]
 
 
-@pytest.mark.parametrize("buckets", ["atomic", "shuffle"])
+@pytest.mark.parametrize("gs", [0, 9])
 @pytest.mark.parametrize("shape", SNAP)
-def test_flash_snap_emulated_scheme_vs_plain(shape, buckets):
-    """The kernel's scheme at the plan's tiles against the plain full sweep
-    over the caller's block_kv tiles: the partial's m and S words bitwise,
-    its acc over the row's l and the output within 1e-5."""
+def test_flash_snap_emulated_scheme_vs_plain(shape, gs):
+    """The kernel's scheme at row 7's tiles (the plan it takes) against the
+    plain full sweep over the caller's block_kv tiles, at guard shifts 0
+    and 9: the partial's m and S words bitwise, its acc over the row's l
+    and the output within 1e-5."""
     b, s, t, kh, g, h, hv, causal, bkv, kind, end = shape
     args = _attn_case(41, b, s, t, kh, g, h, hv, kind, end)
-    plan = tiling.flash_snap_plan(h, hv, causal=causal)
+    plan = tiling.flash_fwd_plan(h, hv, causal=causal)
     groups = 2 if max(h, hv) <= 64 else 1
-    part, out = emulate_flash_snap(*args, causal=causal, guard_shift=0,
+    part, out = emulate_flash_snap(*args, causal=causal, guard_shift=gs,
                                    bq=plan.block_q, bk=plan.block_kv,
-                                   groups=groups, buckets=buckets)
-    kw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+                                   groups=groups)
+    kw = dict(causal=causal, block_kv=bkv, guard_shift=gs)
     want = fai.flash_snap_plain(*args, return_partial=True, **kw)
     assert torch.equal(part[1], want[1]) and torch.equal(part[2], want[2])
     l = unit.online_finish_int(want[2]).to(torch.float32)
@@ -284,15 +248,18 @@ def test_flash_snap_emulated_scheme_vs_plain(shape, buckets):
     _close(out, fai.flash_snap_plain(*args, **kw))
 
 
+@pytest.mark.parametrize("bq,groups", [(128, 2), (64, 1)])
 @pytest.mark.parametrize("causal,bkv", [(True, 64), (True, 16), (False, 64)])
-def test_flash_snap_emulated_identity_v_bitwise(causal, bkv):
+def test_flash_snap_emulated_identity_v_bitwise(causal, bkv, bq, groups):
     """V the identity: every output is one p 2^-d / l word, bitwise the
-    plain version's through the folded tail and the group sums."""
+    plain version's through the folded tail and the group sums, at both of
+    row 7's tile shapes (h up to 64: 128 rows, two key groups; h 128: 64
+    rows, one)."""
     qf, k, _, qp, valid = _attn_case(42, 2, 40, 128, 2, 2, 64, 64, "ragged")
     eye = torch.eye(128)[None, :, None, :].expand(2, 128, 2, 128)
     eye = eye.contiguous()
     _, out = emulate_flash_snap(qf, k, eye, qp, valid, causal=causal,
-                                guard_shift=0, bq=128, groups=1)
+                                guard_shift=0, bq=bq, groups=groups)
     assert torch.equal(out, fai.flash_snap_plain(
         qf, k, eye, qp, valid, causal=causal, block_kv=bkv, guard_shift=0))
 
@@ -312,16 +279,15 @@ def test_flash_snap_emulated_guard_shift_70000_keys(causal):
     _close(out, fai.flash_snap_plain(*args, **kw))
 
 
-def test_bucket_schemes_agree_word_for_word():
-    """The histogram-and-reduce-scatter fill equals the atomic fill on
-    random words and depths, depths past the last bucket included."""
+def test_atomic_bucket_fill_is_depth_buckets():
+    """The atomic fill equals the reference's per-depth sums on random words
+    and depths, depths past the last bucket included."""
     rs = np.random.RandomState(44)
     p = torch.from_numpy(rs.randint(0, 1 << 14, size=(37, 64))).to(I32)
     d = torch.from_numpy(rs.randint(0, 20, size=(37, 64))).to(I32)
     p[:, ::7] = 0
     want = unit.depth_buckets(p, d, -1)
-    assert torch.equal(bucket_fill(p, d, "atomic"), want)
-    assert torch.equal(bucket_fill(p, d, "shuffle"), want)
+    assert torch.equal(bucket_fill(p, d), want)
 
 
 def test_lane_slide_is_the_bucket_slide():

@@ -17,10 +17,11 @@ long-context path's, the vision cross and the vision self shapes, with a
 digest of row 7's outputs and of row 8's (m, S) words on seeded random
 inputs; rows 5 (decode_dense, at several split counts) and 6
 (decode_dense_int, at the tree's own splits and tile, with the split fold,
-and a digest of its words at two fixed (splits, tile)) at the long-context
-tick and the vision cross and self ticks, and the float and dual-mode
-``flash_decode_pallas`` wrappers at the long-context tick on the host's
-clock; rows 3 and 4 (decode_paged, float and int) at qwen1.5-0.5b's
+the whole dual-mode ``flash_decode_pallas`` on the host's clock at those
+and at the reference rule's, and a digest of its words at two fixed
+(splits, tile)) at the long-context tick and the vision cross and self
+ticks, and the float ``flash_decode_pallas`` at the long-context tick on
+the host's clock; rows 3 and 4 (decode_paged, float and int) at qwen1.5-0.5b's
 paged tick, with a digest of their partials; rows 12 (fused_glu: yi-6b's tick and chunk, llama-3.2-vision's
 bucket-4096 prefill) and 13 (glu_bwd, qwen1.5-0.5b's training shape)
 likewise, and rows 1 (softmax_rows, int and float: qwen1.5-0.5b's chunk
@@ -201,12 +202,15 @@ def _snap_rows(tag: str, timers, randn, shapes: dict, saved: dict) -> None:
 def _dense_int_row(tag: str, timers, name: str, args, causal: bool,
                    saved: dict) -> None:
     """Row 6 through the tree's wrappers on row 5's operands: the kernel at
-    the tree's own (splits, tile), alone and with the split fold, and the
-    whole dual-mode ``flash_decode_pallas`` at the long-context tick; the
-    digest of its words at (3, 128) and (17, 64)."""
+    the tree's own (splits, tile), alone and with the split fold; the
+    whole dual-mode ``flash_decode_pallas`` as a tick calls it, on the
+    host's clock, at the tree's (splits, tile) and at the reference rule's
+    (``dense_decode_splits`` keys a split, ``decode_kv_block`` keys a tile),
+    in turns; the digest of its words at (3, 128) and (17, 64)."""
     import torch
     from repro_torch.core import softmax_unit as unit
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tiling
     qf, k, v, qp, valid = args
     b, kh, t = qf.shape[0], qf.shape[1], k.shape[1]
     try:
@@ -231,12 +235,19 @@ def _dense_int_row(tag: str, timers, name: str, args, causal: bool,
                 graph_ms=timers.graph_ms(dec), with_fold_ms=timers.time_ms(
                     fold), with_fold_graph_ms=timers.graph_ms(fold),
                 words_digest=digests)
-    if name == "path":
-        line["wrapper_host_and_wall_ms"] = [timers.host_ms(
-            lambda: fd.flash_decode_pallas(
-                qf[:, None], k, v, q_pos=qp[:, None], kv_valid=valid,
-                causal=causal, scale=1.0, softmax_impl="dualmode"))
-            for _ in range(3)]
+    ref_ns = fd.dense_decode_splits(t, b * kh, qf.device)
+    tiles = {"own": (ns, bkv), "reference rule": (
+        ref_ns, tiling.decode_kv_block(t, ref_ns))}
+    wrap = {key: [] for key in tiles}
+    for _ in range(3):
+        for key, (ns_, bkv_) in tiles.items():
+            wrap[key].append(timers.host_ms(
+                lambda ns_=ns_, bkv_=bkv_: fd.flash_decode_pallas(
+                    qf[:, None], k, v, q_pos=qp[:, None], kv_valid=valid,
+                    causal=causal, scale=1.0, num_splits=ns_,
+                    block_kv=bkv_, softmax_impl="dualmode")))
+    line["wrapper_host_and_wall_ms"] = {
+        f"{key} {ns_}x{bkv_}": wrap[key] for key, (ns_, bkv_) in tiles.items()}
     print(json.dumps(line), flush=True)
 
 
