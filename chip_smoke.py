@@ -13,6 +13,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             same function.  Rows 1 and 2 at every edge of the row
             softmax's plan and over every S5.10 word, on the 16-byte and
             the 4-byte paths, held to the same bits over two calls.
+            Rows 3 and 4 (the paged decodes) at 1 split and at the plan's
+            (tiling.decode_splits), back to back and under CUDA-graph
+            replay, alone and with their split fold.
 3. serve    repro_torch.serve.ServeEngine on full-width qwen1.5-0.5b (random
             weights from a seeded generator), float and dual-mode, paged
             cache, max_seq 2048: every request finishes, the pool drains,
@@ -44,7 +47,8 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             bounds (the norm -> QKV prologue and the fused GLU also under
             CUDA-graph replay, and held to the same bits over two calls;
             the GLU's chunk also at each K split count); the unit and paged
-            decode kernels at h 128, G 8.  Then,
+            decode kernels at h 128, G 8 (rows 3 / 4 also timed there, at
+            the plan's splits).  Then,
             with the qwen weights freed, ServeEngine on full-width yi-6b
             (random weights from a seeded generator), float and dual-mode
             with norm_impl / ffn_impl 'fused_pallas', paged cache at max_seq
@@ -127,8 +131,9 @@ Phases, each of which raises on failure (no phase is skipped or caught):
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
 each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]"),
-row 5 ("[decode dense]"), row 8 ("[flash snap]") and row 6 ("[decode
-dense int]") at every shape they were timed at, and a
+row 5 ("[decode dense]"), row 8 ("[flash snap]"), row 6 ("[decode
+dense int]") and rows 3 / 4 ("[decode paged]") at every shape they were
+timed at, and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
 F.silu, F.gelu) and row 14 at yi's and bert's (beside its two-call
@@ -699,6 +704,9 @@ def kernel_phase(dev, results):
                   int_mode=int_mode, guard_shift=guard)
 
     main_qpos = [300, 800, 1400, 2000]
+    # the plan's split count at the path's shape (tiling.decode_splits: the
+    # contiguous decodes' rule, capped at the 16 pages)
+    plan_ns = tiling.decode_splits(16, 128, 4 * 16, dev)
     err_f = err_i = 0.0
     for g, grid in ((1, False), (1, True), (2, False), (4, True)):
         q, qf, kp, vp, tables, qp, valid = case(
@@ -706,7 +714,7 @@ def kernel_phase(dev, results):
             grid=grid, sentinel_tail=(g > 1))
         args = (qf, kp, vp, tables, qp, valid)
         outs = {}
-        for ns in (1, 4):
+        for ns in (1, plan_ns):
             pk = partials(True, args, ns, False)
             pp = partials(False, args, ns, False)
             o_k = fd.finish_partials(*pk, int_mode=False)
@@ -728,16 +736,16 @@ def kernel_phase(dev, results):
             if g == 1 and not grid:
                 err_i = max(err_i, e)
             outs[("i", ns)] = (o_ik, ik)
-        check(f"decode_paged split invariance G={g}", outs[("f", 4)],
+        check(f"decode_paged split invariance G={g}", outs[("f", plan_ns)],
               outs[("f", 1)], TOL_DECODE_F)
         from repro_torch.core import softmax_unit as unit
         l1 = unit.online_finish_int(unit.online_merge_n_int(
             outs[("i", 1)][1][0][..., None], outs[("i", 1)][1][1],
             outs[("i", 1)][1][2], dim=1)[1])
-        l4 = unit.online_finish_int(unit.online_merge_n_int(
-            outs[("i", 4)][1][0][..., None], outs[("i", 4)][1][1],
-            outs[("i", 4)][1][2], dim=1)[1])
-        check(f"decode_paged_int split invariance l words G={g}", l4, l1,
+        l_plan = unit.online_finish_int(unit.online_merge_n_int(
+            outs[("i", plan_ns)][1][0][..., None], outs[("i", plan_ns)][1][1],
+            outs[("i", plan_ns)][1][2], dim=1)[1])
+        check(f"decode_paged_int split invariance l words G={g}", l_plan, l1,
               TOL_INT)
     # identity-v probe: each value dim collects one key's exact numerator,
     # so the int kernel's accumulator words are bitwise too
@@ -751,40 +759,71 @@ def kernel_phase(dev, results):
             blk = int(tables[bb, j])
             eye[blk, torch.arange(bs), :, j * bs + torch.arange(bs)] = 1.0
     args = (qf, kp, eye, tables, qp, valid)
-    for ns in (1, 3):
+    for ns in (1, 3, nblk):
         check(f"decode_paged_int identity-v acc splits={ns}",
               partials(True, args, ns, True, guard=0)[2],
               partials(False, args, ns, True, guard=0)[2], TOL_INT)
 
-    # timing at the main path's shape, random inputs
+    # timing at the main path's shape, random inputs, at the plan's splits
     q, qf, kp, vp, tables, qp, valid = case(4, 16, 1, 64, 128, 16, main_qpos)
     args = (qf, kp, vp, tables, qp, valid)
-    ns = tiling.decode_splits(16, 128, 4 * 16, dev)
-    visited = sum(min(16, p // 128 + 1) for p in main_qpos)  # tiles read
-    keys = visited * 128
-    nbytes = (keys * 16 * (64 + 64) * 4 + qf.numel() * 4 + visited * 4
-              + keys + 4 * 4 + 4 * ns * 16 * (64 + 2) * 4)
-    flops = keys * 16 * (2 * 64 + 2 * 64)
-    b_ms, b_by = bound(nbytes, flops)
+    ns = plan_ns
+    b_ms, b_by, visited = paged_bound(main_qpos, 16, 128, 16, 1, 64, 64, ns)
     k_dense = paged_gather(kp, tables).permute(0, 2, 1, 3)
     v_dense = paged_gather(vp, tables).permute(0, 2, 1, 3)
     mask = valid.bool()[:, None, None, :]
     q_sdpa = q[:, 0].reshape(4, 16, 1, 64)
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q_sdpa, k_dense, v_dense, attn_mask=mask))
+    table = results.setdefault("paged_ms", {})
     for name, int_mode, e, lib_ms in (("decode_paged", False, err_f, lib),
                                       ("decode_paged_int", True, err_i, None)):
-        ms = time_ms(lambda: partials(True, args, ns, int_mode))
-        plain = time_ms(lambda: partials(False, args, ns, int_mode), iters=5)
-        fold = time_ms(lambda: fd.finish_partials(
-            *partials(True, args, ns, int_mode), int_mode=int_mode))
-        log(f"  {name} (B4 K16 G1 h64 bs128 2048 keys, {ns} splits, "
-            f"{visited} tiles): {ms * 1e3:.1f} us (+fold {fold * 1e3:.1f} "
-            f"us total), plain {plain * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.1f} us ({b_by})"
-            + (f", SDPA {lib_ms * 1e3:.1f} us" if lib_ms else ""))
-        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        r_ = paged_row(table, f"{name} qwen", fd, args, ns, int_mode, b_ms,
+                       b_by, lib_ms, f"B4 K16 G1 h64 bs128 2048 keys, {ns} "
+                       f"splits, {visited} pages")
+        results[name] = dict(max_abs_err=e, ms=r_["ms"],
+                             plain_ms=r_["plain_ms"], bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms)
+
+
+def paged_bound(q_pos, nblk: int, bs: int, kh: int, g: int, h: int, hv: int,
+                ns: int) -> tuple[float, str, int]:
+    """Rows 3 / 4's bound at one causal call: the K and V rows and the
+    kv_valid byte of each key the mask keeps (keys 0 .. q_pos; those past
+    it in the last live page score MASK_VALUE whatever they hold, so the
+    function needs neither their rows nor their products), read once, q,
+    the live pages' table entries and the partials; 2 G (h + hv) flops a
+    kept key and kv head.  Returns (ms, by, pages visited)."""
+    b = len(q_pos)
+    visited = sum(min(nblk, p // bs + 1) for p in q_pos if p >= 0)
+    keys = sum(min(nblk * bs, p + 1) for p in q_pos if p >= 0)
+    nbytes = (keys * kh * (h + hv) * 4 + b * kh * g * h * 4 + visited * 4
+              + keys + b * 4 + b * ns * kh * g * (hv + 2) * 4)
+    flops = keys * kh * g * (2 * h + 2 * hv)
+    b_ms, b_by = bound(nbytes, flops)
+    return b_ms, b_by, visited
+
+
+def paged_row(table: dict, key: str, fd, args, ns: int, int_mode: bool,
+              b_ms: float, b_by: str, lib_ms, shape: str) -> dict:
+    """Rows 3 / 4 at one shape into ``table``: the partials wrapper back to
+    back and under CUDA-graph replay, the same with the split fold, and the
+    plain version; returns the entry."""
+    def kern():
+        return fd.decode_paged_partials(*args, num_splits=ns, causal=True,
+                                        int_mode=int_mode, guard_shift=0)
+
+    def folded():
+        return fd.finish_partials(*kern(), int_mode=int_mode)
+    r_ = kernel_row(table, key, kern, lambda: fd.decode_paged_partials_plain(
+        *args, num_splits=ns, causal=True, int_mode=int_mode, guard_shift=0),
+        b_ms, b_by, lib_ms, iters=50, plain_iters=3, splits=ns)
+    r_.update(with_fold_ms=time_ms(folded),
+              with_fold_graph_ms=graph_ms(folded))
+    log(f"  {key} ({shape}): with its split fold "
+        f"{r_['with_fold_ms'] * 1e3:.1f} us (graph "
+        f"{r_['with_fold_graph_ms'] * 1e3:.1f})")
+    return r_
 
 
 # ---------------- phase 3: serve ----------------
@@ -1535,9 +1574,12 @@ def yi_kernel_phase(dev, results):
     n_pool = 1 + b_ * nblk
     ids = (torch.randperm(n_pool - 1, generator=gen) + 1).reshape(b_, nblk)
     tables = ids.to(torch.int32).to(dev)
-    qp = torch.tensor([250, 1300, 2900, 4095], dtype=torch.int32, device=dev)
+    yi_qpos = [250, 1300, 2900, 4095]
+    qp = torch.tensor(yi_qpos, dtype=torch.int32, device=dev)
     valid = (torch.arange(nblk * bs, device=dev)[None, :]
              <= qp[:, None]).to(torch.uint8)
+    # the plan's split count at yi's tick (16 on 132 SMs)
+    ns = tiling.decode_splits(nblk, bs, b_ * kh, dev)
     for grid in (False, True):
         q = randn(b_, kh, g_, h_)
         kp = randn(n_pool, bs, kh, h_)
@@ -1545,9 +1587,9 @@ def yi_kernel_phase(dev, results):
             q, kp = torch.round(q * 4) / 16, torch.round(kp * 4) / 16
         vp = randn(n_pool, bs, kh, h_)
         args = ((q * h_ ** -0.5).contiguous(), kp, vp, tables, qp, valid)
-        for ns in (1, 8):
-            kw = dict(num_splits=ns, causal=True, guard_shift=0)
-            check(f"decode_paged G8 h128 grid={grid} splits={ns}",
+        for n_s in sorted({1, 8, ns}):
+            kw = dict(num_splits=n_s, causal=True, guard_shift=0)
+            check(f"decode_paged G8 h128 grid={grid} splits={n_s}",
                   fd.finish_partials(*fd.decode_paged_partials(
                       *args, int_mode=False, **kw), int_mode=False),
                   fd.finish_partials(*fd.decode_paged_partials_plain(
@@ -1556,21 +1598,19 @@ def yi_kernel_phase(dev, results):
             ik = fd.decode_paged_partials(*args, int_mode=True, **kw)
             ip = fd.decode_paged_partials_plain(*args, int_mode=True, **kw)
             if grid:
-                check(f"decode_paged_int m G8 h128 splits={ns}", ik[0], ip[0],
-                      TOL_INT)
-                check(f"decode_paged_int S G8 h128 splits={ns}", ik[1], ip[1],
-                      TOL_INT)
-            check(f"decode_paged_int out G8 h128 grid={grid} splits={ns}",
+                check(f"decode_paged_int m G8 h128 splits={n_s}", ik[0],
+                      ip[0], TOL_INT)
+                check(f"decode_paged_int S G8 h128 splits={n_s}", ik[1],
+                      ip[1], TOL_INT)
+            check(f"decode_paged_int out G8 h128 grid={grid} splits={n_s}",
                   fd.finish_partials(*ik, int_mode=True),
                   fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
-    ns = tiling.decode_splits(nblk, bs, b_ * kh, dev)
+    b_ms, b_by, visited = paged_bound(yi_qpos, nblk, bs, kh, g_, h_, h_, ns)
     for name, int_mode in (("decode_paged", False),
                            ("decode_paged_int", True)):
-        ms = time_ms(lambda: fd.decode_paged_partials(
-            *args, num_splits=ns, causal=True, int_mode=int_mode,
-            guard_shift=0))
-        log(f"  {name} (B4 K4 G8 h128 bs128 4096 keys, {ns} splits): "
-            f"{ms * 1e3:.1f} us")
+        paged_row(results.setdefault("paged_ms", {}), f"{name} yi", fd, args,
+                  ns, int_mode, b_ms, b_by, None, f"B4 K4 G8 h128 bs128 4096 "
+                  f"keys, {ns} splits, {visited} pages")
 
 
 def yi_serve_phase(dev, launches):
@@ -2760,6 +2800,8 @@ def vision_kernel_phase(dev, results):
         + json.dumps(results["flash_snap_ms"]))
     log("[decode dense int] row 6 at every shape, ms: "
         + json.dumps(results["decode_dense_int_ms"]))
+    log("[decode paged] rows 3 / 4 at qwen's and yi's ticks, ms: "
+        + json.dumps(results["paged_ms"]))
 
 
 def _plain_vision_kernels():
@@ -2956,7 +2998,7 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or (
                     src.startswith(("norm_", "glu", "flash_bwd",
-                                    "flash_fwd", "flash_snap", "decode_dense",
+                                    "flash_fwd", "flash_snap", "decode_",
                                     "softmax_rows", "pair_act"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")

@@ -9,10 +9,12 @@
 // (m snapped, S[16] buckets, acc) int; the fold (online_softmax_merge_n /
 // online_merge_n_int + the finish) runs outside, in PyTorch, as the
 // reference runs it outside its kernel.  The body is decode_dense_sm90.cuh,
-// one kernel with a row-state policy (FloatDec, SnapDec).  Int: the score
-// words are int_score_words' (mask to MASK_VALUE, then quantize) and the
-// step is snap_tile_update, so m and S are bitwise the plain version's words
-// at the same (splits, tile); acc differs only in f32 summation order.
+// one kernel with a row-state policy (FloatDec, SnapDec) and a KV-layout
+// policy, here ContigKV (decode_paged.cu runs the same kernel through the
+// block table).  Int: the score words are int_score_words' (mask to
+// MASK_VALUE, then quantize) and the step is snap_tile_update, so m and S
+// are bitwise the plain version's words at the same (splits, tile); acc
+// differs only in f32 summation order.
 //
 // Bound on the H100: memory.  Every visited key's K and V rows are read
 // once (h + hv floats a key and kv head) against 4 flops a key, head dim
@@ -20,31 +22,12 @@
 //
 // The copy width is the policy's (tiling.decode_dense_vec); the entries
 // refuse 16-byte copies where h, hv or the K / V base pointer is not a
-// multiple of 16 bytes (q is read a float at a time).  Any split count and
-// tile width are taken (tiling.decode_dense_plan's on the paths).
+// multiple of 16 bytes (q is read a float at a time), and shapes past what
+// they instantiate (ddec::dispatch).  Any split count and tile width are
+// taken (tiling.decode_dense_plan's on the paths).
 #include "decode_dense_sm90.cuh"
 
-namespace {
-
 using namespace ddec;
-
-template <template <class> class Rows>
-int go(const Args& a, int batch, int vec, void* stream) {
-  if (a.G < 1 || a.G > kMaxG || a.h < 1 || a.h > 128 || a.hv < 1 || a.hv > 128 ||
-      a.bkv < 1 || a.bkv > 1024 || a.splits < 1 || a.T < 1 || a.K < 1 || batch < 1 ||
-      (vec != 4 && vec != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (vec == 4 && (a.h % 4 != 0 || a.hv % 4 != 0 || !aligned16(a.k) || !aligned16(a.v)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.h <= 64 && a.hv <= 64)
-    return vec == 4 ? launch<Cfg<64, 4>, Rows<Cfg<64, 4>>>(a, batch, st)
-                    : launch<Cfg<64, 1>, Rows<Cfg<64, 1>>>(a, batch, st);
-  return vec == 4 ? launch<Cfg<128, 4>, Rows<Cfg<128, 4>>>(a, batch, st)
-                  : launch<Cfg<128, 1>, Rows<Cfg<128, 1>>>(a, batch, st);
-}
-
-}  // namespace
 
 // Shapes as in ddec::Args; every tensor contiguous (q, k, v, part_acc f32;
 // q_pos int32, kv_valid uint8), 1 <= G <= 8, h and hv <= 128, 1 <= bkv <=
@@ -55,8 +38,8 @@ extern "C" int decode_dense_launch(const float* q, const float* k, const float* 
                                    int t_kv, int kh, int g, int h, int hv, int bkv,
                                    int num_splits, int causal, int vec, void* stream) {
   const Args a{q, k, v, q_pos, kv_valid, part_m, part_l, part_acc,
-               t_kv, kh, g, h, hv, bkv, num_splits, causal, 0};
-  return go<FloatDec>(a, batch, vec, stream);
+               t_kv, kh, g, h, hv, bkv, num_splits, causal, 0, nullptr, 0, 0};
+  return dispatch<FloatDec, ContigKV>(a, batch, vec, stream);
 }
 
 // Int: part_m int32 (B, splits, K, G), part_l the int32 buckets (B,
@@ -69,6 +52,6 @@ extern "C" int decode_dense_int_launch(const float* q, const float* k, const flo
                                        int vec, void* stream) {
   if (guard_shift < 0 || guard_shift > 31) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, q_pos, kv_valid, part_m, part_l, part_acc,
-               t_kv, kh, g, h, hv, bkv, num_splits, causal, guard_shift};
-  return go<SnapDec>(a, batch, vec, stream);
+               t_kv, kh, g, h, hv, bkv, num_splits, causal, guard_shift, nullptr, 0, 0};
+  return dispatch<SnapDec, ContigKV>(a, batch, vec, stream);
 }

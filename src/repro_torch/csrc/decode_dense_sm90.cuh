@@ -1,17 +1,21 @@
-// The Hopper body of the split-KV decode over a contiguous cache:
-// decode_dense.cu's kernels, float (row 5) and the unit's snapped int
-// recurrence (row 6), through a row-state policy.  Each block writes the
-// partial state of one KV split of one (batch row, kv head) -- (m, l, acc)
-// float, (m snapped, S[16] buckets, acc) int; the fold of the splits runs
-// outside, in PyTorch, as the reference runs it outside its kernel.
+// The Hopper body of the split-KV s_q=1 decode: decode_dense.cu's kernels
+// over a contiguous cache (rows 5, 6) and decode_paged.cu's over a paged
+// one through its block table (rows 3, 4), float and the unit's snapped
+// int recurrence, one kernel through two policies: a row-state policy (FloatDec, SnapDec) and a
+// KV-layout policy (ContigKV, PagedKV: which pool row holds key j of batch
+// row b).  Each block writes the partial state of one KV split of one
+// (batch row, kv head) -- (m, l, acc) float, (m snapped, S[16] buckets,
+// acc) int; the fold of the splits runs outside, in PyTorch, as the
+// reference runs it outside its kernel.
 //
-// Keys: the split covers the tiles of bkv keys that dense_split_tiles
-// gives it -- its share of the row's LIVE tiles (up to the tile holding
-// q_pos when causal) -- up to T.  A key that kv_valid marks invalid, or
-// (causal) that lies past q_pos, scores MASK_VALUE and carries mass as in
-// the plain version; keys past T are not visited; a split with no tile
-// writes the merge identity ((MASK_VALUE, 0, 0) float, (SNAP_MIN, 0, 0)
-// int).
+// Keys: the split covers the tiles of bkv keys (paged: the pages) that
+// dense_split_tiles gives it -- its share of the row's LIVE tiles (up to
+// the tile holding q_pos when causal) -- up to T.  A key that kv_valid
+// marks invalid, or (causal) that lies past q_pos, scores MASK_VALUE and
+// carries mass as in the plain version; keys past T are not visited; a
+// split with no tile writes the merge identity ((MASK_VALUE, 0, 0) float,
+// (SNAP_MIN, 0, 0) int).  kv_valid and the causal test read the LOGICAL
+// position j; only the K / V address goes through the layout.
 //
 // Bound: the K / V bytes (4 flops a key and head dim against 8 bytes).
 // What the design does about it:
@@ -20,7 +24,11 @@
 //    its own NS-stage cp.async ring in dynamic shared memory, KW keys of K
 //    and V a stage, 16-byte copies where h, hv and the K / V base pointers
 //    allow it (tiling.decode_dense_vec), 4-byte ones otherwise; edges are
-//    zero-filled by the copy's src-size.  Two blocks fit an SM.
+//    zero-filled by the copy's src-size.  Two blocks fit an SM.  Paged,
+//    lane j < KW resolves key j of a step through the table once (a page
+//    row is a multiple of h floats, so 16-byte copies stay aligned), and
+//    the copies take each key's row from its lane by a shuffle; a step may
+//    span two pages, since a page may hold fewer keys than a step.
 // 2. Keys split across warps.  The W warps of a block take W runs of the
 //    split's keys, each a multiple of KW keys long.
 // 3. One K / V read serves every GQA row.  In the score step LPK lanes share
@@ -37,7 +45,11 @@
 //             one shuffle, and a step's words go to a per-warp [G][16]
 //             tile by shared int32 atomics, read back by the owning lanes.
 //             The PWL exp2 lookup reads the ROM from shared memory.
-// 5. Fixed-order merge.  At the end each warp writes its state into its
+// 5. Fixed row loops.  The key loop runs GT GQA rows, G rounded up to 1,
+//    2, 4 or 8 (one instantiation each), so its row loops unroll with no
+//    exit and the rows' dependent chains (the dot, its shuffles, the row
+//    step) interleave; the padded rows have zero q and are not stored.
+// 6. Fixed-order merge.  At the end each warp writes its state into its
 //    own ring, and after the one block barrier every (row, column) folds
 //    the warps' states in warp order into the split's partial.  The int
 //    words merge exactly in any order (monoid), so m and S are the plain
@@ -62,8 +74,8 @@ constexpr int kMaxG = 8;   // GQA rows a kv head the kernel holds
 
 struct Args {
   const float* q;           // (B, K, G, h), pre-scaled
-  const float* k;           // (B, T, K, h)
-  const float* v;           // (B, T, K, hv)
+  const float* k;           // contiguous (B, T, K, h) | paged (n_pool, bkv, K, h)
+  const float* v;           // contiguous (B, T, K, hv) | paged (n_pool, bkv, K, hv)
   const int32_t* q_pos;     // (B,)
   const uint8_t* kv_valid;  // (B, T)
   void* part_m;             // (B, splits, K, G): f32 | int32 snapped m
@@ -71,22 +83,28 @@ struct Args {
   float* part_acc;          // (B, splits, K, G, hv)
   int T, K, G, h, hv, bkv, splits, causal;
   int guard_shift;          // int: 0-31
+  const int32_t* tables;    // paged: (B, nblk) pool blocks of bkv keys, T = nblk bkv
+  int nblk, n_pool;
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // A block shape.  D: h and hv padded to 64 or 128; VEC floats a global
-// copy; W warps and NS ring stages at every D (two blocks fit an SM).
-// Score step: LPK lanes a key, KW keys a step.  P V: CPL value columns a
-// lane.
-template <int D_, int VEC_>
+// copy; GT GQA rows in the key loop (G rounded up to 1, 2, 4 or 8: the
+// rows past G have zero q and are never stored), so its row loops have a
+// fixed trip count and the rows' dependent chains (dot, shuffles, exp2)
+// interleave; W warps and NS ring stages at every D (two blocks fit an
+// SM).  Score step: LPK lanes a key, KW keys a step.  P V: CPL value
+// columns a lane.
+template <int D_, int VEC_, int GT_>
 struct Cfg {
-  static constexpr int D = D_, W = 4, NS = 2, VEC = VEC_;
+  static constexpr int D = D_, W = 4, NS = 2, VEC = VEC_, GT = GT_;
   static constexpr int LPK = D / 32, KW = 32 / LPK, CPL = D / 32;
   static constexpr int LD = D + D / 8;       // LD = 4 LPK (mod 32)
   static constexpr int STAGE = 2 * KW * LD;  // K, V [KW][LD] floats
   static_assert(D == 64 || D == 128, "head dims up to 64 or 128");
   static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
+  static_assert(GT == 1 || GT == 2 || GT == 4 || GT == kMaxG, "GQA rows 1, 2, 4 or 8");
 };
 
 // Shared memory, in floats: q [kMaxG][D]; the policy's block words [BX];
@@ -100,6 +118,48 @@ struct Smem {
   static constexpr int WARP = W0 + Rows::WX;
   static constexpr size_t BYTES = sizeof(float) * (RING + C::W * WARP);
   static_assert(C::NS * C::STAGE >= kMaxG * C::D + Rows::STATE, "the ring holds the state");
+};
+
+// A KV-layout policy (ContigKV, PagedKV): resolve the step's keys [key0,
+// r1) once a step, on every lane, before the step's copies; off(j) is
+// the offset of the step's key key0 + j in K (width h) or V (width hv) at
+// kv head ``head``, or -1 past the run, asked once for each copy and the
+// same on every lane.
+//
+// Contiguous: key j of batch row b is row b T + j.
+template <class C>
+struct ContigKV {
+  __device__ __forceinline__ void resolve(const Args&, int, int, int, int) {}
+  __device__ __forceinline__ long long off(const Args& a, int b, int head, int key0, int r1,
+                                           int j, int width) const {
+    return key0 + j < r1 ? ((static_cast<long long>(b) * a.T + key0 + j) * a.K + head) * width
+                         : -1;
+  }
+};
+
+// Paged: key j of batch row b is row blk bkv + j % bkv of the pool, blk =
+// tables[b, j / bkv]; an entry outside [0, n_pool) reads the sentinel
+// block 0.  Lane j < KW resolves the step's key j once; the copies take
+// it by a shuffle, so the table is read and divided by once a key and step.
+template <class C>
+struct PagedKV {
+  int mine;  // the pool row of the step's key lane, -1 past the run
+
+  __device__ __forceinline__ void resolve(const Args& a, int b, int key0, int r1, int lane) {
+    const int j = key0 + lane;
+    mine = -1;
+    if (lane < C::KW && j < r1) {
+      const int page = j / a.bkv;
+      int blk = a.tables[static_cast<size_t>(b) * a.nblk + page];
+      if (blk < 0 || blk >= a.n_pool) blk = 0;
+      mine = blk * a.bkv + (j - page * a.bkv);
+    }
+  }
+  __device__ __forceinline__ long long off(const Args& a, int, int head, int, int, int j,
+                                           int width) const {
+    const int r = __shfl_sync(0xffffffffu, mine, j);
+    return r < 0 ? -1 : (static_cast<long long>(r) * a.K + head) * width;
+  }
 };
 
 // A row-state policy (FloatDec, SnapDec): prepare the block's shared words
@@ -144,7 +204,7 @@ struct FloatDec {
     return p;
   }
 
-  __device__ __forceinline__ void end_step(int) {}
+  __device__ __forceinline__ void end_step() {}
 
   // row g's m, l after the warp's acc: st[g], st[kMaxG + g]
   __device__ __forceinline__ void store(float* st, int g, int lane) const {
@@ -241,10 +301,9 @@ struct SnapDec {
 
   // After the step's __syncwarp: the owning lanes take the step's sums
   // (the next step's adds follow the next __syncwarp).
-  __device__ __forceinline__ void end_step(int G) {
+  __device__ __forceinline__ void end_step() {
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+    for (int g = 0; g < C::GT; ++g) {
       if ((threadIdx.x & 31) < kNB) {
         int32_t* w = wb + g * kNB + bucket;
         S[g] += *w;
@@ -297,7 +356,7 @@ struct SnapDec {
   }
 };
 
-template <class C, class Rows>
+template <class C, class Rows, class KV>
 __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
   using L = Smem<C, Rows>;
   constexpr int kThreads = C::W * 32;
@@ -329,15 +388,13 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
 
   float* ring = sm + L::RING + warp * L::WARP;
   float* pb = ring + L::P;
+  KV layout;
   const auto fetch = [&](int st) {
     float* dst = ring + (st % C::NS) * C::STAGE;
     const int key0 = r0 + st * C::KW;
+    layout.resolve(a, b, key0, r1, lane);
     const auto k_row = [&](int width) {
-      return [&, width](int j) -> long long {
-        return key0 + j < r1
-                   ? ((static_cast<long long>(b) * a.T + key0 + j) * a.K + head) * width
-                   : -1;
-      };
+      return [&, width](int j) -> long long { return layout.off(a, b, head, key0, r1, j, width); };
     };
     copy_rows<C::KW, C::D, C::LD, C::VEC, 32>(dst, a.k, a.h, k_row(a.h), lane);
     copy_rows<C::KW, C::D, C::LD, C::VEC, 32>(dst + C::KW * C::LD, a.v, a.hv, k_row(a.hv),
@@ -378,8 +435,7 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
     for (int i = 0; i < C::D / (4 * C::LPK); ++i)
       kv[i] = *reinterpret_cast<const float4*>(ks + kk * C::LD + 4 * (C::LPK * i + part));
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= G) break;
+    for (int g = 0; g < C::GT; ++g) {
       const float* qg = sm + L::Q + g * C::D;
       float x = 0.0f;
 #pragma unroll
@@ -397,15 +453,14 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
       if (part == 0) pb[g * C::KW + kk] = p;
     }
     __syncwarp();  // p written
-    rows.end_step(G);
+    rows.end_step();
 
     // acc += p V: the lane's CPL value columns, four keys at a time
 #pragma unroll
     for (int j4 = 0; j4 < C::KW; j4 += 4) {
-      float pv[kMaxG][4];
+      float pv[C::GT][4];
 #pragma unroll
-      for (int g = 0; g < kMaxG; ++g) {
-        if (g >= G) break;
+      for (int g = 0; g < C::GT; ++g) {
         const float4 t = *reinterpret_cast<const float4*>(pb + g * C::KW + j4);
         pv[g][0] = t.x, pv[g][1] = t.y, pv[g][2] = t.z, pv[g][3] = t.w;
       }
@@ -421,8 +476,7 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
           vv[0] = t.x, vv[1] = t.y;
         }
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g >= G) break;
+        for (int g = 0; g < C::GT; ++g) {
 #pragma unroll
           for (int c = 0; c < C::CPL; ++c) acc[g][c] = fmaf(pv[g][jj], vv[c], acc[g][c]);
         }
@@ -447,14 +501,49 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
               threadIdx.x, kThreads);
 }
 
-// The kernel with the row policy Rows, one block a (split, kv head, batch row).
-template <class C, class Rows>
+// The kernel with the row policy Rows and the layout KV, one block a
+// (split, kv head, batch row).
+template <class C, class Rows, class KV>
 int launch(const Args& a, int batch, cudaStream_t st) {
   const size_t smem = Smem<C, Rows>::BYTES;
-  cudaError_t e = allow_smem(decode_kernel<C, Rows>, smem);
+  cudaError_t e = allow_smem(decode_kernel<C, Rows, KV>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  decode_kernel<C, Rows><<<dim3(a.splits, a.K, batch), C::W * 32, smem, st>>>(a);
+  decode_kernel<C, Rows, KV><<<dim3(a.splits, a.K, batch), C::W * 32, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <template <class> class Rows, template <class> class KV, int D, int VEC, int GT>
+int launch_cfg(const Args& a, int batch, cudaStream_t st) {
+  using C = Cfg<D, VEC, GT>;
+  return launch<C, Rows<C>, KV<C>>(a, batch, st);
+}
+
+template <template <class> class Rows, template <class> class KV, int D, int VEC>
+int launch_rows(const Args& a, int batch, cudaStream_t st) {
+  if (a.G <= 1) return launch_cfg<Rows, KV, D, VEC, 1>(a, batch, st);
+  if (a.G <= 2) return launch_cfg<Rows, KV, D, VEC, 2>(a, batch, st);
+  if (a.G <= 4) return launch_cfg<Rows, KV, D, VEC, 4>(a, batch, st);
+  return launch_cfg<Rows, KV, D, VEC, kMaxG>(a, batch, st);
+}
+
+// An entry's launch: the instantiation for a's shape (D by h and hv, GT by
+// G, the copy width vec), after refusing what none instantiates -- G
+// outside 1..8, h or hv outside 1..128, 16-byte copies (vec 4) where h,
+// hv or the K / V base pointer is off 16 bytes.
+template <template <class> class Rows, template <class> class KV>
+int dispatch(const Args& a, int batch, int vec, void* stream) {
+  if (a.G < 1 || a.G > kMaxG || a.h < 1 || a.h > 128 || a.hv < 1 || a.hv > 128 ||
+      a.bkv < 1 || a.bkv > 1024 || a.splits < 1 || a.T < 1 || a.K < 1 || batch < 1 ||
+      (vec != 4 && vec != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (vec == 4 && (a.h % 4 != 0 || a.hv % 4 != 0 || !aligned16(a.k) || !aligned16(a.v)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a.h <= 64 && a.hv <= 64)
+    return vec == 4 ? launch_rows<Rows, KV, 64, 4>(a, batch, st)
+                    : launch_rows<Rows, KV, 64, 1>(a, batch, st);
+  return vec == 4 ? launch_rows<Rows, KV, 128, 4>(a, batch, st)
+                  : launch_rows<Rows, KV, 128, 1>(a, batch, st);
 }
 
 }  // namespace ddec

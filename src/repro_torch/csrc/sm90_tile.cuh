@@ -1,6 +1,6 @@
 // cp.async copies and register-tile fragments shared by the Hopper bodies:
 // norm_gemm_sm90.cuh (rows 12, 13, 15, 16), flash_bwd_sm90.cuh (rows 10, 11),
-// flash_fwd_sm90.cuh (row 7) and decode_dense_sm90.cuh (row 5).
+// flash_fwd_sm90.cuh (rows 7, 8) and decode_dense_sm90.cuh (rows 3-6).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -11,22 +11,25 @@ The kernels emit one partial state per KV split -- (m, l, o*l) float, or
 PyTorch, as the reference runs it outside its kernel:
 ``online_softmax_merge_n`` + finish, or ``online_merge_n_int`` +
 ``online_finish_int`` + one f32 division.  The kernels are bound by
-memory on the H100: each visited K/V tile is read once.  The paged two
-share ``csrc/decode.cu`` (one body templated over the state) and the split
-rule :func:`tiling.decode_splits`; the contiguous two run on a Hopper body
-(``csrc/decode_dense.cu`` on ``csrc/decode_dense_sm90.cuh``: per-warp key
-runs, each warp's cp.async ring and online state -- float, or the snapped
-m and a bucket a lane -- and a fixed-order merge of the warps) with the
-split count and tile of :func:`tiling.decode_dense_plan` on the GPU.
+memory on the H100: each visited K/V key is read once.  All four run on
+one Hopper kernel (``csrc/decode_dense_sm90.cuh`` under
+``csrc/decode_dense.cu`` and ``csrc/decode_paged.cu``:
+per-warp key runs, each warp's cp.async ring and online state -- float, or
+the snapped m and a bucket a lane -- and a fixed-order merge of the warps)
+with a row-state policy (float, int) and a KV-layout policy (contiguous,
+or paged through the block table).  On a GPU the split count is
+:func:`tiling.decode_dense_plan`'s, with its 64-key tiles on a contiguous
+cache and the page as the tile on a paged one (:func:`tiling.decode_splits`);
+the CPU keeps the reference's split rule.
 
 Shapes (the reference's): q (B, 1, K, G, h); paged pools (N, bs, K,
 h|hv) with block_tables (B, nblk) int32 and kv_valid (B, nblk*bs);
 contiguous k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T); q_pos (B, 1)
--> (B, 1, K, G, hv).  Paged, split s covers table entries [s*inner,
-(s+1)*inner); contiguous, it covers that share of each row's LIVE tiles
-(up to its q_pos when causal), so a shallow slot in a deep cache still
-spreads its work over every split.  The fold does not depend on where
-the splits fall.
+-> (B, 1, K, G, hv).  Split s covers its share of each row's LIVE tiles
+(pages, paged: up to its q_pos when causal), so a shallow slot in a deep
+cache still spreads its work over every split.  The fold does not depend
+on where the splits fall: the int words are exact, float changes only in
+f32 order.
 """
 from __future__ import annotations
 
@@ -42,15 +45,14 @@ from .flash_attention import MAX_HEAD_DIM
 from .flash_attention_int import snap_tile_update
 
 _P, _I = _build.P, _build.I
-_DECODE_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
 
 DECODE_PAGED = _build.Kernel(
-    "decode_paged", "decode_paged_launch", _DECODE_ARGTYPES,
-    source="src/repro_torch/csrc/decode.cu",
+    "decode_paged", "decode_paged_launch", [_P] * 9 + [_I] * 11 + [_P],
+    source="src/repro_torch/csrc/decode_paged.cu",
     replaces="src/repro/kernels/flash_decode.py:365")
 DECODE_PAGED_INT = _build.Kernel(
-    "decode_paged_int", "decode_paged_int_launch", _DECODE_ARGTYPES,
-    source="src/repro_torch/csrc/decode.cu",
+    "decode_paged_int", "decode_paged_int_launch", [_P] * 9 + [_I] * 12 + [_P],
+    source="src/repro_torch/csrc/decode_paged.cu",
     replaces="src/repro/kernels/flash_decode.py:440")
 DECODE_DENSE = _build.Kernel(
     "decode_dense", "decode_dense_launch", [_P] * 8 + [_I] * 10 + [_P],
@@ -64,22 +66,36 @@ DECODE_DENSE_INT = _build.Kernel(
 MAX_GROUPS = 8          # GQA rows per kv head the kernels hold (kMaxG)
 
 
-def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
-                                *, num_splits: int, causal: bool,
-                                int_mode: bool, guard_shift: int):
-    """Plain version of both decode kernels: the per-split partials.
+# ---------------- the split sweep of both plain versions ----------------
 
-    qf (B, K, G, h) pre-scaled; q_pos (B,) int32; kv_valid (B, nblk*bs).
-    Returns (m, l | S, acc) shaped (B, S, K, G), (B, S, K, G[, 16]),
-    (B, S, K, G, hv).
-    """
+def dense_split_tiles(q_pos, nblk: int, block_kv: int, num_splits: int,
+                      causal: bool):
+    """Per row: (live tiles, tiles per split) of the split-KV decodes --
+    each row's live range (tiles, or pages, up to its q_pos when causal)
+    cut into ``num_splits`` shares, as the kernels cut it."""
+    if causal:
+        live = torch.where(q_pos < 0, torch.zeros_like(q_pos),
+                           torch.clamp(q_pos // block_kv + 1, max=nblk))
+    else:
+        live = torch.full_like(q_pos, nblk)
+    return live, (live + num_splits - 1) // num_splits
+
+
+def _split_partials_plain(qf, tile, t: int, hv: int, q_pos, kv_valid, *,
+                          num_splits: int, block_kv: int, causal: bool,
+                          int_mode: bool, guard_shift: int):
+    """The split-KV sweep of both plain versions over a t-key cache:
+    split s folds its share of each row's live tiles (dense_split_tiles),
+    tile by tile.  ``tile(jt, idx)`` gives the K and V rows (B, block_kv,
+    K, h|hv) of tile jt (B,) of each row, keys idx (B, block_kv) (0 past
+    the cache); kv_valid (B, t) and the causal test read the logical
+    position."""
     b, kh, g, _ = qf.shape
-    n_pool, bs = k_pool.shape[:2]
-    hv = v_pool.shape[-1]
-    nblk = tables.shape[1]
-    inner = tiling.cdiv(nblk, num_splits)
+    nblk = tiling.cdiv(t, block_kv)
     dev = qf.device
     qp = q_pos.to(torch.int64)
+    live, inner = dense_split_tiles(qp, nblk, block_kv, num_splits, causal)
+    offs = torch.arange(block_kv, device=dev)
     parts = []
     for sp in range(num_splits):
         if int_mode:
@@ -91,33 +107,71 @@ def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
             m = torch.full((b, kh, g, 1), dp.MASK_VALUE, device=dev)
             l = torch.zeros((b, kh, g, 1), device=dev)
         acc = torch.zeros((b, kh, g, hv), device=dev)
-        for jt in range(sp * inner, min((sp + 1) * inner, nblk)):
-            blk = tables[:, jt].to(torch.int64)
-            blk = torch.where((blk >= 0) & (blk < n_pool), blk, 0)
-            kb = k_pool[blk].to(torch.float32)                 # (B,bs,K,h)
-            vb = v_pool[blk].to(torch.float32).permute(0, 2, 1, 3)
+        n_steps = int(inner.max()) if b else 0
+        for i in range(n_steps):
+            jt = sp * inner + i                                   # (B,)
+            on = (i < inner) & (jt < live)
+            kv_pos = jt[:, None] * block_kv + offs[None, :]       # (B, bkv)
+            real = kv_pos < t
+            idx = torch.where(real, kv_pos, torch.zeros_like(kv_pos))
+            kb, vb = tile(jt, idx)
+            kb = kb.to(torch.float32)                             # (B,bkv,K,h)
+            vb = vb.to(torch.float32).permute(0, 2, 1, 3)
+            vb = torch.where(real[:, None, :, None], vb, torch.zeros_like(vb))
             s = torch.einsum("bkgh,btkh->bkgt", qf, kb)
-            kv_pos = jt * bs + torch.arange(bs, device=dev)
-            mask = kv_valid[:, jt * bs:(jt + 1) * bs].bool()
+            mask = torch.gather(kv_valid, 1, idx).bool()
             if causal:
-                mask = mask & (kv_pos[None, :] <= qp[:, None])
+                mask = mask & (kv_pos <= qp[:, None])
             s = torch.where(mask[:, None, None, :], s,
                             torch.full_like(s, dp.MASK_VALUE))
-            vb = vb[:, :, None]                              # (B,K,1,bs,hv)
+            ph = ~real[:, None, None, :]
+            vb = vb[:, :, None]                              # (B,K,1,bkv,hv)
             if int_mode:
-                m_n, l_n, acc_n = snap_tile_update(m, l, acc, quantize(s), vb,
+                sq = torch.where(ph, torch.full_like(s, 0.0), s)
+                sq = torch.where(ph, torch.full((), unit.PHANTOM_Q,
+                                                dtype=torch.int32,
+                                                device=dev), quantize(sq))
+                m_n, l_n, acc_n = snap_tile_update(m, l, acc, sq, vb,
                                                    guard_shift)
             else:
+                s = torch.where(ph, torch.full_like(s, -torch.inf), s)
                 m_n, l_n, p, corr = dp.online_softmax_update(m, l, s)
                 acc_n = acc * corr + torch.einsum("bkgt,bkgtv->bkgv", p, vb)
-            live = (torch.full_like(qp, jt * bs) <= qp if causal
-                    else torch.ones_like(qp, dtype=torch.bool))
-            live = live[:, None, None, None]
-            m = torch.where(live, m_n, m)
-            l = torch.where(live, l_n, l)
-            acc = torch.where(live, acc_n, acc)
+            on = on[:, None, None, None]
+            m = torch.where(on, m_n, m)
+            l = torch.where(on, l_n, l)
+            acc = torch.where(on, acc_n, acc)
         parts.append((m[..., 0], l if int_mode else l[..., 0], acc))
     return tuple(torch.stack(x, dim=1) for x in zip(*parts))
+
+
+# ---------------- paged cache ----------------
+
+def decode_paged_partials_plain(qf, k_pool, v_pool, tables, q_pos, kv_valid,
+                                *, num_splits: int, causal: bool,
+                                int_mode: bool, guard_shift: int):
+    """Plain version of both paged decode kernels: the per-split partials,
+    the page as the tile (the contiguous sweep of
+    :func:`decode_dense_partials_plain`, each page read through the
+    table; an entry outside the pool reads the sentinel block 0).
+
+    qf (B, K, G, h) pre-scaled; q_pos (B,) int32; kv_valid (B, nblk*bs).
+    Returns (m, l | S, acc) shaped (B, S, K, G), (B, S, K, G[, 16]),
+    (B, S, K, G, hv).
+    """
+    n_pool, bs = k_pool.shape[:2]
+    nblk = tables.shape[1]
+    blocks = tables.to(torch.int64)
+    blocks = torch.where((blocks >= 0) & (blocks < n_pool), blocks, 0)
+    rows = torch.arange(qf.shape[0], device=qf.device)
+
+    def tile(jt, idx):
+        blk = blocks[rows, torch.clamp(jt, max=nblk - 1)]
+        return k_pool[blk], v_pool[blk]
+    return _split_partials_plain(
+        qf, tile, nblk * bs, v_pool.shape[-1], q_pos, kv_valid,
+        num_splits=num_splits, block_kv=bs, causal=causal,
+        int_mode=int_mode, guard_shift=guard_shift)
 
 
 def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
@@ -125,7 +179,8 @@ def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
                           guard_shift: int):
     """Per-split partials through the CUDA kernel (CUDA tensors) or the
     plain version (CPU tensors); arguments as
-    :func:`decode_paged_partials_plain`."""
+    :func:`decode_paged_partials_plain`.  The kernels copy K / V at
+    :func:`tiling.decode_dense_vec`'s width."""
     if qf.device.type == "cpu":
         return decode_paged_partials_plain(
             qf, k_pool, v_pool, tables, q_pos, kv_valid,
@@ -138,6 +193,9 @@ def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
     _check_decode_operands(qf, k_pool, v_pool, tables, q_pos, kv_valid)
     if not 1 <= num_splits <= nblk:
         raise ValueError(f"num_splits={num_splits} outside [1, {nblk}]")
+    if max(h, hv) > MAX_HEAD_DIM:
+        raise ValueError(f"decode_paged: head dims {h}/{hv}; the kernels "
+                         f"take 1..{MAX_HEAD_DIM}")
     dev = qf.device
     part_m = torch.empty((b, num_splits, kh, g), device=dev,
                          dtype=torch.int32 if int_mode else torch.float32)
@@ -145,13 +203,15 @@ def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
                           device=dev, dtype=torch.int32) if int_mode
               else torch.empty((b, num_splits, kh, g), device=dev))
     part_acc = torch.empty((b, num_splits, kh, g, hv), device=dev)
-    kernel = DECODE_PAGED_INT if int_mode else DECODE_PAGED
-    kernel(qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-           tables.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
-           part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-           b, n_pool, bs, kh, g, h, hv, nblk, num_splits,
-           tiling.cdiv(nblk, num_splits), int(causal), guard_shift,
-           _build.stream_ptr(dev))
+    ptrs = (qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), q_pos.data_ptr(), kv_valid.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
+            b, n_pool, bs, kh, g, h, hv, nblk, num_splits, int(causal))
+    vec = tiling.decode_dense_vec(h, hv, tiling.aligned16(k_pool, v_pool))
+    if int_mode:
+        DECODE_PAGED_INT(*ptrs, guard_shift, vec, _build.stream_ptr(dev))
+    else:
+        DECODE_PAGED(*ptrs, vec, _build.stream_ptr(dev))
     return part_m, part_l, part_acc
 
 
@@ -230,19 +290,6 @@ def flash_decode_paged(q, k_pool, v_pool, *, block_tables, q_pos, kv_valid,
 
 # ---------------- contiguous cache ----------------
 
-def dense_split_tiles(q_pos, nblk: int, block_kv: int, num_splits: int,
-                      causal: bool):
-    """Per row: (live tiles, tiles per split) of the contiguous decode --
-    each row's live range (tiles up to its q_pos when causal) cut into
-    ``num_splits`` shares, as the kernel cuts it."""
-    if causal:
-        live = torch.where(q_pos < 0, torch.zeros_like(q_pos),
-                           torch.clamp(q_pos // block_kv + 1, max=nblk))
-    else:
-        live = torch.full_like(q_pos, nblk)
-    return live, (live + num_splits - 1) // num_splits
-
-
 def decode_dense_partials_plain(qf, k, v, q_pos, kv_valid, *,
                                 num_splits: int, block_kv: int, causal: bool,
                                 int_mode: bool, guard_shift: int):
@@ -250,60 +297,14 @@ def decode_dense_partials_plain(qf, k, v, q_pos, kv_valid, *,
     partials.  qf (B, K, G, h) pre-scaled; k (B, T, K, h); v (B, T, K,
     hv); q_pos (B,) int32; kv_valid (B, T).  Returns (m, l | S, acc)
     shaped (B, S, K, G), (B, S, K, G[, 16]), (B, S, K, G, hv)."""
-    b, kh, g, _ = qf.shape
-    t, hv = k.shape[1], v.shape[-1]
-    nblk = tiling.cdiv(t, block_kv)
-    dev = qf.device
-    qp = q_pos.to(torch.int64)
-    live, inner = dense_split_tiles(qp, nblk, block_kv, num_splits, causal)
-    rows = torch.arange(b, device=dev)[:, None]
-    offs = torch.arange(block_kv, device=dev)
-    parts = []
-    for sp in range(num_splits):
-        if int_mode:
-            m = torch.full((b, kh, g, 1), unit.SNAP_MIN, dtype=torch.int32,
-                           device=dev)
-            l = torch.zeros((b, kh, g, unit.N_SNAP_BUCKETS),
-                            dtype=torch.int32, device=dev)
-        else:
-            m = torch.full((b, kh, g, 1), dp.MASK_VALUE, device=dev)
-            l = torch.zeros((b, kh, g, 1), device=dev)
-        acc = torch.zeros((b, kh, g, hv), device=dev)
-        n_steps = int(inner.max()) if b else 0
-        for i in range(n_steps):
-            jt = sp * inner + i                                   # (B,)
-            on = (i < inner) & (jt < live)
-            kv_pos = jt[:, None] * block_kv + offs[None, :]       # (B, bkv)
-            real = kv_pos < t
-            idx = torch.where(real, kv_pos, torch.zeros_like(kv_pos))
-            kb = k[rows, idx].to(torch.float32)                   # (B,bkv,K,h)
-            vb = v[rows, idx].to(torch.float32).permute(0, 2, 1, 3)
-            vb = torch.where(real[:, None, :, None], vb, torch.zeros_like(vb))
-            s = torch.einsum("bkgh,btkh->bkgt", qf, kb)
-            mask = torch.gather(kv_valid, 1, idx).bool()
-            if causal:
-                mask = mask & (kv_pos <= qp[:, None])
-            s = torch.where(mask[:, None, None, :], s,
-                            torch.full_like(s, dp.MASK_VALUE))
-            ph = ~real[:, None, None, :]
-            vb = vb[:, :, None]                              # (B,K,1,bkv,hv)
-            if int_mode:
-                sq = torch.where(ph, torch.full_like(s, 0.0), s)
-                sq = torch.where(ph, torch.full((), unit.PHANTOM_Q,
-                                                dtype=torch.int32,
-                                                device=dev), quantize(sq))
-                m_n, l_n, acc_n = snap_tile_update(m, l, acc, sq, vb,
-                                                   guard_shift)
-            else:
-                s = torch.where(ph, torch.full_like(s, -torch.inf), s)
-                m_n, l_n, p, corr = dp.online_softmax_update(m, l, s)
-                acc_n = acc * corr + torch.einsum("bkgt,bkgtv->bkgv", p, vb)
-            on = on[:, None, None, None]
-            m = torch.where(on, m_n, m)
-            l = torch.where(on, l_n, l)
-            acc = torch.where(on, acc_n, acc)
-        parts.append((m[..., 0], l if int_mode else l[..., 0], acc))
-    return tuple(torch.stack(x, dim=1) for x in zip(*parts))
+    rows = torch.arange(qf.shape[0], device=qf.device)[:, None]
+
+    def tile(jt, idx):
+        return k[rows, idx], v[rows, idx]
+    return _split_partials_plain(
+        qf, tile, k.shape[1], v.shape[-1], q_pos, kv_valid,
+        num_splits=num_splits, block_kv=block_kv, causal=causal,
+        int_mode=int_mode, guard_shift=guard_shift)
 
 
 def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,

@@ -8,8 +8,8 @@ decode-vs-naive threshold and the blocked-attention pad rule
 (:func:`pad_attention_operands`, used by the plain versions).  The
 split-KV decode split count is sized from the card's streaming
 multiprocessor count instead of the TPU core probe: splits are added
-until (batch x kv-heads x splits) blocks cover every SM, and never more
-than the cache has tiles.
+until (batch x kv-heads x splits) blocks fill several waves of the SMs'
+resident slots, and never more than the cache has tiles.
 
 Blocked attention tiles are Hopper-sized, not the TPU's 128 x 512: a
 block of 256 threads holds ATTN_BLOCK_Q query rows against
@@ -41,7 +41,9 @@ kernel (row 9) keeps ATTN_BLOCK_Q x ATTN_BLOCK_KV on
 ``csrc/flash_tile.cuh``.  The contiguous decodes (rows 5 and 6) run on
 ``csrc/decode_dense_sm90.cuh`` with the split count and tile of
 :func:`decode_dense_plan` and the copy width of :func:`decode_dense_vec`;
-the paged decodes (rows 3, 4) keep :func:`decode_splits`.
+the paged decodes (rows 3, 4) run on the same body through the block
+table, the page as the tile, at :func:`decode_splits`' count -- the same
+plan on a GPU.
 
 The residual-norm epilogue takes one block per row, in place of the
 reference's ``norm_rows``.  The unit's row softmax (row 1) holds each row
@@ -56,7 +58,7 @@ from typing import NamedTuple
 import torch
 
 DECODE_FLASH_MIN_KV = 1024   # below this the s_q=1 'auto' pick stays naive
-DECODE_MAX_SPLITS = 8        # partial-merge fan-in cap
+DECODE_MAX_SPLITS = 8        # CPU rule: splits at most
 DECODE_SPLIT_KEYS = 2048     # CPU rule: keys per split
 PAGED_MIN_BLOCK = 8          # block-size window of the paged pool
 PAGED_MAX_BLOCK = 128
@@ -289,20 +291,22 @@ _SM_COUNT: dict[int, int] = {}    # per card index: a property of the card
 
 def decode_splits(nblk: int, block_size: int, rows: int,
                   device: torch.device) -> int:
-    """Split count for the split-KV decode kernels: ``rows`` (batch x
-    kv-heads) independent sweeps over ``nblk`` tiles of ``block_size``
-    keys.
+    """Split count of the paged split-KV decodes (rows 3 and 4): ``rows``
+    (batch x kv-heads) sweeps over ``nblk`` pages of ``block_size`` keys.
 
-    On a GPU: enough splits for rows x splits blocks to cover the SMs,
-    capped at DECODE_MAX_SPLITS and at one tile per split.  On the CPU
-    (the plain version): the reference's off-TPU rule, one split per
-    DECODE_SPLIT_KEYS keys, so the two fold the same partials.
+    On a GPU: the contiguous decodes' rule, :func:`decode_dense_plan`'s
+    splits for a cache of nblk x block_size keys, capped at one page a
+    split (the page is the tile the splits cut).  On the CPU (the plain
+    versions, paged and contiguous): the reference's off-TPU rule, one
+    split per DECODE_SPLIT_KEYS keys, at most DECODE_MAX_SPLITS, so CPU
+    parity with the reference holds at its own split count.
     """
     if device.type == "cuda":
-        want = cdiv(sm_count(device), max(rows, 1))
+        want = decode_dense_plan(nblk * block_size, rows,
+                                 sms=sm_count(device)).splits
     else:
-        want = nblk * block_size // DECODE_SPLIT_KEYS
-    return int(max(1, min(want, DECODE_MAX_SPLITS, nblk)))
+        want = min(nblk * block_size // DECODE_SPLIT_KEYS, DECODE_MAX_SPLITS)
+    return int(max(1, min(want, nblk)))
 
 
 FLASH_FWD_BK = 64    # keys of a streamed K / V tile of the float forward
@@ -372,12 +376,13 @@ def decode_dense_plan(t_kv: int, rows: int, *, sms: int) -> DecodeDensePlan:
     DECODE_DENSE_WAVES x DECODE_DENSE_SLOTS x sms blocks -- and for no
     split of fewer than DECODE_DENSE_MIN_KEYS keys of the cache or of
     less than one tile.  It may pass DECODE_MAX_SPLITS, the cap of the
-    other decode kernels' rule (:func:`decode_splits`).  The kernel's
-    warps and ring depth are fixed; ``csrc/decode_dense.cu`` instantiates
-    both copy widths and takes any split count and tile.  The int words
-    differ from the reference decode's 128-key tiles only through the
-    masked keys past q_pos inside the last visited tile (ROADMAP Queue
-    3)."""
+    reference's CPU rule.  The paged decodes take the same count, capped
+    at their pages (:func:`decode_splits`).  The kernel's warps and ring
+    depth are fixed; ``csrc/decode_dense.cu`` (and ``decode_paged.cu``)
+    instantiate both copy widths and take any split count and tile.  The
+    int words differ from the reference decode's 128-key tiles only
+    through the masked keys past q_pos inside the last visited tile
+    (ROADMAP Queue 3)."""
     nblk = cdiv(t_kv, DECODE_DENSE_BLOCK_KV)
     want = cdiv(DECODE_DENSE_WAVES * DECODE_DENSE_SLOTS * sms, max(rows, 1))
     splits = max(1, min(want, nblk, cdiv(t_kv, DECODE_DENSE_MIN_KEYS)))

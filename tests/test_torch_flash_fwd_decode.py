@@ -14,7 +14,9 @@ plain version (the reference's sweeps):
   statistics;
 - row 5: per split, the warps' key runs (multiples of the step's keys),
   each with its own online state, merged in warp order into the split's
-  partial.
+  partial;
+- row 3: row 5's scheme over a paged cache, the page as the tile, each
+  step's keys resolved once through the block table to their pool rows.
 
 Tolerance: 1e-5, the limit the kernels are held to on the card (f32 sums
 in another order); l as l / plain l.  (The plain versions meet the
@@ -29,6 +31,7 @@ from repro_torch.kernels import datapath as dp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import tiling
+from torch_paged_cases import PAGED, kv_rows, paged_case
 
 TOL = 1e-5
 cdiv = tiling.cdiv
@@ -257,13 +260,15 @@ def test_flash_fwd_wrapper_on_cpu_is_the_plain_version():
 # ---------------- (c) row 5: the decode's scheme, emulated ----------------
 
 def emulate_decode_dense(qf, k, v, q_pos, kv_valid, *, num_splits, block_kv,
-                         causal, warps=4):
+                         causal, warps=4, tables=None):
     """The per-split partials (m, l, acc) as the kernel computes them: the
     split's keys cut into ``warps`` runs of whole steps (16 keys at head
     dims up to 64, else 8), each run its own online state, the states
-    merged in warp order."""
+    merged in warp order.  With ``tables`` k and v are the pools and the
+    tile is the page (block_kv = bs)."""
     b, kh, g, h = qf.shape
-    t, hv = k.shape[1], v.shape[-1]
+    t = k.shape[1] if tables is None else tables.shape[1] * k.shape[1]
+    hv = v.shape[-1]
     step = 16 if max(h, hv) <= 64 else 8
     nblk = cdiv(t, block_kv)
     part_m = torch.zeros(b, num_splits, kh, g)
@@ -288,7 +293,8 @@ def emulate_decode_dense(qf, k, v, q_pos, kv_valid, *, num_splits, block_kv,
                 acc = torch.zeros(kh, g, hv)
                 for key0 in range(r0, r1, step):
                     keys = torch.arange(key0, min(key0 + step, r1))
-                    sc = torch.einsum("kgh,nkh->kgn", qf[bi], k[bi, keys])
+                    kr, vr = kv_rows(k, v, tables, bi, keys)
+                    sc = torch.einsum("kgh,nkh->kgn", qf[bi], kr)
                     live_k = kv_valid[bi, keys] != 0
                     if causal:
                         live_k = live_k & (keys <= qp)
@@ -299,7 +305,7 @@ def emulate_decode_dense(qf, k, v, q_pos, kv_valid, *, num_splits, block_kv,
                     p = torch.exp2((sc - m_new[..., None]) * dp.LOG2E)
                     l = l * corr + p.sum(dim=-1)
                     acc = acc * corr[..., None] + torch.einsum(
-                        "kgn,nkv->kgv", p, v[bi, keys])
+                        "kgn,nkv->kgv", p, vr)
                     m = m_new
                 states.append((m, l, acc))
             m_all = torch.stack([x[0] for x in states]).amax(dim=0)
@@ -377,3 +383,30 @@ def test_decode_dense_wrapper_on_cpu_is_the_plain_version():
                 fd.decode_dense_partials_plain(*args, int_mode=int_mode,
                                                **kw)):
             assert torch.equal(got, want)
+
+
+# ---------------- (d) row 3: the paged decode's scheme, emulated -------------
+
+@pytest.mark.parametrize("shape", PAGED)
+def test_decode_paged_emulated_scheme_vs_plain(shape):
+    """Row 5's warps and merge through the paged address, the page as the
+    tile, against the paged plain version at the same splits: each
+    partial's m, l and acc relative to the plain's scale, and the folded
+    outputs, within 1e-5."""
+    b, kh, g, h, hv, bs, nblk, q_pos, causal, ns, tails = shape
+    qf, kp, vp, tab, qp, valid = paged_case(33, b, kh, g, h, hv, bs, nblk,
+                                            q_pos, tails)
+    got = emulate_decode_dense(qf, kp, vp, qp, valid, num_splits=ns,
+                               block_kv=bs, causal=causal, tables=tab)
+    want = fd.decode_paged_partials_plain(
+        qf, kp, vp, tab, qp, valid, num_splits=ns, causal=causal,
+        int_mode=False, guard_shift=0)
+    _close(got[0], want[0])
+    empty = want[1] == 0
+    assert torch.equal(got[1] == 0, empty)
+    _close(torch.where(empty, 1.0, got[1] / want[1]),
+           torch.ones_like(want[1]))
+    scale = torch.clamp(want[1], min=1e-30)[..., None]
+    _close(got[2] / scale, want[2] / scale)
+    _close(fd.finish_partials(*got, int_mode=False),
+           fd.finish_partials(*want, int_mode=False))

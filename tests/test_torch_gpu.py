@@ -148,64 +148,138 @@ def test_pair_act_refuses_16_byte_copies_when_unaligned(cuda):
             ds.pair_act(z, "gelu", "int")
 
 
-def _case(dev, g, grid, seed=2, b=4, kh=4, h=64, bs=128, nblk=16):
+def _case(dev, g, grid, seed=2, b=4, kh=4, h=64, bs=128, nblk=16, hv=None,
+          q_pos=None, tails="sentinel"):
+    """Pools of 1 + b nblk blocks behind shuffled tables; the entries past
+    each row's q_pos page are the sentinel 0 (``tails`` 'sentinel') or
+    outside the pool ('out', with one live entry outside it too)."""
     gen = torch.Generator().manual_seed(seed)
     n_pool = 1 + b * nblk
+    hv = hv or h
     q = _randn(gen, dev, b, kh, g, h)
     k = _randn(gen, dev, n_pool, bs, kh, h)
     if grid:                  # multiples of 2^-4: exact scores
         q = torch.round(q * 4) / 16
         k = torch.round(k * 4) / 16
-    v = _randn(gen, dev, n_pool, bs, kh, h)
+    v = _randn(gen, dev, n_pool, bs, kh, hv)
     ids = (torch.randperm(n_pool - 1, generator=gen) + 1).reshape(b, nblk)
-    q_pos = torch.tensor([5, 127, 900, nblk * bs - 1], dtype=torch.int32)
-    used = (q_pos[:, None] // bs) >= torch.arange(nblk)[None, :]
-    tables = torch.where(used, ids, 0).to(torch.int32).to(dev)
+    q_pos = torch.tensor([5, 127, 900, nblk * bs - 1] if q_pos is None
+                         else q_pos, dtype=torch.int32)
+    past = (q_pos.clamp(min=0)[:, None] // bs) < torch.arange(nblk)[None, :]
+    if tails == "sentinel":
+        ids = torch.where(past, 0, ids)
+    else:
+        far = torch.tensor([-5, -1, n_pool, n_pool + 9])[
+            torch.randint(0, 4, ids.shape, generator=gen)]
+        ids = torch.where(past, far, ids)
+        ids[0, 0] = -1
+    tables = ids.to(torch.int32).to(dev)
     valid = (torch.arange(nblk * bs)[None, :] <= q_pos[:, None]).to(
         torch.uint8).to(dev)
     return (q * h ** -0.5).contiguous(), k, v, tables, q_pos.to(dev), valid
 
 
+def _paged_checks(args, num_splits, grid):
+    """Rows 3 and 4 against the paged plain version at ``num_splits``: the
+    folded outputs (float 1e-5; int 1e-5 on exact scores, 1e-4 on random
+    ones, where a score can round to the neighbouring S5.10 word), m and S
+    bitwise on exact scores, one counted launch a call, two calls the same
+    bits."""
+    kw = dict(num_splits=num_splits, causal=True, guard_shift=0)
+    for int_mode, kernel in ((False, fd.DECODE_PAGED),
+                             (True, fd.DECODE_PAGED_INT)):
+        before = kernel.launches
+        got = fd.decode_paged_partials(*args, int_mode=int_mode, **kw)
+        assert kernel.launches == before + 1
+        want = fd.decode_paged_partials_plain(*args, int_mode=int_mode, **kw)
+        if int_mode and grid:
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+        torch.testing.assert_close(
+            fd.finish_partials(*got, int_mode=int_mode),
+            fd.finish_partials(*want, int_mode=int_mode),
+            atol=1e-4 if int_mode and not grid else 1e-5, rtol=0)
+        again = fd.decode_paged_partials(*args, int_mode=int_mode, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+# (bs, nblk, h, hv, q_pos, tails, pools off 16 bytes): qwen's 128-key
+# pages; 8-key pages (smaller than a 16-key step) and 40-key ones (not a
+# power of two) with entries outside the pool and a row at q_pos -1; the
+# 4-byte copies (h 30, hv 62; pools one float off 16 bytes)
+PAGED_LAYOUTS = [
+    (128, 16, 64, 64, None, "sentinel", False),
+    (8, 40, 64, 64, [-1, 100, 200, 319], "out", False),
+    (40, 10, 64, 64, [3, 130, 250, 399], "out", False),
+    (16, 20, 30, 62, [0, 100, 200, 319], "sentinel", False),
+    (128, 16, 64, 64, None, "out", True),
+]
+
+
+@pytest.mark.parametrize("layout", PAGED_LAYOUTS)
 @pytest.mark.parametrize("g", [1, 2, 4])
-@pytest.mark.parametrize("num_splits", [1, 4])
-def test_decode_paged_kernels(cuda, g, num_splits):
+def test_decode_paged_kernels(cuda, g, layout):
+    """Rows 3 and 4 on the contiguous decodes' body through the block
+    table, at 1 and 4 splits, the plan's (tiling.decode_splits) and one a
+    page (more splits than the shallow rows have live pages)."""
+    from repro_torch.kernels import tiling
+    bs, nblk, h, hv, q_pos, tails, off = layout
     for grid in (False, True):
-        args = _case(cuda, g, grid)
-        kw = dict(num_splits=num_splits, causal=True, guard_shift=0)
-        kf = fd.decode_paged_partials(*args, int_mode=False, **kw)
-        pf = fd.decode_paged_partials_plain(*args, int_mode=False, **kw)
-        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
-                                   fd.finish_partials(*pf, int_mode=False),
-                                   atol=1e-5, rtol=0)
-        ki = fd.decode_paged_partials(*args, int_mode=True, **kw)
-        pi = fd.decode_paged_partials_plain(*args, int_mode=True, **kw)
-        if grid:
-            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
-        # random scores can flip an S5.10 word between two dot orders
-        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
-                                   fd.finish_partials(*pi, int_mode=True),
-                                   atol=1e-5 if grid else 1e-4, rtol=0)
+        qf, k, v, tables, qp, valid = _case(cuda, g, grid, bs=bs, nblk=nblk,
+                                            h=h, hv=hv, q_pos=q_pos,
+                                            tails=tails)
+        if off:
+            k, v = _off_by_one_float(k), _off_by_one_float(v)
+        plan = tiling.decode_splits(nblk, bs, qf.shape[0] * qf.shape[1],
+                                    cuda)
+        for num_splits in sorted({1, 4, plan, nblk}):
+            _paged_checks((qf, k, v, tables, qp, valid), num_splits, grid)
 
 
 @pytest.mark.parametrize("grid", [False, True])
 def test_decode_paged_kernels_at_yi_shape(cuda, grid):
     """yi-6b's decode: 4 kv heads x G 8 query heads, h 128, 128-key
-    blocks, a 4096-key table."""
-    args = _case(cuda, 8, grid, b=4, kh=4, h=128, bs=128, nblk=32)
-    for num_splits in (1, 8):
-        kw = dict(num_splits=num_splits, causal=True, guard_shift=0)
-        kf = fd.decode_paged_partials(*args, int_mode=False, **kw)
-        pf = fd.decode_paged_partials_plain(*args, int_mode=False, **kw)
-        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
-                                   fd.finish_partials(*pf, int_mode=False),
-                                   atol=1e-5, rtol=0)
-        ki = fd.decode_paged_partials(*args, int_mode=True, **kw)
-        pi = fd.decode_paged_partials_plain(*args, int_mode=True, **kw)
-        if grid:
-            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
-        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
-                                   fd.finish_partials(*pi, int_mode=True),
-                                   atol=1e-5 if grid else 1e-4, rtol=0)
+    blocks, a 4096-key table, at 1 and 8 splits and the plan's (16 on 132
+    SMs), also with the pools off 16 bytes; head dims past 128 and G past
+    8 refused."""
+    from repro_torch.kernels import tiling
+    args = _case(cuda, 8, grid, b=4, kh=4, h=128, bs=128, nblk=32,
+                 q_pos=[250, 1300, 2900, 4095], tails="out")
+    plan = tiling.decode_splits(32, 128, 16, cuda)
+    if tiling.sm_count(cuda) == 132:
+        assert plan == 16
+    for num_splits in sorted({1, 8, plan}):
+        _paged_checks(args, num_splits, grid)
+    qf, k, v, tables, qp, valid = args
+    _paged_checks((qf, _off_by_one_float(k), _off_by_one_float(v), tables,
+                   qp, valid), plan, grid)
+    kw = dict(num_splits=plan, causal=True, int_mode=False, guard_shift=0)
+    wide = _case(cuda, 2, grid, b=2, kh=2, h=136, bs=16, nblk=4,
+                 q_pos=[10, 63])
+    with pytest.raises(ValueError, match="head dims"):
+        fd.decode_paged_partials(*wide, **dict(kw, num_splits=2))
+    many = _case(cuda, 9, grid, b=2, kh=2, h=64, bs=16, nblk=4,
+                 q_pos=[10, 63])
+    with pytest.raises(ValueError, match="query groups"):
+        fd.decode_paged_partials(*many, **dict(kw, num_splits=2))
+
+
+def test_decode_paged_refuses_16_byte_copies_when_unaligned(cuda):
+    """16-byte copies forced where h is off four floats, or where a pool
+    pointer is off 16 bytes, make the C entries refuse."""
+    from repro_torch.kernels import tiling
+    kw = dict(num_splits=2, causal=True, guard_shift=0)
+    qf, k, v, tables, qp, valid = _case(cuda, 2, False, b=2, kh=2, h=32,
+                                        bs=16, nblk=4, q_pos=[10, 63])
+    odd = _case(cuda, 2, False, b=2, kh=2, h=30, bs=16, nblk=4,
+                q_pos=[10, 63])
+    with mock.patch.object(tiling, "decode_dense_vec", lambda *a: 4):
+        for ops in (odd, (qf, _off_by_one_float(k), v, tables, qp, valid),
+                    (qf, k, _off_by_one_float(v), tables, qp, valid)):
+            for int_mode, name in ((False, "decode_paged"),
+                                   (True, "decode_paged_int")):
+                with pytest.raises(RuntimeError, match=name):
+                    fd.decode_paged_partials(*ops, int_mode=int_mode, **kw)
 
 
 def test_unit_kernels_at_yi_shape(cuda):

@@ -16,7 +16,9 @@ plain version (the reference's sweeps):
   pre-pass's chunk-local V sums at the kernel's width; the partial;
 - row 6: per split, the warps' key runs (whole steps of 16 keys at head
   dims up to 64, else 8), each with its own snapped state, merged at the
-  end (the int words in any order, acc in warp order).
+  end (the int words in any order, acc in warp order);
+- row 4: row 6's scheme over a paged cache, the page as the tile, each
+  step's keys resolved once through the block table to their pool rows.
 
 Tolerances: m and S words bitwise; outputs, and accumulators over the
 row's l, 1e-5 (f32 sums in another order); the identity-v probe bitwise.  q and k are grid-valued
@@ -41,6 +43,7 @@ from repro_torch.kernels import datapath as dp
 from repro_torch.kernels import flash_attention_int as fai
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import tiling
+from torch_paged_cases import PAGED, kv_rows, paged_case
 
 NB = unit.N_SNAP_BUCKETS
 TOL = 1e-5
@@ -314,13 +317,16 @@ def test_flash_snap_emulated_vs_pallas_interpret():
 # ---------------- (c) row 6: the snapped decode's scheme, emulated ------------
 
 def emulate_decode_dense_int(qf, k, v, q_pos, kv_valid, *, num_splits,
-                             block_kv, causal, guard_shift, warps=4):
+                             block_kv, causal, guard_shift, warps=4,
+                             tables=None):
     """The per-split partials (m, S, acc) as the kernel computes them: the
     split's keys cut into ``warps`` runs of whole steps (16 keys at head
     dims up to 64, else 8), each run its own snapped state, merged at the
-    end (the words exactly, acc in warp order)."""
+    end (the words exactly, acc in warp order).  With ``tables`` k and v
+    are the pools and the tile is the page (block_kv = bs)."""
     b, kh, g, h = qf.shape
-    t, hv = k.shape[1], v.shape[-1]
+    t = k.shape[1] if tables is None else tables.shape[1] * k.shape[1]
+    hv = v.shape[-1]
     step = 16 if max(h, hv) <= 64 else 8
     nblk = cdiv(t, block_kv)
     part_m = torch.zeros(b, num_splits, kh, g, dtype=I32)
@@ -345,7 +351,8 @@ def emulate_decode_dense_int(qf, k, v, q_pos, kv_valid, *, num_splits,
                 acc = torch.zeros(kh, g, hv)
                 for key0 in range(r0, r1, step):
                     keys = torch.arange(key0, min(key0 + step, r1))
-                    sc = torch.einsum("kgh,nkh->kgn", qf[bi], k[bi, keys])
+                    kr, vr = kv_rows(k, v, tables, bi, keys)
+                    sc = torch.einsum("kgh,nkh->kgn", qf[bi], kr)
                     live_k = kv_valid[bi, keys] != 0
                     if causal:
                         live_k = live_k & (keys <= qp)
@@ -359,7 +366,7 @@ def emulate_decode_dense_int(qf, k, v, q_pos, kv_valid, *, num_splits,
                     S = lane_slide(S, kc) + unit.depth_buckets(p, d, -1)
                     num = p.to(torch.float32) * unit.snap_scale_f32(d)
                     acc = acc * unit.snap_scale_f32(kc)[..., None] + \
-                        torch.einsum("kgn,nkv->kgv", num, v[bi, keys])
+                        torch.einsum("kgn,nkv->kgv", num, vr)
                     m = m_new
                 states.append((m, S, acc))
             m_all = torch.stack([x[0] for x in states]).amax(dim=0)
@@ -443,3 +450,27 @@ def test_decode_dense_int_emulated_vs_pallas_interpret():
     np.testing.assert_allclose(
         fd.finish_partials(*parts, int_mode=True).numpy(), np.asarray(want),
         atol=TOL)
+
+
+# ---------------- (d) row 4: the paged snapped decode's scheme, emulated -----
+
+@pytest.mark.parametrize("shape", PAGED)
+def test_decode_paged_int_emulated_scheme_vs_plain(shape):
+    """Row 6's warps and merge through the paged address, the page as the
+    tile, against the paged plain version at the same splits: m and S
+    bitwise, each split's acc over its l and the folded outputs within
+    1e-5."""
+    b, kh, g, h, hv, bs, nblk, q_pos, causal, ns, tails = shape
+    qf, kp, vp, tab, qp, valid = paged_case(53, b, kh, g, h, hv, bs, nblk,
+                                            q_pos, tails, grid=True)
+    kw = dict(num_splits=ns, causal=causal,
+              guard_shift=unit.guard_shift_for(nblk * bs))
+    got = emulate_decode_dense_int(qf, kp, vp, qp, valid, block_kv=bs,
+                                   tables=tab, **kw)
+    want = fd.decode_paged_partials_plain(qf, kp, vp, tab, qp, valid,
+                                          int_mode=True, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    l = unit.online_finish_int(want[1]).to(torch.float32)[..., None]
+    _close(got[2] / l, want[2] / l)
+    _close(fd.finish_partials(*got, int_mode=True),
+           fd.finish_partials(*want, int_mode=True))

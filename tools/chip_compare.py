@@ -4,7 +4,9 @@ in turns (parent, change, change, parent), inside one call to the card.
     python tools/chip_compare.py kernels TREE TAG [ROWS [DIR]]  # rows 1-8,
                                                   # 12, 13
     python tools/chip_compare.py words DIR TAG TAG  # words two trees saved
+    python tools/chip_compare.py paged_probe TREE TAG  # rows 3 / 4, G, splits
     python tools/chip_compare.py tick TREE          # long-context serve
+    python tools/chip_compare.py qwen TREE          # qwen1.5-0.5b paged serve
     python tools/chip_compare.py yi TREE            # yi-6b serve
     python tools/chip_compare.py bert TREE          # bert-base forward
     python tools/chip_compare.py vision TREE        # llama-3.2-vision serve
@@ -22,17 +24,23 @@ and at the reference rule's, and a digest of its words at two fixed
 (splits, tile)) at the long-context tick and the vision cross and self
 ticks, and the float ``flash_decode_pallas`` at the long-context tick on
 the host's clock; rows 3 and 4 (decode_paged, float and int) at qwen1.5-0.5b's
-paged tick, with a digest of their partials; rows 12 (fused_glu: yi-6b's tick and chunk, llama-3.2-vision's
+and yi-6b's paged ticks, at the tree's own split count, alone and with
+the split fold, with digests of the folded output and the folded l words
+on exact scores; rows 12 (fused_glu: yi-6b's tick and chunk, llama-3.2-vision's
 bucket-4096 prefill) and 13 (glu_bwd, qwen1.5-0.5b's training shape)
 likewise, and rows 1 (softmax_rows, int and float: qwen1.5-0.5b's chunk
 rows and bert-base's score rows) and 2 (pair_act: qwen's SiLU gate,
 bert's GELU activation), with the static SASS counts of their int entries
 in the tree's build.  ROWS (a comma list, default all ten) picks some;
 with DIR, the digested words also go to DIR/words_TAG.pt, and ``words``
-counts the words that differ between two tags' files.  Every tree runs on
+counts the words that differ between two tags' files.  ``paged_probe``
+times rows 3 and 4 under CUDA-graph replay by split count at yi-6b's
+tick geometry for G 1, 2, 4 and 8, and at qwen1.5-0.5b's.  Every tree runs on
 the timers of this checkout's chip_smoke.py.  ``tick`` runs the tree's
 own chip_smoke.py long-context serve phase (the contiguous engine at
-max_seq 16384, float and dual-mode), ``yi`` its yi-6b serve phase (the
+max_seq 16384, float and dual-mode), ``qwen`` its qwen1.5-0.5b serve
+phase (the paged engine at max_seq 2048, float and dual-mode), ``yi``
+its yi-6b serve phase (the
 paged engine with the fused impls, float and dual-mode), ``bert`` its
 bert-base phase (full-width forwards of 8 x 512 tokens: float, dual-mode,
 row 9, i-GELU), ``vision`` its llama-3.2-vision-11b serve phase (float
@@ -235,7 +243,7 @@ def _dense_int_row(tag: str, timers, name: str, args, causal: bool,
                 graph_ms=timers.graph_ms(dec), with_fold_ms=timers.time_ms(
                     fold), with_fold_graph_ms=timers.graph_ms(fold),
                 words_digest=digests)
-    ref_ns = fd.dense_decode_splits(t, b * kh, qf.device)
+    ref_ns = fd.dense_decode_splits(t, b * kh, torch.device("cpu"))
     tiles = {"own": (ns, bkv), "reference rule": (
         ref_ns, tiling.decode_kv_block(t, ref_ns))}
     wrap = {key: [] for key in tiles}
@@ -253,33 +261,95 @@ def _dense_int_row(tag: str, timers, name: str, args, causal: bool,
 
 def _paged_rows(tag: str, rows: set, timers, randn) -> None:
     """Rows 3 and 4 through the tree's wrapper at qwen1.5-0.5b's paged tick
-    (B4 K16 G1 h64, 16 blocks of 128 keys a row, 4 splits), with a digest
-    of their partials."""
+    (B4 K16 G1 h64, 16 pages of 128 keys a row) and yi-6b's (B4 K4 G8
+    h128, 32 pages), at the tree's own split count
+    (``tiling.decode_splits``), alone and with the split fold, with digests
+    of the folded output and (int) of the folded l words.  q and k are
+    grid-valued (multiples of 2^-6 and 2^-4), so every score is exact and
+    the l words depend on neither the tree's dot order nor its cut."""
+    import torch
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tiling
+    dev = torch.device("cuda")
+    bs = 128
+    shapes = {"qwen tick": (4, 16, 1, 64, 16, [300, 800, 1400, 2000]),
+              "yi tick": (4, 4, 8, 128, 32, [250, 1300, 2900, 4095])}
+    for name, (b, kh, g, h, nblk, q_pos) in shapes.items():
+        if not rows & {3, 4}:
+            break
+        n_pool = 1 + b * nblk
+        qf = (torch.round(randn(b, kh, g, h, scale=4.0)) / 64).contiguous()
+        kp = torch.round(randn(n_pool, bs, kh, h, scale=4.0)) / 16
+        vp = randn(n_pool, bs, kh, h)
+        tables = (torch.arange(b * nblk, dtype=torch.int32, device=dev)
+                  + 1).reshape(b, nblk)
+        qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+        valid = (torch.arange(nblk * bs, device=dev)[None] <= qp[:, None]).to(
+            torch.uint8)
+        ns = tiling.decode_splits(nblk, bs, b * kh, dev)
+        for row, int_mode in ((3, False), (4, True)):
+            if row not in rows:
+                continue
+
+            def dec(int_mode=int_mode):
+                return fd.decode_paged_partials(
+                    qf, kp, vp, tables, qp, valid, num_splits=ns, causal=True,
+                    int_mode=int_mode, guard_shift=0)
+
+            def fold(int_mode=int_mode):
+                return fd.finish_partials(*dec(), int_mode=int_mode)
+            line = dict(
+                tag=tag, kernel="decode_paged_int" if int_mode
+                else "decode_paged", shape=name, splits=ns,
+                ms=timers.time_ms(dec), graph_ms=timers.graph_ms(dec),
+                with_fold_ms=timers.time_ms(fold),
+                with_fold_graph_ms=timers.graph_ms(fold),
+                out_digest=_digest(fold()))
+            if int_mode:
+                m, S, acc = dec()
+                S_all = unit.online_merge_n_int(m[..., None], S, acc,
+                                                dim=1)[1]
+                line["l_digest"] = _digest(unit.online_finish_int(S_all))
+            print(json.dumps(line), flush=True)
+        del qf, kp, vp
+
+
+def paged_probe(tree: str, tag: str) -> None:
+    """Rows 3 and 4 through the tree's wrapper, device time under
+    CUDA-graph replay (µs), by split count: at yi-6b's tick geometry (B4
+    K4 h128, 32 pages of 128 keys, depths 250 / 1300 / 2900 / 4095) for G
+    1, 2, 4 and 8, and at qwen1.5-0.5b's (B4 K16 G1 h64, 16 pages, depths
+    300 / 800 / 1400 / 2000); one JSON line a geometry and mode."""
+    _load(tree)
     import torch
     from repro_torch.kernels import flash_decode as fd
+    timers = _timers()
     dev = torch.device("cuda")
-    b, kh, h, bs, nblk = 4, 16, 64, 128, 16
-    n_pool = 1 + b * nblk
-    qf = randn(b, kh, 1, h, scale=h ** -0.5).contiguous()
-    kp, vp = randn(n_pool, bs, kh, h), randn(n_pool, bs, kh, h)
-    tables = (torch.arange(b * nblk, dtype=torch.int32, device=dev)
-              + 1).reshape(b, nblk)
-    qp = torch.tensor([300, 800, 1400, 2000], dtype=torch.int32, device=dev)
-    valid = (torch.arange(nblk * bs, device=dev)[None] <= qp[:, None]).to(
-        torch.uint8)
-    for row, int_mode in ((3, False), (4, True)):
-        if row not in rows:
-            continue
-
-        def dec(int_mode=int_mode):
-            return fd.decode_paged_partials(qf, kp, vp, tables, qp, valid,
-                                            num_splits=4, causal=True,
-                                            int_mode=int_mode, guard_shift=0)
-        print(json.dumps(dict(
-            tag=tag, kernel="decode_paged_int" if int_mode else "decode_paged",
-            shape="qwen tick", ms=timers.time_ms(dec),
-            graph_ms=timers.graph_ms(dec), digest=_digest(*dec()))),
-            flush=True)
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    bs = 128
+    cases = [("yi", 4, 4, g, 128, 32, [250, 1300, 2900, 4095], (8, 16, 32))
+             for g in (1, 2, 4, 8)]
+    cases.append(("qwen", 4, 16, 1, 64, 16, [300, 800, 1400, 2000],
+                  (4, 8, 16)))
+    for name, b, kh, g, h, nblk, q_pos, splits in cases:
+        n_pool = 1 + b * nblk
+        qf = torch.randn((b, kh, g, h), generator=gen).to(dev) * h ** -0.5
+        kp, vp = (torch.randn((n_pool, bs, kh, h), generator=gen).to(dev)
+                  for _ in range(2))
+        tables = (torch.arange(b * nblk, dtype=torch.int32, device=dev)
+                  + 1).reshape(b, nblk)
+        qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+        valid = (torch.arange(nblk * bs, device=dev)[None] <= qp[:, None]).to(
+            torch.uint8)
+        for int_mode in (False, True):
+            us = {ns: 1e3 * timers.graph_ms(
+                lambda ns=ns: fd.decode_paged_partials(
+                    qf, kp, vp, tables, qp, valid, num_splits=ns, causal=True,
+                    int_mode=int_mode, guard_shift=0)) for ns in splits}
+            print(json.dumps(dict(tag=tag, geometry=name, g=g,
+                                  int_mode=int_mode, graph_us_by_splits=us)),
+                  flush=True)
 
 
 def words(words_dir: str, tag_a: str, tag_b: str) -> None:
@@ -386,6 +456,10 @@ def tick(tree: str) -> None:
     _serve(tree, "long_serve_phase")
 
 
+def qwen(tree: str) -> None:
+    _serve(tree, "serve_phase")
+
+
 def yi(tree: str) -> None:
     _serve(tree, "yi_serve_phase")
 
@@ -400,5 +474,5 @@ def vision(tree: str) -> None:
 
 if __name__ == "__main__":
     mode, *args = sys.argv[1:]
-    {"kernels": kernels, "words": words, "tick": tick, "yi": yi,
-     "bert": bert, "vision": vision}[mode](*args)
+    {"kernels": kernels, "words": words, "tick": tick, "qwen": qwen, "yi": yi,
+     "bert": bert, "vision": vision, "paged_probe": paged_probe}[mode](*args)
