@@ -450,9 +450,9 @@ _SASS_FAMILIES = {
 def sass_entries(text: str, keep) -> dict:
     """Each entry of ``cuobjdump -sass`` output whose mangled name holds
     one of ``keep``: its instructions (NOPs and the closing self-branch
-    left out), the length of each loop (a backward branch's span) and the
+    left out), the length of each loop (a backward branch's span), the
     opcode mix of the longest loop, or of the whole entry where it has
-    none."""
+    none, and the mix of each outermost loop (``outer``, in code order)."""
     import re
     fam = {op: f for f, ops in _SASS_FAMILIES.items() for op in ops}
     out = {}
@@ -489,18 +489,25 @@ def sass_entries(text: str, keep) -> dict:
         loops = [(target(t), a) for a, t in body
                  if target(t) is not None and target(t) <= a]
         span = max(loops, key=lambda lo: lo[1] - lo[0], default=None)
-        mix: dict = {}
-        for a, t in body:
-            if span is None or span[0] <= a <= span[1]:
-                f = fam.get(t.split()[0].split(".")[0], "other")
-                mix[f] = mix.get(f, 0) + 1
+
+        def mix_of(lo, hi):
+            mix_: dict = {}
+            for a, t in body:
+                if lo <= a <= hi:
+                    f = fam.get(t.split()[0].split(".")[0], "other")
+                    mix_[f] = mix_.get(f, 0) + 1
+            return mix_
+        mix = mix_of(*span) if span else mix_of(0, body[-1][0] if body else 0)
+        outer = sorted({(lo, hi) for lo, hi in loops if not any(
+            lo2 <= lo and hi <= hi2 and (lo2, hi2) != (lo, hi)
+            for lo2, hi2 in loops)})
         short = re.sub(r"^_ZN12_GLOBAL__N_1\d+", "", name)
         targs = re.findall(r"L[bi](\d+)E", short)
         short = re.sub(r"I.*$|Ev.*$", "", short) + (
             f"<{','.join(targs)}>" if targs else "")
         out[short] = dict(n=len(body), loops=[
             sum(1 for a, _ in body if lo <= a <= hi) for lo, hi in loops],
-            mix=mix)
+            mix=mix, outer=[mix_of(lo, hi) for lo, hi in outer])
     return out
 
 
@@ -551,6 +558,55 @@ def snap_int_ops(build_dir: str) -> dict:
                          mix=e["mix"], fwd_mix=base["mix"],
                          loops=e["loops"], fwd_loops=base["loops"])
     return out
+
+
+INT3_SCORES = 16   # scores a thread of row 9 handles a key tile (4 x 4)
+
+
+def int3_int_ops(build_dir: str) -> dict:
+    """Row 9's int instructions a score, by entry: the int-ALU, IMAD and
+    conversion instructions (:data:`SNAP_INT_FAMILIES`) of each outermost
+    loop of a ``flash_int3`` entry of ``fwd_kernel`` -- its sweeps of K,
+    the sum over the kept words, its P V sweep -- over the
+    :data:`INT3_SCORES` scores a thread handles a trip, summed over the
+    loops, less row 7's a score (the key-tile loop of its entry of the
+    same head width and copy width, over its 32 or 16 scores a trip): the
+    ring and tile bookkeeping the float bound leaves out.  Static counts:
+    an inner loop's instructions count once a trip of the loop around it.
+    Keys: "D,BQ,NS,VEC,CACHE"; each with the count and the loops' mixes.
+    {} where the toolkit has no cuobjdump."""
+    rep = sass_report(build_dir, sources=("flash_fwd", "flash_int3"),
+                      keep=("fwd_kernel",))
+    if not rep:
+        return {}
+    fwd = {k.split("<")[1].rstrip(">"): v
+           for k, v in rep["flash_fwd"].items()}
+    out = {}
+    for name, e in rep["flash_int3"].items():
+        args = name.split("<")[1].rstrip(">")
+        d, _, _, vec, _ = args.split(",")
+        f_bq, f_ns = (128, 3) if d == "64" else (64, 2)
+        base = fwd[f"{d},{f_bq},{f_ns},{vec}"]
+        f_int = sum(base["mix"].get(f, 0) for f in SNAP_INT_FAMILIES)
+        own = sum(m_.get(f, 0) for m_ in e["outer"]
+                  for f in SNAP_INT_FAMILIES)
+        out[args] = dict(int_ops_a_score=own / INT3_SCORES
+                         - f_int / (f_bq // 16 * 4), loops=e["outer"],
+                         fwd_mix=base["mix"])
+    return out
+
+
+def int3_int_a_score(results, h: int, hv: int, t: int) -> float:
+    """The int instructions a score of the row-9 entry the plan picks for
+    16-byte copies at head dims h, hv over t keys (:func:`int3_int_ops`)."""
+    from repro_torch.kernels import tiling
+    plan = tiling.flash_int3_plan(h, hv, t)
+    key = ",".join(str(x) for x in (
+        64 if max(h, hv) <= 64 else 128, plan.block_q, plan.stages, plan.vec,
+        int(plan.cache)))
+    if key not in results["int3_sass"]:
+        fail(f"no SASS count of row 9's entry {key}: its bound needs one")
+    return results["int3_sass"][key]["int_ops_a_score"]
 
 
 # ---------------- phase 2: kernels ----------------
@@ -1420,11 +1476,13 @@ YI_NEW = ("resnorm", "norm_linear", "glu")   # the kernels this phase ports
 
 
 def yi_kernel_phase(dev, results):
+    from repro_torch.kernels import _build
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_norm as fn
     from repro_torch.kernels import tiling
+    from repro_torch.models.attention import paged_gather
     gen = torch.Generator(device="cpu").manual_seed(2024)
     eps = 1e-6
 
@@ -1464,12 +1522,40 @@ def yi_kernel_phase(dev, results):
                       b_ms, two_calls, "torch.add + F.rms_norm (two calls)")
         log(f"  resnorm rms M{m} d{d}: plain {plain * 1e3:.2f} us, bound "
             f"{b_ms * 1e3:.2f} us ({b_by})")
+        r_["plan"] = tuple(tiling.resnorm_plan(m, d, True,
+                                               tiling.sm_count(dev)))
         if m == 64:
             # library_ms stays None: no single PyTorch call computes row 14
             results["resnorm"] = dict(max_abs_err=err, ms=r_["ms"],
                                       plain_ms=plain, bound_ms=b_ms,
                                       bound_by=b_by, library_ms=None)
     log("[unit rows] yi shapes: " + json.dumps(unit_ms))
+    # the wrapper's host time by part at a decode tick (M 4), µs a call to
+    # issue: the route without and with the autograd Function, and the
+    # parts of _resnorm_fwd around the kernel
+    xs, rs_ = x[:4].contiguous(), r[:4].contiguous()
+    xo_, ho_ = torch.empty_like(xs), torch.empty_like(xs)
+    plan = tiling.resnorm_plan(4, d, True, tiling.sm_count(dev))
+    call = (xs.data_ptr(), rs_.data_ptr(), g.data_ptr(), None, xo_.data_ptr(),
+            ho_.data_ptr(), 4, d, 0, eps, plan.row_threads, plan.words,
+            plan.vec, plan.cluster, _build.stream_ptr(dev))
+    parts = {
+        "fused_residual_norm": lambda: fn.fused_residual_norm(
+            xs, rs_, g, kind="rms", eps=eps),
+        "_ResidualNorm.apply": lambda: fn._ResidualNorm.apply(
+            xs, rs_, g, None, "rms", eps),
+        "_check": lambda: fn._check("fused_residual_norm", "rms", x=xs,
+                                    r=rs_, g=g, b=None),
+        "two empty_like": lambda: (torch.empty_like(xs),
+                                   torch.empty_like(xs)),
+        "plan": lambda: tiling.resnorm_plan(
+            4, d, tiling.aligned16(xs, rs_, g, None, xo_, ho_),
+            tiling.sm_count(dev)),
+        "stream_ptr": lambda: _build.stream_ptr(dev),
+        "ctypes call": lambda: fn.RESNORM(*call)}
+    log("[resnorm host] us a call to issue, M4 d4096: " + json.dumps(
+        {k_: 1e3 * host_ms(f_, iters=200, warmup=20)[0]
+         for k_, f_ in parts.items()}))
 
     # -- row 15: norm -> QKV prologue over [wq | wk | wv] read in place
     log("[yi] norm_linear")
@@ -1606,11 +1692,20 @@ def yi_kernel_phase(dev, results):
                   fd.finish_partials(*ik, int_mode=True),
                   fd.finish_partials(*ip, int_mode=True), TOL_DECODE_I)
     b_ms, b_by, visited = paged_bound(yi_qpos, nblk, bs, kh, g_, h_, h_, ns)
+    # row 3's library call: SDPA over the gathered cache with the per-row
+    # mask, the G query heads of a kv head as its query rows
+    k_dense = paged_gather(kp, tables).permute(0, 2, 1, 3)
+    v_dense = paged_gather(vp, tables).permute(0, 2, 1, 3)
+    mask = valid.bool()[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        args[0], k_dense, v_dense, attn_mask=mask, scale=1.0))
     for name, int_mode in (("decode_paged", False),
                            ("decode_paged_int", True)):
         paged_row(results.setdefault("paged_ms", {}), f"{name} yi", fd, args,
-                  ns, int_mode, b_ms, b_by, None, f"B4 K4 G8 h128 bs128 4096 "
-                  f"keys, {ns} splits, {visited} pages")
+                  ns, int_mode, b_ms, b_by, None if int_mode else lib,
+                  f"B4 K4 G8 h128 bs128 4096 keys, {ns} splits, {visited} "
+                  "pages")
+    del k_dense, v_dense
 
 
 def yi_serve_phase(dev, launches):
@@ -2094,6 +2189,7 @@ def bert_kernel_phase(dev, results):
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_attention_int as fai
     from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import tiling
     gen = torch.Generator(device="cpu").manual_seed(512)
 
     def randn(*shape, grid=False, scale=1.0):
@@ -2174,22 +2270,35 @@ def bert_kernel_phase(dev, results):
               fai.flash_int3(qf, k, v, qp, valid, **ekw),
               fai.flash_int3_plain(qf, k, v, qp, valid, **ekw), TOL_INT)
 
-    # timing at the path's shape; the bound counts one q.k and one p.v a
-    # (q, k) pair, so the three-sweep price shows as a gap
+    check_repeat(f"flash_int3 path (B{b}, {s}, {kh}, 1, {h}) repeat",
+                 lambda: fai.flash_int3(*path, **kw))
+    # timing at the path's shape, back to back and under CUDA-graph replay.
+    # Two bounds: the float work alone (one q.k and one p.v a (q, k) pair),
+    # and that plus the int instructions a score its entry executes
+    # (counted from its SASS) at the f32 rate
     pairs = b * kh * s * s
     nbytes = (4 * path[0].numel() * 2 + 4 * (path[1].numel()
               + path[2].numel()) + 4 * b * s + b * s)
-    b_ms, b_by = bound(nbytes, pairs * (2 * h + 2 * h))
+    f_ms, _ = bound(nbytes, pairs * (2 * h + 2 * h))
+    n_int = int3_int_a_score(results, h, h, s)
+    b_ms, b_by = bound(nbytes, pairs * (4 * h + n_int))
     ms = time_ms(lambda: fai.flash_int3(*path, **kw), iters=20, warmup=3)
+    g_ms = graph_ms(lambda: fai.flash_int3(*path, **kw), calls=2)
     plain = time_ms(lambda: fai.flash_int3_plain(*path, **kw), iters=3,
                     warmup=1)
-    log(f"  flash_int3 (B{b} S{s} T{s} K{kh} G1 h{h} non-causal): "
-        f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
-        f"{b_ms * 1e3:.1f} us ({b_by}); no library call computes the "
-        "unit's words")
-    results["flash_int3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                 bound_ms=b_ms, bound_by=b_by,
+    plan = tiling.flash_int3_plan(h, h, s)
+    log(f"  flash_int3 (B{b} S{s} T{s} K{kh} G1 h{h} non-causal, plan "
+        f"{tuple(plan)}): {ms * 1e3:.1f} us (graph {g_ms * 1e3:.1f}), plain "
+        f"{plain * 1e3:.1f} us, bound {f_ms * 1e3:.1f} us (float work) and "
+        f"{b_ms * 1e3:.1f} us ({b_by}, with {n_int:.2f} int instructions a "
+        f"score); {100 * f_ms / g_ms:.1f}% / {100 * b_ms / g_ms:.1f}% of "
+        "them reached under graph; no library call computes the unit's "
+        "words")
+    results["flash_int3"] = dict(max_abs_err=err, ms=ms, graph_ms=g_ms,
+                                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                 float_bound_ms=f_ms, int_ops_a_score=n_int,
                                  library_ms=None)
+    log("[flash int3] " + json.dumps(results["flash_int3"]))
     del path
 
     # -- rows 1, 2, 14, 15 at bert's shapes
@@ -2999,7 +3108,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or (
                     src.startswith(("norm_", "glu", "flash_bwd",
                                     "flash_fwd", "flash_snap", "decode_",
-                                    "softmax_rows", "pair_act"))
+                                    "softmax_rows", "pair_act", "flash_int3",
+                                    "resnorm"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
     log("[sass] rows 1 / 2 int entries, instructions (total, loops, mix of "
@@ -3009,8 +3119,12 @@ def main() -> int:
     log("[sass] row 8 entries, int instructions a score over row 7's "
         "(D,BQ,NS,VEC: count, key-tile loop mixes): "
         + json.dumps(snap_sass))
+    int3_sass = int3_int_ops(info["dir"])
+    log("[sass] row 9 entries, int instructions a score over row 7's "
+        "(D,BQ,NS,VEC,CACHE: count, outermost loop mixes): "
+        + json.dumps(int3_sass))
 
-    results: dict = {"snap_sass": snap_sass}
+    results: dict = {"snap_sass": snap_sass, "int3_sass": int3_sass}
     kernel_phase(dev, results)
     launches: dict = {}
     serve_phase(dev, launches)

@@ -51,9 +51,14 @@
 //    the tiles only through f32 summation order).
 //
 // The per-tile row-state step, the tail's update and the finish are a
-// policy's (Rows): FloatRows here, SnapRows in flash_snap_sm90.cuh.
-// Everything else -- the Q load, the ring, score_tile, the mask, the p
-// tile, the P V product, the pre-pass and the tile order -- is shared.
+// policy's (Rows): FloatRows here, SnapRows in flash_snap_sm90.cuh,
+// Int3Rows in flash_int3_sm90.cuh.  Everything else -- the Q load, the
+// ring, score_tile, the mask, the p tile, the P V product, the pre-pass and
+// the tile order -- is shared.  A policy may also ask (RowsBase's traits)
+// for sweeps of K alone before the main one (PRE), a main sweep that
+// streams V alone and computes no scores (SCORES false: its step makes p
+// from words it kept), and every tile swept, causal or not, with no tail
+// (FULL).
 //
 // No float atomics: two calls on the same inputs give the same bits.
 #pragma once
@@ -110,13 +115,14 @@ struct Cfg {
   static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
 };
 
-// Shared memory, in floats: Q [BQ][LD]; the ring [NS][K, V][BK][LD]; the p
-// tile [BK][LDT]; the row-state policy's own words [EXTRA].  At the end the
-// ring holds the second group's accumulator [BQ][LD] and the p tile the
-// tail's V sums [D].
-template <class C, int EXTRA = 0>
+// Shared memory, in floats: Q [BQ][LD]; the ring [NS][K, V][BK][LD] (KV 2)
+// or [NS][BK][LD] (KV 1: one operand a sweep); the p tile [BK][LDT]; the
+// row-state policy's own words [EXTRA], then its bytes sized at the launch.
+// At the end the ring holds the second group's accumulator [BQ][LD] and the
+// p tile the tail's V sums [D].
+template <class C, int EXTRA = 0, int KV = 2>
 struct Smem {
-  static constexpr int Q = 0, RING = C::BQ * C::LD, STAGE = 2 * C::BK * C::LD;
+  static constexpr int Q = 0, RING = C::BQ * C::LD, STAGE = KV * C::BK * C::LD;
   static constexpr int P = RING + C::NS * STAGE, X = P + C::BK * C::LDT;
   static constexpr size_t BYTES = sizeof(float) * (X + EXTRA);
   static_assert(C::NS * STAGE >= C::BQ * C::LD, "the ring holds a group's acc");
@@ -226,16 +232,27 @@ static __global__ void __launch_bounds__(kThreads) vsum_kernel(Args a) {
   }
 }
 
+// ---- the row-state policies ------------------------------------------------
+
+// The traits of a policy that takes the body's default sweep: no K-only
+// pre-sweeps, scores in the main sweep, the causal skip and tail fold, no
+// shared memory sized at the launch.
+struct RowsBase {
+  static constexpr int PRE = 0;
+  static constexpr bool SCORES = true, FULL = false;
+  static size_t dyn_bytes(const Args&) { return 0; }
+};
+
 // ---- the float row state (row 7) ------------------------------------------
 
 // m, l of each of the thread's rows, in registers on every lane of the row
 // set.  prepare: the block's shared words (before a barrier); init: the
-// rows' state; step: the masked scores in, p out, acc rescaled; tail: n keys
+// rows' state; step: key tile t's masked scores in, p out, acc rescaled; tail: n keys
 // of MASK_VALUE whose V sums are tv, added by the lanes that ``add``;
 // publish (every lane, before the key groups merge); den: the divisor of
 // row i; stats: its statistics on request.
 template <class C>
-struct FloatRows {
+struct FloatRows : RowsBase {
   static constexpr int EXTRA = 0;  // shared-memory floats of its own
   float m[C::SR], l[C::SR];
 
@@ -249,7 +266,7 @@ struct FloatRows {
     }
   }
 
-  __device__ __forceinline__ void step(float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
+  __device__ __forceinline__ void step(int, float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
 #pragma unroll
     for (int i = 0; i < C::SR; ++i) {
       float mx = s[i][0];
@@ -305,10 +322,11 @@ struct FloatRows {
 // end.  Per tile: every thread computes its rows x keys, masks them where
 // needed, and the policy updates its rows' state, rescales its accumulators
 // and leaves p in the scores; then each thread writes p and adds its key
-// group's p V to its SR x 8 outputs.
+// group's p V to its SR x 8 outputs.  A policy's pre-sweeps stream K alone
+// through the same ring and hand it each tile's masked scores.
 template <class C, class Rows>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
-  using L = Smem<C, Rows::EXTRA>;
+  using L = Smem<C, Rows::EXTRA, Rows::SCORES ? 2 : 1>;
   extern __shared__ __align__(16) float sm[];
   const int R = a.S * a.G, n_qt = cdiv(R, C::BQ), n_kt = cdiv(a.T, C::BK);
   int qt, head, b;
@@ -341,9 +359,11 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
   qmax = warp_reduce(qmax, MaxOp());
   if ((tid & 31) == 0) atomicMax(&qmax_s, qmax);
   __syncthreads();
-  const int n_tiles = !a.causal ? n_kt : qmax_s < 0 ? 0 : min(n_kt, qmax_s / C::BK + 1);
+  const int n_tiles =
+      !a.causal || Rows::FULL ? n_kt : qmax_s < 0 ? 0 : min(n_kt, qmax_s / C::BK + 1);
 
-  const auto fetch = [&](int t) {
+  // K (when k) and V (when v) of tile t into its ring stage, K first
+  const auto fetch_kv = [&](int t, bool k, bool v) {
     float* st = sm + L::RING + (t % C::NS) * L::STAGE;
     const int key0 = t * C::BK;
     const auto k_row = [&](int width) {
@@ -353,15 +373,11 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
                    : -1;
       };
     };
-    copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st, a.k, a.h, k_row(a.h), tid);
-    copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st + C::BK * C::LD, a.v, a.hv, k_row(a.hv),
-                                                   tid);
+    if (k) copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st, a.k, a.h, k_row(a.h), tid);
+    if (v)
+      copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st + (k ? C::BK * C::LD : 0), a.v, a.hv,
+                                                     k_row(a.hv), tid);
   };
-#pragma unroll
-  for (int s = 0; s < C::NS - 1; ++s) {
-    if (s < n_tiles) fetch(s);
-    cp_commit();
-  }
   // the thread's keys of tile t that are valid and below T
   const uint8_t* vrow = a.kv_valid + static_cast<size_t>(b) * a.T;
   const auto valid_bits = [&](int t) {
@@ -373,27 +389,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     }
     return bits;
   };
-  unsigned valid_next = n_tiles > 0 ? valid_bits(0) : 0u;
-
-  rows.init(a, sm + L::X, tid);
-  float acc[C::SR][8];
-#pragma unroll
-  for (int i = 0; i < C::SR; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  float* pt = sm + L::P;
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_wait<C::NS - 2>();
-    __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
-    if (t + C::NS - 1 < n_tiles) fetch(t + C::NS - 1);
-    cp_commit();
-    const unsigned valid = valid_next;
-    if (t + 1 < n_tiles) valid_next = valid_bits(t + 1);
-    const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
-    const float* vs = ks + C::BK * C::LD;
+  // the thread's masked scores of tile t, its K at ks
+  const auto masked_scores = [&](int t, unsigned valid, const float* ks,
+                                 float (&s)[C::SR][C::SC]) {
     const int key0 = t * C::BK;
-
-    float s[C::SR][C::SC];
     score_tile<C>(sm + L::Q, ks, a.h, ty, tx, s);
     const int klast = key0 + tx + C::TX * (C::SC - 1);  // the thread's last key
     if (klast >= a.T || valid != (1u << C::SC) - 1u || (a.causal && klast > qmin)) {
@@ -409,7 +408,64 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
         }
       }
     }
-    rows.step(s, acc);
+  };
+
+  // the policy's sweeps of K alone: each tile's masked scores to rows.pre
+  if constexpr (Rows::PRE > 0) {
+    rows.pre_begin(a, sm + L::X, tid);
+    for (int sweep = 0; sweep < Rows::PRE; ++sweep) {
+#pragma unroll
+      for (int s = 0; s < C::NS - 1; ++s) {
+        if (s < n_tiles) fetch_kv(s, true, false);
+        cp_commit();
+      }
+      unsigned vnext = n_tiles > 0 ? valid_bits(0) : 0u;
+      for (int t = 0; t < n_tiles; ++t) {
+        cp_wait<C::NS - 2>();
+        __syncthreads();  // tile t landed; tile t - 1's slot is free
+        if (t + C::NS - 1 < n_tiles) fetch_kv(t + C::NS - 1, true, false);
+        cp_commit();
+        const unsigned valid = vnext;
+        if (t + 1 < n_tiles) vnext = valid_bits(t + 1);
+        float s[C::SR][C::SC];
+        masked_scores(t, valid, sm + L::RING + (t % C::NS) * L::STAGE, s);
+        rows.pre(sweep, t, s);
+      }
+      cp_wait<0>();
+      __syncthreads();  // the ring is free
+      rows.pre_end(sweep);
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < C::NS - 1; ++s) {
+    if (s < n_tiles) fetch_kv(s, Rows::SCORES, true);
+    cp_commit();
+  }
+  unsigned valid_next = Rows::SCORES && n_tiles > 0 ? valid_bits(0) : 0u;
+
+  rows.init(a, sm + L::X, tid);
+  float acc[C::SR][8];
+#pragma unroll
+  for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  float* pt = sm + L::P;
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_wait<C::NS - 2>();
+    __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
+    if (t + C::NS - 1 < n_tiles) fetch_kv(t + C::NS - 1, Rows::SCORES, true);
+    cp_commit();
+    const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
+    const float* vs = Rows::SCORES ? ks + C::BK * C::LD : ks;
+
+    float s[C::SR][C::SC];
+    if constexpr (Rows::SCORES) {
+      const unsigned valid = valid_next;
+      if (t + 1 < n_tiles) valid_next = valid_bits(t + 1);
+      masked_scores(t, valid, ks, s);
+    }
+    rows.step(t, s, acc);
 #pragma unroll
     for (int c = 0; c < C::SC; ++c)
 #pragma unroll
@@ -435,8 +491,8 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
   __syncthreads();  // the ring and the p tile are free
 
   // the causal tail: keys [n_tiles kBK, T) score MASK_VALUE in every row
-  const int n_tail = a.causal ? a.T - n_tiles * C::BK : 0;
-  if (n_tail > 0) {
+  const int n_tail = a.causal && !Rows::FULL ? a.T - n_tiles * C::BK : 0;
+  if constexpr (!Rows::FULL) if (n_tail > 0) {
     float* tail = pt;
     for (int c = tid; c < C::D; c += kThreads) {
       float x = 0.0f;
@@ -502,13 +558,18 @@ inline bool vec_ok(const Args& a) {
 
 // The V-sum pre-pass (causal), then the main kernel with the row policy Rows.
 template <class C, class Rows>
+size_t smem_bytes(const Args& a) {
+  return Smem<C, Rows::EXTRA, Rows::SCORES ? 2 : 1>::BYTES + Rows::dyn_bytes(a);
+}
+
+template <class C, class Rows>
 int launch(const Args& a, int batch, cudaStream_t st) {
-  if (a.causal) {
+  if (a.causal && !Rows::FULL) {
     vsum_kernel<<<dim3(cdiv(cdiv(a.T, kBK), kChunk), a.K, batch), kThreads, 0, st>>>(a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const size_t smem = Smem<C, Rows::EXTRA>::BYTES;
+  const size_t smem = smem_bytes<C, Rows>(a);
   cudaError_t e = allow_smem(fwd_kernel<C, Rows>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   fwd_kernel<C, Rows><<<cdiv(a.S * a.G, C::BQ) * a.K * batch, kThreads, smem, st>>>(a, batch);

@@ -3,165 +3,74 @@
 //
 // Replaces repro/kernels/flash_attention_int.py:flash_attention_pallas_int3
 // -- the pallas_call of _flash_int_jit (:354), body _flash_int_body
-// (:282).  The PWL exp2 is not multiplicative, so a rescale of old sums
-// would change words; the kernel runs the reference's three sweeps over
-// the same KV tiles instead, recomputing the score words in each:
-//   score words  sq = quantize(masked (q * scale) . k), phantoms PHANTOM_Q
-//   sweep 1      m = max(m, max sq)                          (int32)
-//   sweep 2      l = l + sum(exp2_int(log2dom(sq - m)) >> guard)
-//   sweep 3      p = exp2_int(min(log2dom(sq - m) - log2_int(max(l, 1)), 0))
-//                acc = acc + (p * 2^-14) @ V                   (f32)
-// The max and the sum are int32 reductions, exact in any order, so the
-// probability words equal the whole-row softmax_int words bit for bit
-// for any tiling; acc differs from the naive p @ v only in f32 summation
-// order, and not at all under an identity-v probe.  guard_shift comes
-// from the unpadded T, as the whole-row rule.
+// (:282).  The body is the float forward's (flash_fwd_sm90.cuh) with the
+// classic int row state (flash_int3_sm90.cuh): the row max and the
+// guard-shifted sum in K-only sweeps, then the probability words times V in
+// the body's own sweep.  The words equal the whole-row softmax_int words
+// bit for bit for any tiling; acc differs from the naive p V only in f32
+// summation order.  guard_shift comes from the unpadded T, as the
+// whole-row rule.
 //
-// Every kv tile is swept, causal or not: a masked key scores MASK_VALUE
-// and carries its word's mass, so the words are the naive path's without
-// a tail fold.  K is read three times and V once (sweeps 1-2 load no V).
+// Bound on the H100: operations, as flash_fwd.cu -- one q . k and one p . v
+// a (q, key) pair (the 4h flops of the bound) -- plus the int instructions
+// a score that the max, the sum and the emit take (quantize, the log2
+// domain, two PWL exp2 words), at the f32 rate; chip_smoke.py counts them
+// from this entry's SASS.  Where a q tile's words fit in shared memory the
+// kernel computes one q . k a pair and reads K once; past that limit it
+// recomputes the words in each of its three sweeps.
 //
-// Grid and layout are flash_tile.cuh's: one block of 256 threads per
-// (q tile, kv head, batch row); thread (ty, tx) holds rows 4 ty + i and
-// keys tx + 16 c of the score tile, so a row's 16 threads are one half
-// warp and reduce by shuffles; m, l and log2(l) live in registers.
-//
-// Bound on the H100: operations, as flash_fwd.cu -- one q.k per pair in
-// each of three sweeps and one p.v, plus ~40 int ops a score word per
-// sweep -- against one q.k and one p.v a pair in the bound.
-#include "flash_tile.cuh"
+// Tiles, ring depth, copy width and the word cache are the plan's
+// (tiling.flash_int3_plan): 64 q rows a block, 64-key tiles, three stages at
+// head dims up to 64 and two up to 128.  The entry refuses any it does not
+// instantiate, 16-byte copies where h, hv or a base pointer is not a
+// multiple of 16 bytes, and the cache where it does not fit.  block_kv, the
+// caller's tile, is checked as the reference checks it; the words do not
+// depend on it (the mask is per key).
+#include "flash_int3_sm90.cuh"
+
+using namespace ffwd;
 
 namespace {
 
-using namespace flash;
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
 
-// The 16 threads of a score-tile row (a half warp) combine their values.
-template <typename T, typename Op>
-__device__ inline T row_reduce(T v, Op op) {
-#pragma unroll
-  for (int o = 1; o < 16; o <<= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+template <class C, bool CACHE>
+int go(const Args& a, int batch, cudaStream_t st) {
+  using Rows = Int3Rows<C, CACHE>;
+  if (smem_bytes<C, Rows>(a) > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<C, Rows>(a, batch, st);
 }
 
-// This thread's 4 x 4 S5.10 score words of the tile (phantoms PHANTOM_Q).
-__device__ inline void word_tile(const Args& a, const Smem& sm, int key0, int nk,
-                                 int32_t w[4][4]) {
-  float s[4][4];
-  int kind[4][4];
-  score_tile(a, sm, key0, nk, s, kind);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      w[i][c] = kind[i][c] == kPhantom ? unit::PHANTOM_Q
-                                       : unit::quantize(s[i][c], unit::IN_FRAC);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_int3_kernel(Args a) {
-  extern __shared__ float smem[];
-  const Smem sm = carve(smem, a.h, a.hv);
-  const int qt = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  for (int r = tid; r < kBQ; r += kThreads) sm.row_c[r] = 1.0f;  // no rescale
-  load_q_tile(a, sm, b, head, qt);
-  const int n_tiles = (a.T + a.bkv - 1) / a.bkv;
-  int32_t w[4][4];
-
-  // ---- sweep 1: the int32 row max ----
-  int32_t m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = unit::PHANTOM_Q;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int key0 = jt * a.bkv, nk = min(a.bkv, a.T - key0);
-    __syncthreads();
-    load_kv_tile(a, sm, b, head, key0, nk, false);
-    __syncthreads();
-    word_tile(a, sm, key0, nk, w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int32_t v = max(max(w[i][0], w[i][1]), max(w[i][2], w[i][3]));
-      m[i] = max(m[i], row_reduce(v, MaxOp()));
-    }
-  }
-
-  // ---- sweep 2: the guard-shifted sum against the final max ----
-  int32_t l[4] = {0, 0, 0, 0};
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int key0 = jt * a.bkv, nk = min(a.bkv, a.T - key0);
-    __syncthreads();
-    load_kv_tile(a, sm, b, head, key0, nk, false);
-    __syncthreads();
-    word_tile(a, sm, key0, nk, w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int32_t v = 0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        v += unit::exp2_int(unit::to_log2_domain(w[i][c] - m[i], unit::IN_FRAC)) >>
-             a.guard_shift;
-      l[i] += row_reduce(v, SumOp());
-    }
-  }
-  int32_t log2s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    log2s[i] = unit::log2_int(l[i] < 1 ? 1 : l[i], unit::EXP_FRAC - a.guard_shift);
-
-  // ---- sweep 3: the probability words, dequantized, times V ----
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int key0 = jt * a.bkv, nk = min(a.bkv, a.T - key0);
-    __syncthreads();
-    load_kv_tile(a, sm, b, head, key0, nk, true);
-    __syncthreads();
-    word_tile(a, sm, key0, nk, w);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int32_t t = unit::to_log2_domain(w[i][c] - m[i], unit::IN_FRAC);
-        const int32_t lp = t - log2s[i];
-        sm.ps[(ty * 4 + i) * (kBKV + 1) + tx + 16 * c] =
-            unit::dequantize(unit::exp2_int(lp < 0 ? lp : 0), unit::EXP_FRAC);
-      }
-    __syncthreads();
-    pv_update(a, sm, nk, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* orow = out_row(a, b, head, qt, ty * 4 + i);
-    if (orow == nullptr) continue;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < a.hv) orow[col] = acc[i][c];
-    }
-  }
+template <class C>
+int go_cache(const Args& a, int batch, int cache, cudaStream_t st) {
+  return cache ? go<C, true>(a, batch, st) : go<C, false>(a, batch, st);
 }
 
 }  // namespace
 
-// Shapes as in flash::Args; every tensor contiguous, h and hv <= 128,
-// 1 <= bkv <= 64, 0 <= guard_shift <= 31.
+// Shapes as in ffwd::Args; every tensor contiguous (q, k, v, out f32, q_pos
+// int32, kv_valid uint8), h and hv <= 128, 1 <= bkv <= 64, 0 <= guard_shift
+// <= 31.  (bq, bk, stages, vec): (64, 64, 3, *) where h, hv <= 64, else
+// (64, 64, 2, *); vec 4 or 1.  cache: keep the words in shared memory.
 extern "C" int flash_int3_launch(const float* q, const float* k, const float* v,
-                                 const int32_t* q_pos, const uint8_t* kv_valid,
-                                 float* out, int batch, int S, int K, int G, int h,
-                                 int hv, int T, int bkv, int causal,
-                                 int guard_shift, void* stream) {
-  if (h < 1 || h > kMaxHD || hv < 1 || hv > kMaxHD || bkv < 1 || bkv > kBKV ||
-      G < 1 || S < 1 || T < 1 || guard_shift < 0 || guard_shift > 31)
+                                 const int32_t* q_pos, const uint8_t* kv_valid, float* out,
+                                 int batch, int S, int K, int G, int h, int hv, int T,
+                                 int bkv, int causal, int guard_shift, int bq, int bk,
+                                 int stages, int vec, int cache, void* stream) {
+  if (h < 1 || h > 128 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
+      T < 1 || K < 1 || batch < 1 || guard_shift < 0 || guard_shift > 31 || bq != 64 ||
+      bk != kBK || (vec != 4 && vec != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, q_pos, kv_valid, out, S, K, G, h, hv, T, bkv, causal, guard_shift};
-  const size_t smem = smem_bytes(h, hv);
-  cudaError_t e = allow_smem(flash_int3_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S * G + kBQ - 1) / kBQ, K, batch);
-  flash_int3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Args a{q, k, v,  q_pos, kv_valid, nullptr, out,     nullptr, nullptr, S,
+               K, G, h,  hv,    T,        causal,  0,       nullptr, nullptr, guard_shift};
+  if (vec == 4 && !vec_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool narrow = h <= 64 && hv <= 64;
+  if (narrow && stages == 3)
+    return vec == 4 ? go_cache<Cfg<64, 64, 3, 4>>(a, batch, cache, st)
+                    : go_cache<Cfg<64, 64, 3, 1>>(a, batch, cache, st);
+  if (!narrow && stages == 2)
+    return vec == 4 ? go_cache<Cfg<128, 64, 2, 4>>(a, batch, cache, st)
+                    : go_cache<Cfg<128, 64, 2, 1>>(a, batch, cache, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -42,7 +42,7 @@
 namespace ffwd {
 
 template <class C>
-struct SnapRows {
+struct SnapRows : RowsBase {
   static constexpr int kNB = unit::N_SNAP_BUCKETS;
   static constexpr int kWarpWords = C::SR * 2 * kNB;  // a warp's bucket tile
   static_assert(kNB == C::TX, "a lane a bucket");
@@ -80,7 +80,7 @@ struct SnapRows {
     return tx >= k ? v : 0;
   }
 
-  __device__ __forceinline__ void step(float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
+  __device__ __forceinline__ void step(int, float (&s)[C::SR][C::SC], float (&acc)[C::SR][8]) {
 #pragma unroll
     for (int i = 0; i < C::SR; ++i) {
       int32_t t[C::SC], tmax = unit::SNAP_MIN;

@@ -11,75 +11,291 @@
 // balance; at d 4096 a prefill chunk (M = 64) moves 4.2 MB (1.25 us at
 // 3.35 TB/s) and a decode tick (M = 4) 262 KB, where the launch dominates.
 //
-// Design: one block of 256 threads per row.  The block adds x + r in
-// one coalesced sweep, writes the sum, keeps it in shared memory (d
-// words, 16 KB at d 4096) and accumulates the moments; block_reduce.cuh
-// folds them; a second sweep over shared memory writes the normalized
-// row.  Moments in f32 with 1/d as the f32 word and rsqrt as
+// Design (tiling.resnorm_plan picks the scheme, the words a thread holds,
+// the copy width and the cluster; this file instantiates exactly those):
+// 1. The row in registers.  Rows up to 1024 words: a warp a row, 8 rows a
+//    block; up to 8192: a block of 256 threads a row.  Thread t of the NT
+//    threads that share a row holds chunk j of VEC floats at (j NT + t) VEC,
+//    WORDS floats in all, read once from x and r and written once to each
+//    output: no shared-memory copy of the row.  Longer rows are streamed:
+//    the second sweep reads the sum back from xo (each thread its own
+//    words), so nothing of the row is held.
+// 2. 16-byte loads and stores where d % 4 == 0 and all six pointers sit on
+//    16 bytes; anything else moves 4 bytes a copy on the same plan.
+// 3. One fused (s, ss) reduction in a fixed order: each thread's words in
+//    j order, the xor butterfly of its warp, the block's warps in warp
+//    order, then the cluster's blocks in rank order.  No atomics, so two
+//    calls give the same bits.
+// 4. Few rows: a row may span a thread-block cluster of CS blocks (at most
+//    one row a cluster), which fold their (s, ss) through distributed
+//    shared memory, so a decode tick's 4 rows or a chunk's 64 occupy more
+//    SMs than one block a row would.
+// Moments in f32 with 1/d as the f32 word and rsqrt as
 // exp2(-0.5 log2(v + eps)): the datapath's contract (fused_norm._hat).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "block_reduce.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 
-template <bool kLayer>
-__global__ void __launch_bounds__(kThreads)
-resnorm_kernel(const float* __restrict__ x, const float* __restrict__ r,
-               const float* __restrict__ g, const float* __restrict__ b,
-               float* __restrict__ xo, float* __restrict__ ho, int d, float eps) {
-  extern __shared__ float row[];
-  __shared__ float red[32];
-  const size_t base = static_cast<size_t>(blockIdx.x) * d;
-  float s = 0.0f, ss = 0.0f;
-  for (int k = threadIdx.x; k < d; k += kThreads) {
-    const float v = x[base + k] + r[base + k];
-    row[k] = v;
-    xo[base + k] = v;
-    s += v;
-    ss += v * v;
+constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+struct Args {
+  const float* x;
+  const float* r;
+  const float* g;
+  const float* b;  // null for rms
+  float* xo;
+  float* ho;
+  int M, d;
+  float eps;
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    v[0] = *p;
   }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *p = v[0];
+}
+
+// Sum (s, ss) over the 32 lanes of a warp: the xor butterfly, every lane
+// ending with the same bits (each step adds two values, in either order).
+__device__ __forceinline__ void warp_moments(float& s, float& ss) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+}
+
+// (s, ss) of the whole row: the warps' sums in warp order (RT == 256),
+// then the cluster's blocks in rank order (CS > 1).  Every thread of the
+// row gets the same bits.
+template <int RT, int CS>
+__device__ __forceinline__ void row_moments(float& s, float& ss) {
+  warp_moments(s, ss);
+  if constexpr (RT == kThreads) {
+    __shared__ float2 red[kThreads / 32];
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_float2(s, ss);
+    __syncthreads();
+    float2 t = red[0];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) t.x += red[w].x, t.y += red[w].y;
+    s = t.x, ss = t.y;
+    if constexpr (CS > 1) {
+      __shared__ float2 part;
+      cg::cluster_group cluster = cg::this_cluster();
+      if (threadIdx.x == 0) part = make_float2(s, ss);
+      cluster.sync();  // every block's part written
+      float2 u = *cluster.map_shared_rank(&part, 0);
+#pragma unroll
+      for (int q = 1; q < CS; ++q) {
+        const float2 o = *cluster.map_shared_rank(&part, q);
+        u.x += o.x, u.y += o.y;
+      }
+      cluster.sync();  // no block leaves while another reads its part
+      s = u.x, ss = u.y;
+    }
+  }
+}
+
+// (mu, rs) of a row from its moments
+template <bool kLayer>
+__device__ __forceinline__ float2 row_stats(float s, float ss, int d, float eps) {
   const float inv_n = 1.0f / static_cast<float>(d);
-  s = block_reduce(s, SumOp(), 0.0f, red);
-  ss = block_reduce(ss, SumOp(), 0.0f, red);
   float mu = 0.0f, var = ss * inv_n;
   if (kLayer) {
     mu = s * inv_n;
     var = fmaxf(var - mu * mu, 0.0f);
   }
-  const float rs = exp2f(-0.5f * log2f(var + eps));
-  for (int k = threadIdx.x; k < d; k += kThreads) {
-    float h = (kLayer ? row[k] - mu : row[k]) * rs * g[k];
-    if (b != nullptr) h += b[k];
-    ho[base + k] = h;
+  return make_float2(mu, exp2f(-0.5f * log2f(var + eps)));
+}
+
+// h of VEC words of a row at column c
+template <bool kLayer, int VEC>
+__device__ __forceinline__ void normed(const Args& a, int c, float2 st, const float (&v)[VEC],
+                                       float (&h)[VEC]) {
+  float gv[VEC], bv[VEC];
+  load_vec<VEC>(a.g + c, gv);
+  if (a.b != nullptr) load_vec<VEC>(a.b + c, bv);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    h[e] = (kLayer ? v[e] - st.x : v[e]) * st.y * gv[e];
+    if (a.b != nullptr) h[e] += bv[e];
   }
 }
 
-template <bool kLayer>
-int launch(const float* x, const float* r, const float* g, const float* b, float* xo,
-           float* ho, int M, int d, float eps, cudaStream_t st) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(d);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(resnorm_kernel<kLayer>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// A held row: RT threads of a block share it (RT 32: a warp a row, 8 rows a
+// block; RT 256: the block), across CS blocks of a cluster; each thread
+// holds WORDS floats in chunks of VEC.
+template <bool kLayer, int RT, int CS, int VEC, int WORDS>
+__global__ void __launch_bounds__(kThreads) resnorm_held(Args a) {
+  constexpr int NT = RT * CS, NCH = WORDS / VEC;
+  static_assert(WORDS % VEC == 0, "whole chunks");
+  int rank = 0;
+  if constexpr (CS > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int row = (blockIdx.x / CS) * (kThreads / RT) + threadIdx.x / RT;
+  const int t = rank * RT + threadIdx.x % RT;
+  // a row past M (the last block of the warp scheme) still joins the
+  // reductions; it neither reads nor writes
+  const bool live = row < a.M;
+  const size_t base = static_cast<size_t>(live ? row : 0) * a.d;
+  float v[NCH][VEC];
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = (j * NT + t) * VEC;
+    if (live && c < a.d) {
+      float xv[VEC], rv[VEC];
+      load_vec<VEC>(a.x + base + c, xv);
+      load_vec<VEC>(a.r + base + c, rv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        v[j][e] = xv[e] + rv[e];
+        s += v[j][e];
+        ss += v[j][e] * v[j][e];
+      }
+      store_vec<VEC>(a.xo + base + c, v[j]);
+    }
   }
-  resnorm_kernel<kLayer><<<M, kThreads, smem, st>>>(x, r, g, b, xo, ho, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  row_moments<RT, CS>(s, ss);
+  const float2 st = row_stats<kLayer>(s, ss, a.d, a.eps);
+#pragma unroll
+  for (int j = 0; j < NCH; ++j) {
+    const int c = (j * NT + t) * VEC;
+    if (live && c < a.d) {
+      float h[VEC];
+      normed<kLayer, VEC>(a, c, st, v[j], h);
+      store_vec<VEC>(a.ho + base + c, h);
+    }
+  }
+}
+
+// A streamed row (longer than a block holds): one block a row, the first
+// sweep writes the sum and takes the moments in the held order, the second
+// reads each thread's own sums back from xo.
+template <bool kLayer, int VEC>
+__global__ void __launch_bounds__(kThreads) resnorm_stream(Args a) {
+  const size_t base = static_cast<size_t>(blockIdx.x) * a.d;
+  float s = 0.0f, ss = 0.0f;
+  for (int c = threadIdx.x * VEC; c < a.d; c += kThreads * VEC) {
+    float xv[VEC], rv[VEC], v[VEC];
+    load_vec<VEC>(a.x + base + c, xv);
+    load_vec<VEC>(a.r + base + c, rv);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      v[e] = xv[e] + rv[e];
+      s += v[e];
+      ss += v[e] * v[e];
+    }
+    store_vec<VEC>(a.xo + base + c, v);
+  }
+  row_moments<kThreads, 1>(s, ss);
+  const float2 st = row_stats<kLayer>(s, ss, a.d, a.eps);
+  for (int c = threadIdx.x * VEC; c < a.d; c += kThreads * VEC) {
+    float v[VEC], h[VEC];
+    load_vec<VEC>(a.xo + base + c, v);
+    normed<kLayer, VEC>(a, c, st, v, h);
+    store_vec<VEC>(a.ho + base + c, h);
+  }
+}
+
+template <bool kLayer, int RT, int CS, int VEC, int WORDS>
+int launch_held(const Args& a, cudaStream_t st) {
+  const int blocks = CS * cdiv(a.M, kThreads / RT);
+  if constexpr (CS == 1) {
+    resnorm_held<kLayer, RT, CS, VEC, WORDS><<<blocks, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, resnorm_held<kLayer, RT, CS, VEC, WORDS>, a);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+// the held entry for ``words`` among W, 2W, ... up to MAXW
+template <bool kLayer, int RT, int CS, int VEC, int W, int MAXW>
+int held_words(const Args& a, int words, cudaStream_t st) {
+  if (words == W) return launch_held<kLayer, RT, CS, VEC, W>(a, st);
+  if constexpr (W * 2 <= MAXW)
+    return held_words<kLayer, RT, CS, VEC, W * 2, MAXW>(a, words, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instances tiling.resnorm_plan names: a warp or a block a row with
+// 1..32 words (at least VEC) at either copy width; a cluster of 2 or 4
+// blocks a row with 16-byte copies and 4..16 words; the stream.
+template <bool kLayer>
+int dispatch(const Args& a, int rt, int words, int vec, int cs, cudaStream_t st) {
+  if (words == 0) {
+    if (rt != kThreads || cs != 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = a.M;
+    if (vec == 4)
+      resnorm_stream<kLayer, 4><<<blocks, kThreads, 0, st>>>(a);
+    else
+      resnorm_stream<kLayer, 1><<<blocks, kThreads, 0, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cs == 1 && rt == 32)
+    return vec == 4 ? held_words<kLayer, 32, 1, 4, 4, 32>(a, words, st)
+                    : held_words<kLayer, 32, 1, 1, 1, 32>(a, words, st);
+  if (cs == 1 && rt == kThreads)
+    return vec == 4 ? held_words<kLayer, kThreads, 1, 4, 4, 32>(a, words, st)
+                    : held_words<kLayer, kThreads, 1, 1, 1, 32>(a, words, st);
+  if (rt == kThreads && vec == 4 && cs == 2)
+    return held_words<kLayer, kThreads, 2, 4, 4, 16>(a, words, st);
+  if (rt == kThreads && vec == 4 && cs == 4)
+    return held_words<kLayer, kThreads, 4, 4, 4, 16>(a, words, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x, r, xo, ho (M, d); g, b (d) (b null for rms); all f32, contiguous.
-// layer: 0 rms, 1 layer norm.
+// layer: 0 rms, 1 layer norm.  (row_threads, words, vec, cluster): the
+// plan's fields (tiling.resnorm_plan); words 0 is the streamed scheme.
+// Refuses what it does not instantiate, 16-byte copies where d % 4 != 0 or
+// a pointer is off 16 bytes, and held words that do not cover the row.
 extern "C" int resnorm_launch(const float* x, const float* r, const float* g,
                               const float* b, float* xo, float* ho, int M, int d,
-                              int layer, float eps, void* stream) {
-  if (M < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+                              int layer, float eps, int row_threads, int words, int vec,
+                              int cluster, void* stream) {
+  using sm90::aligned16;
+  if (M < 1 || d < 1 || (vec != 1 && vec != 4) || cluster < 1 ||
+      (vec == 4 && (d % 4 != 0 || !aligned16(x) || !aligned16(r) || !aligned16(g) ||
+                    !aligned16(b) || !aligned16(xo) || !aligned16(ho))) ||
+      (words > 0 && static_cast<long long>(words) * row_threads * cluster < d))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, r, g, b, xo, ho, M, d, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return layer ? launch<true>(x, r, g, b, xo, ho, M, d, eps, st)
-               : launch<false>(x, r, g, b, xo, ho, M, d, eps, st);
+  return layer ? dispatch<true>(a, row_threads, words, vec, cluster, st)
+               : dispatch<false>(a, row_threads, words, vec, cluster, st);
 }

@@ -54,7 +54,7 @@ FLASH_FWD = _build.Kernel(
     source="src/repro_torch/csrc/flash_fwd.cu",
     replaces="src/repro/kernels/flash_attention.py:192")
 
-MAX_HEAD_DIM = 128       # h and hv the kernels take (kMaxHD)
+MAX_HEAD_DIM = 128       # h and hv the kernels take (their Cfg instances)
 
 
 def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,

@@ -39,8 +39,13 @@ over the same KV tiles (``softmax_unit.online_max_int`` /
 ``online_sum_int`` / ``online_probs_int``).  Its probability words are
 the whole-row ``softmax_int`` words of naive ``softmax_impl='dualmode'``
 attention bit for bit; only the f32 p @ v order differs.  It sweeps
-every tile, causal or not, so it needs no tail fold.  K is read three
-times, V once.
+every tile, causal or not, so it needs no tail fold.  The kernel
+(``csrc/flash_int3.cu``) runs on the same Hopper body with the classic
+int row state (``csrc/flash_int3_sm90.cuh``): where a q tile's score
+words fit in shared memory (:func:`tiling.flash_int3_plan`), one sweep of
+K keeps them and the sum and the P V sweep read them back, so K is read
+once and each score computed once; past that, each sweep recomputes
+them.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ FLASH_SNAP = _build.Kernel(
     source="src/repro_torch/csrc/flash_snap.cu",
     replaces="src/repro/kernels/flash_attention_int.py:218")
 FLASH_INT3 = _build.Kernel(
-    "flash_int3", "flash_int3_launch", [_P] * 6 + [_I] * 10 + [_P],
+    "flash_int3", "flash_int3_launch", [_P] * 6 + [_I] * 15 + [_P],
     source="src/repro_torch/csrc/flash_int3.cu",
     replaces="src/repro/kernels/flash_attention_int.py:354")
 
@@ -259,9 +264,12 @@ def flash_int3(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     out = torch.empty((b, s_q, kh, g, hv), device=qf.device)
+    plan = tiling.flash_int3_plan(h, hv, t,
+                                  aligned=tiling.aligned16(qf, k, v, out))
     FLASH_INT3(qf.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
                kv_valid.data_ptr(), out.data_ptr(), b, s_q, kh, g, h, hv, t,
-               block_kv, int(causal), guard_shift,
+               block_kv, int(causal), guard_shift, plan.block_q,
+               plan.block_kv, plan.stages, plan.vec, int(plan.cache),
                _build.stream_ptr(qf.device))
     return out
 

@@ -6,7 +6,9 @@
 
   residual_norm  (x, r)    -> (x + r, norm(x + r) * g + b)
                  the attention-output epilogue: the new residual stream
-                 and the FFN's input from one read of x and r
+                 and the FFN's input from one read of x and r, each row
+                 held in registers by a warp, a block or a cluster of
+                 blocks as :func:`tiling.resnorm_plan` says
                  (``csrc/resnorm.cu``).
   norm_linear    x, [W...] -> norm(x) @ [W0 | W1 | W2]
                  the norm -> QKV prologue: the normalized stream is made
@@ -57,7 +59,7 @@ from . import dispatch, fused_ffn, tiling
 _P, _I, _F = _build.P, _build.I, _build.F
 
 RESNORM = _build.Kernel(
-    "resnorm", "resnorm_launch", [_P] * 6 + [_I] * 3 + [_F, _P],
+    "resnorm", "resnorm_launch", [_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
     source="src/repro_torch/csrc/resnorm.cu",
     replaces="src/repro/kernels/fused_norm.py:134")
 NORM_LINEAR = _build.Kernel(
@@ -166,9 +168,13 @@ def _resnorm_fwd(x, r, g, b, *, kind: str, eps: float):
                          f"{tuple(r.shape)}, g {tuple(g.shape)}")
     xo, ho = torch.empty_like(x), torch.empty_like(x)
     if x.numel():
+        m = x.numel() // d
+        plan = tiling.resnorm_plan(m, d, tiling.aligned16(x, r, g, b, xo, ho),
+                                   tiling.sm_count(x.device))
         RESNORM(x.data_ptr(), r.data_ptr(), g.data_ptr(),
                 None if b is None else b.data_ptr(), xo.data_ptr(),
-                ho.data_ptr(), x.numel() // d, d, KINDS.index(kind), eps,
+                ho.data_ptr(), m, d, KINDS.index(kind), eps,
+                plan.row_threads, plan.words, plan.vec, plan.cluster,
                 _build.stream_ptr(x.device))
     return xo, ho
 
@@ -328,8 +334,14 @@ class _NormGLU(torch.autograd.Function):
 
 def fused_residual_norm(x, r, g, b=None, *, kind: str, eps: float):
     """(x + r, norm(x + r) * g + b); x, r (..., d), g / b (d,), b None
-    for rms.  Both outputs in x's dtype; differentiable."""
-    return _ResidualNorm.apply(x, r, g, b, kind, eps)
+    for rms.  Both outputs in x's dtype; differentiable.  Where no input
+    needs a gradient (serving), the forward runs without the autograd
+    Function, whose host time would outweigh the kernel at a decode
+    tick."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, r, g, b)):
+        return _ResidualNorm.apply(x, r, g, b, kind, eps)
+    return _resnorm_fwd(x, r, g, b, kind=kind, eps=eps)
 
 
 def fused_norm_linear(x, g, b, ws, *, kind: str, eps: float):

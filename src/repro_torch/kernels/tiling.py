@@ -11,14 +11,14 @@ multiprocessor count instead of the TPU core probe: splits are added
 until (batch x kv-heads x splits) blocks fill several waves of the SMs'
 resident slots, and never more than the cache has tiles.
 
-Blocked attention tiles are Hopper-sized, not the TPU's 128 x 512: a
-block of 256 threads holds ATTN_BLOCK_Q query rows against
-ATTN_BLOCK_KV keys (64 x 64 f32 scores, 16 a thread), small enough that
-K, V, Q and the score tile all sit in shared memory at head dims up to
-128.  The CUDA kernels read the ragged edge of the last tile as phantom
-keys themselves instead of padding the operands in device memory.
-Results do not depend on the tile: int words are bitwise equal for any
-(bq, bkv), float outputs equal up to f32 summation order.
+Blocked attention's caller tile is Hopper-sized, not the TPU's 128 x
+512: ATTN_BLOCK_Q query rows against ATTN_BLOCK_KV keys
+(:func:`attention_blocks`), the plain versions' tile and the block_kv
+the reference checks.  The CUDA kernels take their own tiles from their
+plans and read the ragged edge of the last tile as phantom keys
+themselves instead of padding the operands in device memory.  Results
+do not depend on the tile: int words are bitwise equal for any (bq,
+bkv), float outputs equal up to f32 summation order.
 
 The norm -> QKV and norm -> gated-GLU kernels (rows 15 and 16) and the
 fused GLU and its backward (rows 12 and 13) run on
@@ -36,19 +36,21 @@ pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
 The float flash forward (row 7) and the one-sweep snapped int flash (row
 8) run on ``csrc/flash_fwd_sm90.cuh`` with the tiles of
 :func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V tiles
-streamed); the three-sweep int
-kernel (row 9) keeps ATTN_BLOCK_Q x ATTN_BLOCK_KV on
-``csrc/flash_tile.cuh``.  The contiguous decodes (rows 5 and 6) run on
+streamed); the three-sweep int kernel (row 9) runs on the same body with
+the tiles and the word cache of :func:`flash_int3_plan` (64 q rows, the
+score words of a q tile kept in shared memory where they fit).  The
+contiguous decodes (rows 5 and 6) run on
 ``csrc/decode_dense_sm90.cuh`` with the split count and tile of
 :func:`decode_dense_plan` and the copy width of :func:`decode_dense_vec`;
 the paged decodes (rows 3, 4) run on the same body through the block
 table, the page as the tile, at :func:`decode_splits`' count -- the same
 plan on a GPU.
 
-The residual-norm epilogue takes one block per row, in place of the
-reference's ``norm_rows``.  The unit's row softmax (row 1) holds each row
-in registers -- a warp a row, or a block a row -- up to the lengths of
-:func:`softmax_rows_plan`, and streams longer rows.
+The residual-norm epilogue (row 14) and the unit's row softmax (row 1)
+hold each row in registers -- a warp a row, or a block a row -- up to
+the lengths of :func:`resnorm_plan` and :func:`softmax_rows_plan`, and
+stream longer rows; the epilogue spreads a row of a short batch over a
+thread-block cluster.
 """
 from __future__ import annotations
 
@@ -167,6 +169,51 @@ def softmax_rows_plan(n: int, aligned: bool = True) -> SoftmaxRowsPlan:
     words = max(vec, 1 << (cdiv(n, threads) - 1).bit_length())
     return SoftmaxRowsPlan("warp" if threads == 32 else "block", threads,
                            words, vec)
+
+
+RESNORM_THREADS = 256       # threads of a block of the residual norm
+RESNORM_WARP_WORDS = 1024   # longest row a warp holds (32 words a lane)
+RESNORM_BLOCK_WORDS = 8192  # longest row a block holds (32 a thread)
+RESNORM_CLUSTERS = (4, 2)   # blocks a cluster may spread one row over
+
+
+class ResnormPlan(NamedTuple):
+    scheme: str       # 'warp', 'block' (the row held) or 'stream'
+    row_threads: int  # threads of a block that share a row: 32 or 256
+    words: int        # words a thread holds (0: streamed)
+    vec: int          # floats a load or store moves: 4 (16 bytes) or 1
+    cluster: int      # blocks of a thread-block cluster that share a row
+
+
+@functools.lru_cache(maxsize=1024)
+def resnorm_plan(m: int, d: int, aligned: bool = True,
+                 sms: int = 132) -> ResnormPlan:
+    """How the residual-norm epilogue (row 14, ``csrc/resnorm.cu``) covers
+    m rows of d words on a card of ``sms`` SMs; ``aligned`` says whether
+    all six base pointers are multiples of 16 bytes.
+
+    Rows up to RESNORM_WARP_WORDS: a warp a row, 8 rows a block; up to
+    RESNORM_BLOCK_WORDS: a block of RESNORM_THREADS a row.  Each thread
+    holds ``words`` words (a power of two, at least ``vec``), read once,
+    so the row is read once and written once.  Where one block a row
+    leaves most SMs idle (m x c <= sms), a held row of at least c x
+    RESNORM_THREADS x vec words spreads over a cluster of c blocks, the
+    largest of RESNORM_CLUSTERS that fits, with 16-byte copies.  Longer
+    rows are streamed by one block, the sums read back from the first
+    output.  16-byte loads and stores where d % 4 == 0 and ``aligned``;
+    anything else moves a float at a time.  ``csrc/resnorm.cu``
+    instantiates exactly these."""
+    vec = 4 if aligned and d % 4 == 0 else 1
+    if d > RESNORM_BLOCK_WORDS:
+        return ResnormPlan("stream", RESNORM_THREADS, 0, vec, 1)
+    threads = 32 if d <= RESNORM_WARP_WORDS else RESNORM_THREADS
+    cluster = 1
+    if threads == RESNORM_THREADS and vec == 4:
+        cluster = next((c for c in RESNORM_CLUSTERS if m * c <= sms
+                        and d >= c * RESNORM_THREADS * vec), 1)
+    words = max(vec, 1 << (cdiv(d, threads * cluster) - 1).bit_length())
+    return ResnormPlan("warp" if threads == 32 else "block", threads, words,
+                       vec, cluster)
 
 
 def split_partials(like: torch.Tensor, split: int, m: int, cols: int):
@@ -342,6 +389,60 @@ def flash_fwd_plan(h: int, hv: int, *, causal: bool,
     bq, stages = FLASH_FWD_TILES[64 if max(h, hv) <= 64 else 128]
     vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
     return FlashFwdPlan(bq, FLASH_FWD_BK, stages, vec, bool(causal))
+
+
+FLASH_INT3_BQ = 64          # q rows a block of the three-sweep int flash holds
+FLASH_INT3_STAGES = {64: 3, 128: 2}   # head dims up to -> ring depth
+SMEM_MAX_BYTES = 232448     # shared memory a block may use (H100)
+
+
+class FlashInt3Plan(NamedTuple):
+    block_q: int    # rows of the q tile a block holds
+    block_kv: int   # keys of a K or V tile streamed through the ring
+    stages: int     # depth of the cp.async ring
+    vec: int        # floats a cp.async copy moves: 4 (16 bytes) or 1
+    cache: bool     # the q tile's score words kept in shared memory
+
+
+def flash_int3_smem(h: int, hv: int, t_kv: int, cache: bool) -> int:
+    """Shared-memory bytes of a block of the three-sweep int flash: Q, the
+    ring (one operand a stage with the word cache, K and V without), the p
+    tile, the ROM's 16 pairs, and with the cache 16 bits a score word of
+    every key tile (``csrc/flash_fwd_sm90.cuh``'s Smem and
+    ``csrc/flash_int3_sm90.cuh``'s dyn_bytes)."""
+    d = 64 if max(h, hv) <= 64 else 128
+    ld, ns = d + 4, FLASH_INT3_STAGES[d]
+    floats = (FLASH_INT3_BQ * ld + ns * (1 if cache else 2) * FLASH_FWD_BK * ld
+              + FLASH_FWD_BK * (FLASH_INT3_BQ + 4) + 32)
+    words = cdiv(t_kv, FLASH_FWD_BK) * FLASH_FWD_BK * FLASH_INT3_BQ if cache \
+        else 0
+    return 4 * floats + 2 * words
+
+
+@functools.lru_cache(maxsize=256)
+def flash_int3_plan(h: int, hv: int, t_kv: int, *,
+                    aligned: bool = True) -> FlashInt3Plan:
+    """The tiles, ring depth, copy width and word cache of the three-sweep
+    int flash (row 9, ``csrc/flash_int3.cu`` on ``csrc/flash_fwd_sm90.cuh``)
+    for head dims h (q, k) and hv (v) over t_kv keys; ``aligned`` says
+    whether every base pointer is a multiple of 16 bytes.
+
+    A block holds FLASH_INT3_BQ q rows (4 x 4 scores and 4 x 8 outputs a
+    thread) and streams 64-key tiles through three stages at head dims up
+    to 64, two up to 128.  Where the q tile's S5.10 score words fit in
+    shared memory beside Q, the ring and the p tile (t_kv up to 1088 at
+    head dims up to 64, 832 up to 128), one sweep of K keeps them and the
+    sum and the P V sweep read them back; otherwise every sweep recomputes
+    them.  Every tile is swept, causal or not, so the q tiles cost the
+    same and run in grid order.  16-byte copies need h, hv and every
+    pointer a multiple of four floats; anything else takes 4-byte copies
+    on the same tiles.  The words do not depend on the tiles or on the
+    caller's block_kv (the mask is per key).  ``csrc/flash_int3.cu``
+    instantiates exactly these."""
+    stages = FLASH_INT3_STAGES[64 if max(h, hv) <= 64 else 128]
+    vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
+    cache = flash_int3_smem(h, hv, t_kv, True) <= SMEM_MAX_BYTES
+    return FlashInt3Plan(FLASH_INT3_BQ, FLASH_FWD_BK, stages, vec, cache)
 
 
 DECODE_DENSE_BLOCK_KV = 64   # contiguous decode on a GPU: keys a tile

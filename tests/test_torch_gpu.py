@@ -299,19 +299,48 @@ def test_unit_kernels_at_yi_shape(cuda):
 
 @pytest.mark.parametrize("kind", ["rms", "layer"])
 @pytest.mark.parametrize("m,d", [(4, 4096), (64, 4096), (1, 1), (37, 200),
-                                 (5, 14000), (4096, 768)])
+                                 (5, 14000), (4096, 768), (200, 4096),
+                                 (5, 203), (40, 1100), (33, 4096)])
 def test_resnorm_kernel(cuda, kind, m, d):
+    """Row 14 in every band of tiling.resnorm_plan (a warp, a block or a
+    cluster of 2 or 4 blocks a row; the stream) on 16-byte copies and,
+    with every input one float off 16 bytes, on 4-byte ones: the sum
+    bitwise, h within 1e-5, one counted launch a call, two calls the same
+    bits."""
     from repro_torch.kernels import fused_norm as fn
     gen = torch.Generator().manual_seed(6)
     x, r = _randn(gen, cuda, m, d, scale=3.0), _randn(gen, cuda, m, d)
     g = 1.0 + _randn(gen, cuda, d, scale=0.1)
     b = _randn(gen, cuda, d, scale=0.1) if kind == "layer" else None
-    before = fn.RESNORM.launches
-    xo, ho = fn.fused_residual_norm(x, r, g, b, kind=kind, eps=1e-6)
     pxo, pho = fn.fused_residual_norm_plain(x, r, g, b, kind=kind, eps=1e-6)
-    assert fn.RESNORM.launches == before + 1
-    assert torch.equal(xo, pxo)
-    torch.testing.assert_close(ho, pho, atol=1e-5, rtol=0)
+    for off in (False, True):
+        ops = [None if t is None else _off_by_one_float(t) if off else t
+               for t in (x, r, g, b)]
+        before = fn.RESNORM.launches
+        xo, ho = fn.fused_residual_norm(*ops, kind=kind, eps=1e-6)
+        assert fn.RESNORM.launches == before + 1
+        assert torch.equal(xo, pxo)
+        torch.testing.assert_close(ho, pho, atol=1e-5, rtol=0)
+        xo2, ho2 = fn.fused_residual_norm(*ops, kind=kind, eps=1e-6)
+        assert torch.equal(xo, xo2) and torch.equal(ho, ho2)
+
+
+def test_resnorm_refuses_what_it_does_not_instantiate(cuda):
+    """The C entry refuses 16-byte copies off 16 bytes, held words that do
+    not cover the row and a cluster it has no instance for."""
+    from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(16)
+    x, r = _randn(gen, cuda, 4, 4096), _randn(gen, cuda, 4, 4096)
+    g = 1.0 + _randn(gen, cuda, 4096, scale=0.1)
+    bad = [tiling.ResnormPlan("block", 256, 16, 4, 1),     # x off 16 bytes
+           tiling.ResnormPlan("block", 256, 8, 4, 1),      # 2048 words
+           tiling.ResnormPlan("block", 256, 4, 4, 8)]      # no cluster of 8
+    for i, plan in enumerate(bad):
+        xi = _off_by_one_float(x) if i == 0 else x
+        with mock.patch.object(tiling, "resnorm_plan", lambda *a, **k: plan):
+            with pytest.raises(RuntimeError, match="resnorm"):
+                fn.fused_residual_norm(xi, r, g, kind="rms", eps=1e-6)
 
 
 # every band of tiling.norm_gemm_plan: decode ticks (<= 16), prefill chunks
@@ -990,6 +1019,75 @@ def test_flash_int3_kernel(cuda, shape, causal):
             assert torch.equal(
                 fai.flash_int3(qf, k, eye, qp, valid, **kw),
                 fai.flash_int3_plain(qf, k, eye, qp, valid, **kw))
+
+
+@pytest.mark.parametrize("cache", [True, False])
+@pytest.mark.parametrize("shape", [
+    # (b, s, t, kh, g, h, hv, causal, block_kv, q_pos end, only-invalid row)
+    (2, 512, 512, 12, 1, 64, 64, False, 64, None, False),   # bert's plan
+    (1, 40, 130, 2, 1, 64, 64, True, 16, None, False),      # T off 64
+    (1, 12, 70, 1, 8, 128, 72, True, 16, None, False),      # G 8, h 128
+    (1, 30, 100, 2, 3, 30, 62, True, 37, None, False),      # 4-byte copies
+    (2, 24, 150, 1, 2, 64, 64, True, 64, 24, True)])        # only invalid
+def test_flash_int3_kernel_word_paths(cuda, shape, cache):
+    """Row 9 on row 7's Hopper body, with the word cache and with words
+    recomputed in each sweep (the plan forced to either), on grid-valued q
+    and k: the identity-v words bitwise the plain three sweeps', random v
+    within 1e-5, two calls the same bits; again with every pointer one
+    float off 16 bytes (the 4-byte entries)."""
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+    b, s, t, kh, g, h, hv, causal, bkv, end, only = shape
+    qf, k, v, qp, valid = _attn(cuda, b, s, t, kh, g, h, hv, True,
+                                causal_end=end)
+    if only:
+        valid[:, 0] = 0
+    if s == 512:
+        assert tiling.flash_int3_plan(h, hv, t) == tiling.FlashInt3Plan(
+            64, 64, 3, 4, True)
+    kw = dict(causal=causal, block_kv=bkv, guard_shift=0)
+    real = tiling.flash_int3_plan
+
+    def plan(*a, **k_):
+        return real(*a, **k_)._replace(cache=cache)
+    with mock.patch.object(tiling, "flash_int3_plan", plan):
+        for off in (False, True):
+            ops = tuple(_off_by_one_float(x) for x in (qf, k)) if off else (
+                qf, k)
+            for eye in _eye_chunks(cuda, b, t, kh):
+                eye = _off_by_one_float(eye) if off else eye
+                before = fai.FLASH_INT3.launches
+                got = fai.flash_int3(*ops, eye, qp, valid, **kw)
+                assert fai.FLASH_INT3.launches == before + 1
+                assert torch.equal(got, fai.flash_int3_plain(
+                    qf, k, eye, qp, valid, **kw))
+            vv = _off_by_one_float(v) if off else v
+            got = fai.flash_int3(*ops, vv, qp, valid, **kw)
+            torch.testing.assert_close(
+                got, fai.flash_int3_plain(qf, k, v, qp, valid, **kw),
+                atol=1e-5, rtol=0)
+            assert torch.equal(got, fai.flash_int3(*ops, vv, qp, valid, **kw))
+
+
+def test_flash_int3_refuses_what_it_does_not_instantiate(cuda):
+    """h > 128 is refused; the C entry refuses 16-byte copies where h is
+    off four floats and a word cache that does not fit."""
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+    kw = dict(causal=True, block_kv=64, guard_shift=0)
+    with pytest.raises(ValueError):
+        fai.flash_int3(*_attn(cuda, 1, 8, 40, 1, 1, 136, 64, False), **kw)
+    args = _attn(cuda, 1, 40, 70, 1, 2, 30, 30, False)
+    assert tiling.flash_int3_plan(30, 30, 70).vec == 1
+    forced = tiling.FlashInt3Plan(64, 64, 3, 4, True)
+    with mock.patch.object(tiling, "flash_int3_plan", lambda *a, **k_: forced):
+        with pytest.raises(RuntimeError, match="flash_int3"):
+            fai.flash_int3(*args, **kw)
+    args = _attn(cuda, 1, 8, 1200, 1, 1, 64, 64, False)
+    assert not tiling.flash_int3_plan(64, 64, 1200).cache
+    with mock.patch.object(tiling, "flash_int3_plan", lambda *a, **k_: forced):
+        with pytest.raises(RuntimeError, match="flash_int3"):
+            fai.flash_int3(*args, **kw)
 
 
 def test_flash_int3_kernel_guard_shift(cuda):
