@@ -1522,8 +1522,7 @@ def yi_kernel_phase(dev, results):
                       b_ms, two_calls, "torch.add + F.rms_norm (two calls)")
         log(f"  resnorm rms M{m} d{d}: plain {plain * 1e3:.2f} us, bound "
             f"{b_ms * 1e3:.2f} us ({b_by})")
-        r_["plan"] = tuple(tiling.resnorm_plan(m, d, True,
-                                               tiling.sm_count(dev)))
+        r_["plan"] = tuple(tiling.resnorm_plan(d))
         if m == 64:
             # library_ms stays None: no single PyTorch call computes row 14
             results["resnorm"] = dict(max_abs_err=err, ms=r_["ms"],
@@ -1535,10 +1534,10 @@ def yi_kernel_phase(dev, results):
     # parts of _resnorm_fwd around the kernel
     xs, rs_ = x[:4].contiguous(), r[:4].contiguous()
     xo_, ho_ = torch.empty_like(xs), torch.empty_like(xs)
-    plan = tiling.resnorm_plan(4, d, True, tiling.sm_count(dev))
+    plan = tiling.resnorm_plan(d)
     call = (xs.data_ptr(), rs_.data_ptr(), g.data_ptr(), None, xo_.data_ptr(),
             ho_.data_ptr(), 4, d, 0, eps, plan.row_threads, plan.words,
-            plan.vec, plan.cluster, _build.stream_ptr(dev))
+            plan.vec, _build.stream_ptr(dev))
     parts = {
         "fused_residual_norm": lambda: fn.fused_residual_norm(
             xs, rs_, g, kind="rms", eps=eps),
@@ -1549,8 +1548,7 @@ def yi_kernel_phase(dev, results):
         "two empty_like": lambda: (torch.empty_like(xs),
                                    torch.empty_like(xs)),
         "plan": lambda: tiling.resnorm_plan(
-            4, d, tiling.aligned16(xs, rs_, g, None, xo_, ho_),
-            tiling.sm_count(dev)),
+            d, tiling.aligned16(xs, rs_, g, None, xo_, ho_)),
         "stream_ptr": lambda: _build.stream_ptr(dev),
         "ctypes call": lambda: fn.RESNORM(*call)}
     log("[resnorm host] us a call to issue, M4 d4096: " + json.dumps(

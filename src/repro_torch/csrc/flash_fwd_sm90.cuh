@@ -456,15 +456,13 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
     if (t + C::NS - 1 < n_tiles) fetch_kv(t + C::NS - 1, Rows::SCORES, true);
     cp_commit();
+    const unsigned valid = valid_next;
+    if (Rows::SCORES && t + 1 < n_tiles) valid_next = valid_bits(t + 1);
     const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
     const float* vs = Rows::SCORES ? ks + C::BK * C::LD : ks;
 
     float s[C::SR][C::SC];
-    if constexpr (Rows::SCORES) {
-      const unsigned valid = valid_next;
-      if (t + 1 < n_tiles) valid_next = valid_bits(t + 1);
-      masked_scores(t, valid, ks, s);
-    }
+    if constexpr (Rows::SCORES) masked_scores(t, valid, ks, s);
     rows.step(t, s, acc);
 #pragma unroll
     for (int c = 0; c < C::SC; ++c)

@@ -11,11 +11,11 @@
 // balance; at d 4096 a prefill chunk (M = 64) moves 4.2 MB (1.25 us at
 // 3.35 TB/s) and a decode tick (M = 4) 262 KB, where the launch dominates.
 //
-// Design (tiling.resnorm_plan picks the scheme, the words a thread holds,
-// the copy width and the cluster; this file instantiates exactly those):
+// Design (tiling.resnorm_plan picks the scheme, the words a thread holds
+// and the copy width; this file instantiates exactly those):
 // 1. The row in registers.  Rows up to 1024 words: a warp a row, 8 rows a
-//    block; up to 8192: a block of 256 threads a row.  Thread t of the NT
-//    threads that share a row holds chunk j of VEC floats at (j NT + t) VEC,
+//    block; up to 8192: a block of 256 threads a row.  Thread t of the RT
+//    threads that share a row holds chunk j of VEC floats at (j RT + t) VEC,
 //    WORDS floats in all, read once from x and r and written once to each
 //    output: no shared-memory copy of the row.  Longer rows are streamed:
 //    the second sweep reads the sum back from xo (each thread its own
@@ -23,23 +23,19 @@
 // 2. 16-byte loads and stores where d % 4 == 0 and all six pointers sit on
 //    16 bytes; anything else moves 4 bytes a copy on the same plan.
 // 3. One fused (s, ss) reduction in a fixed order: each thread's words in
-//    j order, the xor butterfly of its warp, the block's warps in warp
-//    order, then the cluster's blocks in rank order.  No atomics, so two
-//    calls give the same bits.
-// 4. Few rows: a row may span a thread-block cluster of CS blocks (at most
-//    one row a cluster), which fold their (s, ss) through distributed
-//    shared memory, so a decode tick's 4 rows or a chunk's 64 occupy more
-//    SMs than one block a row would.
+//    j order, the xor butterfly of its warp, then the block's warps in warp
+//    order.  No atomics, so two calls give the same bits.
+// 4. Few rows stay one block a row: spreading a row of a decode tick (M 4)
+//    or a prefill chunk (M 64) over a thread-block cluster of 2 or 4
+//    blocks, folded through distributed shared memory, ran 3-23% slower
+//    under graph replay on the H100 (PERF.md section 6).
 // Moments in f32 with 1/d as the f32 word and rsqrt as
 // exp2(-0.5 log2(v + eps)): the datapath's contract (fused_norm._hat).
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sm90_tile.cuh"
 
 namespace {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 
@@ -84,10 +80,9 @@ __device__ __forceinline__ void warp_moments(float& s, float& ss) {
   }
 }
 
-// (s, ss) of the whole row: the warps' sums in warp order (RT == 256),
-// then the cluster's blocks in rank order (CS > 1).  Every thread of the
-// row gets the same bits.
-template <int RT, int CS>
+// (s, ss) of the whole row: the warps' sums in warp order (RT == 256).
+// Every thread of the row gets the same bits.
+template <int RT>
 __device__ __forceinline__ void row_moments(float& s, float& ss) {
   warp_moments(s, ss);
   if constexpr (RT == kThreads) {
@@ -98,20 +93,6 @@ __device__ __forceinline__ void row_moments(float& s, float& ss) {
 #pragma unroll
     for (int w = 1; w < kThreads / 32; ++w) t.x += red[w].x, t.y += red[w].y;
     s = t.x, ss = t.y;
-    if constexpr (CS > 1) {
-      __shared__ float2 part;
-      cg::cluster_group cluster = cg::this_cluster();
-      if (threadIdx.x == 0) part = make_float2(s, ss);
-      cluster.sync();  // every block's part written
-      float2 u = *cluster.map_shared_rank(&part, 0);
-#pragma unroll
-      for (int q = 1; q < CS; ++q) {
-        const float2 o = *cluster.map_shared_rank(&part, q);
-        u.x += o.x, u.y += o.y;
-      }
-      cluster.sync();  // no block leaves while another reads its part
-      s = u.x, ss = u.y;
-    }
   }
 }
 
@@ -127,13 +108,19 @@ __device__ __forceinline__ float2 row_stats(float s, float ss, int d, float eps)
   return make_float2(mu, exp2f(-0.5f * log2f(var + eps)));
 }
 
-// h of VEC words of a row at column c
-template <bool kLayer, int VEC>
-__device__ __forceinline__ void normed(const Args& a, int c, float2 st, const float (&v)[VEC],
-                                       float (&h)[VEC]) {
-  float gv[VEC], bv[VEC];
+// the gain and bias of VEC words of a row at column c (no bias: rms)
+template <int VEC>
+__device__ __forceinline__ void gain_bias(const Args& a, int c, float (&gv)[VEC],
+                                          float (&bv)[VEC]) {
   load_vec<VEC>(a.g + c, gv);
   if (a.b != nullptr) load_vec<VEC>(a.b + c, bv);
+}
+
+// h of VEC words of a row from its sums v, gains gv and biases bv
+template <bool kLayer, int VEC>
+__device__ __forceinline__ void normed(const Args& a, float2 st, const float (&v)[VEC],
+                                       const float (&gv)[VEC], const float (&bv)[VEC],
+                                       float (&h)[VEC]) {
 #pragma unroll
   for (int e = 0; e < VEC; ++e) {
     h[e] = (kLayer ? v[e] - st.x : v[e]) * st.y * gv[e];
@@ -142,29 +129,33 @@ __device__ __forceinline__ void normed(const Args& a, int c, float2 st, const fl
 }
 
 // A held row: RT threads of a block share it (RT 32: a warp a row, 8 rows a
-// block; RT 256: the block), across CS blocks of a cluster; each thread
-// holds WORDS floats in chunks of VEC.
-template <bool kLayer, int RT, int CS, int VEC, int WORDS>
+// block; RT 256: the block); each thread holds WORDS floats in chunks of
+// VEC.  Up to 16 words a thread it also holds their gains and biases,
+// loaded with x and r, so that no read of device memory waits behind the
+// reduction (0.4-0.5 us off a decode tick's or a prefill chunk's row at d
+// 4096 on the H100); at 32 words the registers that takes cost more than
+// it saves (bert's rows of 768 ran 17% slower).
+template <bool kLayer, int RT, int VEC, int WORDS>
 __global__ void __launch_bounds__(kThreads) resnorm_held(Args a) {
-  constexpr int NT = RT * CS, NCH = WORDS / VEC;
+  constexpr int NCH = WORDS / VEC;
+  constexpr bool kEarly = WORDS <= 16;  // gains and biases with x and r
   static_assert(WORDS % VEC == 0, "whole chunks");
-  int rank = 0;
-  if constexpr (CS > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
-  const int row = (blockIdx.x / CS) * (kThreads / RT) + threadIdx.x / RT;
-  const int t = rank * RT + threadIdx.x % RT;
+  const int row = blockIdx.x * (kThreads / RT) + threadIdx.x / RT;
+  const int t = threadIdx.x % RT;
   // a row past M (the last block of the warp scheme) still joins the
   // reductions; it neither reads nor writes
   const bool live = row < a.M;
   const size_t base = static_cast<size_t>(live ? row : 0) * a.d;
-  float v[NCH][VEC];
+  float v[NCH][VEC], gv[kEarly ? NCH : 1][VEC], bv[kEarly ? NCH : 1][VEC];
   float s = 0.0f, ss = 0.0f;
 #pragma unroll
   for (int j = 0; j < NCH; ++j) {
-    const int c = (j * NT + t) * VEC;
+    const int c = (j * RT + t) * VEC;
     if (live && c < a.d) {
       float xv[VEC], rv[VEC];
       load_vec<VEC>(a.x + base + c, xv);
       load_vec<VEC>(a.r + base + c, rv);
+      if constexpr (kEarly) gain_bias<VEC>(a, c, gv[j], bv[j]);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         v[j][e] = xv[e] + rv[e];
@@ -174,14 +165,16 @@ __global__ void __launch_bounds__(kThreads) resnorm_held(Args a) {
       store_vec<VEC>(a.xo + base + c, v[j]);
     }
   }
-  row_moments<RT, CS>(s, ss);
+  row_moments<RT>(s, ss);
   const float2 st = row_stats<kLayer>(s, ss, a.d, a.eps);
 #pragma unroll
   for (int j = 0; j < NCH; ++j) {
-    const int c = (j * NT + t) * VEC;
+    const int c = (j * RT + t) * VEC;
     if (live && c < a.d) {
+      const int jg = kEarly ? j : 0;
+      if constexpr (!kEarly) gain_bias<VEC>(a, c, gv[0], bv[0]);
       float h[VEC];
-      normed<kLayer, VEC>(a, c, st, v[j], h);
+      normed<kLayer, VEC>(a, st, v[j], gv[jg], bv[jg], h);
       store_vec<VEC>(a.ho + base + c, h);
     }
   }
@@ -206,57 +199,34 @@ __global__ void __launch_bounds__(kThreads) resnorm_stream(Args a) {
     }
     store_vec<VEC>(a.xo + base + c, v);
   }
-  row_moments<kThreads, 1>(s, ss);
+  row_moments<kThreads>(s, ss);
   const float2 st = row_stats<kLayer>(s, ss, a.d, a.eps);
   for (int c = threadIdx.x * VEC; c < a.d; c += kThreads * VEC) {
-    float v[VEC], h[VEC];
+    float v[VEC], gv[VEC], bv[VEC], h[VEC];
     load_vec<VEC>(a.xo + base + c, v);
-    normed<kLayer, VEC>(a, c, st, v, h);
+    gain_bias<VEC>(a, c, gv, bv);
+    normed<kLayer, VEC>(a, st, v, gv, bv, h);
     store_vec<VEC>(a.ho + base + c, h);
   }
 }
 
-template <bool kLayer, int RT, int CS, int VEC, int WORDS>
-int launch_held(const Args& a, cudaStream_t st) {
-  const int blocks = CS * cdiv(a.M, kThreads / RT);
-  if constexpr (CS == 1) {
-    resnorm_held<kLayer, RT, CS, VEC, WORDS><<<blocks, kThreads, 0, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(blocks);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = 0;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CS;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cudaError_t e = cudaLaunchKernelEx(&cfg, resnorm_held<kLayer, RT, CS, VEC, WORDS>, a);
-    if (e != cudaSuccess) return static_cast<int>(e);
+// the held entry for ``words`` among W, 2W, ... up to 32
+template <bool kLayer, int RT, int VEC, int W>
+int held_words(const Args& a, int words, cudaStream_t st) {
+  if (words == W) {
+    resnorm_held<kLayer, RT, VEC, W><<<cdiv(a.M, kThreads / RT), kThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-}
-
-// the held entry for ``words`` among W, 2W, ... up to MAXW
-template <bool kLayer, int RT, int CS, int VEC, int W, int MAXW>
-int held_words(const Args& a, int words, cudaStream_t st) {
-  if (words == W) return launch_held<kLayer, RT, CS, VEC, W>(a, st);
-  if constexpr (W * 2 <= MAXW)
-    return held_words<kLayer, RT, CS, VEC, W * 2, MAXW>(a, words, st);
+  if constexpr (W < 32) return held_words<kLayer, RT, VEC, W * 2>(a, words, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The instances tiling.resnorm_plan names: a warp or a block a row with
-// 1..32 words (at least VEC) at either copy width; a cluster of 2 or 4
-// blocks a row with 16-byte copies and 4..16 words; the stream.
+// 1..32 words (at least VEC) at either copy width; the stream.
 template <bool kLayer>
-int dispatch(const Args& a, int rt, int words, int vec, int cs, cudaStream_t st) {
+int dispatch(const Args& a, int rt, int words, int vec, cudaStream_t st) {
   if (words == 0) {
-    if (rt != kThreads || cs != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (rt != kThreads) return static_cast<int>(cudaErrorInvalidValue);
     const int blocks = a.M;
     if (vec == 4)
       resnorm_stream<kLayer, 4><<<blocks, kThreads, 0, st>>>(a);
@@ -264,38 +234,34 @@ int dispatch(const Args& a, int rt, int words, int vec, int cs, cudaStream_t st)
       resnorm_stream<kLayer, 1><<<blocks, kThreads, 0, st>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (cs == 1 && rt == 32)
-    return vec == 4 ? held_words<kLayer, 32, 1, 4, 4, 32>(a, words, st)
-                    : held_words<kLayer, 32, 1, 1, 1, 32>(a, words, st);
-  if (cs == 1 && rt == kThreads)
-    return vec == 4 ? held_words<kLayer, kThreads, 1, 4, 4, 32>(a, words, st)
-                    : held_words<kLayer, kThreads, 1, 1, 1, 32>(a, words, st);
-  if (rt == kThreads && vec == 4 && cs == 2)
-    return held_words<kLayer, kThreads, 2, 4, 4, 16>(a, words, st);
-  if (rt == kThreads && vec == 4 && cs == 4)
-    return held_words<kLayer, kThreads, 4, 4, 4, 16>(a, words, st);
+  if (rt == 32)
+    return vec == 4 ? held_words<kLayer, 32, 4, 4>(a, words, st)
+                    : held_words<kLayer, 32, 1, 1>(a, words, st);
+  if (rt == kThreads)
+    return vec == 4 ? held_words<kLayer, kThreads, 4, 4>(a, words, st)
+                    : held_words<kLayer, kThreads, 1, 1>(a, words, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x, r, xo, ho (M, d); g, b (d) (b null for rms); all f32, contiguous.
-// layer: 0 rms, 1 layer norm.  (row_threads, words, vec, cluster): the
-// plan's fields (tiling.resnorm_plan); words 0 is the streamed scheme.
-// Refuses what it does not instantiate, 16-byte copies where d % 4 != 0 or
-// a pointer is off 16 bytes, and held words that do not cover the row.
+// layer: 0 rms, 1 layer norm.  (row_threads, words, vec): the plan's fields
+// (tiling.resnorm_plan); words 0 is the streamed scheme.  Refuses what it
+// does not instantiate, 16-byte copies where d % 4 != 0 or a pointer is off
+// 16 bytes, and held words that do not cover the row.
 extern "C" int resnorm_launch(const float* x, const float* r, const float* g,
                               const float* b, float* xo, float* ho, int M, int d,
                               int layer, float eps, int row_threads, int words, int vec,
-                              int cluster, void* stream) {
+                              void* stream) {
   using sm90::aligned16;
-  if (M < 1 || d < 1 || (vec != 1 && vec != 4) || cluster < 1 ||
+  if (M < 1 || d < 1 || (vec != 1 && vec != 4) ||
       (vec == 4 && (d % 4 != 0 || !aligned16(x) || !aligned16(r) || !aligned16(g) ||
                     !aligned16(b) || !aligned16(xo) || !aligned16(ho))) ||
-      (words > 0 && static_cast<long long>(words) * row_threads * cluster < d))
+      (words > 0 && static_cast<long long>(words) * row_threads < d))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, r, g, b, xo, ho, M, d, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return layer ? dispatch<true>(a, row_threads, words, vec, cluster, st)
-               : dispatch<false>(a, row_threads, words, vec, cluster, st);
+  return layer ? dispatch<true>(a, row_threads, words, vec, st)
+               : dispatch<false>(a, row_threads, words, vec, st);
 }

@@ -7,8 +7,8 @@
   residual_norm  (x, r)    -> (x + r, norm(x + r) * g + b)
                  the attention-output epilogue: the new residual stream
                  and the FFN's input from one read of x and r, each row
-                 held in registers by a warp, a block or a cluster of
-                 blocks as :func:`tiling.resnorm_plan` says
+                 held in registers by a warp or a block as
+                 :func:`tiling.resnorm_plan` says
                  (``csrc/resnorm.cu``).
   norm_linear    x, [W...] -> norm(x) @ [W0 | W1 | W2]
                  the norm -> QKV prologue: the normalized stream is made
@@ -59,7 +59,7 @@ from . import dispatch, fused_ffn, tiling
 _P, _I, _F = _build.P, _build.I, _build.F
 
 RESNORM = _build.Kernel(
-    "resnorm", "resnorm_launch", [_P] * 6 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    "resnorm", "resnorm_launch", [_P] * 6 + [_I] * 3 + [_F] + [_I] * 3 + [_P],
     source="src/repro_torch/csrc/resnorm.cu",
     replaces="src/repro/kernels/fused_norm.py:134")
 NORM_LINEAR = _build.Kernel(
@@ -168,13 +168,11 @@ def _resnorm_fwd(x, r, g, b, *, kind: str, eps: float):
                          f"{tuple(r.shape)}, g {tuple(g.shape)}")
     xo, ho = torch.empty_like(x), torch.empty_like(x)
     if x.numel():
-        m = x.numel() // d
-        plan = tiling.resnorm_plan(m, d, tiling.aligned16(x, r, g, b, xo, ho),
-                                   tiling.sm_count(x.device))
+        plan = tiling.resnorm_plan(d, tiling.aligned16(x, r, g, b, xo, ho))
         RESNORM(x.data_ptr(), r.data_ptr(), g.data_ptr(),
                 None if b is None else b.data_ptr(), xo.data_ptr(),
-                ho.data_ptr(), m, d, KINDS.index(kind), eps,
-                plan.row_threads, plan.words, plan.vec, plan.cluster,
+                ho.data_ptr(), x.numel() // d, d, KINDS.index(kind), eps,
+                plan.row_threads, plan.words, plan.vec,
                 _build.stream_ptr(x.device))
     return xo, ho
 

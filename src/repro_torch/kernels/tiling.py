@@ -49,8 +49,7 @@ plan on a GPU.
 The residual-norm epilogue (row 14) and the unit's row softmax (row 1)
 hold each row in registers -- a warp a row, or a block a row -- up to
 the lengths of :func:`resnorm_plan` and :func:`softmax_rows_plan`, and
-stream longer rows; the epilogue spreads a row of a short batch over a
-thread-block cluster.
+stream longer rows.
 """
 from __future__ import annotations
 
@@ -174,7 +173,6 @@ def softmax_rows_plan(n: int, aligned: bool = True) -> SoftmaxRowsPlan:
 RESNORM_THREADS = 256       # threads of a block of the residual norm
 RESNORM_WARP_WORDS = 1024   # longest row a warp holds (32 words a lane)
 RESNORM_BLOCK_WORDS = 8192  # longest row a block holds (32 a thread)
-RESNORM_CLUSTERS = (4, 2)   # blocks a cluster may spread one row over
 
 
 class ResnormPlan(NamedTuple):
@@ -182,38 +180,31 @@ class ResnormPlan(NamedTuple):
     row_threads: int  # threads of a block that share a row: 32 or 256
     words: int        # words a thread holds (0: streamed)
     vec: int          # floats a load or store moves: 4 (16 bytes) or 1
-    cluster: int      # blocks of a thread-block cluster that share a row
 
 
-@functools.lru_cache(maxsize=1024)
-def resnorm_plan(m: int, d: int, aligned: bool = True,
-                 sms: int = 132) -> ResnormPlan:
+@functools.lru_cache(maxsize=256)
+def resnorm_plan(d: int, aligned: bool = True) -> ResnormPlan:
     """How the residual-norm epilogue (row 14, ``csrc/resnorm.cu``) covers
-    m rows of d words on a card of ``sms`` SMs; ``aligned`` says whether
-    all six base pointers are multiples of 16 bytes.
+    rows of d words; ``aligned`` says whether all six base pointers are
+    multiples of 16 bytes.
 
     Rows up to RESNORM_WARP_WORDS: a warp a row, 8 rows a block; up to
     RESNORM_BLOCK_WORDS: a block of RESNORM_THREADS a row.  Each thread
     holds ``words`` words (a power of two, at least ``vec``), read once,
-    so the row is read once and written once.  Where one block a row
-    leaves most SMs idle (m x c <= sms), a held row of at least c x
-    RESNORM_THREADS x vec words spreads over a cluster of c blocks, the
-    largest of RESNORM_CLUSTERS that fits, with 16-byte copies.  Longer
-    rows are streamed by one block, the sums read back from the first
-    output.  16-byte loads and stores where d % 4 == 0 and ``aligned``;
-    anything else moves a float at a time.  ``csrc/resnorm.cu``
-    instantiates exactly these."""
+    so the row is read once and written once.  Longer rows are streamed
+    by one block, the sums read back from the first output.  16-byte
+    loads and stores where d % 4 == 0 and ``aligned``; anything else moves
+    a float at a time.  A row stays in one block however few rows there
+    are: spreading it over a thread-block cluster ran slower on the H100
+    (PERF.md section 6).  ``csrc/resnorm.cu`` instantiates exactly
+    these."""
     vec = 4 if aligned and d % 4 == 0 else 1
     if d > RESNORM_BLOCK_WORDS:
-        return ResnormPlan("stream", RESNORM_THREADS, 0, vec, 1)
+        return ResnormPlan("stream", RESNORM_THREADS, 0, vec)
     threads = 32 if d <= RESNORM_WARP_WORDS else RESNORM_THREADS
-    cluster = 1
-    if threads == RESNORM_THREADS and vec == 4:
-        cluster = next((c for c in RESNORM_CLUSTERS if m * c <= sms
-                        and d >= c * RESNORM_THREADS * vec), 1)
-    words = max(vec, 1 << (cdiv(d, threads * cluster) - 1).bit_length())
+    words = max(vec, 1 << (cdiv(d, threads) - 1).bit_length())
     return ResnormPlan("warp" if threads == 32 else "block", threads, words,
-                       vec, cluster)
+                       vec)
 
 
 def split_partials(like: torch.Tensor, split: int, m: int, cols: int):

@@ -302,8 +302,8 @@ def test_unit_kernels_at_yi_shape(cuda):
                                  (5, 14000), (4096, 768), (200, 4096),
                                  (5, 203), (40, 1100), (33, 4096)])
 def test_resnorm_kernel(cuda, kind, m, d):
-    """Row 14 in every band of tiling.resnorm_plan (a warp, a block or a
-    cluster of 2 or 4 blocks a row; the stream) on 16-byte copies and,
+    """Row 14 in every band of tiling.resnorm_plan (a warp or a block a
+    row, the stream) on 16-byte copies and,
     with every input one float off 16 bytes, on 4-byte ones: the sum
     bitwise, h within 1e-5, one counted launch a call, two calls the same
     bits."""
@@ -327,15 +327,15 @@ def test_resnorm_kernel(cuda, kind, m, d):
 
 def test_resnorm_refuses_what_it_does_not_instantiate(cuda):
     """The C entry refuses 16-byte copies off 16 bytes, held words that do
-    not cover the row and a cluster it has no instance for."""
+    not cover the row and row threads it has no instance for."""
     from repro_torch.kernels import fused_norm as fn
     from repro_torch.kernels import tiling
     gen = torch.Generator().manual_seed(16)
     x, r = _randn(gen, cuda, 4, 4096), _randn(gen, cuda, 4, 4096)
     g = 1.0 + _randn(gen, cuda, 4096, scale=0.1)
-    bad = [tiling.ResnormPlan("block", 256, 16, 4, 1),     # x off 16 bytes
-           tiling.ResnormPlan("block", 256, 8, 4, 1),      # 2048 words
-           tiling.ResnormPlan("block", 256, 4, 4, 8)]      # no cluster of 8
+    bad = [tiling.ResnormPlan("block", 256, 16, 4),     # x off 16 bytes
+           tiling.ResnormPlan("block", 256, 8, 4),      # 2048 words
+           tiling.ResnormPlan("block", 128, 32, 4)]     # 128 threads a row
     for i, plan in enumerate(bad):
         xi = _off_by_one_float(x) if i == 0 else x
         with mock.patch.object(tiling, "resnorm_plan", lambda *a, **k: plan):

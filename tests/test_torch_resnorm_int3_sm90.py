@@ -7,10 +7,10 @@ The CUDA kernels run only on the card (tests/test_torch_gpu.py,
 chip_smoke.py).  Here a torch emulation of each scheme is held to the
 plain version:
 
-- row 14: the plan's row partition -- thread t of the NT threads that
-  share a row holds chunk j of VEC floats at (j NT + t) VEC -- each
+- row 14: the plan's row partition -- thread t of the RT threads that
+  share a row holds chunk j of VEC floats at (j RT + t) VEC -- each
   thread's moments in j order, the xor butterfly of a warp, the block's
-  warps in order, the cluster's blocks in rank order; the sum bitwise, h
+  warps in order; the sum bitwise, h
   within 1e-6 of ``fused_residual_norm_plain`` (f32 sums in another
   order);
 - row 9: the body's tiles (64 q rows, 64-key tiles, the per-key mask,
@@ -42,44 +42,38 @@ EPS = 1e-6
 
 # ---------------- (a) row 14's plan ----------------
 
-@pytest.mark.parametrize("m,d,want", [
-    # (scheme, row threads, words, vec, cluster) with 16-byte pointers
-    (1, 1, ("warp", 32, 1, 1, 1)),
-    (4, 1, ("warp", 32, 1, 1, 1)),
-    (4096, 1, ("warp", 32, 1, 1, 1)),
-    (1, 200, ("warp", 32, 8, 4, 1)),
-    (64, 200, ("warp", 32, 8, 4, 1)),
-    (4096, 200, ("warp", 32, 8, 4, 1)),
-    (4, 768, ("warp", 32, 32, 4, 1)),
-    (4096, 768, ("warp", 32, 32, 4, 1)),           # bert
-    (1, 4096, ("block", 256, 4, 4, 4)),
-    (4, 4096, ("block", 256, 4, 4, 4)),            # a yi-6b decode tick
-    (33, 4096, ("block", 256, 4, 4, 4)),
-    (34, 4096, ("block", 256, 8, 4, 2)),
-    (64, 4096, ("block", 256, 8, 4, 2)),           # a yi-6b prefill chunk
-    (67, 4096, ("block", 256, 16, 4, 1)),
-    (4096, 4096, ("block", 256, 16, 4, 1)),
-    (4, 1100, ("block", 256, 8, 4, 1)),            # too short to spread
-    (4, 14000, ("stream", 256, 0, 4, 1)),
-    (4096, 14000, ("stream", 256, 0, 4, 1)),
+@pytest.mark.parametrize("d,want", [
+    # (scheme, row threads, words, vec) with 16-byte pointers
+    (1, ("warp", 32, 1, 1)),
+    (3, ("warp", 32, 1, 1)),
+    (200, ("warp", 32, 8, 4)),
+    (203, ("warp", 32, 8, 1)),
+    (768, ("warp", 32, 32, 4)),                # bert
+    (1024, ("warp", 32, 32, 4)),
+    (1028, ("block", 256, 8, 4)),
+    (1100, ("block", 256, 8, 4)),
+    (4096, ("block", 256, 16, 4)),             # yi-6b
+    (4097, ("block", 256, 32, 1)),
+    (8192, ("block", 256, 32, 4)),
+    (8196, ("stream", 256, 0, 4)),
+    (14000, ("stream", 256, 0, 4)),
+    (14001, ("stream", 256, 0, 1)),
 ])
-def test_resnorm_plan_bands(m, d, want):
-    """The bands by d, the cluster by m (m x c within the SMs, a row of at
-    least c x 256 x 4 words), the words a power of two covering the row."""
-    plan = tiling.resnorm_plan(m, d, True, 132)
+def test_resnorm_plan_bands(d, want):
+    """The bands by d, the words a power of two covering the row."""
+    plan = tiling.resnorm_plan(d, True)
     assert tuple(plan) == want
     if plan.words:
-        assert plan.words * plan.row_threads * plan.cluster >= d
+        assert plan.words * plan.row_threads >= d
 
 
-@pytest.mark.parametrize("m,d", [(4, 4096), (64, 4096), (4096, 768),
-                                 (3, 200), (2, 14000), (5, 203)])
-def test_resnorm_plan_four_byte_copies(m, d):
+@pytest.mark.parametrize("d", [4096, 768, 200, 14000, 203, 1])
+def test_resnorm_plan_four_byte_copies(d):
     """Unaligned pointers (or d % 4 != 0) move a float at a time on the
-    same bands, never in a cluster."""
-    plan = tiling.resnorm_plan(m, d, False, 132)
-    aligned = tiling.resnorm_plan(m, d, True, 132)
-    assert plan.vec == 1 and plan.cluster == 1
+    same bands."""
+    plan = tiling.resnorm_plan(d, False)
+    aligned = tiling.resnorm_plan(d, True)
+    assert plan.vec == 1
     assert plan.scheme == aligned.scheme
     assert plan.row_threads == aligned.row_threads
     if d % 4:
@@ -92,7 +86,7 @@ def emulate_resnorm(x, r, g, b, *, kind, eps, plan):
     """(xo, ho) as the kernel computes them on ``plan``: each thread's
     moments over its chunks in order, then the fixed-order fold."""
     m, d = x.shape
-    nt, vec = plan.row_threads * plan.cluster, plan.vec
+    nt, vec = plan.row_threads, plan.vec
     nch = plan.words // vec if plan.words else cdiv(d, nt * vec)
     v = x + r
     held = torch.zeros(m, nch * nt * vec)
@@ -109,16 +103,10 @@ def emulate_resnorm(x, r, g, b, *, kind, eps, plan):
     for o in (16, 8, 4, 2, 1):
         s, ss = s + s[..., lanes ^ o], ss + ss[..., lanes ^ o]
     s, ss = s[..., 0], ss[..., 0]                # (m, warps of the row)
-    if plan.row_threads == 256:                   # warps, then blocks
-        per = s.view(m, plan.cluster, 8), ss.view(m, plan.cluster, 8)
-        blk_s, blk_ss = per[0][..., 0], per[1][..., 0]
-        for w in range(1, 8):
-            blk_s, blk_ss = blk_s + per[0][..., w], blk_ss + per[1][..., w]
-        s, ss = blk_s[:, 0], blk_ss[:, 0]
-        for q in range(1, plan.cluster):
-            s, ss = s + blk_s[:, q], ss + blk_ss[:, q]
-    else:
-        s, ss = s[:, 0], ss[:, 0]
+    s0, ss0 = s[:, 0], ss[:, 0]                   # the warps in order
+    for w in range(1, s.shape[1]):
+        s0, ss0 = s0 + s[:, w], ss0 + ss[:, w]
+    s, ss = s0, ss0
     inv_n = torch.tensor(1.0, dtype=torch.float32) / d
     mu, var = torch.zeros_like(s), ss * inv_n
     if kind == "layer":
@@ -131,9 +119,10 @@ def emulate_resnorm(x, r, g, b, *, kind, eps, plan):
 
 @pytest.mark.parametrize("kind", ["rms", "layer"])
 @pytest.mark.parametrize("m,d,aligned", [
-    (4, 4096, True), (64, 4096, True), (6, 4096, False),   # yi: clusters
+    (4, 4096, True), (64, 4096, True), (6, 4096, False),   # yi: blocks
     (37, 768, True), (3, 200, True), (5, 203, True),       # bert, warps
-    (2, 14000, True), (2, 14001, False), (7, 1, True)])    # stream, edges
+    (2, 14000, True), (2, 14001, False), (7, 1, True),     # stream, edges
+    (3, 1100, True)])
 def test_resnorm_emulated_scheme_vs_plain(kind, m, d, aligned):
     rs = np.random.RandomState(61)
     x = torch.from_numpy(rs.randn(m, d).astype(np.float32) * 3)
@@ -141,7 +130,7 @@ def test_resnorm_emulated_scheme_vs_plain(kind, m, d, aligned):
     g = torch.from_numpy(1 + 0.1 * rs.randn(d).astype(np.float32))
     b = torch.from_numpy(0.1 * rs.randn(d).astype(np.float32)) \
         if kind == "layer" else None
-    plan = tiling.resnorm_plan(m, d, aligned, 132)
+    plan = tiling.resnorm_plan(d, aligned)
     xo, ho = emulate_resnorm(x, r, g, b, kind=kind, eps=EPS, plan=plan)
     pxo, pho = fn.fused_residual_norm_plain(x, r, g, b, kind=kind, eps=EPS)
     assert torch.equal(xo, pxo)

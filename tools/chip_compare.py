@@ -3,7 +3,6 @@ in turns (parent, change, change, parent), inside one call to the card.
 
     python tools/chip_compare.py kernels TREE TAG [ROWS [DIR]]  # rows 1-9,
                                                   # 12-14
-    python tools/chip_compare.py resnorm_probe TREE TAG  # row 14 by cluster
     python tools/chip_compare.py words DIR TAG TAG  # words two trees saved
     python tools/chip_compare.py paged_probe TREE TAG  # rows 3 / 4, G, splits
     python tools/chip_compare.py tick TREE          # long-context serve
@@ -36,14 +35,13 @@ in the tree's build; row 9 (flash_int3) at bert-base's shape (B8 S = T =
 512 K12 h64, non-causal), with the digest of its identity-v outputs on
 seeded random q and k (every output one probability word: the same score
 FMA order leaves them the same bits in every tree), and row 14
-(fused_residual_norm) at yi-6b's tick and chunk (M 4 and 64, d 4096, rms)
-and bert-base's (M 4096, d 768, layer), beside its two-call equivalent
+(fused_residual_norm) at yi-6b's tick and chunk (M 4 and 64, d 4096, rms),
+bert-base's (M 4096, d 768, layer) and llama-3.2-vision's bucket-4096
+prefill (M 4096, d 4096, rms), beside its two-call equivalent
 (torch.add, then F.rms_norm or F.layer_norm) and with its host time to
 issue a call.  ROWS (a comma list, default all twelve) picks some;
 with DIR, the digested words also go to DIR/words_TAG.pt, and ``words``
-counts the words that differ between two tags' files.  ``resnorm_probe``
-times row 14 under CUDA-graph replay at yi-6b's tick and chunk with the
-plan's row spread over clusters of 1, 2 and 4 blocks.  ``paged_probe``
+counts the words that differ between two tags' files.  ``paged_probe``
 times rows 3 and 4 under CUDA-graph replay by split count at yi-6b's
 tick geometry for G 1, 2, 4 and 8, and at qwen1.5-0.5b's.  Every tree runs on
 the timers of this checkout's chip_smoke.py.  ``tick`` runs the tree's
@@ -300,28 +298,20 @@ def _int3_row(tag: str, timers, randn, saved: dict) -> None:
                           words_digest=_digest(*words))), flush=True)
 
 
-def _resnorm_shapes(randn):
-    """Row 14's operands at yi-6b's tick and chunk and bert-base's shape:
-    name -> (x, r, g, b, kind)."""
-    shapes = {}
-    for name, (m, d, kind) in {"yi M4": (4, 4096, "rms"),
-                               "yi M64": (64, 4096, "rms"),
-                               "bert": (4096, 768, "layer")}.items():
-        x, r = randn(m, d, scale=3.0), randn(m, d)
-        g = 1.0 + randn(d, scale=0.1)
-        b = randn(d, scale=0.1) if kind == "layer" else None
-        shapes[name] = (x, r, g, b, kind)
-    return shapes
-
-
 def _resnorm_rows(tag: str, timers, randn) -> None:
-    """Row 14 through the tree's wrapper, beside its two-call equivalent,
-    with the host's time to issue a call."""
+    """Row 14 through the tree's wrapper at yi-6b's tick and chunk,
+    bert-base's shape and llama-3.2-vision's bucket-4096 prefill, beside
+    its two-call equivalent, with the host's time to issue a call."""
     import torch
     from repro_torch.kernels import fused_norm as fn
     F = torch.nn.functional
-    for name, (x, r, g, b, kind) in _resnorm_shapes(randn).items():
-        d = x.shape[-1]
+    for name, (m, d, kind) in {"yi M4": (4, 4096, "rms"),
+                               "yi M64": (64, 4096, "rms"),
+                               "bert": (4096, 768, "layer"),
+                               "vision M4096": (4096, 4096, "rms")}.items():
+        x, r = randn(m, d, scale=3.0), randn(m, d)
+        g = 1.0 + randn(d, scale=0.1)
+        b = randn(d, scale=0.1) if kind == "layer" else None
 
         def fn_():
             return fn.fused_residual_norm(x, r, g, b, kind=kind, eps=1e-6)
@@ -337,36 +327,6 @@ def _resnorm_rows(tag: str, timers, randn) -> None:
             two_calls_ms=timers.time_ms(two),
             two_calls_graph_ms=timers.graph_ms(two),
             out_digest=_digest(*fn_()))), flush=True)
-
-
-def resnorm_probe(tree: str, tag: str) -> None:
-    """Row 14 through the tree's wrapper under CUDA-graph replay (µs) at
-    yi-6b's tick and chunk, the plan's cluster replaced by 1, 2 and 4
-    blocks a row (the words a thread follow); one JSON line a shape."""
-    _load(tree)
-    import torch
-    from unittest import mock
-    from repro_torch.kernels import fused_norm as fn
-    from repro_torch.kernels import tiling
-    timers = _timers()
-    gen = torch.Generator(device="cpu").manual_seed(14)
-
-    def randn(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to("cuda")
-    for name, (x, r, g, b, kind) in _resnorm_shapes(randn).items():
-        m, d = x.shape
-        if d != 4096:
-            continue
-        plan = tiling.resnorm_plan(m, d, True, 132)
-        us = {}
-        for c in (1, 2, 4):
-            forced = plan._replace(cluster=c, words=d // (256 * c))
-            with mock.patch.object(tiling, "resnorm_plan",
-                                   lambda *a, forced=forced, **k: forced):
-                us[c] = 1e3 * timers.graph_ms(lambda: fn.fused_residual_norm(
-                    x, r, g, b, kind=kind, eps=1e-6))
-        print(json.dumps(dict(tag=tag, shape=name, plan=tuple(plan),
-                              graph_us_by_cluster=us)), flush=True)
 
 
 def _paged_rows(tag: str, rows: set, timers, randn) -> None:
@@ -585,5 +545,4 @@ def vision(tree: str) -> None:
 if __name__ == "__main__":
     mode, *args = sys.argv[1:]
     {"kernels": kernels, "words": words, "tick": tick, "qwen": qwen, "yi": yi,
-     "bert": bert, "vision": vision, "paged_probe": paged_probe,
-     "resnorm_probe": resnorm_probe}[mode](*args)
+     "bert": bert, "vision": vision, "paged_probe": paged_probe}[mode](*args)
