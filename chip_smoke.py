@@ -48,7 +48,8 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             CUDA-graph replay, and held to the same bits over two calls;
             the GLU's chunk also at each K split count); the unit and paged
             decode kernels at h 128, G 8 (rows 3 / 4 also timed there, at
-            the plan's splits).  Then,
+            the plan's splits, row 3 beside SDPA over the gathered cache);
+            the residual norm's wrapper host time split by part.  Then,
             with the qwen weights freed, ServeEngine on full-width yi-6b
             (random weights from a seeded generator), float and dual-mode
             with norm_impl / ffn_impl 'fused_pallas', paged cache at max_seq
@@ -84,9 +85,13 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             64, non-causal) and at edge shapes (causal with ragged
             kv_valid, S != T, G 8 / h 128, a row whose one visible key is
             masked, 70000 keys), bitwise on the grid-valued identity-v
-            probe; the unit's row softmax on 49152 rows of 512, its GELU
-            mode on 4096 x 3072, the residual-norm and norm -> QKV seams
-            with kind='layer' at d 768, timed beside their bounds.  Then,
+            probe, held to the same bits over two calls and timed back to
+            back and under CUDA-graph replay beside two bounds (the float
+            work alone, and that plus the int instructions a score its
+            entry's SASS counts); the unit's row softmax on 49152 rows of
+            512, its GELU mode on 4096 x 3072, the residual-norm and norm
+            -> QKV seams with kind='layer' at d 768, timed beside their
+            bounds.  Then,
             with the training state freed, lm_apply(..., return_hidden=True)
             on full-width bert-base (random weights from a seeded
             generator, 8 x 512 tokens, norm_impl 'fused_pallas') in four
@@ -132,8 +137,9 @@ The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
 each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]"),
 row 5 ("[decode dense]"), row 8 ("[flash snap]"), row 6 ("[decode
-dense int]") and rows 3 / 4 ("[decode paged]") at every shape they were
-timed at, and a
+dense int]"), rows 3 / 4 ("[decode paged]") and row 9 ("[flash int3]")
+at every shape they were timed at, a "[resnorm host]" line (row 14's
+wrapper, µs a call to issue, by part), and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
 F.silu, F.gelu) and row 14 at yi's and bert's (beside its two-call
@@ -142,7 +148,8 @@ computes it, so its library_ms is null), each back to back and under
 CUDA-graph replay.  After the build, a "[sass]" line counts the
 instructions of rows 1 and 2's int entries (cuobjdump -sass), and another
 the int instructions a score that row 8's entries add over row 7's, which
-row 8's bound counts at the f32 rate.
+row 8's bound counts at the f32 rate, and a third those of row 9's
+entries, for row 9's int-aware bound.
 Without a CUDA device the script exits non-zero before printing any
 result.
 """
