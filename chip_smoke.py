@@ -23,6 +23,20 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             launched.  Then one prefill chunk and the first decode step at
             full width through the kernels against the same step with the
             plain versions called in their place.
+   pressure the same model and prompts with 144 new tokens each (every
+            request grows its table past a 128-token block) on an ample
+            pool, then on a pool of half the worst-case demand of 4 slots
+            (as serve.faults sizes it) with preempt_mode 'recompute' and
+            'swap', float and dual-mode: every request finishes with all
+            its tokens, the pool drains, nothing starves, each tight run
+            preempts (the swap runs swap out and in) and launches every
+            kernel of the path; swap streams equal the ample run's token
+            for token, and a recompute stream that diverges does so only
+            where the ample run's top-2 logit margin is under the mode's
+            logit limit (RECOMPUTE_MARGIN).  ms a tick, preemptions and
+            swap bytes and seconds are logged ("[pressure]").  Then
+            serve.faults.chaos_soak at full width (float, recompute and
+            swap, max_seq 64): its invariants hold.
 4. long     the long-context kernels (blocked float flash, one-sweep snapped
             int flash, contiguous split-KV decode float and int) against
             their plain versions at the long-context path's shapes and at
@@ -945,12 +959,167 @@ def serve_phase(dev, launches):
             fail(f"{name}: unfinished requests {outs}")
         if eng.pool.in_use() != 0:
             fail(f"{name}: pool did not drain ({eng.pool.in_use()} blocks)")
-        if eng.stats["nonfinite"]:
-            fail(f"{name}: {eng.stats['nonfinite']} non-finite logit rows")
+        if eng.stats["numeric"]:
+            fail(f"{name}: {eng.stats['numeric']} non-finite rows quarantined")
         for k in kernels:
             if counts[k] == 0:
                 fail(f"{name}: kernel {k} never launched on its path")
         parity(cfg, params, dev, prompts[0])
+    return params, prompts
+
+
+# ---------------- phase 3b: serving under pressure ----------------
+
+PRESSURE_NEW = 144       # past a 128-token block: every request grows
+PRESSURE_POOL_FRAC = 0.5  # of a full slot complement's worst-case demand
+# The recompute rule, stated before the first chip run: a recompute
+# resume writes the generated tokens' K/V through a 64-row chunk where
+# decode wrote them through a 4-row tick, so their last bits may differ
+# and a greedy token may flip at a near tie.  Identical streams are
+# expected; where one diverges, the ample run's top-2 logit margin at the
+# first divergent token must be under the full-width logit limit of the
+# mode (the bound on how far an f32 summation order moves the logits),
+# else the phase fails.  Swap restores the bytes it saved: no divergence.
+RECOMPUTE_MARGIN = {"float": TOL_LOGITS_F, "dualmode": TOL_LOGITS_D}
+
+
+def margin_spy(eng) -> dict:
+    """Wrap ``eng``'s prefill and decode steps to record the top-2 logit
+    margin of every token it samples: {(rid, token index): margin}."""
+    margins: dict = {}
+    decode, prefill = eng.decode_logits, eng.prefill_chunk_logits
+
+    def top2(logits):
+        t = logits.topk(2, dim=-1).values
+        return (t[:, 0] - t[:, 1]).tolist()
+
+    def decode_logits(tokens, pos, tables=None):
+        logits = decode(tokens, pos, tables)
+        m = top2(logits)
+        for i, s in enumerate(eng._slots):
+            if s.decoding:
+                margins[(s.rid, len(s.prior_out) + len(s.out))] = m[i]
+        return logits
+
+    def prefill_chunk_logits(tokens, pos, tables, last_idx):
+        _, i = min((s.seq, i) for i, s in enumerate(eng._slots)
+                   if not s.free and s.prompt is not None)
+        s = eng._slots[i]
+        logits = prefill(tokens, pos, tables, last_idx)
+        if pos + eng.prefill_chunk >= len(s.prompt):
+            margins[(s.rid, len(s.prior_out))] = top2(logits)[0]
+        return logits
+
+    eng.decode_logits = decode_logits
+    eng.prefill_chunk_logits = prefill_chunk_logits
+    return margins
+
+
+def pressure_phase(dev, launches, params, prompts):
+    """The serve phase's model and prompts, 144 new tokens each: an ample
+    pool, then a pool of half the worst-case demand of 4 slots (as
+    faults._setup sizes it) under preempt_mode 'recompute' and 'swap',
+    float and dual-mode; then the chaos soak at full width."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build, tiling
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import faults
+    base = registry.get_config("qwen1.5-0.5b")
+    bs = tiling.paged_block_size(2048)
+    worst = max(tiling.cdiv(min(len(p) + PRESSURE_NEW, 2048), bs)
+                for p in prompts)
+    tight = max(worst, int(PRESSURE_POOL_FRAC * 4 * worst)) + 1
+    reach = [tiling.cdiv(len(p), bs) for p in prompts]
+    log(f"[pressure] qwen1.5-0.5b full width, max_seq 2048, block {bs}, "
+        f"4 slots, {len(prompts)} prompts of {[len(p) for p in prompts]} "
+        f"tokens (reach {reach} blocks), {PRESSURE_NEW} new each; tight "
+        f"pool {tight} blocks with the sentinel (worst case {worst} a "
+        f"request)")
+    for name, (sm, act, kernels) in PATHS.items():
+        cfg = base.replace(softmax_impl=sm, activation=act)
+        runs = {}
+        for run, kw in (("ample", {}),
+                        ("recompute", dict(num_blocks=tight)),
+                        ("swap", dict(num_blocks=tight,
+                                      preempt_mode="swap"))):
+            eng = ServeEngine(cfg, params, n_slots=4, max_seq=2048,
+                              device=dev, **kw)
+            margins = margin_spy(eng) if run == "ample" else None
+            reqs = [Request(rid=i, prompt=p, max_new=PRESSURE_NEW)
+                    for i, p in enumerate(prompts)]
+            for k in _build.KERNELS.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = eng.run(reqs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {k: v.launches for k, v in _build.KERNELS.items()}
+            for k in kernels:
+                launches[k] = launches.get(k, 0) + counts[k]
+            st = eng.stats
+            log(f"[pressure] {name} {run}: {dt:.2f} s, "
+                f"{st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick "
+                f"({st['decode_steps']} ticks), "
+                f"{st['prefill_s'] * 1e3 / st['prefill_chunks']:.1f} "
+                f"ms/chunk ({st['prefill_chunks']} chunks); preemptions "
+                f"{st['preemptions']}, resumes {st['resumes']}, swap "
+                f"out/in {st['swap_outs']}/{st['swap_ins']} "
+                f"({st['swap_bytes'] / 1e9:.3f} GB, {st['swap_s']:.3f} s), "
+                f"hol_skips {st['hol_skips']}, blocked {st['admit_blocked']},"
+                f" blocks_hwm {st['blocks_hwm']}; launches "
+                f"{ {k: counts[k] for k in kernels} }")
+            if any(len(outs.get(r.rid, [])) != PRESSURE_NEW for r in reqs):
+                fail(f"pressure {name} {run}: unfinished requests "
+                     f"{ {r: len(v) for r, v in outs.items()} }")
+            if eng.pool.in_use() != 0 or st["starved"] or st["numeric"]:
+                fail(f"pressure {name} {run}: pool {eng.pool.in_use()}, "
+                     f"starved {st['starved']}, numeric {st['numeric']}")
+            for k in kernels:
+                if counts[k] == 0:
+                    fail(f"pressure {name} {run}: kernel {k} never "
+                         "launched on its path")
+            if run == "ample" and st["preemptions"]:
+                fail(f"pressure {name}: the ample pool preempted")
+            if run != "ample" and not st["preemptions"]:
+                fail(f"pressure {name} {run}: the tight pool never "
+                     "preempted")
+            if run == "swap" and not (st["swap_outs"] and st["swap_ins"]):
+                fail(f"pressure {name} swap: no swap out and in")
+            runs[run] = (outs, margins)
+        ample, margins = runs["ample"]
+        for run in ("recompute", "swap"):
+            outs = runs[run][0]
+            for rid in sorted(ample):
+                a, b = ample[rid], outs[rid]
+                if a == b:
+                    continue
+                k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+                m = margins[(rid, k)]
+                log(f"[pressure] {name} {run}: rid {rid} diverges at token "
+                    f"{k} ({a[k]} vs {b[k]}); ample top-2 margin {m:.3e} "
+                    f"(limit {RECOMPUTE_MARGIN[name]:.0e})")
+                if run == "swap" or m >= RECOMPUTE_MARGIN[name]:
+                    fail(f"pressure {name} {run}: rid {rid} diverges at "
+                         f"token {k} with a top-2 margin of {m:.3e}")
+            log(f"  ok {name} {run}: streams "
+                f"{'identical' if outs == ample else 'within the rule'} "
+                "to the ample run's")
+        torch.cuda.empty_cache()
+    cfg = base.replace(softmax_impl="float", activation="silu")
+    for mode in ("recompute", "swap"):
+        t0 = time.perf_counter()
+        report = faults.chaos_soak(seed=0, preempt_mode=mode, device=dev,
+                                   model=(cfg, params))
+        log(f"[pressure] chaos soak float {mode}, full width, max_seq 64: "
+            f"{'OK' if report['ok'] else 'FAIL'} in "
+            f"{time.perf_counter() - t0:.1f} s; {report['injections']} "
+            f"injections, affected {report['affected']}, reasons "
+            f"{report['reasons']}, stats {report['stats']}")
+        if not report["ok"]:
+            fail(f"chaos soak {mode}: {report['violations']}")
+        if not report["stats"]["preemptions"]:
+            fail(f"chaos soak {mode}: no preemption")
 
 
 def _plain_norm_provider():
@@ -1415,8 +1584,8 @@ def long_serve_phase(dev, launches):
             f"{st['cache_copies']}; launches {counts}")
         if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
             fail(f"long {name}: unfinished requests")
-        if st["nonfinite"]:
-            fail(f"long {name}: {st['nonfinite']} non-finite logit rows")
+        if st["numeric"]:
+            fail(f"long {name}: {st['numeric']} non-finite rows quarantined")
         for k in kernels:
             if counts[k] == 0:
                 fail(f"long {name}: kernel {k} never launched on its path")
@@ -1767,8 +1936,8 @@ def yi_serve_phase(dev, launches):
             fail(f"yi {name}: unfinished requests")
         if eng.pool.in_use() != 0:
             fail(f"yi {name}: pool did not drain ({eng.pool.in_use()} blocks)")
-        if st["nonfinite"]:
-            fail(f"yi {name}: {st['nonfinite']} non-finite logit rows")
+        if st["numeric"]:
+            fail(f"yi {name}: {st['numeric']} non-finite rows quarantined")
         for k in kernels:
             if counts[k] == 0:
                 fail(f"yi {name}: kernel {k} never launched on its path")
@@ -3031,8 +3200,8 @@ def vision_serve_phase(dev, launches):
             f"launches {counts}")
         if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
             fail(f"vision {name}: unfinished requests")
-        if st["nonfinite"]:
-            fail(f"vision {name}: {st['nonfinite']} non-finite logit rows")
+        if st["numeric"]:
+            fail(f"vision {name}: {st['numeric']} non-finite rows quarantined")
         n_pre, n_dec = st["prefills"], st["decode_steps"]
         per = {k: tuple(n_layers[w] for w in v) for k, v in per_kernel.items()}
         for k, n in counts.items():
@@ -3132,7 +3301,10 @@ def main() -> int:
     results: dict = {"snap_sass": snap_sass, "int3_sass": int3_sass}
     kernel_phase(dev, results)
     launches: dict = {}
-    serve_phase(dev, launches)
+    qwen = serve_phase(dev, launches)
+    pressure_phase(dev, launches, *qwen)
+    del qwen
+    torch.cuda.empty_cache()
     long_kernel_phase(dev, results)
     long_serve_phase(dev, launches)
     yi_kernel_phase(dev, results)

@@ -9,7 +9,13 @@ cpu`` runs the plain versions).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama-3.2-vision-11b --max-seq 4096
 
-Full width by default; ``--reduced`` takes the arch's smoke config.  The
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+        --device cpu --max-seq 64 --num-blocks 7 --preempt-mode swap
+
+Full width by default; ``--reduced`` takes the arch's smoke config.  A
+``--num-blocks`` under the traffic's demand makes the paged engine
+preempt (``--preempt-mode``, ``--preempt-policy``); ``--admission``,
+``--hol-window`` and ``--deadline-s`` are the reference launcher's.  The
 requests are text-only, as the reference launcher's: on
 llama-3.2-vision they attend over a zero cross cache ('auto' picks the
 contiguous cache there).
@@ -77,6 +83,28 @@ def main() -> None:
                          "(0 = slots * max_blocks + 1)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prefill chunk length in tokens (0 = 64)")
+    ap.add_argument("--admission", default="reactive",
+                    choices=("reactive", "worst_case"),
+                    help="paged admission: 'reactive' reserves only the "
+                         "prompt's block reach and grows per decode tick "
+                         "(preempting under pool pressure), 'worst_case' "
+                         "reserves prompt + max_new up front so admitted "
+                         "requests never preempt")
+    ap.add_argument("--preempt-policy", default="youngest",
+                    choices=("youngest", "oldest"),
+                    help="victim choice under pool pressure (always "
+                         "lowest priority first; this orders ties)")
+    ap.add_argument("--preempt-mode", default="recompute",
+                    choices=("recompute", "swap"),
+                    help="'recompute' drops a victim's blocks and "
+                         "prefills again on resume; 'swap' copies them to "
+                         "host memory and restores the exact bytes")
+    ap.add_argument("--hol-window", type=int, default=4,
+                    help="queue entries a pool-blocked head request can "
+                         "be skipped past at admission (1 = strict FCFS)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request deadline in seconds (0 = none); "
+                         "expired requests retire with reason 'deadline'")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu'")
     ap.add_argument("--seed", type=int, default=0)
@@ -101,7 +129,11 @@ def main() -> None:
                       block_size=args.block_size or None,
                       num_blocks=args.num_blocks or None,
                       prefill_chunk=args.prefill_chunk or None,
-                      cache_mode=args.cache_mode, device=dev)
+                      cache_mode=args.cache_mode,
+                      admission=args.admission,
+                      preempt_policy=args.preempt_policy,
+                      preempt_mode=args.preempt_mode,
+                      hol_window=args.hol_window, device=dev)
     layout = (f"block={eng.block_size} pool={eng.num_blocks} chunk="
               f"{eng.prefill_chunk}" if eng.cache_mode == "paged"
               else f"buckets={eng.buckets}")
@@ -115,7 +147,8 @@ def main() -> None:
         plen = int(rng.randint(2, 16))
         reqs.append(Request(rid=i, prompt=rng.randint(
             0, cfg.vocab - 1, size=plen).tolist(), max_new=args.max_new,
-            temperature=args.temperature))
+            temperature=args.temperature,
+            deadline_s=args.deadline_s or None))
     t0 = time.perf_counter()
     outs = eng.run(reqs)
     if dev.type == "cuda":

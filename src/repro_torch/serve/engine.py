@@ -2,12 +2,12 @@
 or a contiguous KV cache (counterpart of ``repro.serve.engine``).
 
 ``paged`` (the default for the attention-only archs the port runs) --
-per engine step: admit queued requests into free slots (reactive
-admission: reserve each prompt's block reach with ``BlockPool.reserve``,
-sharing full prompt blocks already cached), advance the oldest
-mid-prefill slot by one ``prefill_chunk``-token chunk, grow every
-decoding slot's block table to cover its next write (``ensure_reach``),
-then run one lockstep decode tick over all decoding slots.
+per engine step: check every occupied slot's table row against its host
+block list, expire deadlines, admit queued requests into free slots,
+advance the oldest mid-prefill slot by one ``prefill_chunk``-token chunk,
+grow every decoding slot's block table to cover its next write
+(``ensure_reach``), then run one lockstep decode tick over all decoding
+slots.
 
 ``contiguous`` -- per-slot (n_slots, max_seq, ...) rows: a request is
 admitted by a whole-prompt prefill at batch 1, padded to the smallest
@@ -30,13 +30,33 @@ phase through the dispatch registry, for the engine's device, at the
 phase's widest shape: paged (prefill_chunk, table extent) and (1, table
 extent); contiguous (largest bucket, max_seq) and (1, max_seq).
 
-Not in the port yet (a later slice brings them): preemption (recompute
-or swap), deadlines, skip-ahead admission (``hol_window``), the per-step
-isfinite quarantine, the fault harness, and the other archs that need
-the contiguous cache (mamba / rwkv state, encoder-decoder stacks).  Where
-a decode tick would need a preemption -- the pool cannot grow a slot's
-table -- the engine raises NotImplementedError instead of dropping or
-stalling the request.
+Serving under pressure (paged mode), as the reference serves it:
+``admission='reactive'`` (the default) reserves only a request's PROMPT
+reach (``BlockPool.reserve``, sharing full prompt blocks already cached)
+and grows its table a block at a time before the decode tick writes past
+it; ``'worst_case'`` reserves prompt + max_new up front.  When the pool
+cannot grow a slot, the engine preempts a victim (``preempt_policy``:
+lowest priority first, then the youngest or oldest admission; a grower
+that would have to evict a slot of higher priority yields instead),
+either dropping its blocks so that prompt + generated tokens re-enter
+the queue head as one chunked prefill (``preempt_mode='recompute'``) or
+copying its blocks' K/V rows to host memory, pinned on a GPU, and
+restoring them on resume (``'swap'``).  Admission may skip past a
+blocked queue head to the first entry within ``hol_window`` that fits
+(1 = strict FCFS).  Requests carry a ``deadline_s`` budget on the
+injected ``clock`` and a ``priority``.  Each step checks the host tables
+(a mismatch retires the slot, reason ``'corrupt'``) and every sampled
+row's logits (a non-finite row retires only its slot, reason
+``'numeric'``; sampling at temperature > 0 draws from a generator keyed
+by (seed, engine step, slot index), so the neighbours' draws do not
+move).  ``run(max_steps)`` finishes whatever is left when the steps run
+out with reason ``'starved'``.  ``finished[rid]`` always holds every
+token a request produced, across its preemptions, and
+``reasons[rid]`` why it left.  Faults are injected through
+``repro_torch.serve.faults``.
+
+Not in the port yet: the other archs that need the contiguous cache
+(mamba / rwkv state, encoder-decoder stacks) and a device mesh.
 """
 from __future__ import annotations
 
@@ -76,6 +96,28 @@ class Request:
     max_new: int = 32
     temperature: float = 0.0
     cross_src: Any = None            # (1, n_img_tokens, d) image embeddings
+    deadline_s: float | None = None  # wall-clock budget from submission
+    priority: int = 0                # higher = preempted later
+
+
+@dataclasses.dataclass
+class _QEntry:
+    """A queued request: fresh, or preempted and waiting to resume.  A
+    recompute resume carries ``resume_prompt`` (the original prompt and
+    every token generated so far: one chunked prefill rewrites the dropped
+    K/V); a swap resume carries the saved block rows and re-enters decode
+    at ``pos``."""
+    req: Request
+    deadline_at: float | None = None
+    prior_out: list = dataclasses.field(default_factory=list)
+    resume_prompt: list | None = None
+    swap: Any = None                 # {'saved': per-layer host rows, 'n'}
+    pos: int = 0                     # swap resume: decode depth
+    out: list = dataclasses.field(default_factory=list)  # swap resume
+
+    @property
+    def is_resume(self) -> bool:
+        return self.resume_prompt is not None or self.swap is not None
 
 
 @dataclasses.dataclass
@@ -91,6 +133,12 @@ class _Slot:
     filled: int = 0
     blocks: list = dataclasses.field(default_factory=list)
     seq: int = 0                     # admission order (FCFS prefill)
+    # the original prompt and the tokens of earlier incarnations (before
+    # a preemption): `finished[rid]` is always prior_out + out
+    full_prompt: list = dataclasses.field(default_factory=list)
+    prior_out: list = dataclasses.field(default_factory=list)
+    priority: int = 0
+    deadline_at: float | None = None
 
     @property
     def free(self) -> bool:
@@ -113,11 +161,22 @@ class ServeEngine:
                  prefill_buckets: tuple[int, ...] = (32, 128, 512),
                  block_size: int | None = None,
                  num_blocks: int | None = None,
-                 prefill_chunk: int | None = None, device=None):
+                 prefill_chunk: int | None = None,
+                 admission: str = "reactive",
+                 preempt_policy: str = "youngest",
+                 preempt_mode: str = "recompute",
+                 hol_window: int = 4,
+                 faults=None, clock=None, device=None):
         self.device = resolve_device(device)
         check_on(self.device, embed=params["embed"])
         if cache_mode not in ("auto", "paged", "contiguous"):
             raise ValueError(f"unknown cache_mode {cache_mode!r}")
+        if admission not in ("reactive", "worst_case"):
+            raise ValueError(f"unknown admission {admission!r}")
+        if preempt_policy not in ("youngest", "oldest"):
+            raise ValueError(f"unknown preempt_policy {preempt_policy!r}")
+        if preempt_mode not in ("recompute", "swap"):
+            raise ValueError(f"unknown preempt_mode {preempt_mode!r}")
         check_supported(cfg)
         if cache_mode == "paged" and not paged_supported(cfg):
             raise ValueError(
@@ -128,6 +187,13 @@ class ServeEngine:
         self.cfg, self.params = cfg, params
         self.n_slots, self.max_seq = n_slots, max_seq
         self.eos_id = eos_id
+        self.admission = admission
+        self.preempt_policy = preempt_policy
+        self.preempt_mode = preempt_mode
+        self.hol_window = max(1, hol_window)
+        self.faults = faults
+        self._now = clock or time.monotonic
+        self.seed = seed
         self.buckets = tuple(b for b in sorted(prefill_buckets)
                              if b <= max_seq) or (max_seq,)
         if self.cache_mode == "paged":
@@ -166,17 +232,19 @@ class ServeEngine:
                                        softmax_impl=self.decode_softmax_impl)
         self._slots = [_Slot() for _ in range(n_slots)]
         self._admit_seq = 0
-        self._queue: list[Request] = []
-        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._queue: list[_QEntry] = []
         self.finished: dict[int, list[int]] = {}
         self.reasons: dict[int, str] = {}
         self._last_tok = torch.zeros((n_slots, 1), dtype=torch.long,
                                      device=self.device)
         self.stats = {"prefills": 0, "decode_steps": 0, "admitted": 0,
                       "prefill_chunks": 0, "cache_copies": 0,
-                      "shared_blocks": 0,
-                      "blocks_hwm": 0, "engine_steps": 0, "nonfinite": 0,
-                      "prefill_s": 0.0, "decode_s": 0.0}
+                      "shared_blocks": 0, "blocks_hwm": 0, "engine_steps": 0,
+                      "preemptions": 0, "swap_outs": 0, "swap_ins": 0,
+                      "resumes": 0, "hol_skips": 0, "admit_blocked": 0,
+                      "numeric": 0, "corrupt": 0, "deadlines": 0,
+                      "starved": [], "prefill_s": 0.0, "decode_s": 0.0,
+                      "swap_s": 0.0, "swap_bytes": 0}
 
     # ---- compiled-step counterparts ----
 
@@ -216,17 +284,17 @@ class ServeEngine:
             raise ValueError("empty prompt")
         if self.cache_mode == "contiguous":
             self._bucket(n)
-            self._queue.append(req)
-            return
-        if n > self.max_seq:
-            raise ValueError(f"prompt length {n} exceeds max_seq "
-                             f"{self.max_seq}")
-        need = tiling.cdiv(min(n + max(req.max_new, 0), self.max_seq),
-                           self.block_size)
-        if need > self.num_blocks - 1:
-            raise ValueError(f"request needs {need} blocks, exceeds pool "
-                             f"of {self.num_blocks - 1}")
-        self._queue.append(req)
+        else:
+            if n > self.max_seq:
+                raise ValueError(f"prompt length {n} exceeds max_seq "
+                                 f"{self.max_seq}")
+            need = self._blocks_needed(req)
+            if need > self.num_blocks - 1:
+                raise ValueError(f"request needs {need} blocks, exceeds "
+                                 f"pool of {self.num_blocks - 1}")
+        ddl = (None if req.deadline_s is None
+               else self._now() + req.deadline_s)
+        self._queue.append(_QEntry(req=req, deadline_at=ddl))
 
     def _bucket(self, n: int) -> int:
         """The smallest prefill bucket that holds an n-token prompt."""
@@ -239,16 +307,67 @@ class ServeEngine:
         raise ValueError(f"prompt length {n} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
+    def _blocks_needed(self, req: Request) -> int:
+        """Worst-case table entries: prompt + max_new tokens, clipped by
+        the max_seq retire guard."""
+        cap = min(len(req.prompt) + max(req.max_new, 0), self.max_seq)
+        return tiling.cdiv(max(cap, 1), self.block_size)
+
+    def _sample(self, logits: torch.Tensor, i: int, phase: int) -> int:
+        """Slot ``i``'s token from its (V,) logits.  At temperature > 0
+        the draw comes from a generator keyed by (seed, engine step, slot
+        index, phase: 0 prefill completion, 1 decode tick), so retiring
+        one slot moves no other slot's draw."""
+        s = self._slots[i]
+        if s.temperature <= 0.0:
+            return sample_token(logits, s.temperature)
+        key = np.random.SeedSequence(
+            (self.seed, self.stats["engine_steps"], i, phase))
+        gen = torch.Generator(device=self.device).manual_seed(
+            int(key.generate_state(1)[0]))
+        return sample_token(logits, s.temperature, gen)
+
+    def _finish_queued(self, e: _QEntry, reason: str) -> None:
+        self.finished[e.req.rid] = e.prior_out + e.out
+        self.reasons[e.req.rid] = reason
+
     def _drain_zero_tokens(self) -> None:
-        """Finish max_new <= 0 requests at the queue head with empty
-        outputs: they never take a slot or a prefill."""
-        while self._queue and self._queue[0].max_new <= 0:
-            req = self._queue.pop(0)
-            self.finished[req.rid] = []
-            self.reasons[req.rid] = "max_new"
+        """Finish fresh max_new <= 0 requests at the queue head with empty
+        outputs: they never take a slot or a prefill.  A resume always
+        has tokens left (a done slot retires instead of preempting)."""
+        while (self._queue and not self._queue[0].is_resume
+               and self._queue[0].req.max_new <= 0):
+            self._finish_queued(self._queue.pop(0), "max_new")
             self.stats["admitted"] += 1
 
+    def _expire_queue_deadlines(self) -> None:
+        """Retire queued entries whose budget ran out before they reached
+        a slot (reason 'deadline'; a preempted resume keeps the tokens it
+        produced)."""
+        if not any(e.deadline_at is not None for e in self._queue):
+            return
+        now = self._now()
+        kept = []
+        for e in self._queue:
+            if e.deadline_at is not None and now >= e.deadline_at:
+                self._finish_queued(e, "deadline")
+                self.stats["deadlines"] += 1
+            else:
+                kept.append(e)
+        self._queue = kept
+
+    def _expire_running_deadlines(self) -> None:
+        now = None
+        for i, s in enumerate(self._slots):
+            if s.free or s.deadline_at is None:
+                continue
+            now = self._now() if now is None else now
+            if now >= s.deadline_at:
+                self.stats["deadlines"] += 1
+                self._finish_slot(i, "deadline")
+
     def _admit(self) -> None:
+        self._expire_queue_deadlines()
         self._drain_zero_tokens()
         for i, slot in enumerate(self._slots):
             if not self._queue:
@@ -257,17 +376,37 @@ class ServeEngine:
                 continue
             if self.cache_mode == "contiguous":
                 self._admit_contiguous(i, self._queue.pop(0))
-            elif self._admit_paged(i, self._queue[0]):
-                self._queue.pop(0)
-            else:
-                break                      # strict FCFS: wait for blocks
+            elif not self._admit_paged_window(i):
+                # nothing in the skip-ahead window fits the pool
+                self.stats["admit_blocked"] += 1
+                break
             self._drain_zero_tokens()
 
-    def _admit_contiguous(self, i: int, req: Request) -> None:
+    def _admit_paged_window(self, i: int) -> bool:
+        """Admit the first queue entry within ``hol_window`` that the pool
+        can take: a small request may skip past a blocked large one
+        (stats['hol_skips']).  The admission order still sets the prefill
+        order, so whoever is admitted first registers its prefix first."""
+        for j in range(min(len(self._queue), self.hol_window)):
+            entry = self._queue[j]
+            if j > 0 and not entry.is_resume and entry.req.max_new <= 0:
+                continue            # drains at the head, never via a slot
+            admitted = (self._admit_swapped(i, entry)
+                        if entry.swap is not None
+                        else self._admit_paged(i, entry))
+            if admitted:
+                self._queue.pop(j)
+                if j > 0:
+                    self.stats["hol_skips"] += 1
+                return True
+        return False
+
+    def _admit_contiguous(self, i: int, entry: _QEntry) -> None:
         """Prefill the whole prompt at its bucket into a fresh batch-1 row
         cache, copy that row into slot ``i`` of the batch cache, and
         sample the first token."""
         t0 = time.perf_counter()
+        req = entry.req
         plen = len(req.prompt)
         bucket = self._bucket(plen)
         toks = torch.tensor([req.prompt + [0] * (bucket - plen)],
@@ -283,31 +422,43 @@ class ServeEngine:
                     full[pair]["k"][i].copy_(one[pair]["k"][0])
                     full[pair]["v"][i].copy_(one[pair]["v"][0])
         self.stats["cache_copies"] += 1
-        self._check_logits(logits)
-        s = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,
-                  temperature=req.temperature, seq=self._admit_seq)
-        self._slots[i] = s
+        self._slots[i] = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,
+                               temperature=req.temperature,
+                               seq=self._admit_seq,
+                               full_prompt=list(req.prompt),
+                               priority=req.priority,
+                               deadline_at=entry.deadline_at)
         self._admit_seq += 1
-        tok = sample_token(logits[0], s.temperature, self._gen)
-        s.out.append(tok)
-        s.remaining -= 1
-        self._last_tok[i, 0] = tok
         self.stats["prefills"] += 1
         self.stats["admitted"] += 1
-        self._retire(i)
+        if self._prefill_sentry(i, logits):
+            self._first_token(i, logits)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["prefill_s"] += time.perf_counter() - t0
 
-    def _admit_paged(self, i: int, req: Request) -> bool:
-        """Zero-copy admission: reserve the prompt's block reach (shared
-        full-block prefix by reference, the rest fresh) and write the
-        slot's table row.  False, with the pool untouched, when short."""
-        plen = len(req.prompt)
-        total = tiling.cdiv(plen, self.block_size)
+    def _admit_paged(self, i: int, entry: _QEntry) -> bool:
+        """Zero-copy admission: reserve the block reach (shared full-block
+        prefix by reference, the rest fresh) and write the slot's table
+        row.  Reactive admission reserves the prompt's reach and lets the
+        decode tick grow it; 'worst_case' reserves prompt + max_new.
+        False, with the pool untouched, when short."""
+        req = entry.req
+        prompt = (entry.resume_prompt if entry.resume_prompt is not None
+                  else req.prompt)
+        plen = len(prompt)
+        budget = max(req.max_new, 0) - len(entry.prior_out)
+        if self.admission == "worst_case":
+            cap = min(plen + max(budget, 0), self.max_seq)
+        else:
+            cap = plen
+        total = tiling.cdiv(max(cap, 1), self.block_size)
+        if (self.faults is not None and self.faults.alloc_shortfall(
+                "admit", self.stats["engine_steps"])):
+            return False
         # never share the block holding the last prompt token: at least
         # one token must run through prefill to give the first logits
-        hashes = chain_hashes(req.prompt, self.block_size)
+        hashes = chain_hashes(prompt, self.block_size)
         got = self.pool.reserve(hashes[:(plen - 1) // self.block_size],
                                 total)
         if got is None:
@@ -316,42 +467,204 @@ class ServeEngine:
         blocks = shared + fresh
         self._tables[i, :] = 0
         self._tables[i, :len(blocks)] = blocks
-        self._slots[i] = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,
+        self._slots[i] = _Slot(rid=req.rid, pos=plen, remaining=budget,
                                temperature=req.temperature,
-                               prompt=list(req.prompt),
+                               prompt=list(prompt),
                                filled=len(shared) * self.block_size,
-                               blocks=blocks, seq=self._admit_seq)
+                               blocks=blocks, seq=self._admit_seq,
+                               full_prompt=list(req.prompt),
+                               prior_out=list(entry.prior_out),
+                               priority=req.priority,
+                               deadline_at=entry.deadline_at)
         self._admit_seq += 1
-        self.stats["admitted"] += 1
+        self.stats["resumes" if entry.is_resume else "admitted"] += 1
         self.stats["shared_blocks"] += len(shared)
         self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"],
                                        self.pool.in_use())
         return True
 
+    def _admit_swapped(self, i: int, entry: _QEntry) -> bool:
+        """Resume a swapped-out request: allocate as many blocks as it
+        held, restore their saved rows and re-enter decode at the position
+        it left."""
+        n = entry.swap["n"]
+        forced = (self.faults is not None and self.faults.alloc_shortfall(
+            "admit", self.stats["engine_steps"]))
+        fresh = None if forced else self.pool.alloc(n)
+        if fresh is None:
+            return False
+        self._swap_in(fresh, entry.swap["saved"])
+        req = entry.req
+        self._tables[i, :] = 0
+        self._tables[i, :n] = fresh
+        remaining = req.max_new - len(entry.prior_out) - len(entry.out)
+        self._slots[i] = _Slot(rid=req.rid, pos=entry.pos,
+                               remaining=remaining, out=list(entry.out),
+                               temperature=req.temperature,
+                               blocks=fresh, seq=self._admit_seq,
+                               full_prompt=list(req.prompt),
+                               prior_out=list(entry.prior_out),
+                               priority=req.priority,
+                               deadline_at=entry.deadline_at)
+        self._admit_seq += 1
+        self._last_tok[i, 0] = entry.out[-1]
+        self.stats["swap_ins"] += 1
+        self.stats["resumes"] += 1
+        self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"],
+                                       self.pool.in_use())
+        return True
+
+    # ---- preemption ----
+
+    def _swap_out(self, blocks: list[int]) -> list[dict]:
+        """The blocks' K/V rows of every layer's pool, one gather a pool
+        tensor, in host memory (pinned on a GPU)."""
+        t0 = time.perf_counter()
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        saved = []
+        for layer in self.caches:
+            if "kv" not in layer:
+                saved.append({})
+                continue
+            pair = {}
+            for name, pool in layer["kv"].items():
+                rows = pool.index_select(0, idx)
+                if self.device.type == "cuda":
+                    host = torch.empty(rows.shape, dtype=rows.dtype,
+                                       pin_memory=True)
+                    host.copy_(rows, non_blocking=True)
+                    rows = host
+                pair[name] = rows
+                self.stats["swap_bytes"] += rows.numel() * rows.element_size()
+            saved.append({"kv": pair})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["swap_s"] += time.perf_counter() - t0
+        return saved
+
+    def _swap_in(self, blocks: list[int], saved: list[dict]) -> None:
+        t0 = time.perf_counter()
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        for layer, rows in zip(self.caches, saved):
+            for name, pool in layer.get("kv", {}).items():
+                pool.index_copy_(0, idx, rows["kv"][name].to(
+                    self.device, non_blocking=True))
+                self.stats["swap_bytes"] += (rows["kv"][name].numel()
+                                             * pool.element_size())
+        if self.device.type == "cuda":
+            # the pinned rows must outlive their copies
+            torch.cuda.synchronize(self.device)
+        self.stats["swap_s"] += time.perf_counter() - t0
+
+    def _pick_victim(self, i: int) -> int | None:
+        """The slot to preempt so that slot ``i`` can grow: lowest
+        priority first, then the youngest (or oldest) admission.  None
+        when there is no other slot or every other outranks the grower."""
+        s = self._slots[i]
+        sign = -1 if self.preempt_policy == "youngest" else 1
+        cands = [(c.priority, sign * c.seq, j)
+                 for j, c in enumerate(self._slots)
+                 if j != i and not c.free]
+        if not cands:
+            return None
+        prio, _, j = min(cands)
+        return None if prio > s.priority else j
+
+    def _preempt(self, i: int) -> None:
+        """Evict slot ``i`` to the queue head.  A decoding slot under
+        preempt_mode='swap' keeps its K/V on the host and resumes in
+        place; any other (and every mid-prefill slot) drops its blocks
+        and resumes by prefilling prompt + generated tokens again."""
+        s = self._slots[i]
+        gen = s.prior_out + s.out
+        req = Request(rid=s.rid, prompt=list(s.full_prompt),
+                      max_new=len(gen) + max(s.remaining, 0),
+                      temperature=s.temperature, priority=s.priority)
+        if self.preempt_mode == "swap" and s.decoding:
+            entry = _QEntry(req=req, deadline_at=s.deadline_at,
+                            prior_out=list(s.prior_out), out=list(s.out),
+                            pos=s.pos,
+                            swap={"saved": self._swap_out(s.blocks),
+                                  "n": len(s.blocks)})
+            self.stats["swap_outs"] += 1
+        else:
+            base = s.prompt if s.prompt is not None else (
+                s.full_prompt + s.prior_out)
+            entry = _QEntry(req=req, deadline_at=s.deadline_at,
+                            prior_out=s.prior_out + s.out,
+                            resume_prompt=list(base) + list(s.out))
+        for b in s.blocks:
+            self.pool.decref(b)
+        self._tables[i, :] = 0
+        self._slots[i] = _Slot()
+        self._queue.insert(0, entry)
+        self.stats["preemptions"] += 1
+
     def _grow_decode_tables(self) -> None:
         """Every decoding slot's table must cover position ``pos`` before
         the tick writes there (out-of-table writes land in the sentinel
-        block and would lose the token's K/V)."""
-        for _, i in sorted((s.seq, i) for i, s in enumerate(self._slots)
-                           if s.decoding):
+        block and would lose the token's K/V).  Oldest admission first,
+        so the oldest grower always outranks its victims."""
+        order = sorted((s.seq, i) for i, s in enumerate(self._slots)
+                       if s.decoding)
+        for seq, i in order:
             s = self._slots[i]
-            fresh = self.pool.ensure_reach(s.blocks, s.pos + 1)
-            if fresh is None:
-                raise NotImplementedError(
-                    f"request {s.rid} needs a KV block and the pool is "
-                    "exhausted: preemption is not ported yet (a later slice "
-                    "of the port brings it); size num_blocks for the "
-                    "traffic")
-            if fresh:
-                self._tables[i, :len(s.blocks)] = s.blocks
-                self.stats["blocks_hwm"] = max(self.stats["blocks_hwm"],
-                                               self.pool.in_use())
+            if s.decoding and s.seq == seq:    # not preempted meanwhile
+                self._grow_or_preempt(i)
 
-    def _check_logits(self, logits: torch.Tensor) -> torch.Tensor:
-        """Count rows with a non-finite logit (stats['nonfinite'])."""
-        finite = torch.isfinite(logits).all(dim=-1)
-        self.stats["nonfinite"] += int((~finite).sum())
-        return finite
+    def _grow_or_preempt(self, i: int) -> bool:
+        s = self._slots[i]
+        while True:
+            forced = (self.faults is not None and
+                      self.faults.alloc_shortfall(
+                          "grow", self.stats["engine_steps"]))
+            fresh = (None if forced
+                     else self.pool.ensure_reach(s.blocks, s.pos + 1))
+            if fresh is not None:
+                if fresh:
+                    self._tables[i, :len(s.blocks)] = s.blocks
+                    self.stats["blocks_hwm"] = max(
+                        self.stats["blocks_hwm"], self.pool.in_use())
+                return True
+            v = self._pick_victim(i)
+            if v is None:
+                self._preempt(i)            # nobody cheaper to evict: yield
+                return False
+            self._preempt(v)
+
+    def _validate_tables(self) -> None:
+        """Every occupied slot's table row must mirror its host block list
+        exactly; a mismatch retires the slot (reason 'corrupt') before any
+        kernel reads the row, refunding the blocks of the host list."""
+        for i, s in enumerate(self._slots):
+            if s.free:
+                continue
+            want = np.zeros_like(self._tables[i])
+            want[:len(s.blocks)] = s.blocks
+            if not np.array_equal(self._tables[i], want):
+                self.stats["corrupt"] += 1
+                self._finish_slot(i, "corrupt")
+
+    def _prefill_sentry(self, i: int, logits: torch.Tensor) -> bool:
+        """Prefill completion of slot ``i``: the fault hook, then the
+        numeric sentry.  A non-finite row retires the slot (reason
+        'numeric') before its blocks are indexed; False then."""
+        if self.faults is not None:
+            logits = self.faults.prefill_logits(
+                self.stats["engine_steps"], self._slots[i].rid, logits)
+        if bool(torch.isfinite(logits).all()):
+            return True
+        self.stats["numeric"] += 1
+        self._finish_slot(i, "numeric")
+        return False
+
+    def _first_token(self, i: int, logits: torch.Tensor) -> None:
+        s = self._slots[i]
+        tok = self._sample(logits[0], i, 0)
+        s.out.append(tok)
+        s.remaining -= 1
+        self._last_tok[i, 0] = tok
+        self._retire(i)
 
     def _prefill_tick(self) -> None:
         """Advance the OLDEST mid-prefill slot by one chunk."""
@@ -371,26 +684,23 @@ class ServeEngine:
         logits = self.prefill_chunk_logits(toks, c0, tables, last_idx)
         s.filled = c0 + len(real)
         self.stats["prefill_chunks"] += 1
-        if s.filled >= len(s.prompt):
-            self._check_logits(logits)
+        if s.filled >= len(s.prompt) and self._prefill_sentry(i, logits):
             # the prompt's full blocks are written and immutable now
             n_full = len(s.prompt) // self.block_size
             self.pool.register(chain_hashes(s.prompt, self.block_size),
                                [int(b) for b in self._tables[i, :n_full]])
             s.prompt = None
-            tok = sample_token(logits[0], s.temperature, self._gen)
-            s.out.append(tok)
-            s.remaining -= 1
-            self._last_tok[i, 0] = tok
             self.stats["prefills"] += 1
-            self._retire(i)
+            self._first_token(i, logits)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["prefill_s"] += time.perf_counter() - t0
 
     def _finish_slot(self, i: int, reason: str) -> None:
+        """Retire slot ``i`` with a reason: its tokens (earlier
+        incarnations' included) are delivered and its blocks refunded."""
         s = self._slots[i]
-        self.finished[s.rid] = s.out
+        self.finished[s.rid] = s.prior_out + s.out
         self.reasons[s.rid] = reason
         if self.pool is not None:
             for b in s.blocks:
@@ -418,6 +728,12 @@ class ServeEngine:
 
     def step(self) -> None:
         self.stats["engine_steps"] += 1
+        if self.cache_mode == "paged":
+            if self.faults is not None:
+                self.faults.corrupt_tables(self.stats["engine_steps"],
+                                           self._tables, self._slots)
+            self._validate_tables()
+        self._expire_running_deadlines()
         self._admit()
         if self.cache_mode == "paged":
             self._prefill_tick()
@@ -437,33 +753,53 @@ class ServeEngine:
         # contiguous: a free slot writes its own row at 0, which the next
         # admission into it overwrites whole
         logits = self.decode_logits(self._last_tok, pos, tables)
-        self._check_logits(logits[torch.from_numpy(decoding).to(
-            self.device)])
+        if self.faults is not None:
+            logits = self.faults.decode_logits(
+                self.stats["engine_steps"],
+                [s.rid if s.decoding else -1 for s in self._slots], logits)
         self.stats["decode_steps"] += 1
-        toks = torch.argmax(logits, dim=-1).tolist()      # one host pull
-        for i, s in enumerate(self._slots):
-            if s.decoding and s.temperature > 0.0:
-                toks[i] = sample_token(logits[i], s.temperature, self._gen)
+        # the numeric sentry and the greedy tokens in one host pull: a
+        # non-finite row retires only its own slot
+        greedy, finite = torch.stack((
+            torch.argmax(logits, dim=-1),
+            torch.isfinite(logits).all(dim=-1).long())).tolist()
         for i, s in enumerate(self._slots):
             if not s.decoding:
                 continue
-            s.out.append(toks[i])
+            if not finite[i]:
+                self.stats["numeric"] += 1
+                self._finish_slot(i, "numeric")
+                continue
+            tok = (self._sample(logits[i], i, 1) if s.temperature > 0.0
+                   else greedy[i])
+            s.out.append(tok)
             s.pos += 1
             s.remaining -= 1
-            self._last_tok[i, 0] = toks[i]
+            self._last_tok[i, 0] = tok
             self._retire(i)
         self.stats["decode_s"] += time.perf_counter() - t0
 
-    def run(self, requests: list[Request], max_steps: int = 100_000
+    def run(self, requests: list[Request], max_steps: int = 10_000
             ) -> dict[int, list[int]]:
+        """Submit ``requests`` and step until nothing is pending.  When
+        ``max_steps`` run out first, every live or queued request finishes
+        with reason 'starved' (its partial output delivered, its blocks
+        refunded) and its rid goes to stats['starved']."""
         for r in requests:
             self.submit(r)
         steps = 0
-        while self.pending():
-            if steps >= max_steps:
-                raise RuntimeError(
-                    f"{self.pending()} requests still pending after "
-                    f"{max_steps} engine steps")
+        while self.pending() and steps < max_steps:
             self.step()
             steps += 1
+        if self.pending():
+            starved = []
+            for i, s in enumerate(self._slots):
+                if not s.free:
+                    starved.append(s.rid)
+                    self._finish_slot(i, "starved")
+            while self._queue:
+                e = self._queue.pop(0)
+                starved.append(e.req.rid)
+                self._finish_queued(e, "starved")
+            self.stats["starved"].extend(starved)
         return dict(self.finished)

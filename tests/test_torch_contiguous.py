@@ -153,7 +153,7 @@ def test_contiguous_engine_float_streams_identical_to_reference():
     assert to[5] == [] and te.reasons[5] == "max_new"
     for key in ("prefills", "cache_copies", "admitted"):
         assert te.stats[key] == je.stats[key], key
-    assert te.stats["nonfinite"] == 0 and te.active == 0
+    assert te.stats["numeric"] == 0 and te.active == 0
 
 
 def test_contiguous_engine_dualmode_step_logits_track_reference():

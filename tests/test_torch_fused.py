@@ -424,4 +424,4 @@ def test_yi_paged_engine_fused_streams_identical_to_reference():
     jo = je.run([JRequest(rid=r, prompt=p, max_new=n) for r, p, n in reqs])
     to = te.run([Request(rid=r, prompt=p, max_new=n) for r, p, n in reqs])
     assert to == jo
-    assert te.pool.in_use() == 0 and te.stats["nonfinite"] == 0
+    assert te.pool.in_use() == 0 and te.stats["numeric"] == 0

@@ -49,7 +49,7 @@ def test_float_token_streams_identical_to_reference():
     assert te.pool.in_use() == 0 and te.active == 0
     assert to[5] == [] and te.reasons[5] == "max_new"
     assert te.stats["prefills"] == je.stats["prefills"] == len(REQS) - 1
-    assert te.stats["nonfinite"] == 0
+    assert te.stats["numeric"] == 0
 
 
 def test_dualmode_step_logits_track_reference():
@@ -105,23 +105,34 @@ def test_prefix_sharing_and_eos():
     assert out == [eng2_first] and e2.reasons[0] == "eos"
 
 
-def test_pool_exhaustion_raises_instead_of_preempting():
-    """A pool too small for the decode growth would need a preemption;
-    that is a later slice of the port, so the engine says so."""
+def test_pool_exhaustion_preempts_and_finishes():
+    """A pool too small for both requests' decode growth preempts one of
+    them, which resumes and finishes: every request gets its 9 tokens,
+    the same as on an ample pool."""
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
-    eng = ServeEngine(cfg, p, n_slots=2, max_seq=64, block_size=8,
-                      num_blocks=4, prefill_chunk=8, device="cpu")
-    reqs = [Request(rid=0, prompt=[1] * 8, max_new=9),
-            Request(rid=1, prompt=[2] * 8, max_new=9)]
-    with pytest.raises(NotImplementedError, match="preemption"):
-        eng.run(reqs)
+
+    def run(num_blocks):
+        eng = ServeEngine(cfg, p, n_slots=2, max_seq=64, block_size=8,
+                          num_blocks=num_blocks, prefill_chunk=8,
+                          device="cpu")
+        out = eng.run([Request(rid=0, prompt=[1] * 8, max_new=9),
+                       Request(rid=1, prompt=[2] * 8, max_new=9)])
+        assert eng.pool.in_use() == 0 and not eng.stats["starved"]
+        return out, eng.stats["preemptions"]
+
+    tight, preemptions = run(4)
+    ample, none = run(None)
+    assert preemptions >= 1 and none == 0
+    assert all(len(tight[r]) == 9 for r in (0, 1))
+    assert tight == ample
 
 
 def test_engine_refuses_what_this_slice_does_not_serve():
-    """The contiguous cache is served now; what is still unported --
-    preemption (above) and the archs that are not dense attention + MLP
-    -- raises NotImplementedError, as does running on no GPU unasked."""
+    """What the port does not serve raises: the archs that are not dense
+    attention + MLP (NotImplementedError), an unknown cache mode, a
+    prompt past max_seq or the largest bucket (ValueError), and running
+    on no GPU unasked (RuntimeError)."""
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
@@ -168,7 +179,7 @@ def test_paged_long_chunked_prefill_goes_blocked():
         to = te.run([Request(rid=r, prompt=p, max_new=n)
                      for r, p, n in reqs])
         assert all(len(to[r]) == n for r, _, n in reqs)
-        assert te.stats["nonfinite"] == 0 and te.pool.in_use() == 0
+        assert te.stats["numeric"] == 0 and te.pool.in_use() == 0
         if sm == "float":
             assert to == je.run([JRequest(rid=r, prompt=p, max_new=n)
                                  for r, p, n in reqs])

@@ -366,7 +366,7 @@ def test_contiguous_engine_streams_identical_to_reference(max_seq):
     to = te.run(_requests(tcfg, Request, torch.from_numpy))
     assert to == jo
     assert te.stats["cache_copies"] == len(REQ_LENS)
-    assert te.stats["nonfinite"] == 0 and te.active == 0
+    assert te.stats["numeric"] == 0 and te.active == 0
 
 
 def test_engine_cache_mode_rule():
