@@ -146,6 +146,34 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             a forward) and no other kernel launches; then one bucket-1024
             prefill with image embeddings and the first decode step
             through the kernels against the plain versions.
+9. granite  with the vision weights freed, ServeEngine on full-width,
+            full-depth granite-moe-3b-a800m (32 layers, 40 experts top-8
+            in stacks of 48, d 1536, random weights from a seeded
+            generator), float and dual-mode with norm_impl / ffn_impl
+            'fused_pallas', paged at max_seq 2048, 4 slots, 64-token
+            chunks, the serve phase's 6 prompts, 16 new tokens each:
+            every request finishes, the pool drains, each kernel launches
+            exactly the number of times a layer of a chunk and of a tick
+            implies; then one chunk and the first decode step block by
+            block, each block given the kernel path's input through the
+            plain versions and through the kernels, held on the tokens
+            whose expert sets agree (route flips counted, each within
+            the flip rule: a margin at most twice the largest router-
+            probability difference on the layer's agreeing tokens),
+            logits finite; greedy streams reported; the MoE sublayer's
+            parts (route, sort, dispatch, experts, combine) timed at a
+            tick ("[granite moe tick]"); a tight pool in 'recompute' and
+            'swap' with streams equal to the ample run's; then the
+            Trainer at full width and 8 of the 32 layers (1 x 2048
+            tokens of the 8192-token bigram stream, remat, CE + 0.01 x
+            the load-balance loss): exact launches, aux 1 a layer with a
+            zero router, a step bitwise repeatable, one step's loss and
+            gradients through the kernels against the plain versions'.
+
+``python3 chip_smoke.py PHASE[,PHASE]`` runs the build and the named
+phases only (qwen, long, yi, train, bert, vision, granite; qwen is
+phases 2, 3 and the pressure run) and ends with ``{"ok": true,
+"phases": [...]}`` instead of the kernels line and the device line.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
@@ -1015,97 +1043,116 @@ def margin_spy(eng) -> dict:
     return margins
 
 
+def tight_pool(tag: str, model: str, prompts, new: int) -> int:
+    """Half the worst-case demand of 4 slots of ``prompts`` + ``new``
+    tokens at max_seq 2048 (as faults._setup sizes it), with the
+    sentinel; logs the pool."""
+    from repro_torch.kernels import tiling
+    bs = tiling.paged_block_size(2048)
+    worst = max(tiling.cdiv(min(len(p) + new, 2048), bs) for p in prompts)
+    tight = max(worst, int(PRESSURE_POOL_FRAC * 4 * worst)) + 1
+    reach = [tiling.cdiv(len(p), bs) for p in prompts]
+    log(f"[{tag}] {model} full width, max_seq 2048, block {bs}, 4 slots, "
+        f"{len(prompts)} prompts of {[len(p) for p in prompts]} tokens "
+        f"(reach {reach} blocks), {new} new each; tight pool {tight} "
+        f"blocks with the sentinel (worst case {worst} a request)")
+    return tight
+
+
+def pressure_runs(tag: str, name: str, cfg, params, dev, prompts, new: int,
+                  tight: int, kernels, launches, **engine_kw):
+    """``prompts`` with ``new`` tokens each on an ample pool, then on
+    ``tight`` blocks under preempt_mode 'recompute' and 'swap': every
+    request finishes with all its tokens, the pool drains, nothing
+    starves, each tight run preempts (the swap runs swap out and in) and
+    launches every kernel of ``kernels``; swap streams equal the ample
+    run's, and a recompute stream diverges only under the
+    RECOMPUTE_MARGIN rule."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Request, ServeEngine
+    runs = {}
+    for run, kw in (("ample", {}),
+                    ("recompute", dict(num_blocks=tight)),
+                    ("swap", dict(num_blocks=tight, preempt_mode="swap"))):
+        eng = ServeEngine(cfg, params, device=dev, **engine_kw, **kw)
+        margins = margin_spy(eng) if run == "ample" else None
+        reqs = [Request(rid=i, prompt=p, max_new=new)
+                for i, p in enumerate(prompts)]
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k in kernels:
+            launches[k] = launches.get(k, 0) + counts[k]
+        st = eng.stats
+        log(f"[{tag}] {name} {run}: {dt:.2f} s, "
+            f"{st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick "
+            f"({st['decode_steps']} ticks), "
+            f"{st['prefill_s'] * 1e3 / st['prefill_chunks']:.1f} "
+            f"ms/chunk ({st['prefill_chunks']} chunks); preemptions "
+            f"{st['preemptions']}, resumes {st['resumes']}, swap "
+            f"out/in {st['swap_outs']}/{st['swap_ins']} "
+            f"({st['swap_bytes'] / 1e9:.3f} GB, {st['swap_s']:.3f} s), "
+            f"hol_skips {st['hol_skips']}, blocked {st['admit_blocked']},"
+            f" blocks_hwm {st['blocks_hwm']}; launches "
+            f"{ {k: counts[k] for k in kernels} }")
+        if any(len(outs.get(r.rid, [])) != new for r in reqs):
+            fail(f"{tag} {name} {run}: unfinished requests "
+                 f"{ {r: len(v) for r, v in outs.items()} }")
+        if eng.pool.in_use() != 0 or st["starved"] or st["numeric"]:
+            fail(f"{tag} {name} {run}: pool {eng.pool.in_use()}, "
+                 f"starved {st['starved']}, numeric {st['numeric']}")
+        for k in kernels:
+            if counts[k] == 0:
+                fail(f"{tag} {name} {run}: kernel {k} never launched on "
+                     "its path")
+        if run == "ample" and st["preemptions"]:
+            fail(f"{tag} {name}: the ample pool preempted")
+        if run != "ample" and not st["preemptions"]:
+            fail(f"{tag} {name} {run}: the tight pool never preempted")
+        if run == "swap" and not (st["swap_outs"] and st["swap_ins"]):
+            fail(f"{tag} {name} swap: no swap out and in")
+        runs[run] = (outs, margins)
+        del eng
+    ample, margins = runs["ample"]
+    for run in ("recompute", "swap"):
+        outs = runs[run][0]
+        for rid in sorted(ample):
+            a, b = ample[rid], outs[rid]
+            if a == b:
+                continue
+            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            m = margins[(rid, k)]
+            log(f"[{tag}] {name} {run}: rid {rid} diverges at token {k} "
+                f"({a[k]} vs {b[k]}); ample top-2 margin {m:.3e} (limit "
+                f"{RECOMPUTE_MARGIN[name]:.0e})")
+            if run == "swap" or m >= RECOMPUTE_MARGIN[name]:
+                fail(f"{tag} {name} {run}: rid {rid} diverges at token {k} "
+                     f"with a top-2 margin of {m:.3e}")
+        log(f"  ok {name} {run}: streams "
+            f"{'identical' if outs == ample else 'within the rule'} to the "
+            "ample run's")
+    torch.cuda.empty_cache()
+
+
 def pressure_phase(dev, launches, params, prompts):
     """The serve phase's model and prompts, 144 new tokens each: an ample
     pool, then a pool of half the worst-case demand of 4 slots (as
     faults._setup sizes it) under preempt_mode 'recompute' and 'swap',
     float and dual-mode; then the chaos soak at full width."""
     from repro_torch.configs import registry
-    from repro_torch.kernels import _build, tiling
-    from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve import faults
     base = registry.get_config("qwen1.5-0.5b")
-    bs = tiling.paged_block_size(2048)
-    worst = max(tiling.cdiv(min(len(p) + PRESSURE_NEW, 2048), bs)
-                for p in prompts)
-    tight = max(worst, int(PRESSURE_POOL_FRAC * 4 * worst)) + 1
-    reach = [tiling.cdiv(len(p), bs) for p in prompts]
-    log(f"[pressure] qwen1.5-0.5b full width, max_seq 2048, block {bs}, "
-        f"4 slots, {len(prompts)} prompts of {[len(p) for p in prompts]} "
-        f"tokens (reach {reach} blocks), {PRESSURE_NEW} new each; tight "
-        f"pool {tight} blocks with the sentinel (worst case {worst} a "
-        f"request)")
+    tight = tight_pool("pressure", "qwen1.5-0.5b", prompts, PRESSURE_NEW)
     for name, (sm, act, kernels) in PATHS.items():
-        cfg = base.replace(softmax_impl=sm, activation=act)
-        runs = {}
-        for run, kw in (("ample", {}),
-                        ("recompute", dict(num_blocks=tight)),
-                        ("swap", dict(num_blocks=tight,
-                                      preempt_mode="swap"))):
-            eng = ServeEngine(cfg, params, n_slots=4, max_seq=2048,
-                              device=dev, **kw)
-            margins = margin_spy(eng) if run == "ample" else None
-            reqs = [Request(rid=i, prompt=p, max_new=PRESSURE_NEW)
-                    for i, p in enumerate(prompts)]
-            for k in _build.KERNELS.values():
-                k.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            outs = eng.run(reqs)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            counts = {k: v.launches for k, v in _build.KERNELS.items()}
-            for k in kernels:
-                launches[k] = launches.get(k, 0) + counts[k]
-            st = eng.stats
-            log(f"[pressure] {name} {run}: {dt:.2f} s, "
-                f"{st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick "
-                f"({st['decode_steps']} ticks), "
-                f"{st['prefill_s'] * 1e3 / st['prefill_chunks']:.1f} "
-                f"ms/chunk ({st['prefill_chunks']} chunks); preemptions "
-                f"{st['preemptions']}, resumes {st['resumes']}, swap "
-                f"out/in {st['swap_outs']}/{st['swap_ins']} "
-                f"({st['swap_bytes'] / 1e9:.3f} GB, {st['swap_s']:.3f} s), "
-                f"hol_skips {st['hol_skips']}, blocked {st['admit_blocked']},"
-                f" blocks_hwm {st['blocks_hwm']}; launches "
-                f"{ {k: counts[k] for k in kernels} }")
-            if any(len(outs.get(r.rid, [])) != PRESSURE_NEW for r in reqs):
-                fail(f"pressure {name} {run}: unfinished requests "
-                     f"{ {r: len(v) for r, v in outs.items()} }")
-            if eng.pool.in_use() != 0 or st["starved"] or st["numeric"]:
-                fail(f"pressure {name} {run}: pool {eng.pool.in_use()}, "
-                     f"starved {st['starved']}, numeric {st['numeric']}")
-            for k in kernels:
-                if counts[k] == 0:
-                    fail(f"pressure {name} {run}: kernel {k} never "
-                         "launched on its path")
-            if run == "ample" and st["preemptions"]:
-                fail(f"pressure {name}: the ample pool preempted")
-            if run != "ample" and not st["preemptions"]:
-                fail(f"pressure {name} {run}: the tight pool never "
-                     "preempted")
-            if run == "swap" and not (st["swap_outs"] and st["swap_ins"]):
-                fail(f"pressure {name} swap: no swap out and in")
-            runs[run] = (outs, margins)
-        ample, margins = runs["ample"]
-        for run in ("recompute", "swap"):
-            outs = runs[run][0]
-            for rid in sorted(ample):
-                a, b = ample[rid], outs[rid]
-                if a == b:
-                    continue
-                k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
-                m = margins[(rid, k)]
-                log(f"[pressure] {name} {run}: rid {rid} diverges at token "
-                    f"{k} ({a[k]} vs {b[k]}); ample top-2 margin {m:.3e} "
-                    f"(limit {RECOMPUTE_MARGIN[name]:.0e})")
-                if run == "swap" or m >= RECOMPUTE_MARGIN[name]:
-                    fail(f"pressure {name} {run}: rid {rid} diverges at "
-                         f"token {k} with a top-2 margin of {m:.3e}")
-            log(f"  ok {name} {run}: streams "
-                f"{'identical' if outs == ample else 'within the rule'} "
-                "to the ample run's")
-        torch.cuda.empty_cache()
+        pressure_runs("pressure", name, base.replace(softmax_impl=sm,
+                                                     activation=act),
+                      params, dev, prompts, PRESSURE_NEW, tight, kernels,
+                      launches, n_slots=4, max_seq=2048)
     cfg = base.replace(softmax_impl="float", activation="silu")
     for mode in ("recompute", "swap"):
         t0 = time.perf_counter()
@@ -1131,20 +1178,38 @@ def _plain_norm_provider():
             "norm_glu": fn.fused_norm_glu_plain}
 
 
-def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
-    """One prefill chunk + the first decode step at full width, through
-    the kernels and with the plain versions called in their place."""
+def _plain_serve_kernels():
+    """Patches that put the plain versions in the paged serve path's
+    kernels' place: the unit's row softmax and pair mode, the paged
+    decodes, the fused norm seams and the fused GLU."""
+    from contextlib import ExitStack
+
     from repro_torch.core import activations
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import dualmode_softmax as ds
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_ffn as ff
-    from repro_torch.serve import ServeEngine
-    plain_norm = _plain_norm_provider()
 
     def plain_glu(x, wg, wu, mode):
         return ff._glu_reference(x, wg, wu, mode)
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(dispatch, "softmax_rows",
+                                          ds.softmax_rows_plain))
+    stack.enter_context(mock.patch.object(activations, "pair_act",
+                                          ds.pair_act_plain))
+    stack.enter_context(mock.patch.object(fd, "decode_paged_partials",
+                                          fd.decode_paged_partials_plain))
+    stack.enter_context(mock.patch.dict(
+        dispatch._NORM, {"fused_pallas": _plain_norm_provider()}))
+    stack.enter_context(mock.patch.dict(dispatch._FFN,
+                                        {"fused_pallas": plain_glu}))
+    return stack
 
+
+def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
+    """One prefill chunk + the first decode step at full width, through
+    the kernels and with the plain versions called in their place."""
+    from repro_torch.serve import ServeEngine
     def step():
         eng = ServeEngine(cfg, params, n_slots=1, max_seq=max_seq,
                           device=dev)
@@ -1163,12 +1228,7 @@ def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
 
     kern = step()
     torch.cuda.empty_cache()
-    with mock.patch.object(dispatch, "softmax_rows", ds.softmax_rows_plain), \
-            mock.patch.object(activations, "pair_act", ds.pair_act_plain), \
-            mock.patch.object(fd, "decode_paged_partials",
-                              fd.decode_paged_partials_plain), \
-            mock.patch.dict(dispatch._NORM, {"fused_pallas": plain_norm}), \
-            mock.patch.dict(dispatch._FFN, {"fused_pallas": plain_glu}):
+    with _plain_serve_kernels():
         plain = step()
     torch.cuda.empty_cache()
     tol = tol_f if cfg.softmax_impl == "float" else TOL_LOGITS_D
@@ -2190,6 +2250,8 @@ def _plain_train_kernels():
                              (fb, "flash_bwd_dq", fb.flash_bwd_dq_plain),
                              (fb, "flash_bwd_dkdv", fb.flash_bwd_dkdv_plain),
                              (fn, "_resnorm_fwd", fn.fused_residual_norm_plain),
+                             (fn, "_norm_linear_fwd",
+                              fn.fused_norm_linear_plain),
                              (ff, "_glu_fwd", ff._glu_reference),
                              (ff, "glu_bwd", ff._glu_bwd_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
@@ -2290,9 +2352,9 @@ def train_phase(dev, launches, results):
 
         # one step's loss and gradients, kernels vs plain versions
         grad_fn = make_grad_fn(cfg, tcfg, dev)
-        ce_k, g_k = grad_fn(state.params, batch)
+        (ce_k, _), g_k = grad_fn(state.params, batch)
         with _plain_train_kernels():
-            ce_p, g_p = grad_fn(state.params, batch)
+            (ce_p, _), g_p = grad_fn(state.params, batch)
         torch.cuda.synchronize()
         rel = abs(float(ce_k) - float(ce_p)) / abs(float(ce_p))
         if rel > TOL_TRAIN_LOSS:
@@ -3254,7 +3316,425 @@ def vision_serve_phase(dev, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------- phase 9: granite-moe, the unit in every expert ----------------
+
+GRANITE_ID = "granite-moe-3b-a800m"
+GRANITE = dict(max_seq=2048, n_slots=4, prefill_chunk=64)
+# name: (config overrides, the launches of each kernel a layer in a
+# prefill chunk and in a decode tick; every kernel not named launches 0
+# times).  The router's softmax is torch.softmax; the expert products are
+# batched cuBLAS products; row 2 runs once a MoE layer in dual-mode.
+GRANITE_PATHS = {
+    "float": (dict(softmax_impl="float", activation="silu", **FUSED),
+              {"norm_linear": (1, 1), "resnorm": (1, 1),
+               "decode_paged": (0, 1)}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="silu_dualmode",
+                      **FUSED),
+                 {"norm_linear": (1, 1), "resnorm": (1, 1),
+                  "softmax_rows": (1, 0), "pair_act": (1, 1),
+                  "decode_paged_int": (0, 1)})}
+# each block, kernels vs plain versions on the same input, on the tokens
+# whose expert sets agree: the yi / vision full-width limits
+TOL_GRANITE = {"float": TOL_YI_LOGITS_F, "dualmode": TOL_LOGITS_D}
+# under pressure: 6 prompts a few tokens short of a 128-token block, so
+# that each request grows a block within its first new tokens and the
+# tight pool (half the worst-case demand of 4 slots: 7 blocks) preempts
+# by recompute and swaps (a CPU rehearsal of the schedule: 3 preemptions
+# a run in ~45 ticks; the serve phase's prompts need 96 new tokens and
+# ~316 ticks for one)
+GRANITE_PRESSURE_LENS = (120, 124, 250, 126, 246, 118)
+GRANITE_PRESSURE_NEW = 16
+# train: full width, 8 of the 32 layers (all 32 with their gradients and
+# two AdamW moments would be ~62 GB before activations), 1 x 2048 tokens
+GRANITE_TRAIN = dict(layers=8, batch=1, seq=2048, steps=2, data_vocab=8192)
+GRANITE_TRAIN_PER_LAYER = {"norm_linear": 2, "resnorm": 2}
+
+
+def _route_spy(store: list):
+    """Record every MoE routing call's (router input, router, expert ids)."""
+    from repro_torch.models import moe
+    inner = moe._route
+
+    def route(p, s, x):
+        out = inner(p, s, x)
+        store.append((x, p["router"], out[1]))
+        return out
+    return mock.patch.object(moe, "_route", route)
+
+
+def route_flips(plain, kern, k: int):
+    """Two routing records of one call: (agree (B,S) whether the expert
+    sets are equal, the margins of the tokens whose sets differ (the gap
+    between the k-th and (k+1)-th router probability of the plain path),
+    the largest router-probability difference on the agreeing tokens)."""
+    (xp, router, ip), (xk, _, ik) = plain, kern
+    r = router.to(torch.float64)
+    pp = torch.softmax(xp.to(torch.float64) @ r, dim=-1)
+    pk = torch.softmax(xk.to(torch.float64) @ r, dim=-1)
+    agree = (ip.sort(-1).values == ik.sort(-1).values).all(-1)
+    top = pp.sort(-1, descending=True).values
+    gap = top[..., k - 1] - top[..., k]
+    diff = float((pp - pk).abs()[agree].max()) if bool(agree.any()) else 0.0
+    return agree, gap[~agree], diff
+
+
+def granite_blocks(cfg, params, dev, prompt, name: str) -> dict:
+    """One 64-token prefill chunk and the first decode step at full width,
+    block by block: each block runs on the kernel path's input with the
+    plain versions, then with the kernels (whose output feeds the next
+    block); outputs held on the tokens whose expert sets agree, flips
+    counted and each held to the flip rule; the logits finite."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _positions_from
+    from repro_torch.models.layers import make_norm
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, device=dev, **{**GRANITE, "n_slots": 1})
+    eng.pool.alloc(2)
+    tables = torch.tensor([[1, 2] + [0] * (eng.max_blocks - 2)],
+                          dtype=torch.int32, device=dev)
+    spec, k, tol = cfg.pattern[0], cfg.moe.top_k, TOL_GRANITE[name]
+    report = {}
+
+    def forward(phase_cfg, toks, pos, what):
+        x = params["embed"][toks]
+        positions = _positions_from(pos, 1, toks.shape[1], dev)
+        worst, flips, margin = 0.0, [], 0.0
+        for i, lp in enumerate(params["layers"]):
+            rp, rk = [], []
+            with _plain_serve_kernels(), _route_spy(rp):
+                yp, _, _ = tf.block_apply(lp, phase_cfg, spec, x,
+                                          eng.caches[i], positions=positions,
+                                          pos=pos, paged=tables)
+            with _route_spy(rk):
+                yk, _, _ = tf.block_apply(lp, phase_cfg, spec, x,
+                                          eng.caches[i], positions=positions,
+                                          pos=pos, paged=tables)
+            agree, margins, diff = route_flips(rp[0], rk[0], k)
+            flips.append(int(margins.numel()))
+            if margins.numel():
+                margin = max(margin, float(margins.max()))
+                log(f"  {name} {what} block {i}: {margins.numel()} route "
+                    f"flips, margins {margins.tolist()}, largest "
+                    f"router-probability difference on agreeing tokens "
+                    f"{diff:.3e}")
+                if float(margins.max()) > 2 * diff:
+                    fail(f"granite {name} {what} block {i}: a route flip "
+                         f"at margin {float(margins.max()):.3e} > twice "
+                         f"{diff:.3e}")
+            e = max_err(yk[agree], yp[agree])
+            if not torch.isfinite(yk).all() or e > tol:
+                fail(f"granite {name} {what} block {i}: kernels vs plain "
+                     f"{e:.3e} on agreeing tokens > {tol:.0e}")
+            worst = max(worst, e)
+            x = yk
+        h = make_norm(cfg.norm)[1](params["final_norm"], x[:, -1:],
+                                   cfg.norm_eps)
+        logits = (h @ tf.lm_head_weight(params, cfg))[:, -1]
+        if not torch.isfinite(logits).all():
+            fail(f"granite {name} {what}: non-finite logits")
+        log(f"  ok granite {name} {what}, {cfg.n_layers} blocks kernels vs "
+            f"plain: worst {worst:.3e} on agreeing tokens (limit "
+            f"{tol:.0e}); route flips a block {flips} (largest margin "
+            f"{margin:.3e}); logits finite")
+        report[what] = dict(worst=worst, flips=flips, margin=margin)
+        return logits
+
+    with torch.no_grad():
+        toks = torch.tensor([prompt[:64]], device=dev)
+        chunk = forward(eng._prefill_cfg, toks, 0, "chunk")
+        nxt = torch.argmax(chunk, dim=-1)[:, None]
+        forward(eng._decode_cfg, nxt,
+                torch.tensor([64], dtype=torch.int32, device=dev), "tick")
+    del eng
+    torch.cuda.empty_cache()
+    return report
+
+
+def granite_moe_times(cfg, params, dev) -> dict:
+    """Host and device time of the MoE sublayer of layer 0 at a decode
+    tick's shape (4 slots, one token each, dropless): routing, the sort
+    (ranks and the dispatch plan), dispatch, the expert products,
+    combine, and the whole sublayer."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import moe_spec
+    out = {}
+    p = params["layers"][0]["ffn"]
+    e_buf, d = p["gate"].shape[0], cfg.d_model
+    h = torch.randn((4, 1, d), generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    for name, (over, _) in GRANITE_PATHS.items():
+        s = moe_spec(cfg.replace(**over))
+        cap = moe.capacity(s, 1, dropless=True)
+        with torch.no_grad():
+            gates, idx, _ = moe._route(p, s, h)
+            gk, dest, keep, rows = moe.slots(s, e_buf, gates, idx, cap)
+            buf = moe.dispatch(h.reshape(4, d), dest, keep, rows)
+            hb = moe.experts(p, s, buf.view(e_buf, 4 * cap, d))
+            parts = {
+                "route": lambda: moe._route(p, s, h),
+                "sort": lambda: moe.slots(s, e_buf, gates, idx, cap),
+                "dispatch": lambda: moe.dispatch(h.reshape(4, d), dest, keep,
+                                                 rows),
+                "experts": lambda: moe.experts(p, s, buf.view(
+                    e_buf, 4 * cap, d)),
+                "combine": lambda: moe.combine(hb.view(rows, d), gk, dest,
+                                               keep),
+                "moe_apply": lambda: moe.moe_apply(p, s, h, dropless=True)}
+            row = {}
+            for part, fn in parts.items():
+                host, wall = host_ms(fn, iters=30)
+                row[part] = dict(host_ms=host, wall_ms=wall,
+                                 graph_ms=graph_ms(fn))
+        out[name] = row
+    log(f"[granite moe tick] layer 0's MoE sublayer at a tick (4 x 1 "
+        f"tokens, dropless, C 1, {e_buf} x 4 buffer rows): ms a call, host "
+        "to launch / back to back / device under graph replay: "
+        + json.dumps(out))
+    return out
+
+
+def granite_phase(dev, launches):
+    """Full-width granite-moe-3b-a800m: serve float and dual-mode (exact
+    launches a chunk and a tick), each block kernels vs plain with the
+    route-flip rule, the MoE sublayer's parts timed at a tick, the
+    pressure runs; then train at 8 of 32 layers."""
+    import gc
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import tree_leaves
+    gc.collect()                    # the vision phase's weights
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(GRANITE_ID)
+    t0 = time.perf_counter()
+    params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    m = base.moe
+    log(f"[granite] {GRANITE_ID} full width and depth: {base.n_layers} "
+        f"layers d {base.d_model} heads {base.n_heads}/{base.n_kv_heads} h "
+        f"{base.hd}, {m.n_experts} experts top-{m.top_k} (stacks of "
+        f"{max(m.ep_pad, m.n_experts)}) d_ff {m.d_ff}, vocab {base.vocab} "
+        f"tied, {n_par / 1e9:.3f} B parameters; init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    rng = np.random.RandomState(0)      # the qwen phase's prompt lengths
+    lens = rng.randint(100, 1501, size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    streams = {}
+    for name, (over, per_layer) in GRANITE_PATHS.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev, **GRANITE)
+        if (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl) != (
+                "paged", "naive", "flash_decode"):
+            fail(f"granite {name}: cache {eng.cache_mode}, prefill "
+                 f"{eng.prefill_attn_impl}, decode {eng.decode_attn_impl}")
+        reqs = [Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.run(reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        for k in per_layer:
+            launches[k] = launches.get(k, 0) + counts[k]
+        new = sum(len(v) for v in outs.values())
+        st = eng.stats
+        n_chunks, n_ticks = st["prefill_chunks"], st["decode_steps"]
+        log(f"[granite] {name}: {len(outs)}/{len(reqs)} requests, {new} new "
+            f"tokens, prompts {int(lens.sum())} tokens, {dt:.2f} s "
+            f"({(new + int(lens.sum())) / dt:.0f} tok/s all, "
+            f"{new / st['decode_s']:.1f} tok/s decode); prefill "
+            f"{st['prefill_s'] * 1e3:.0f} ms in {n_chunks} chunks "
+            f"({st['prefill_s'] * 1e3 / n_chunks:.1f} ms/chunk), decode "
+            f"{st['decode_s'] * 1e3:.0f} ms in {n_ticks} ticks "
+            f"({st['decode_s'] * 1e3 / n_ticks:.1f} ms/tick); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}")
+        if not all(len(outs.get(r.rid, [])) == 16 for r in reqs):
+            fail(f"granite {name}: unfinished requests")
+        if eng.pool.in_use() != 0 or st["numeric"]:
+            fail(f"granite {name}: pool {eng.pool.in_use()}, numeric "
+                 f"{st['numeric']}")
+        for k, n in counts.items():
+            a, b = per_layer.get(k, (0, 0))
+            want = base.n_layers * (a * n_chunks + b * n_ticks)
+            if n != want:
+                fail(f"granite {name}: kernel {k} launched {n} times, "
+                     f"expected {want} ({n_chunks} chunks, {n_ticks} ticks)")
+        log(f"  ok exact launches, a layer: chunk "
+            + ", ".join(f"{k} {a}" for k, (a, _) in per_layer.items() if a)
+            + "; tick " + ", ".join(f"{k} {b}" for k, (_, b)
+                                    in per_layer.items() if b)
+            + "; every other kernel 0")
+        streams[name] = outs
+        del eng
+        torch.cuda.empty_cache()
+        granite_blocks(cfg, params, dev, prompts[0], name)
+    same = sum(streams["float"][r] == streams["dualmode"][r]
+               for r in streams["float"])
+    log(f"[granite] greedy streams (reported, not gated): float "
+        f"{ {r: v[:8] for r, v in sorted(streams['float'].items())} }, "
+        f"dual-mode { {r: v[:8] for r, v in sorted(streams['dualmode'].items())} }"
+        f"; {same} of {len(streams['float'])} identical across the modes")
+    granite_moe_times(base, params, dev)
+    rng = np.random.RandomState(9)
+    short = [rng.randint(0, base.vocab, size=n).tolist()
+             for n in GRANITE_PRESSURE_LENS]
+    tight = tight_pool("granite pressure", GRANITE_ID, short,
+                       GRANITE_PRESSURE_NEW)
+    over, per_layer = GRANITE_PATHS["float"]
+    pressure_runs("granite pressure", "float", base.replace(**over), params,
+                  dev, short, GRANITE_PRESSURE_NEW, tight, per_layer,
+                  launches, **GRANITE)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    granite_train_phase(dev, launches)
+    log(f"[granite] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def granite_train_phase(dev, launches):
+    """The Trainer at full width and 8 of 32 layers, remat, fused impls,
+    2 steps of 1 x 2048 tokens: loss and aux finite, aux 1 a layer with a
+    zero router (Switch's normalization: uniform probabilities, the
+    lower-index ties), exact launches, a step repeated from one state
+    gives the same bits, one step's loss and gradients through the
+    kernels match the plain versions'."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import lm_apply
+    from repro_torch.train import Trainer, make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_paths
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = GRANITE_TRAIN
+    cfg = registry.get_config(GRANITE_ID).replace(
+        n_layers=tr["layers"], **GRANITE_PATHS["float"][0])
+    b, seq, steps = tr["batch"], tr["seq"], tr["steps"]
+    data = SyntheticLM(vocab=tr["data_vocab"], seq_len=seq, global_batch=b,
+                       seed=0)
+    tmp = tempfile.mkdtemp(prefix="repro_torch_granite_")
+    try:
+        tcfg = TrainConfig(lr=3e-4, warmup_steps=1, remat=True,
+                           total_steps=steps, checkpoint_every=1000,
+                           checkpoint_dir=tmp)
+        trainer = Trainer(cfg, tcfg, b, seq, device=dev, data=data,
+                          log=lambda *_: None)
+        n_par = sum(p.numel() for p in tree_leaves(trainer.state.params))
+        log(f"[granite train] {GRANITE_ID} full width, {cfg.n_layers} of 32 "
+            f"layers, {n_par / 1e9:.3f} B parameters; batch {b} x {seq}, "
+            f"data vocab {tr['data_vocab']}, remat, CE + 0.01 aux")
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        hist = []
+        for i in range(steps):
+            mt = trainer.run(1)
+            hist.append(mt)
+            log(f"  step {i}: loss {mt['loss']:.5f} ce {mt['ce']:.5f} aux "
+                f"{mt['aux']:.5f} ({mt['aux'] / cfg.n_layers:.4f} a layer) "
+                f"grad_norm {mt['grad_norm']:.4f} "
+                f"{trainer.step_times[-1] * 1e3:.0f} ms")
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        log(f"[granite train] {steps} steps, last "
+            f"{trainer.step_times[-1] * 1e3:.0f} ms a step (first "
+            f"{trainer.step_times[0] * 1e3:.0f} ms), peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}")
+        if not np.isfinite([[mt["loss"], mt["aux"]] for mt in hist]).all():
+            fail(f"granite train: non-finite loss or aux {hist}")
+        for k, n in counts.items():
+            want = GRANITE_TRAIN_PER_LAYER.get(k, 0) * cfg.n_layers * steps
+            if n != want:
+                fail(f"granite train: kernel {k} launched {n} times, "
+                     f"expected {want}")
+        for k in GRANITE_TRAIN_PER_LAYER:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+        state = trainer.state
+        tokens, labels = data.batch(steps)
+        batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+        zero = {**state.params, "layers": [
+            {**lp, "ffn": {**lp["ffn"], "router": torch.zeros_like(
+                lp["ffn"]["router"])}} for lp in state.params["layers"]]}
+        with torch.no_grad():
+            _, _, aux_z = lm_apply(zero, cfg, batch["tokens"],
+                                   return_hidden=True, return_aux=True,
+                                   device=dev)
+        aux_z = float(aux_z) / cfg.n_layers
+        if not abs(aux_z - 1.0) < 1e-5:
+            fail(f"granite train: aux a layer {aux_z:.7f} with a zero "
+                 "router, not 1")
+        log(f"  ok aux with a zero router: {aux_z:.7f} a layer (Switch's "
+            f"normalization; the random router's at initialisation: "
+            f"{hist[0]['aux'] / cfg.n_layers:.4f} a layer)")
+        del zero
+        s1, m1 = trainer.step_fn(state, batch)
+        s2, m2 = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(tree_leaves(s1),
+                                                      tree_leaves(s2))
+                   if torch.is_tensor(x))
+        same = same and all(torch.equal(torch.as_tensor(m1[k]),
+                                        torch.as_tensor(m2[k])) for k in m1)
+        if not same:
+            fail("granite train: one step from the same state gave other "
+                 "bits")
+        log(f"  ok a step repeated from one state: identical bits (loss "
+            f"{float(m1['loss']):.6f}, aux {float(m1['aux']):.6f})")
+        del s1, s2
+
+        grad_fn = make_grad_fn(cfg, tcfg, dev)
+        (loss_k, _), g_k = grad_fn(state.params, batch)
+        with _plain_train_kernels():
+            (loss_p, _), g_p = grad_fn(state.params, batch)
+        torch.cuda.synchronize()
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        if rel > TOL_TRAIN_LOSS:
+            fail(f"granite train: loss kernels {float(loss_k)} vs plain "
+                 f"{float(loss_p)} (relative {rel:.2e})")
+        worst, worst_at = 0.0, "(every tensor)"
+        for (path, gk), gp in zip(tree_paths(g_k), tree_leaves(g_p)):
+            r = max_err(gk, gp) / max(float(gp.abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_at = r, path
+        if worst > TOL_TRAIN_GRAD:
+            fail(f"granite train: gradient {worst_at} kernels vs plain "
+                 f"{worst:.2e} of its max > {TOL_TRAIN_GRAD:.0e}")
+        log(f"  ok one step, kernels vs plain: loss (CE + 0.01 aux) relative "
+            f"{rel:.2e} (limit {TOL_TRAIN_LOSS:.0e}), worst gradient "
+            f"{worst_at} {worst:.2e} of its max (limit "
+            f"{TOL_TRAIN_GRAD:.0e})")
+        del g_k, g_p, trainer, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+    phases = PHASES
+    if len(sys.argv) > 1:
+        # a development run of some phases: python3 chip_smoke.py granite,yi
+        phases = tuple(sys.argv[1].split(","))
+        if not set(phases) <= set(PHASES):
+            print(f"chip_smoke: phases are {', '.join(PHASES)}",
+                  file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3299,28 +3779,41 @@ def main() -> int:
         + json.dumps(int3_sass))
 
     results: dict = {"snap_sass": snap_sass, "int3_sass": int3_sass}
-    kernel_phase(dev, results)
     launches: dict = {}
-    qwen = serve_phase(dev, launches)
-    pressure_phase(dev, launches, *qwen)
-    del qwen
-    torch.cuda.empty_cache()
-    long_kernel_phase(dev, results)
-    long_serve_phase(dev, launches)
-    yi_kernel_phase(dev, results)
-    yi_serve_phase(dev, launches)
-    train_kernel_phase(dev, results)
-    train_phase(dev, launches, results)
-    bert_kernel_phase(dev, results)
-    bert_phase(dev, launches)
-    vision_kernel_phase(dev, results)
-    vision_serve_phase(dev, launches)
+    if "qwen" in phases:
+        kernel_phase(dev, results)
+        qwen = serve_phase(dev, launches)
+        pressure_phase(dev, launches, *qwen)
+        del qwen
+        torch.cuda.empty_cache()
+    if "long" in phases:
+        long_kernel_phase(dev, results)
+        long_serve_phase(dev, launches)
+    if "yi" in phases:
+        yi_kernel_phase(dev, results)
+        yi_serve_phase(dev, launches)
+    if "train" in phases:
+        train_kernel_phase(dev, results)
+        train_phase(dev, launches, results)
+    if "bert" in phases:
+        bert_kernel_phase(dev, results)
+        bert_phase(dev, launches)
+    if "vision" in phases:
+        vision_kernel_phase(dev, results)
+        vision_serve_phase(dev, launches)
+    if "granite" in phases:
+        granite_phase(dev, launches)
+    log(f"[chip_smoke] phases {', '.join(phases)} in "
+        f"{time.perf_counter() - t_start:.1f} s with the build")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
+    if phases != PHASES:
+        print(json.dumps({"ok": True, "phases": list(phases)}), flush=True)
+        return 0
     rows = []
     for name, k in _build.KERNELS.items():
         r = results[name]

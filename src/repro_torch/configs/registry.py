@@ -11,6 +11,7 @@ _MODULES = {
     "yi-6b": "yi_6b",
     "bert-base": "bert_base",
     "llama-3.2-vision-11b": "llama3_2_vision_11b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
 }
 
 # the serving / training archs; bert-base (the paper's encoder) stays out,

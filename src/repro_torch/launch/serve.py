@@ -8,6 +8,9 @@ cpu`` runs the plain versions).
         --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 4096
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch llama-3.2-vision-11b --max-seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite-moe-3b-a800m --norm-impl fused_pallas \
+        --ffn-impl fused_pallas --max-seq 2048
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --max-seq 64 --num-blocks 7 --preempt-mode swap

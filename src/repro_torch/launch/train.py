@@ -4,7 +4,11 @@ stream, on the GPU (``--device cpu`` runs the plain versions).
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --reduced --device cpu --steps 3 --batch 4 --seq 32
 
-``--reduced`` takes the arch's smoke config.  The stream's bigram table
+``--reduced`` takes the arch's smoke config; ``--arch`` takes the
+serving archs and bert-base, as the reference's launcher does.  A MoE
+arch (granite-moe-3b-a800m) trains on CE + 0.01 x its load-balance loss,
+and ``--layers`` cuts the depth (full-width granite's parameters,
+gradients and two AdamW moments alone come to ~62 GB at 32 layers).  The stream's bigram table
 is (vocab, vocab) float32, built on the host: at a full 150k vocabulary
 that is ~92 GB, so a full-width run passes ``--data-vocab`` (token ids
 then stay below it).  Checkpoints go to ``--ckpt`` (default: a
@@ -26,7 +30,8 @@ from repro_torch.train.step import check_train_arch
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=registry.ARCH_IDS)
+    ap.add_argument("--arch", required=True,
+                    choices=registry.ARCH_IDS + ["bert-base"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -44,12 +49,17 @@ def main() -> None:
     ap.add_argument("--data-vocab", type=int, default=0,
                     help="vocabulary of the synthetic stream (default: the "
                          "model's)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu' (plain versions)")
     args = ap.parse_args()
 
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     check_train_arch(cfg)
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 1),

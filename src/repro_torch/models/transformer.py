@@ -1,13 +1,14 @@
 """Transformer stack of the port (counterpart of
-``repro.models.transformer``) for the dense layer patterns: each layer's
-``LayerSpec`` has mixer ``'attn'`` or ``'none'``, ffn ``'mlp'``, and may
-carry a tanh-gated cross-attention sublayer (``cross``).  That covers
-the qwen / yi decoders (RMSNorm, RoPE, gated MLP), the bert-base encoder
-(LayerNorm, a learned position table, non-causal attention, an ungated
-MLP) and llama-3.2-vision (a period of four self-attention layers and
-one 'none'-mixer layer whose cross attention reads the image
-embeddings), with the reference's fused norm seams (``norm_impl``) and
-fused GLU (``ffn_impl``).
+``repro.models.transformer``): each layer's ``LayerSpec`` has mixer
+``'attn'`` or ``'none'``, ffn ``'mlp'`` (or ``'moe'`` under an 'attn'
+mixer), and may carry a tanh-gated cross-attention sublayer (``cross``).
+That covers the qwen / yi decoders (RMSNorm, RoPE, gated MLP), the
+bert-base encoder (LayerNorm, a learned position table, non-causal
+attention, an ungated MLP), llama-3.2-vision (a period of four
+self-attention layers and one 'none'-mixer layer whose cross attention
+reads the image embeddings) and granite-moe (attention over a
+mixture-of-experts FFN, ``models/moe.py``), with the reference's fused
+norm seams (``norm_impl``) and fused GLU (``ffn_impl``).
 
 bert-base also rotates q and k by RoPE: its config leaves ``use_rope``
 at its default (True), so the reference applies RoPE on top of the
@@ -33,6 +34,7 @@ from .attention import (AttnSpec, _positions_from, cross_apply, cross_init,
                         cross_kv, gqa_apply)
 from .layers import (Params, embed_init, linear_init, make_norm, mlp,
                      mlp_init, rmsnorm_init)
+from .moe import MoESpec, moe_apply, moe_init
 
 
 def attn_spec(cfg: ModelConfig, causal: bool | None = None) -> AttnSpec:
@@ -44,16 +46,31 @@ def attn_spec(cfg: ModelConfig, causal: bool | None = None) -> AttnSpec:
                     norm_eps=cfg.norm_eps)
 
 
+def moe_spec(cfg: ModelConfig) -> MoESpec:
+    m = cfg.moe
+    return MoESpec(cfg.d_model, m.d_ff, m.n_experts, m.top_k, m.n_shared,
+                   m.capacity_factor, cfg.activation, cfg.ffn_impl,
+                   cfg.moe_dispatch, ep_pad=m.ep_pad)
+
+
+def _supported_spec(spec: LayerSpec) -> bool:
+    if spec.mixer not in ("attn", "none"):
+        return False
+    return spec.ffn == "mlp" or (spec.ffn == "moe" and spec.mixer == "attn"
+                                 and not spec.cross)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet
-    (other mixers, MoE, encoder-decoder stacks, sinusoid positions)."""
+    (prefix layers, other mixers, MLA, mamba, encoder-decoder stacks,
+    sinusoid positions)."""
     why = []
-    if cfg.prefix or any(s.mixer not in ("attn", "none") or s.ffn != "mlp"
-                         for s in cfg.pattern):
+    if cfg.prefix or not all(_supported_spec(s) for s in cfg.pattern):
         why.append("layer patterns other than attn / 'none' mixers with an "
-                   "mlp (and an optional cross sublayer)")
-    if cfg.enc_layers or cfg.mla or cfg.moe or cfg.mamba:
-        why.append("encoder / MLA / MoE / mamba layers")
+                   "mlp (and an optional cross sublayer), or attn mixers "
+                   "with a moe ffn")
+    if cfg.enc_layers or cfg.mla or cfg.mamba:
+        why.append("encoder / MLA / mamba layers")
     if cfg.norm not in ("rms", "layer"):
         why.append(f"norm={cfg.norm!r}")
     if cfg.pos_emb not in ("rope", "learned"):
@@ -75,7 +92,7 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     """The reference's keys for ``spec``: norm1 always (a 'none' block
     carries an unused one), the mixer for 'attn', cross_norm / cross / a
     0-d cross_gate (zero: tanh(0) shuts the sublayer) for cross, then
-    norm2 and the ffn."""
+    norm2 and the ffn (an MLP, or the MoE's router and expert stacks)."""
     s = attn_spec(cfg)
     norm_init, _ = make_norm(cfg.norm)
     p: Params = {"norm1": norm_init(cfg.d_model, device)}
@@ -98,8 +115,11 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["cross"] = cross_init(gen, attn_spec(cfg, causal=False), device)
         p["cross_gate"] = torch.zeros((), device=device)
     p["norm2"] = norm_init(cfg.d_model, device)
-    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device,
-                        gated=cfg.gated_mlp)
+    if spec.ffn == "moe":
+        p["ffn"] = moe_init(gen, moe_spec(cfg), device)
+    else:
+        p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device,
+                            gated=cfg.gated_mlp)
     return p
 
 
@@ -180,13 +200,16 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
                 positions, pos, paged, cross_src=None):
-    """One block of ``spec`` (the reference's control flow).  With a fused
-    norm provider (``norm_impl`` resolved for x's device) the seams run
-    fused: norm1 into the QKV projection (prologue); the attention
+    """One block of ``spec`` (the reference's control flow) -> (x, cache,
+    aux), aux the MoE's load-balance loss (0.0 for an MLP block).  With a
+    fused norm provider (``norm_impl`` resolved for x's device) the seams
+    run fused: norm1 into the QKV projection (prologue); the attention
     residual add + norm2 as one epilogue when no cross sublayer follows;
     otherwise ('none' mixer, or a cross sublayer that touched x) norm2
     into the gate / up products (the norm -> gated-GLU seam, inside
-    ``mlp``).  The FFN's own seam is the fused GLU (``ffn_impl``).
+    ``mlp``).  The FFN's own seam is the fused GLU (``ffn_impl``).  A MoE
+    FFN takes the epilogue's normed rows, and runs dropless exactly when
+    the block runs with a cache (the reference's ``dropless=ctx.cached``).
 
     The cross sublayer: dense norm, K/V from ``cross_src`` (written into
     the layer's cross cache when there is one) or from that cache, then
@@ -227,19 +250,29 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
                              "cross_src or the caches")
         x = x + torch.tanh(p["cross_gate"]) * cross_apply(p["cross"], cs, h,
                                                           ckv)
+    if spec.ffn == "moe":
+        h = h_ffn if h_ffn is not None else norm(p["norm2"], x, cfg.norm_eps)
+        o, aux = moe_apply(p["ffn"], moe_spec(cfg), h,
+                           dropless=cache is not None)
+        return x + o, cache, aux
     if h_ffn is None and nprov is not None:
         return x + mlp(p["ffn"], x, cfg.activation, impl=cfg.ffn_impl,
                        prenorm=(p["norm2"], cfg.norm, cfg.norm_eps),
-                       norm_impl=cfg.norm_impl), cache
+                       norm_impl=cfg.norm_impl), cache, 0.0
     h = h_ffn if h_ffn is not None else norm(p["norm2"], x, cfg.norm_eps)
-    return x + mlp(p["ffn"], h, cfg.activation, impl=cfg.ffn_impl), cache
+    return (x + mlp(p["ffn"], h, cfg.activation, impl=cfg.ffn_impl), cache,
+            0.0)
 
 
 def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
              pos=0, caches: list | None = None, cross_src=None,
              last_pos=None, paged=None, remat: bool = False,
-             return_hidden: bool = False, device=None):
-    """tokens (B,S) -> (logits, caches).
+             return_hidden: bool = False, return_aux: bool = False,
+             device=None):
+    """tokens (B,S) -> (logits, caches), or (logits, caches, aux) with
+    ``return_aux``: aux the sum over the layers of the MoE load-balance
+    loss (a 0-d tensor, zero without MoE layers), as the reference's
+    ``aux_total``.
 
     caches=None : full forward, no state.
     caches      : :func:`init_caches` rows: prefill (pos=0, S=bucket) or
@@ -278,28 +311,34 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x = x + params["pos"][torch.clamp(positions, 0, rows - 1)]
     if remat and caches is not None:
         raise ValueError("remat is for train mode (caches=None)")
+    aux_total = 0.0
     for i, (lp, spec) in enumerate(zip(params["layers"], layer_specs(cfg))):
         if remat:
-            x = checkpoint(_train_block, lp, cfg, spec, x, positions,
-                           cross_src, use_reentrant=False)
-            continue
-        x, _ = block_apply(lp, cfg, spec, x,
-                           None if caches is None else caches[i],
-                           positions=positions, pos=pos, paged=paged,
-                           cross_src=cross_src)
+            x, aux = checkpoint(_train_block, lp, cfg, spec, x, positions,
+                                cross_src, use_reentrant=False)
+        else:
+            x, _, aux = block_apply(lp, cfg, spec, x,
+                                    None if caches is None else caches[i],
+                                    positions=positions, pos=pos,
+                                    paged=paged, cross_src=cross_src)
+        aux_total = aux_total + aux
     if last_pos is not None:
         idx = last_pos.to(dev).long()[:, None, None].expand(b, 1, x.shape[-1])
         x = torch.gather(x, 1, idx)
     x = make_norm(cfg.norm)[1](params["final_norm"], x, cfg.norm_eps)
-    if return_hidden:
-        return x, caches
-    return x @ lm_head_weight(params, cfg), caches
+    out = x if return_hidden else x @ lm_head_weight(params, cfg)
+    if not return_aux:
+        return out, caches
+    if not torch.is_tensor(aux_total):
+        aux_total = torch.zeros((), device=dev)
+    return out, caches, aux_total
 
 
 def _train_block(lp: Params, cfg: ModelConfig, spec: LayerSpec, x,
                  positions, cross_src):
-    return block_apply(lp, cfg, spec, x, None, positions=positions, pos=0,
-                       paged=None, cross_src=cross_src)[0]
+    x, _, aux = block_apply(lp, cfg, spec, x, None, positions=positions,
+                            pos=0, paged=None, cross_src=cross_src)
+    return x, aux
 
 
 def lm_head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:

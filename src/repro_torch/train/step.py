@@ -1,6 +1,7 @@
 """Loss and train step (port of ``repro.train.step``): the chunked
-cross-entropy, block remat, microbatch accumulation, int8 gradient
-compression and AdamW under the warmup-cosine schedule.
+cross-entropy plus the MoE load-balance aux loss (weight 0.01), block
+remat, microbatch accumulation, int8 gradient compression and AdamW
+under the warmup-cosine schedule.
 
 The step is (TrainState, batch) -> (TrainState, metrics) and returns a
 new state, as the reference's pure step does.  Distribution (the
@@ -85,35 +86,43 @@ def chunked_ce(h, head_w, labels, *, target_chunks: int = 8):
     return tot / (b * s)
 
 
-def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, device=None):
-    """loss_fn(params, batch) -> mean CE; the hidden states come from
-    ``lm_apply(..., remat=tcfg.remat, return_hidden=True)``."""
+def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, device=None,
+                 aux_weight: float = 0.01):
+    """loss_fn(params, batch) -> (ce + aux_weight * aux, (ce, aux)): the
+    mean CE and the MoE load-balance loss summed over the layers (zero
+    without MoE layers), from ``lm_apply(..., remat=tcfg.remat,
+    return_hidden=True, return_aux=True)``."""
     check_train_arch(cfg)
     dev = resolve_device(device)
 
     def loss_fn(params, batch):
-        h, _ = lm_apply(params, cfg, batch["tokens"], remat=tcfg.remat,
-                        return_hidden=True, device=dev)
-        return chunked_ce(h, lm_head_weight(params, cfg), batch["labels"])
+        h, _, aux = lm_apply(params, cfg, batch["tokens"], remat=tcfg.remat,
+                             return_hidden=True, return_aux=True,
+                             device=dev)
+        ce = chunked_ce(h, lm_head_weight(params, cfg), batch["labels"])
+        return ce + aux_weight * aux, (ce, aux)
     return loss_fn
 
 
-def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, device=None):
-    """grad_fn(params, batch) -> (ce, grads): the value and gradient of
-    the loss (``jax.value_and_grad``), grads shaped as params."""
-    loss_fn = make_loss_fn(cfg, tcfg, device)
+def make_grad_fn(cfg: ModelConfig, tcfg: TrainConfig, device=None,
+                 aux_weight: float = 0.01):
+    """grad_fn(params, batch) -> ((loss, (ce, aux)), grads): the value and
+    gradient of the loss (``jax.value_and_grad(..., has_aux=True)``),
+    grads shaped as params."""
+    loss_fn = make_loss_fn(cfg, tcfg, device, aux_weight)
 
     def grad_fn(params, batch):
         with torch.enable_grad():
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            ce = loss_fn(live, batch)
+            loss, (ce, aux) = loss_fn(live, batch)
             # the unit's quantized scores cut wq / wk (and their biases)
             # out of a dual-mode graph: their gradient is zero, as
             # jax.value_and_grad gives it
-            grads = torch.autograd.grad(ce, tree_leaves(live),
+            grads = torch.autograd.grad(loss, tree_leaves(live),
                                         allow_unused=True,
                                         materialize_grads=True)
-        return ce.detach(), tree_unflatten(params, grads)
+        return ((loss.detach(), (ce.detach(), aux.detach())),
+                tree_unflatten(params, grads))
     return grad_fn
 
 
@@ -127,18 +136,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None):
         if tcfg.microbatch:
             b = batch["tokens"].shape[0]
             n_acc = b // tcfg.microbatch
-            grads = ce = None
+            grads = ce = aux = None
             for i in range(n_acc):
                 rows = slice(i * tcfg.microbatch, (i + 1) * tcfg.microbatch)
-                ce_i, g_i = grad_fn(state.params,
-                                    {k: v[rows] for k, v in batch.items()})
+                (_, (ce_i, aux_i)), g_i = grad_fn(
+                    state.params, {k: v[rows] for k, v in batch.items()})
                 grads = g_i if grads is None else tree_map(
                     torch.add, grads, g_i)
                 ce = ce_i if ce is None else ce + ce_i
+                aux = aux_i if aux is None else aux + aux_i
             grads = tree_map(lambda g: g / n_acc, grads)
-            ce = ce / n_acc
+            ce, aux = ce / n_acc, aux / n_acc
         else:
-            ce, grads = grad_fn(state.params, batch)
+            (_, (ce, aux)), grads = grad_fn(state.params, batch)
 
         ef = state.ef
         if tcfg.grad_compress:
@@ -147,7 +157,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device=None):
         params, opt, om = adamw_update(
             grads, state.opt, state.params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
             weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
-        aux = torch.zeros((), device=ce.device)       # no MoE layer yet
         metrics = {"loss": ce + 0.01 * aux, "ce": ce, "aux": aux,
                    "grad_norm": om["grad_norm"], "lr": lr}
         return TrainState(params, opt, ef), metrics

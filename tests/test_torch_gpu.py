@@ -1269,3 +1269,80 @@ def test_decode_dense_kernels_at_cross_shape(cuda, num_splits):
         torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
                                    fd.finish_partials(*pi, int_mode=True),
                                    atol=1e-5 if grid else 1e-4, rtol=0)
+
+
+# ---------------- mixture of experts (granite-moe) ----------------
+#
+# The MoE sublayer has no kernel of its own (its expert products are
+# cuBLAS batched products, as the reference's are einsums); on the card
+# it runs the unit's pair mode (row 2) in dual-mode.  Limits: the same
+# call on the CPU within 1e-4 (float, the GEMM limit above: f32 dots over
+# d in two orders) and 5e-3 (dual-mode, a flipped SiLU word), on equal
+# routes; the drop set of a capacity-bound call equal to the CPU's.
+
+
+def _moe_case(dev, s, *, e=40, k=8, pad=48, d=256, f=128, b=2,
+              shift=0.0, act="silu", seed=21):
+    from repro_torch.models import moe
+    spec = moe.MoESpec(d, f, e, k, activation=act, ep_pad=pad)
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.moe_init(gen, spec, torch.device("cpu"))
+    x = (torch.randn((b, s, d), generator=gen)
+         + shift * torch.randn((d,), generator=gen))
+    return spec, p, x, ({kk: v.to(dev) for kk, v in p.items()}, x.to(dev))
+
+
+@pytest.mark.parametrize("act,tol", [("silu", 1e-4), ("silu_dualmode", 5e-3)])
+@pytest.mark.parametrize("dropless", [True, False])
+def test_moe_sublayer_on_the_card_matches_the_cpu(cuda, act, tol, dropless):
+    from repro_torch.models import moe
+    spec, p, x, (pc, xc) = _moe_case(cuda, 64, act=act)
+    before = ds.PAIR_ACT.launches
+    y_c, aux_c = moe.moe_apply(pc, spec, xc, dropless=dropless)
+    assert ds.PAIR_ACT.launches == before + (act == "silu_dualmode")
+    y, aux = moe.moe_apply(p, spec, x, dropless=dropless)
+    assert torch.equal(moe._route(pc, spec, xc)[1].cpu(),
+                       moe._route(p, spec, x)[1])
+    torch.testing.assert_close(y_c.cpu(), y, atol=tol, rtol=0)
+    torch.testing.assert_close(aux_c.cpu(), aux, atol=1e-6, rtol=0)
+
+
+def test_moe_capacity_bound_drop_set_equals_the_cpus(cuda):
+    """S 1100 > dropless_max_seq: inference capacity ceil(S k / E * 2.0);
+    a direction every token shares overloads some experts, and the
+    dropped (t, k) slots on the card are the CPU's."""
+    from repro_torch.models import moe
+    spec, p, x, (pc, xc) = _moe_case(cuda, 1100, b=1, shift=2.0)
+    cap = moe.capacity(spec, 1100, dropless=True)
+    assert cap == 440
+    drops = []
+    for pp, xx in ((pc, xc), (p, x)):
+        _, idx, _ = moe._route(pp, spec, xx)
+        drops.append((moe.slot_ranks(idx, spec.n_experts) >= cap).cpu())
+    assert drops[0].any() and torch.equal(drops[0], drops[1])
+    y_c, _ = moe.moe_apply(pc, spec, xc, dropless=True)
+    y, _ = moe.moe_apply(p, spec, x, dropless=True)
+    torch.testing.assert_close(y_c.cpu(), y, atol=1e-4, rtol=0)
+
+
+def test_granite_train_step_repeats_bitwise_on_the_card(cuda):
+    """Reduced granite-moe, remat, fused impls: one step from one state,
+    twice, gives the same bits (dispatch and combine sum in a fixed
+    order; no atomics in their backwards)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train import make_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = registry.reduced_config("granite-moe-3b-a800m").replace(
+        norm_impl="fused_pallas", ffn_impl="fused_pallas")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=2, remat=True)
+    state = make_train_state(cfg, tcfg, cuda)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 65), generator=gen).to(cuda)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg, tcfg, cuda)
+    (s1, m1), (s2, m2) = step(state, batch), step(state, batch)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s1.params),
+                                                  tree_leaves(s2.params)))
+    assert all(float(m1[k]) == float(m2[k]) for k in m1)
+    assert 1.5 < float(m1["aux"]) < 2.5

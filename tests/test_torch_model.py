@@ -41,6 +41,7 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
                                   "configs/yi_6b.py",
                                   "configs/bert_base.py",
                                   "configs/llama3_2_vision_11b.py",
+                                  "configs/granite_moe_3b.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -49,7 +50,8 @@ def test_copied_modules_equal_originals(path):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b", "bert-base",
-                                  "llama-3.2-vision-11b"])
+                                  "llama-3.2-vision-11b",
+                                  "granite-moe-3b-a800m"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
         j = getattr(J_registry, get)(arch)

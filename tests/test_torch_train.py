@@ -396,7 +396,7 @@ def test_silu_dualmode_gradients_vs_reference(step_case):
         state.params, {k: jnp.asarray(v) for k, v in batch.items()})
     t_cfg = _qwen().replace(activation="silu_dualmode")
     params = params_from_numpy(np_params, t_cfg, device=CPU)
-    ce_t, g_t = make_grad_fn(t_cfg, tcfg, CPU)(
+    (_, (ce_t, _)), g_t = make_grad_fn(t_cfg, tcfg, CPU)(
         params, {k: torch.from_numpy(v).long() for k, v in batch.items()})
     np.testing.assert_allclose(float(ce_t), float(ce_j), rtol=1e-5)
     g_j = params_from_numpy(jax.tree.map(np.asarray, g_j), t_cfg, device=CPU)

@@ -284,10 +284,10 @@ def test_dualmode_blocks_track_reference():
     for j, spec in enumerate(jcfg.pattern):
         bp = jax.tree.map(lambda a: a[0], jp["periods"][j])
         want, _, _ = J_tf.block_apply(bp, jcfg, spec, x, {}, ctx)
-        got, _ = T_tf.block_apply(tp["layers"][j], tcfg, spec,
-                                  _t(np.asarray(x)), None,
-                                  positions=_t(pos.copy()), pos=0,
-                                  paged=None, cross_src=_t(img))
+        got, _, _ = T_tf.block_apply(tp["layers"][j], tcfg, spec,
+                                     _t(np.asarray(x)), None,
+                                     positions=_t(pos.copy()), pos=0,
+                                     paged=None, cross_src=_t(img))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=TOL_DUAL_BLOCK, err_msg=f"block {j}")
         x = want
