@@ -169,18 +169,51 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             the load-balance loss): exact launches, aux 1 a layer with a
             zero router, a step bitwise repeatable, one step's loss and
             gradients through the kernels against the plain versions'.
+10. whisper  the kernels at whisper-base's shapes against their plain
+            versions (rows 7 / 8 non-causal over the 1500 frames, whose
+            last 64-key tile is 36 keys short, and causal over a 448-key
+            row; rows 5 / 6 over the 1500 cross keys and a self tick;
+            rows 14, 15 and 2 at d 512, F 2048); then, with every earlier
+            phase's weights freed, ServeEngine on full-width whisper-base
+            (6 + 6 layers, every cross_gate 0.5), float and dual-mode
+            (the unit's softmax and GELU modes), norm_impl 'fused_pallas',
+            on the contiguous cache at max_seq 448, 4 slots, one bucket
+            of 16, the blocked kernels for prefill and the encoder and
+            the contiguous decode asked for by name: 6 requests, each with
+            its own (1, 1500, 512) frames through the encoder at
+            admission, prompts of 4-16 tokens, 64 new tokens each; exact
+            launches a layer of an encoder pass, a prefill and a tick;
+            the encoder's output, one prefill and the first decode step
+            through the kernels against the plain versions.
+11. minicpm3 rows 5-8 at MLA's head dims (q.k over 96, v over 64, K 40,
+            G 1; rows 7 / 8 over a 2048-token prompt and a 64-token chunk,
+            rows 5 / 6 at a 4-slot tick), rows 5 and 7 timed beside their
+            bounds and SDPA ("[mla attention]"), rows 1, 2, 12, 14 at its
+            widths; then full-width minicpm3-4b (62 layers, 4.07 B
+            parameters), float and dual-mode with the fused impls, paged
+            at max_seq 2048, 4 slots, 64-token chunks, the serve phase's 6
+            prompts with 16 new tokens each: exact launches a layer of a
+            chunk and a tick (the tick's attention is row 5 / 6 on the
+            gathered, expanded latent); one chunk and the first decode
+            step against the plain versions.
+12. qwen3    rows 3 / 4 at qwen3-14b's tick (G 5, h 128) and rows 1, 2,
+            12, 14, 15 at its widths; then, alone on the card, full-width
+            qwen3-14b (40 layers, 14.77 B parameters, 55 GiB), as
+            minicpm3 but on yi's path with qk-norm.
 
 ``python3 chip_smoke.py PHASE[,PHASE]`` runs the build and the named
-phases only (qwen, long, yi, train, bert, vision, granite; qwen is
-phases 2, 3 and the pressure run) and ends with ``{"ok": true,
-"phases": [...]}`` instead of the kernels line and the device line.
+phases only (qwen, long, yi, train, bert, vision, granite, whisper,
+minicpm3, qwen3; qwen is phases 2, 3 and the pressure run) and ends with
+``{"ok": true, "phases": [...]}`` instead of the kernels line and the
+device line.
 
 The last lines are the card's name and power limit, one JSON line with
 every kernel's numbers, and the result line; before them, one JSON line
 each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]"),
 row 5 ("[decode dense]"), row 8 ("[flash snap]"), row 6 ("[decode
 dense int]"), rows 3 / 4 ("[decode paged]") and row 9 ("[flash int3]")
-at every shape they were timed at, a "[resnorm host]" line (row 14's
+at every shape they were timed at, rows 7 and 5 at MLA's head dims
+("[mla attention]"), a "[resnorm host]" line (row 14's
 wrapper, µs a call to issue, by part), and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
@@ -1179,14 +1212,17 @@ def _plain_norm_provider():
 
 
 def _plain_serve_kernels():
-    """Patches that put the plain versions in the paged serve path's
-    kernels' place: the unit's row softmax and pair mode, the paged
-    decodes, the fused norm seams and the fused GLU."""
+    """Patches that put the plain versions in the serve paths' kernels'
+    place: the unit's row softmax and pair mode, the paged and contiguous
+    decodes, the blocked float and snapped int flash, the fused norm
+    seams and the fused GLU."""
     from contextlib import ExitStack
 
     from repro_torch.core import activations
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import fused_ffn as ff
 
@@ -1197,8 +1233,12 @@ def _plain_serve_kernels():
                                           ds.softmax_rows_plain))
     stack.enter_context(mock.patch.object(activations, "pair_act",
                                           ds.pair_act_plain))
-    stack.enter_context(mock.patch.object(fd, "decode_paged_partials",
-                                          fd.decode_paged_partials_plain))
+    for mod, name, plain in (
+            (fd, "decode_paged_partials", fd.decode_paged_partials_plain),
+            (fd, "decode_dense_partials", fd.decode_dense_partials_plain),
+            (fa, "flash_fwd", fa.flash_fwd_plain),
+            (fai, "flash_snap", fai.flash_snap_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
     stack.enter_context(mock.patch.dict(
         dispatch._NORM, {"fused_pallas": _plain_norm_provider()}))
     stack.enter_context(mock.patch.dict(dispatch._FFN,
@@ -3722,7 +3762,579 @@ def granite_train_phase(dev, launches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite")
+# ---------------- phase 10: whisper-base, minicpm3-4b and qwen3-14b ----------------
+#
+# The remaining attention families at full width and depth, random
+# weights from a seeded generator: an encoder-decoder with the unit's GELU
+# (whisper-base, contiguous cache), MLA (minicpm3-4b, paged latent pools)
+# and GQA with qk-norm at G 5 (qwen3-14b, paged).  The limits, stated
+# before the first chip run: each kernel at the path's new shapes against
+# its plain version at the kernel limits above (rows 5-8 at MLA's h 96 /
+# hv 64, K 40, G 1; rows 7 / 8 non-causal over whisper's 1500 frames;
+# rows 3 / 4 at G 5); the encoder's output and the logits of one prefill
+# (chunk) and of the first decode step, kernels vs the plain versions
+# called in their place: float 1e-4, dual-mode 5e-3 (the yi / vision /
+# bert limits, PERF.md section 2); exact launches a layer of an encoder
+# pass, a prefill (chunk) and a tick, and no other kernel; every request
+# finishes with all its tokens, a paged pool drains, no row is
+# quarantined.  Greedy streams are reported, not gated.
+
+TOL_FAMILY = {"float": TOL_YI_LOGITS_F, "dualmode": TOL_LOGITS_D}
+WHISPER_ID = "whisper-base"
+# whisper's text context; every prompt fits the one bucket; the blocked
+# kernels and the contiguous decode asked for by name (at these sizes
+# 'auto' would pick the naive path everywhere)
+WHISPER = dict(max_seq=448, n_slots=4, prefill_buckets=(16,),
+               decode_attn_impl="flash_decode")
+WHISPER_PROMPT_LENS = (4, 16)
+WHISPER_NEW = 64
+# name: (config overrides, prefill impl, the launches of each kernel a
+# layer of an encoder pass, of a prefill and of a tick; every kernel not
+# named launches 0 times).  A decoder layer: norm -> QKV (row 15), self
+# and cross attention (rows 7 / 8 at a prefill, 5 / 6 at a tick), the
+# ungated GELU MLP (row 2 in dual-mode, plain PyTorch in float); an
+# encoder layer adds the residual-norm epilogue (row 14).
+WHISPER_PATHS = {
+    "float": (dict(softmax_impl="float", activation="gelu_tanh",
+                   norm_impl="fused_pallas"), "flash_pallas",
+              {"norm_linear": (1, 1, 1), "resnorm": (1, 0, 0),
+               "flash_fwd": (1, 2, 0), "decode_dense": (0, 0, 2)}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="gelu_dualmode",
+                      norm_impl="fused_pallas"), "flash_pallas_int",
+                 {"norm_linear": (1, 1, 1), "resnorm": (1, 0, 0),
+                  "flash_snap": (1, 2, 0), "pair_act": (1, 1, 1),
+                  "decode_dense_int": (0, 0, 2)})}
+MINICPM_ID = "minicpm3-4b"
+QWEN3_ID = "qwen3-14b"
+FAMILY_PAGED = dict(max_seq=2048, n_slots=4, prefill_chunk=64)
+# name: (config overrides, the launches of each kernel a layer of a
+# prefill chunk and of a tick).  minicpm3: an MLA mixer takes the plain
+# norm1 (no norm -> QKV seam), its 64-token chunk attends naively (row 1
+# in dual-mode) and its tick through the contiguous decode on the
+# gathered, expanded latent (rows 5 / 6).  qwen3: yi's path, at G 5.
+MINICPM_PATHS = {
+    "float": (dict(softmax_impl="float", activation="silu", **FUSED),
+              {"resnorm": (1, 1), "glu": (1, 1), "decode_dense": (0, 1)}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="silu_dualmode",
+                      **FUSED),
+                 {"resnorm": (1, 1), "softmax_rows": (1, 0),
+                  "pair_act": (1, 1), "decode_dense_int": (0, 1)})}
+QWEN3_PATHS = {
+    "float": (dict(softmax_impl="float", activation="silu", **FUSED),
+              {"norm_linear": (1, 1), "resnorm": (1, 1), "glu": (1, 1),
+               "decode_paged": (0, 1)}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="silu_dualmode",
+                      **FUSED),
+                 {"norm_linear": (1, 1), "resnorm": (1, 1),
+                  "softmax_rows": (1, 0), "pair_act": (1, 1),
+                  "decode_paged_int": (0, 1)})}
+
+
+def _randn_fn(dev, seed: int):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*shape, scale=1.0, grid=False):
+        x = torch.randn(shape, generator=gen) * scale
+        return (torch.round(x * 4) / 16 if grid else x).to(dev)
+    return randn
+
+
+def seam_checks(tag: str, dev, cfg, rows, score_rows=None) -> None:
+    """The block's seams and the unit's modes at a model's widths, against
+    their plain versions: the residual-norm epilogue (row 14; sum bitwise,
+    normed row TOL_NORM), the norm -> QKV prologue (row 15) and, for a
+    gated MLP, the fused GLU (row 12) at TOL_GEMM, the pair mode (row 2)
+    over the FFN's width and, with ``score_rows`` (rows, keys), the row
+    softmax (row 1) bitwise; each at the path's row counts ``rows``."""
+    from repro_torch.kernels import dualmode_softmax as ds
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import fused_norm as fn
+    randn = _randn_fn(dev, 17)
+    d, f, kind, eps = cfg.d_model, cfg.d_ff, cfg.norm, cfg.norm_eps
+    mode = "gelu" if cfg.activation.startswith("gelu") else "silu"
+    g = 1.0 + randn(d, scale=0.1)
+    b = randn(d, scale=0.1) if kind == "layer" else None
+    nq, nk = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    ws = (randn(d, nq, scale=d ** -0.5), randn(d, nk, scale=d ** -0.5),
+          randn(d, nk, scale=d ** -0.5))
+    if cfg.gated_mlp:
+        wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    for m in rows:
+        x, r = randn(m, d, scale=2.0), randn(m, d)
+        got = fn.fused_residual_norm(x, r, g, b, kind=kind, eps=eps)
+        want = fn.fused_residual_norm_plain(x, r, g, b, kind=kind, eps=eps)
+        check(f"{tag} resnorm sum ({m}, {d})", got[0], want[0], TOL_INT)
+        check(f"{tag} resnorm normed ({m}, {d})", got[1], want[1], TOL_NORM)
+        if cfg.mla is None:
+            check(f"{tag} norm_linear ({m}, {d}) x {nq}+{nk}+{nk}",
+                  fn.fused_norm_linear(x, g, b, ws, kind=kind, eps=eps),
+                  fn.fused_norm_linear_plain(x, g, b, ws, kind=kind,
+                                             eps=eps), TOL_GEMM)
+        if cfg.gated_mlp:
+            check(f"{tag} glu {mode} ({m}, {d}) x {f}",
+                  ff.fused_glu(x, wg, wu, mode=mode),
+                  ff._glu_reference(x, wg, wu, mode), TOL_GEMM)
+        z = randn(m, f, scale=4.0)
+        check(f"{tag} pair_act {mode} int ({m}, {f})",
+              ds.pair_act(z, mode, "int"), ds.pair_act_plain(z, mode, "int"),
+              TOL_INT)
+    if score_rows is not None:
+        n, t = score_rows
+        x = randn(n, t, scale=3.0)
+        x[:, t // 2:] = -30.0              # the chunk's masked keys
+        check(f"{tag} softmax_rows int ({n}, {t})",
+              ds.softmax_rows(x, "int"), ds.softmax_rows_plain(x, "int"),
+              TOL_INT)
+
+
+def flash_pair_checks(tag: str, dev, s: int, t: int, kh: int, h: int,
+                      hv: int, causal: bool, q_end: int | None = None,
+                      ragged: bool = False):
+    """Rows 7 and 8 at one shape against their plain versions: row 7 on
+    random operands (TOL_FLASH_F); row 8's m and S words bitwise and its
+    output within TOL_FLASH_F on grid-valued q and k, its output within
+    TOL_FLASH_I on random ones.  Returns the random operands."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    randn = _randn_fn(dev, s + t + kh)
+    end = t if q_end is None else q_end
+    qp = torch.arange(end - s, end, dtype=torch.int32, device=dev)[None]
+    valid = (torch.arange(t, device=dev)[None] < end).to(torch.uint8)
+    if ragged:
+        valid[:, 0] = 0
+    kw = dict(causal=causal, block_kv=64)
+    gs = fai.unit.guard_shift_for(t)
+    out = None
+    for grid in (True, False):
+        args = ((randn(1, s, kh, 1, h, grid=grid)
+                 * (1.0 if grid else h ** -0.5)).contiguous(),
+                randn(1, t, kh, h, grid=grid), randn(1, t, kh, hv), qp, valid)
+        name = (f"{tag} (1,{s},{t},{kh},1,{h},{hv}) "
+                f"{'causal' if causal else 'non-causal'} grid={grid}")
+        check(f"flash_fwd {name}", fa.flash_fwd(*args, **kw),
+              fa.flash_fwd_plain(*args, **kw), TOL_FLASH_F)
+        if grid:
+            got = fai.flash_snap(*args, guard_shift=gs, return_partial=True,
+                                 **kw)
+            want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                        return_partial=True, **kw)
+            check(f"flash_snap m {name}", got[1], want[1], TOL_INT)
+            check(f"flash_snap S {name}", got[2], want[2], TOL_INT)
+        check(f"flash_snap {name}", fai.flash_snap(*args, guard_shift=gs,
+                                                   **kw),
+              fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+              TOL_FLASH_F if grid else TOL_FLASH_I)
+        out = args
+    return out
+
+
+def decode_pair_checks(tag: str, dev, q_pos, t: int, kh: int, h: int,
+                       hv: int, causal: bool):
+    """Rows 5 and 6 at one shape against their plain versions, at the
+    wrappers' splits and tile (``fd.dense_decode_tiles``): float on random
+    operands (TOL_DECODE_F), int with m and S words bitwise on grid-valued
+    q and k and within TOL_DECODE_I on random ones.  Returns (random
+    operands, splits, tile)."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import flash_decode as fd
+    randn = _randn_fn(dev, t + kh + h)
+    b = len(q_pos)
+    qp = torch.tensor(q_pos, dtype=torch.int32, device=dev)
+    valid = ((torch.arange(t, device=dev)[None] <= qp[:, None]) if causal
+             else torch.ones(b, t, dtype=torch.bool, device=dev)).to(
+                 torch.uint8)
+    ns, bk = fd.dense_decode_tiles(t, b * kh, dev)
+    kw = dict(num_splits=ns, block_kv=bk, causal=causal,
+              guard_shift=unit.guard_shift_for(t))
+    out = None
+    for grid in (True, False):
+        qf = randn(b, kh, 1, h) * h ** -0.5
+        k = randn(b, t, kh, h, grid=grid)
+        if grid:
+            qf = torch.round(qf * 32) / 32
+        args = (qf.contiguous(), k, randn(b, t, kh, hv), qp, valid)
+        name = (f"{tag} B{b} K{kh} G1 h{h} hv{hv} T{t} "
+                f"{'causal' if causal else 'non-causal'} grid={grid} "
+                f"splits={ns} bkv={bk}")
+        if not grid:
+            check(f"decode_dense {name}", fd.finish_partials(
+                *fd.decode_dense_partials(*args, int_mode=False, **kw),
+                int_mode=False), fd.finish_partials(
+                *fd.decode_dense_partials_plain(*args, int_mode=False,
+                                                **kw), int_mode=False),
+                TOL_DECODE_F)
+        ki = fd.decode_dense_partials(*args, int_mode=True, **kw)
+        pi = fd.decode_dense_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            check(f"decode_dense_int m {name}", ki[0], pi[0], TOL_INT)
+            check(f"decode_dense_int S {name}", ki[1], pi[1], TOL_INT)
+        check(f"decode_dense_int {name}",
+              fd.finish_partials(*ki, int_mode=True),
+              fd.finish_partials(*pi, int_mode=True),
+              TOL_DECODE_F if grid else TOL_DECODE_I)
+        out = args
+    return out, ns, bk
+
+
+def whisper_kernel_checks(dev, cfg) -> None:
+    """whisper-base's kernels at its path's shapes: rows 7 / 8 non-causal
+    over the 1500 frames (the encoder, and a bucket-16 cross prefill; 1500
+    = 23 x 64 + 28, a phantom tail of 36 keys) and causal over a 448-key
+    row (the self prefill); rows 5 / 6 over the 1500 cross keys and a
+    self tick of 4 slots; rows 14, 15 (layer norm, d 512) and 2 (GELU,
+    2048 wide) at the encoder's 1500 rows, a prefill's 16 and a tick's 4."""
+    kh, h, t = cfg.n_kv_heads, cfg.hd, cfg.n_frames
+    log(f"[whisper] kernels at the path's shapes")
+    flash_pair_checks("encoder", dev, t, t, kh, h, h, False)
+    flash_pair_checks("cross prefill", dev, 16, t, kh, h, h, False)
+    flash_pair_checks("self prefill", dev, 16, WHISPER["max_seq"], kh, h, h,
+                      True, q_end=16, ragged=True)
+    decode_pair_checks("cross tick", dev, [0, 0, 0, 0], t, kh, h, h, False)
+    decode_pair_checks("self tick", dev, [20, 79, 150, 447],
+                       WHISPER["max_seq"], kh, h, h, True)
+    seam_checks("whisper", dev, cfg, (t, 16, 4))
+
+
+def minicpm_kernel_checks(dev, cfg, results) -> None:
+    """minicpm3-4b's kernels at MLA's head dims (q.k over nope + rope =
+    96, v at 64, K 40, G 1): rows 7 / 8 over a whole 2048-token prompt
+    (S = T = 2048, causal: the blocked pick) and a 64-token chunk at the
+    end of a 2048-key table; rows 5 / 6 at a tick of 4 slots over 2048
+    keys; rows 5 and 7 timed beside their bounds and SDPA (which takes hv
+    != h); rows 14, 12, 2 at d 2560, F 6400 and row 1 over a dual-mode
+    chunk's 40 x 64 score rows of 2048 keys."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    kh = cfg.n_heads
+    h, hv = cfg.mla.nope_dim + cfg.mla.rope_dim, cfg.mla.v_dim
+    t = FAMILY_PAGED["max_seq"]
+    log(f"[minicpm3] kernels at MLA's head dims h {h} hv {hv} K {kh} G 1")
+    flash_pair_checks("mla chunk", dev, 64, t, kh, h, hv, True)
+    args = flash_pair_checks("mla prompt", dev, t, t, kh, h, hv, True)
+    mla: dict = {}
+    kw = dict(causal=True, block_kv=64)
+    pairs = t * (t + 1) // 2 * kh
+    q_l = args[0][0].permute(1, 2, 0, 3).reshape(1, kh, t, h)
+    k_l, v_l = args[1].permute(0, 2, 1, 3), args[2].permute(0, 2, 1, 3)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, is_causal=True, scale=1.0), iters=5)
+    del q_l, k_l, v_l
+    kernel_row(
+        mla, f"flash_fwd mla B1 S{t} K{kh} G1 h{h} hv{hv} causal",
+        lambda: fa.flash_fwd(*args, **kw),
+        lambda: fa.flash_fwd_plain(*args, **kw),
+        *bound((args[0].numel() + args[1].numel() + args[2].numel()
+                + t * kh * hv) * 4 + 5 * t, pairs * (2 * h + 2 * hv + 4)),
+        lib, iters=5, plain_iters=1)
+    depths = [700, 1000, 1500, t - 1]
+    dargs, ns, bk = decode_pair_checks("mla tick", dev, depths, t, kh, h, hv,
+                                       True)
+    b = len(depths)
+    live = max(depths) + 1
+    q_l = dargs[0].reshape(b, kh, 1, h)
+    k_l = dargs[1][:, :live].permute(0, 2, 1, 3)
+    v_l = dargs[2][:, :live].permute(0, 2, 1, 3)
+    mask = dargs[4][:, :live].bool()[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, attn_mask=mask, scale=1.0))
+    del q_l, k_l, v_l
+    keys = sum(depths) + b
+    kernel_row(
+        mla, f"decode_dense mla B{b} K{kh} G1 h{h} hv{hv} T{t} depths "
+        f"{depths}",
+        lambda: fd.decode_dense_partials(*dargs, num_splits=ns, block_kv=bk,
+                                         causal=True, int_mode=False,
+                                         guard_shift=0),
+        lambda: fd.decode_dense_partials_plain(
+            *dargs, num_splits=ns, block_kv=bk, causal=True, int_mode=False,
+            guard_shift=0),
+        *bound(keys * kh * (h + hv) * 4 + keys + dargs[0].numel() * 4
+               + 4 * ns * kh * (hv + 2) * b, keys * kh * (2 * h + 2 * hv + 4)),
+        lib, iters=50, plain_iters=3, splits=ns, block_kv=bk)
+    results["mla_ms"] = mla
+    log("[mla attention] rows 7 / 5 at MLA's head dims, ms: "
+        + json.dumps(mla))
+    seam_checks("minicpm3", dev, cfg, (64, 4), score_rows=(kh * 64, t))
+
+
+def qwen3_kernel_checks(dev, cfg, results) -> None:
+    """qwen3-14b's kernels at its path's shapes: rows 3 / 4 at its tick
+    (4 slots, 8 kv heads of G 5 queries -- the kernel's 8-row
+    instantiation with 3 rows idle -- h 128, 16 pages of 128 keys, shuffled
+    tables) at 1 split and the plan's; rows 15, 14, 12, 2 at d 5120, F
+    17408 and row 1 over a dual-mode chunk's 40 x 64 score rows."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tiling
+    randn = _randn_fn(dev, 23)
+    b, kh, g, h = 4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
+    t = FAMILY_PAGED["max_seq"]
+    bs = tiling.paged_block_size(t)
+    nblk = t // bs
+    log(f"[qwen3] kernels: paged decode at G {g}, h {h}")
+    n_pool = 1 + b * nblk
+    gen = torch.Generator(device="cpu").manual_seed(29)
+    ids = (torch.randperm(n_pool - 1, generator=gen) + 1).reshape(b, nblk)
+    depths = [100, 700, 1300, t - 1]
+    qp = torch.tensor(depths, dtype=torch.int32)
+    past = (qp[:, None] // bs) < torch.arange(nblk)[None, :]
+    tables = torch.where(past, 0, ids).to(torch.int32).to(dev)
+    valid = (torch.arange(t)[None] <= qp[:, None]).to(torch.uint8).to(dev)
+    plan = tiling.decode_splits(nblk, bs, b * kh, dev)
+    for grid in (True, False):
+        qf = randn(b, kh, g, h) * h ** -0.5
+        k = randn(n_pool, bs, kh, h, grid=grid)
+        if grid:
+            qf = torch.round(qf * 32) / 32
+        args = (qf.contiguous(), k, randn(n_pool, bs, kh, h), tables,
+                qp.to(dev), valid)
+        for ns in sorted({1, plan}):
+            kw = dict(num_splits=ns, causal=True, guard_shift=0)
+            for int_mode in (False, True):
+                name = (f"decode_paged{'_int' if int_mode else ''} qwen3 "
+                        f"B{b} K{kh} G{g} h{h} T{t} grid={grid} "
+                        f"splits={ns}")
+                got = fd.decode_paged_partials(*args, int_mode=int_mode, **kw)
+                want = fd.decode_paged_partials_plain(*args,
+                                                      int_mode=int_mode, **kw)
+                if int_mode and grid:
+                    check(f"{name} m", got[0], want[0], TOL_INT)
+                    check(f"{name} S", got[1], want[1], TOL_INT)
+                check(name, fd.finish_partials(*got, int_mode=int_mode),
+                      fd.finish_partials(*want, int_mode=int_mode),
+                      TOL_DECODE_I if int_mode and not grid
+                      else TOL_DECODE_F)
+    seam_checks("qwen3", dev, cfg, (64, 4),
+                score_rows=(cfg.n_heads * 64, t))
+
+
+def _free_weights(dev) -> None:
+    """Drop every earlier phase's weights and pools from the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _model(tag: str, base, dev):
+    """Full-width, full-depth random weights of ``base`` from a seeded
+    generator on the card; logs their size."""
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    log(f"[{tag}] {base.name} full width and depth: {base.n_layers} layers"
+        + (f" (+ {base.enc_layers} encoder)" if base.enc_layers else "")
+        + f" d {base.d_model} heads {base.n_heads}/{base.n_kv_heads} h "
+        f"{base.hd} d_ff {base.d_ff} vocab {base.vocab}, "
+        f"{n_par / 1e9:.3f} B parameters; init "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / 2**30:.1f} GiB allocated")
+    return params
+
+
+def _serve_run(tag: str, name: str, eng, reqs, new: int, per_layer: dict,
+               launches: dict, expected) -> dict:
+    """Run ``reqs`` on ``eng`` with every launch count at 0 before it; log
+    its numbers; fail unless every request finishes with ``new`` tokens,
+    no row is quarantined, a paged pool drains and each kernel launched
+    exactly ``expected(per_layer's entry, stats)`` times (0 for a kernel
+    not named).  Adds the path's counts to ``launches``; returns the
+    streams."""
+    from repro_torch.kernels import _build
+    for k in _build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {k: v.launches for k, v in _build.KERNELS.items()}
+    for k in per_layer:
+        launches[k] = launches.get(k, 0) + counts[k]
+    st = eng.stats
+    n_new = sum(len(v) for v in outs.values())
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    n_pre = st["prefill_chunks"] if eng.cache_mode == "paged" \
+        else st["prefills"]
+    what = "chunks" if eng.cache_mode == "paged" else "prefills"
+    log(f"[{tag}] {name}: {len(outs)}/{len(reqs)} requests, {n_new} new "
+        f"tokens, prompts {n_prompt} tokens, {dt:.2f} s "
+        f"({(n_new + n_prompt) / dt:.0f} tok/s all, "
+        f"{n_new / st['decode_s']:.1f} tok/s decode); prefill "
+        f"{st['prefill_s'] * 1e3:.0f} ms in {n_pre} {what} "
+        f"({st['prefill_s'] * 1e3 / n_pre:.1f} ms each), decode "
+        f"{st['decode_s'] * 1e3:.0f} ms in {st['decode_steps']} ticks "
+        f"({st['decode_s'] * 1e3 / st['decode_steps']:.1f} ms/tick); peak "
+        f"{torch.cuda.max_memory_allocated(eng.device) / 2**30:.1f} GiB; "
+        f"launches {counts}")
+    if not all(len(outs.get(r.rid, [])) == new for r in reqs):
+        fail(f"{tag} {name}: unfinished requests")
+    if st["numeric"]:
+        fail(f"{tag} {name}: {st['numeric']} non-finite rows quarantined")
+    if eng.pool is not None and eng.pool.in_use() != 0:
+        fail(f"{tag} {name}: pool did not drain ({eng.pool.in_use()} blocks)")
+    for k, n in counts.items():
+        want = expected(per_layer.get(k), st)
+        if n != want:
+            fail(f"{tag} {name}: kernel {k} launched {n} times, expected "
+                 f"{want} ({n_pre} {what}, {st['decode_steps']} ticks)")
+    log(f"  ok exact launches a layer: "
+        + "; ".join(f"{k} {v}" for k, v in per_layer.items())
+        + "; every other kernel 0")
+    return outs
+
+
+def _report_streams(tag: str, streams: dict) -> None:
+    same = sum(streams["float"][r] == streams["dualmode"][r]
+               for r in streams["float"])
+    log(f"[{tag}] greedy streams (reported, not gated): "
+        + "; ".join(f"{m} { {r: v[:8] for r, v in sorted(s.items())} }"
+                    for m, s in streams.items())
+        + f"; {same} of {len(streams['float'])} identical across the modes")
+
+
+def whisper_phase(dev, launches):
+    """Full-width whisper-base (every cross_gate 0.5), float and dual-mode
+    (the unit's softmax and GELU modes), on the contiguous engine: 6
+    requests, each with its own (1, 1500, 512) frames, which the encoder
+    turns into the decoder's context at admission, prompts of 4-16
+    tokens, 64 new tokens each; exact launches; the encoder's output and
+    one prefill and decode step, kernels vs plain versions."""
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import encoder_apply, init_caches
+    from repro_torch.serve import Request, ServeEngine
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(WHISPER_ID)
+    whisper_kernel_checks(dev, base)
+    params = _model("whisper", base, dev)
+    for lp in params["layers"]:
+        lp["cross_gate"].fill_(VISION_GATE)
+    rng = np.random.RandomState(5)
+    lens = rng.randint(WHISPER_PROMPT_LENS[0], WHISPER_PROMPT_LENS[1] + 1,
+                       size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    frames = [torch.randn((1, base.n_frames, base.d_model), generator=gen,
+                          device=dev) for _ in prompts]
+    streams = {}
+    for name, (over, prefill_impl, per_layer) in WHISPER_PATHS.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev,
+                          prefill_attn_impl=prefill_impl, **WHISPER)
+        impls = (eng.cache_mode, eng.prefill_attn_impl,
+                 eng.encoder_attn_impl, eng.decode_attn_impl)
+        if impls != ("contiguous", prefill_impl, prefill_impl,
+                     "flash_decode"):
+            fail(f"whisper {name}: cache, prefill, encoder, decode {impls}")
+        reqs = [Request(rid=i, prompt=p, max_new=WHISPER_NEW, cross_src=f)
+                for i, (p, f) in enumerate(zip(prompts, frames))]
+
+        def expected(a, st, n_enc=len(reqs)):
+            enc, pre, tick = a or (0, 0, 0)
+            return (base.enc_layers * enc * n_enc
+                    + base.n_layers * (pre * st["prefills"]
+                                       + tick * st["decode_steps"]))
+        streams[name] = _serve_run("whisper", name, eng, reqs, WHISPER_NEW,
+                                   per_layer, launches, expected)
+        del eng
+        torch.cuda.empty_cache()
+
+        # the encoder's output, then a bucket-16 prefill over it and the
+        # first decode step, kernels vs plain versions
+        def step():
+            eng = ServeEngine(cfg, params, device=dev,
+                              prefill_attn_impl=prefill_impl,
+                              **{**WHISPER, "n_slots": 1})
+            ecfg = cfg.replace(attn_impl=eng.encoder_attn_impl)
+            enc = encoder_apply(params, ecfg, frames[0], device=dev)
+            row = init_caches(cfg, 1, WHISPER["max_seq"], dev)
+            plen = len(prompts[0])
+            toks = torch.tensor([prompts[0] + [0] * (16 - plen)], device=dev)
+            pre = eng.prefill_logits(toks, row, torch.tensor(
+                [plen - 1], device=dev), enc)
+            eng.caches = row
+            dec = eng.decode_logits(torch.argmax(pre, dim=-1)[:, None],
+                                    torch.tensor([plen], dtype=torch.int32,
+                                                 device=dev))
+            torch.cuda.synchronize()
+            return enc, pre, dec
+        kern = step()
+        with _plain_serve_kernels():
+            plain = step()
+        if kern[0].shape != (1, base.n_frames, base.d_model):
+            fail(f"whisper {name}: encoder output {tuple(kern[0].shape)}")
+        for what, a, b_ in (("encoder output", kern[0], plain[0]),
+                            ("bucket-16 prefill logits", kern[1], plain[1]),
+                            ("first decode step logits", kern[2], plain[2])):
+            check(f"whisper-base {name} full-width {what}", a, b_,
+                  TOL_FAMILY[name])
+        del kern, plain
+        torch.cuda.empty_cache()
+    _report_streams("whisper", streams)
+    del params, frames
+    _free_weights(dev)
+    log(f"[whisper] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def paged_family_phase(tag: str, arch: str, paths: dict, kernel_checks,
+                       dev, launches, results) -> None:
+    """Full-width ``arch``, float and dual-mode with the fused impls, on
+    the paged engine (max_seq 2048, 4 slots, 64-token chunks), the serve
+    phase's 6 prompts with 16 new tokens each: exact launches a layer of a
+    chunk and of a tick; then one chunk and the first decode step, kernels
+    vs plain versions (``parity``)."""
+    from repro_torch.configs import registry
+    from repro_torch.serve import Request, ServeEngine
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(arch)
+    kernel_checks(dev, base, results)
+    params = _model(tag, base, dev)
+    rng = np.random.RandomState(0)      # the serve phase's prompt lengths
+    lens = rng.randint(100, 1501, size=6)
+    prompts = [rng.randint(0, base.vocab, size=n).tolist() for n in lens]
+    streams = {}
+    for name, (over, per_layer) in paths.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev, **FAMILY_PAGED)
+        impls = (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl)
+        if impls != ("paged", "naive", "flash_decode"):
+            fail(f"{tag} {name}: cache, prefill, decode {impls}")
+        reqs = [Request(rid=i, prompt=p, max_new=16)
+                for i, p in enumerate(prompts)]
+
+        def expected(a, st):
+            chunk, tick = a or (0, 0)
+            return base.n_layers * (chunk * st["prefill_chunks"]
+                                    + tick * st["decode_steps"])
+        streams[name] = _serve_run(tag, name, eng, reqs, 16, per_layer,
+                                   launches, expected)
+        del eng
+        torch.cuda.empty_cache()
+        parity(cfg, params, dev, prompts[0], max_seq=FAMILY_PAGED["max_seq"],
+               tol_f=TOL_FAMILY["float"])
+    _report_streams(tag, streams)
+    del params
+    _free_weights(dev)
+    log(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def minicpm_phase(dev, launches, results):
+    paged_family_phase("minicpm3", MINICPM_ID, MINICPM_PATHS,
+                       minicpm_kernel_checks, dev, launches, results)
+
+
+def qwen3_phase(dev, launches, results):
+    paged_family_phase("qwen3", QWEN3_ID, QWEN3_PATHS, qwen3_kernel_checks,
+                       dev, launches, results)
+
+
+PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite",
+          "whisper", "minicpm3", "qwen3")
 
 
 def main() -> int:
@@ -3803,6 +4415,12 @@ def main() -> int:
         vision_serve_phase(dev, launches)
     if "granite" in phases:
         granite_phase(dev, launches)
+    if "whisper" in phases:
+        whisper_phase(dev, launches)
+    if "minicpm3" in phases:
+        minicpm_phase(dev, launches, results)
+    if "qwen3" in phases:
+        qwen3_phase(dev, launches, results)
     log(f"[chip_smoke] phases {', '.join(phases)} in "
         f"{time.perf_counter() - t_start:.1f} s with the build")
 

@@ -12,6 +12,9 @@ _MODULES = {
     "bert-base": "bert_base",
     "llama-3.2-vision-11b": "llama3_2_vision_11b",
     "granite-moe-3b-a800m": "granite_moe_3b",
+    "qwen3-14b": "qwen3_14b",
+    "minicpm3-4b": "minicpm3_4b",
+    "whisper-base": "whisper_base",
 }
 
 # the serving / training archs; bert-base (the paper's encoder) stays out,

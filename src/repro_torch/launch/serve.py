@@ -11,6 +11,12 @@ cpu`` runs the plain versions).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite-moe-3b-a800m --norm-impl fused_pallas \
         --ffn-impl fused_pallas --max-seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+        --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --max-seq 448 --prefill-impl flash_pallas --decode-impl flash_decode
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --max-seq 64 --num-blocks 7 --preempt-mode swap
@@ -20,8 +26,8 @@ Full width by default; ``--reduced`` takes the arch's smoke config.  A
 preempt (``--preempt-mode``, ``--preempt-policy``); ``--admission``,
 ``--hol-window`` and ``--deadline-s`` are the reference launcher's.  The
 requests are text-only, as the reference launcher's: on
-llama-3.2-vision they attend over a zero cross cache ('auto' picks the
-contiguous cache there).
+llama-3.2-vision and whisper-base they attend over a zero cross cache
+('auto' picks the contiguous cache there; no frames reach the encoder).
 """
 from __future__ import annotations
 

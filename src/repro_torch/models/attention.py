@@ -1,10 +1,12 @@
-"""GQA attention of the port (counterpart of ``repro.models.attention``):
-one scores -> softmax -> combine core, so the attention softmax goes
-through the configured implementation (float, or the dual-mode unit's
-kernel), the two KV cache layouts the serving engine uses (paged pools
-behind block tables, and contiguous (B, max_seq, K, h) rows), and the
-cross attention of the VLM's image layers (non-causal, over K/V made
-from the image embeddings once per request).
+"""Attention of the port (counterpart of ``repro.models.attention``):
+GQA (with qk-norm and a QKV bias where the config asks), MLA and cross
+attention over one scores -> softmax -> combine core, so the attention
+softmax goes through the configured implementation (float, or the
+dual-mode unit's kernel); the two KV cache layouts the serving engine
+uses (paged pools behind block tables, and contiguous (B, max_seq, ...)
+rows); the cross attention of the VLM's image layers and of the
+encoder-decoder's decoder (non-causal, over K/V made from the image
+embeddings or the encoder's output once per request).
 
 Cache tensors are updated IN PLACE (``paged_write``, ``_write_seq``),
 where the reference returns new arrays: the caches are the largest
@@ -22,7 +24,7 @@ from repro_torch.kernels import dispatch
 
 from . import flash as _flash
 from .layers import (Params, apply_rope, linear, linear_init, make_norm,
-                     rmsnorm)
+                     rmsnorm, rmsnorm_init)
 
 
 class AttnSpec(NamedTuple):
@@ -36,6 +38,20 @@ class AttnSpec(NamedTuple):
     softmax_impl: str = "float"
     causal: bool = True
     use_rope: bool = True
+    attn_impl: str = "auto"
+    norm_eps: float = 1e-6
+
+
+class MLASpec(NamedTuple):
+    d_model: int
+    n_heads: int
+    q_lora_rank: int      # 0 = full-rank q projection
+    kv_lora_rank: int
+    nope_dim: int
+    rope_dim: int
+    v_dim: int
+    rope_theta: float = 10000.0
+    softmax_impl: str = "float"
     attn_impl: str = "auto"
     norm_eps: float = 1e-6
 
@@ -259,7 +275,93 @@ def gqa_apply(p: Params, s: AttnSpec, x, *, positions, cache=None, pos=0,
     return linear(p["wo"], o), cache
 
 
-# ---------------- cross attention (VLM) ----------------
+# ---------------- MLA (DeepSeek-V2 / MiniCPM3 style) ----------------
+
+def mla_init(gen: torch.Generator, s: MLASpec, device) -> Params:
+    qk_head = s.nope_dim + s.rope_dim
+    p: Params = {}
+    if s.q_lora_rank:
+        p["wq_a"] = linear_init(gen, s.d_model, s.q_lora_rank, device)
+        p["q_norm"] = rmsnorm_init(s.q_lora_rank, device)
+        p["wq_b"] = linear_init(gen, s.q_lora_rank, s.n_heads * qk_head,
+                                device)
+    else:
+        p["wq"] = linear_init(gen, s.d_model, s.n_heads * qk_head, device)
+    p["wkv_a"] = linear_init(gen, s.d_model, s.kv_lora_rank + s.rope_dim,
+                             device)
+    p["kv_norm"] = rmsnorm_init(s.kv_lora_rank, device)
+    p["wkv_b"] = linear_init(gen, s.kv_lora_rank,
+                             s.n_heads * (s.nope_dim + s.v_dim), device)
+    p["wo"] = linear_init(gen, s.n_heads * s.v_dim, s.d_model, device)
+    return p
+
+
+def mla_cache_init(s: MLASpec, batch: int, max_seq: int, device) -> Params:
+    """MLA caches the compressed latent and the shared rope key."""
+    return {"ckv": torch.zeros((batch, max_seq, s.kv_lora_rank),
+                               device=device),
+            "krope": torch.zeros((batch, max_seq, s.rope_dim),
+                                 device=device)}
+
+
+def mla_apply(p: Params, s: MLASpec, x, *, positions, cache=None, pos=0,
+              paged=None):
+    """x: (B,S,d).  The latent ``ckv`` (B,S,kv_lora_rank) and the shared
+    rope key ``krope`` (B,S,rope_dim) are what a cache holds: the
+    contiguous {'ckv','krope'} (B,Smax,...) rows, written at ``pos`` in
+    place, or with ``paged`` (B, max_blocks) block tables the (N,bs,...)
+    pools, written through the tables and gathered dense.  The naive
+    expanded form of the reference: every cached latent goes through
+    wkv_b to per-head k_nope / v, then [q_nope, q_rope] against [k_nope,
+    krope] through the shared core with K = n_heads, G = 1, scale
+    1/sqrt(nope + rope).  Returns (out, cache)."""
+    b, sl, _ = x.shape
+    qk_head = s.nope_dim + s.rope_dim
+    if s.q_lora_rank:
+        q = linear(p["wq_b"],
+                   rmsnorm(p["q_norm"], linear(p["wq_a"], x), s.norm_eps))
+    else:
+        q = linear(p["wq"], x)
+    q = q.reshape(b, sl, s.n_heads, qk_head)
+    q_nope, q_rope = q[..., :s.nope_dim], q[..., s.nope_dim:]
+    q_rope = apply_rope(q_rope, positions, s.rope_theta)
+
+    kv_a = linear(p["wkv_a"], x)                       # (B,S,kv_lora+rope)
+    ckv = rmsnorm(p["kv_norm"], kv_a[..., :s.kv_lora_rank], s.norm_eps)
+    k_rope = apply_rope(kv_a[..., s.kv_lora_rank:][:, :, None, :],
+                        positions, s.rope_theta)[:, :, 0, :]
+
+    if paged is not None:
+        paged_write(cache["ckv"], ckv, pos, paged)
+        paged_write(cache["krope"], k_rope, pos, paged)
+        ckv_all = paged_gather(cache["ckv"], paged)
+        krope_all = paged_gather(cache["krope"], paged)
+    elif cache is not None:
+        ckv_all = _write_seq(cache["ckv"], ckv, pos)
+        krope_all = _write_seq(cache["krope"], k_rope, pos)
+    else:
+        ckv_all, krope_all = ckv, k_rope
+    t = ckv_all.shape[1]
+    if cache is not None:
+        kv_valid = _kv_valid_mask(t, pos, sl, b, x.device)
+    else:
+        kv_valid = torch.ones((b, sl), dtype=torch.bool, device=x.device)
+
+    kv = linear(p["wkv_b"], ckv_all).reshape(b, t, s.n_heads,
+                                             s.nope_dim + s.v_dim)
+    k_nope, v = kv[..., :s.nope_dim], kv[..., s.nope_dim:]
+    q_cat = torch.cat([q_nope, q_rope], dim=-1).reshape(b, sl, s.n_heads, 1,
+                                                        qk_head)
+    k_cat = torch.cat([k_nope, krope_all[:, :, None, :].expand(
+        b, t, s.n_heads, s.rope_dim)], dim=-1)
+    o = _sdpa(q_cat, k_cat, v, q_pos=positions, kv_valid=kv_valid,
+              softmax_impl=s.softmax_impl, causal=True,
+              scale=1.0 / qk_head ** 0.5, attn_impl=s.attn_impl)
+    o = o.reshape(b, sl, s.n_heads * s.v_dim)
+    return linear(p["wo"], o), cache
+
+
+# ---------------- cross attention (VLM, encoder-decoder) ----------------
 
 def cross_init(gen: torch.Generator, s: AttnSpec, device) -> Params:
     return {"wq": linear_init(gen, s.d_model, s.n_heads * s.head_dim, device),
@@ -272,8 +374,8 @@ def cross_init(gen: torch.Generator, s: AttnSpec, device) -> Params:
 
 
 def cross_kv(p: Params, s: AttnSpec, enc) -> Params:
-    """Cross K/V (B, T, K, h) from the image embeddings ``enc`` (B, T, d):
-    computed at prefill and cached for decode."""
+    """Cross K/V (B, T, K, h) from ``enc`` (B, T, d), the image embeddings
+    or the encoder's output: computed at prefill and cached for decode."""
     b, t, _ = enc.shape
     k = linear(p["wk"], enc).reshape(b, t, s.n_kv_heads, s.head_dim)
     v = linear(p["wv"], enc).reshape(b, t, s.n_kv_heads, s.head_dim)

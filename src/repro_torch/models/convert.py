@@ -6,7 +6,9 @@ module needs no JAX) and returns the port's parameter dict: the
 reference stacks the blocks of each period on a leading axis, the port
 keeps one dict per layer in a list.  Every leaf is taken per period, so
 a cross layer's gate, stacked by the reference as (n_periods,), becomes
-the 0-d ``cross_gate`` of each of its layers.
+the 0-d ``cross_gate`` of each of its layers.  An encoder's blocks,
+stacked by the reference on a leading ``enc_layers`` axis, become a list
+too, beside the encoder's final norm.
 """
 from __future__ import annotations
 
@@ -39,4 +41,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     for key in ("lm_head", "pos"):
         if key in tree:
             params[key] = _to_torch(tree[key], dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "blocks": [_to_torch(enc["blocks"], dev, index=i)
+                       for i in range(cfg.enc_layers)],
+            "norm": _to_torch(enc["norm"], dev)}
     return params

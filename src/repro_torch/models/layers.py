@@ -98,6 +98,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(n_pos: int, d: int, device=None,
+                       dtype=torch.float32) -> torch.Tensor:
+    """(n_pos, d) fixed positions: sin of pos / 10000^(2i/d) in the first
+    half, cos in the second."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # activations the fused epilogue (datapath.pair_act, float log-domain
 # form) agrees with mathematically -- gelu_tanh is the tanh-form identity
 # tanh(k) = 2*sigma(2k)-1 of the same curve, so fused-vs-dense parity is

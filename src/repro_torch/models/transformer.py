@@ -1,25 +1,31 @@
 """Transformer stack of the port (counterpart of
 ``repro.models.transformer``): each layer's ``LayerSpec`` has mixer
-``'attn'`` or ``'none'``, ffn ``'mlp'`` (or ``'moe'`` under an 'attn'
-mixer), and may carry a tanh-gated cross-attention sublayer (``cross``).
-That covers the qwen / yi decoders (RMSNorm, RoPE, gated MLP), the
-bert-base encoder (LayerNorm, a learned position table, non-causal
-attention, an ungated MLP), llama-3.2-vision (a period of four
+``'attn'``, ``'mla'`` or ``'none'``, ffn ``'mlp'`` (or ``'moe'`` under an
+'attn' mixer), and may carry a tanh-gated cross-attention sublayer
+(``cross``); a config with ``enc_layers`` adds an encoder stack whose
+output is the decoder's ``cross_src``.  That covers the qwen / yi /
+qwen3 decoders (RMSNorm, RoPE, gated MLP; qwen3 with qk-norm), minicpm3
+(MLA: keys and values expanded from a cached latent), the bert-base
+encoder (LayerNorm, a learned position table, non-causal attention, an
+ungated MLP), whisper-base (an encoder over frame embeddings with
+sinusoid positions, a decoder with a learned table that cross-attends to
+the encoder's output, GELU MLPs), llama-3.2-vision (a period of four
 self-attention layers and one 'none'-mixer layer whose cross attention
 reads the image embeddings) and granite-moe (attention over a
 mixture-of-experts FFN, ``models/moe.py``), with the reference's fused
 norm seams (``norm_impl``) and fused GLU (``ffn_impl``).
 
-bert-base also rotates q and k by RoPE: its config leaves ``use_rope``
-at its default (True), so the reference applies RoPE on top of the
-learned table, and the port matches the reference rather than Devlin
-et al.
+bert-base and whisper-base also rotate q and k by RoPE: their configs
+leave ``use_rope`` at its default (True), so the reference applies RoPE
+on top of the position tables, and the port matches the reference rather
+than the published models.
 
 The reference stacks each period's parameters on a leading axis for
 ``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
-list (layer i has spec ``cfg.pattern[i % len(cfg.pattern)]``) and the
-stack is a Python loop.  ``models/convert.py`` maps the reference's
-stacked pytree onto this layout.
+list (layer i has spec ``cfg.pattern[i % len(cfg.pattern)]``), the
+encoder's blocks another, and the stacks are Python loops.
+``models/convert.py`` maps the reference's stacked pytree onto this
+layout.
 """
 from __future__ import annotations
 
@@ -30,10 +36,11 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch
 
-from .attention import (AttnSpec, _positions_from, cross_apply, cross_init,
-                        cross_kv, gqa_apply)
+from .attention import (AttnSpec, MLASpec, _positions_from, cross_apply,
+                        cross_init, cross_kv, gqa_apply, mla_apply,
+                        mla_cache_init, mla_init)
 from .layers import (Params, embed_init, linear_init, make_norm, mlp,
-                     mlp_init, rmsnorm_init)
+                     mlp_init, rmsnorm_init, sinusoidal_pos_emb)
 from .moe import MoESpec, moe_apply, moe_init
 
 
@@ -46,6 +53,14 @@ def attn_spec(cfg: ModelConfig, causal: bool | None = None) -> AttnSpec:
                     norm_eps=cfg.norm_eps)
 
 
+def mla_spec(cfg: ModelConfig) -> MLASpec:
+    m = cfg.mla
+    return MLASpec(cfg.d_model, cfg.n_heads, m.q_lora_rank, m.kv_lora_rank,
+                   m.nope_dim, m.rope_dim, m.v_dim,
+                   rope_theta=cfg.rope_theta, softmax_impl=cfg.softmax_impl,
+                   attn_impl=cfg.attn_impl, norm_eps=cfg.norm_eps)
+
+
 def moe_spec(cfg: ModelConfig) -> MoESpec:
     m = cfg.moe
     return MoESpec(cfg.d_model, m.d_ff, m.n_experts, m.top_k, m.n_shared,
@@ -54,7 +69,7 @@ def moe_spec(cfg: ModelConfig) -> MoESpec:
 
 
 def _supported_spec(spec: LayerSpec) -> bool:
-    if spec.mixer not in ("attn", "none"):
+    if spec.mixer not in ("attn", "mla", "none"):
         return False
     return spec.ffn == "mlp" or (spec.ffn == "moe" and spec.mixer == "attn"
                                  and not spec.cross)
@@ -62,18 +77,20 @@ def _supported_spec(spec: LayerSpec) -> bool:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet
-    (prefix layers, other mixers, MLA, mamba, encoder-decoder stacks,
-    sinusoid positions)."""
+    (prefix layers, mamba / rwkv mixers, other norms).  It runs attn,
+    MLA and 'none' mixers with an mlp (and an optional cross sublayer),
+    attn mixers with a moe ffn, an encoder stack (``enc_layers``), and
+    rope, learned or sinusoid positions."""
     why = []
     if cfg.prefix or not all(_supported_spec(s) for s in cfg.pattern):
-        why.append("layer patterns other than attn / 'none' mixers with an "
-                   "mlp (and an optional cross sublayer), or attn mixers "
-                   "with a moe ffn")
-    if cfg.enc_layers or cfg.mla or cfg.mamba:
-        why.append("encoder / MLA / mamba layers")
+        why.append("layer patterns other than attn / MLA / 'none' mixers "
+                   "with an mlp (and an optional cross sublayer), or attn "
+                   "mixers with a moe ffn (prefix layers, mamba, rwkv)")
+    if cfg.mamba:
+        why.append("mamba layers")
     if cfg.norm not in ("rms", "layer"):
         why.append(f"norm={cfg.norm!r}")
-    if cfg.pos_emb not in ("rope", "learned"):
+    if cfg.pos_emb not in ("rope", "learned", "sinusoid"):
         why.append(f"pos_emb={cfg.pos_emb!r}")
     if why:
         raise NotImplementedError(
@@ -90,9 +107,10 @@ def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
 def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> Params:
     """The reference's keys for ``spec``: norm1 always (a 'none' block
-    carries an unused one), the mixer for 'attn', cross_norm / cross / a
-    0-d cross_gate (zero: tanh(0) shuts the sublayer) for cross, then
-    norm2 and the ffn (an MLP, or the MoE's router and expert stacks)."""
+    carries an unused one), the mixer for 'attn' or 'mla', cross_norm /
+    cross / a 0-d cross_gate (zero: tanh(0) shuts the sublayer) for
+    cross, then norm2 and the ffn (an MLP, or the MoE's router and expert
+    stacks)."""
     s = attn_spec(cfg)
     norm_init, _ = make_norm(cfg.norm)
     p: Params = {"norm1": norm_init(cfg.d_model, device)}
@@ -110,6 +128,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
             mixer["qn"] = rmsnorm_init(s.head_dim, device)
             mixer["kn"] = rmsnorm_init(s.head_dim, device)
         p["mixer"] = mixer
+    elif spec.mixer == "mla":
+        p["mixer"] = mla_init(gen, mla_spec(cfg), device)
     if spec.cross:
         p["cross_norm"] = norm_init(cfg.d_model, device)
         p["cross"] = cross_init(gen, attn_spec(cfg, causal=False), device)
@@ -123,13 +143,23 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     return p
 
 
+ENC_SPEC = LayerSpec(mixer="attn", ffn="mlp")
+
+
+def _enc_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's config: ``cfg``'s widths and impls, non-causal."""
+    return cfg.replace(causal=False, pattern=(ENC_SPEC,), prefix=())
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
             ) -> Params:
     """Random float32 weights with the reference's distributions (normal
     x 0.02 embeddings, normal / sqrt(d_in) projections, zero biases, unit
     norm gains, zero norm biases, zero cross gates), drawn from
     ``generator`` (which must live on ``device``).  A learned position
-    table has min(max_seq, 2**16) rows, as the reference's.
+    table has min(max_seq, 2**16) rows, as the reference's.  With
+    ``enc_layers``, ``params['encoder']`` holds the encoder's ``blocks``
+    (a list, non-causal attn + mlp) and its final ``norm``.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -145,6 +175,11 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
     if cfg.pos_emb == "learned":
         params["pos"] = embed_init(generator, min(cfg.max_seq, 1 << 16),
                                    cfg.d_model, dev)
+    if cfg.enc_layers:
+        params["encoder"] = {
+            "blocks": [block_init(generator, _enc_cfg(cfg), ENC_SPEC, dev)
+                       for _ in range(cfg.enc_layers)],
+            "norm": norm_init(cfg.d_model, dev)}
     return params
 
 
@@ -166,8 +201,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
     """The contiguous cache, one dict per layer (the reference stacks the
     layers of each period on a leading axis; here they are a list, as the
     parameters are): ``'kv'`` {'k','v'} (batch, max_seq, K, h) zero rows
-    for an attention layer, ``'cross_kv'`` {'k','v'} (batch,
-    n_img_tokens, K, h) for a cross-attention layer."""
+    for an attention layer, {'ckv','krope'} (batch, max_seq,
+    kv_lora_rank / rope_dim) for an MLA layer, ``'cross_kv'`` {'k','v'}
+    (batch, n_img_tokens or n_frames, K, h) for a cross-attention
+    layer."""
     check_supported(cfg)
     dev = resolve_device(device)
     caches = []
@@ -175,6 +212,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
         c: Params = {}
         if spec.mixer == "attn":
             c["kv"] = _kv_pair((batch, max_seq, cfg.n_kv_heads, cfg.hd), dev)
+        elif spec.mixer == "mla":
+            c["kv"] = mla_cache_init(mla_spec(cfg), batch, max_seq, dev)
         if spec.cross:
             c["cross_kv"] = _kv_pair((batch, cfg.n_img_tokens or cfg.n_frames,
                                       cfg.n_kv_heads, cfg.hd), dev)
@@ -185,6 +224,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
 def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
                       device=None) -> list[Params]:
     """One ``'kv'`` {'k','v'} (N, bs, K, h) pool pair per attention
+    layer, {'ckv','krope'} (N, bs, kv_lora_rank / rope_dim) per MLA
     layer; all layers share one block table per request.  Block 0 is the
     write sentinel."""
     if not paged_supported(cfg):
@@ -192,8 +232,16 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
     check_supported(cfg)
     dev = resolve_device(device)
     shape = (num_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-    return [{"kv": _kv_pair(shape, dev)} if spec.mixer == "attn" else {}
-            for spec in layer_specs(cfg)]
+    caches = []
+    for spec in layer_specs(cfg):
+        if spec.mixer == "attn":
+            caches.append({"kv": _kv_pair(shape, dev)})
+        elif spec.mixer == "mla":
+            caches.append({"kv": mla_cache_init(mla_spec(cfg), num_blocks,
+                                                block_size, dev)})
+        else:
+            caches.append({})
+    return caches
 
 
 # ---------------- apply ----------------
@@ -203,7 +251,8 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
     """One block of ``spec`` (the reference's control flow) -> (x, cache,
     aux), aux the MoE's load-balance loss (0.0 for an MLP block).  With a
     fused norm provider (``norm_impl`` resolved for x's device) the seams
-    run fused: norm1 into the QKV projection (prologue); the attention
+    run fused: norm1 into the QKV projection (prologue; an MLA mixer
+    takes the plain norm1, as the reference's does); the attention
     residual add + norm2 as one epilogue when no cross sublayer follows;
     otherwise ('none' mixer, or a cross sublayer that touched x) norm2
     into the gate / up products (the norm -> gated-GLU seam, inside
@@ -217,9 +266,14 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
     nprov = dispatch.get_norm(dispatch.resolve_norm(cfg.norm_impl, x.device))
     _, norm = make_norm(cfg.norm)
     h_ffn = None
-    if spec.mixer == "attn":
+    if spec.mixer in ("attn", "mla"):
         kv = None if cache is None else cache["kv"]
-        if nprov is not None:
+        if spec.mixer == "mla":
+            o, _ = mla_apply(p["mixer"], mla_spec(cfg),
+                             norm(p["norm1"], x, cfg.norm_eps),
+                             positions=positions, cache=kv, pos=pos,
+                             paged=paged)
+        elif nprov is not None:
             o, _ = gqa_apply(p["mixer"], attn_spec(cfg), x,
                              positions=positions, cache=kv, pos=pos,
                              paged=paged, prenorm=(p["norm1"], cfg.norm,
@@ -279,10 +333,11 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   decode (S=1) at offset ``pos`` (scalar, or (B,) for
                   continuous batching); the rows are updated in place
                   and returned.
-    cross_src   : (B, n_img_tokens, d) image embeddings for the cross
+    cross_src   : (B, n_img_tokens, d) image embeddings, or the
+                  encoder's output (:func:`encoder_apply`), for the cross
                   layers; with caches, their K/V are written into the
                   cross caches (prefill).  None reads the cross caches
-                  (decode, or a request without an image: zeros).
+                  (decode, or a request without one: zeros).
     caches+paged: prefill a chunk or decode one token at offset ``pos``
                   through the (B, max_blocks) block tables; the pools are
                   updated in place and returned.
@@ -309,6 +364,8 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if cfg.pos_emb == "learned":
         rows = params["pos"].shape[0]
         x = x + params["pos"][torch.clamp(positions, 0, rows - 1)]
+    elif cfg.pos_emb == "sinusoid":
+        x = x + sinusoidal_pos_emb(sl, cfg.d_model, dev, x.dtype)[None]
     if remat and caches is not None:
         raise ValueError("remat is for train mode (caches=None)")
     aux_total = 0.0
@@ -332,6 +389,26 @@ def lm_apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     if not torch.is_tensor(aux_total):
         aux_total = torch.zeros((), device=dev)
     return out, caches, aux_total
+
+
+def encoder_apply(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+                  device=None) -> torch.Tensor:
+    """The encoder stack over frame embeddings (B, T, d): sinusoid
+    positions added, ``enc_layers`` non-causal attn + mlp blocks of
+    ``cfg``'s widths, norms and impls, then the encoder's final norm ->
+    (B, T, d), the decoder's ``cross_src``.  ``device`` as in
+    :func:`lm_apply`."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    check_on(dev, frames=frames, embed=params["embed"])
+    b, t, d = frames.shape
+    x = frames + sinusoidal_pos_emb(t, d, dev, frames.dtype)
+    ecfg = _enc_cfg(cfg)
+    positions = _positions_from(0, b, t, dev)
+    for bp in params["encoder"]["blocks"]:
+        x, _, _ = block_apply(bp, ecfg, ENC_SPEC, x, None,
+                              positions=positions, pos=0, paged=None)
+    return make_norm(cfg.norm)[1](params["encoder"]["norm"], x, cfg.norm_eps)
 
 
 def _train_block(lp: Params, cfg: ModelConfig, spec: LayerSpec, x,

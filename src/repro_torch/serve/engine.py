@@ -16,19 +16,23 @@ then copied into the slot's row (``stats['cache_copies']``); each step
 then runs one lockstep decode tick over every slot at its own depth.
 This is the long-context layout: at max_seq 16384 the buckets prefill
 through the blocked kernels and decode through the contiguous split-KV
-kernels.  It is also the only layout of the cross-attention arch
-(llama-3.2-vision): a request's ``cross_src`` image embeddings (1,
-n_img_tokens, d) go to its prefill, which writes their K/V into the row's
-cross caches; decode ticks read them from there, and a request without
-embeddings attends over the fresh row's zero cross cache, as in the
-reference.  ``cache_mode='auto'`` is paged where every cached layer can
-be paged (``paged_supported``) and contiguous otherwise; ``'paged'`` on
-a cross arch raises ValueError.
+kernels.  It is also the only layout of the cross-attention archs
+(llama-3.2-vision, and the encoder-decoder whisper-base): a request's
+``cross_src`` -- image embeddings (1, n_img_tokens, d), or frame
+embeddings (1, n_frames, d) that the encoder (``encoder_apply``) turns
+into the decoder's context at admission -- goes to its prefill, which
+writes their K/V into the row's cross caches; decode ticks read them from
+there, and a request without one attends over the fresh row's zero cross
+cache, as in the reference.  ``cache_mode='auto'`` is paged where every
+cached layer can be paged (``paged_supported``: attention and MLA
+layers; an MLA layer pages its latent and rope key) and contiguous
+otherwise; ``'paged'`` on a cross arch raises ValueError.
 
 Attention impls (and the softmax of each phase) are resolved once per
 phase through the dispatch registry, for the engine's device, at the
 phase's widest shape: paged (prefill_chunk, table extent) and (1, table
-extent); contiguous (largest bucket, max_seq) and (1, max_seq).
+extent); contiguous (largest bucket, max_seq) and (1, max_seq); the
+encoder (n_frames, n_frames) with the prefill's softmax and impl.
 
 Serving under pressure (paged mode), as the reference serves it:
 ``admission='reactive'`` (the default) reserves only a request's PROMPT
@@ -55,8 +59,8 @@ token a request produced, across its preemptions, and
 ``reasons[rid]`` why it left.  Faults are injected through
 ``repro_torch.serve.faults``.
 
-Not in the port yet: the other archs that need the contiguous cache
-(mamba / rwkv state, encoder-decoder stacks) and a device mesh.
+Not in the port yet: the archs with mamba / rwkv state (contiguous
+only) and a device mesh.
 """
 from __future__ import annotations
 
@@ -70,7 +74,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import check_on, resolve_device
 from repro_torch.kernels import dispatch, tiling
-from repro_torch.models.transformer import (check_supported, init_caches,
+from repro_torch.models.transformer import (check_supported,
+                                            encoder_apply, init_caches,
                                             init_paged_caches, lm_apply,
                                             paged_supported)
 
@@ -95,7 +100,9 @@ class Request:
     prompt: list[int]
     max_new: int = 32
     temperature: float = 0.0
-    cross_src: Any = None            # (1, n_img_tokens, d) image embeddings
+    # (1, n_img_tokens, d) image embeddings (vlm) or (1, n_frames, d)
+    # frame embeddings, run through the encoder at admission (encdec)
+    cross_src: Any = None
     deadline_s: float | None = None  # wall-clock budget from submission
     priority: int = 0                # higher = preempted later
 
@@ -181,7 +188,8 @@ class ServeEngine:
         if cache_mode == "paged" and not paged_supported(cfg):
             raise ValueError(
                 "cache_mode='paged' requires attention-only cached layers "
-                "(no cross-attention) -- use 'auto' or 'contiguous'")
+                "(no cross-attention, no encoder) -- use 'auto' or "
+                "'contiguous'")
         self.cache_mode = ("paged" if cache_mode == "paged" or (
             cache_mode == "auto" and paged_supported(cfg)) else "contiguous")
         self.cfg, self.params = cfg, params
@@ -230,6 +238,14 @@ class ServeEngine:
                                         softmax_impl=self.prefill_softmax_impl)
         self._decode_cfg = cfg.replace(attn_impl=self.decode_attn_impl,
                                        softmax_impl=self.decode_softmax_impl)
+        self.encoder_attn_impl = None
+        if cfg.enc_layers:
+            self.encoder_attn_impl = dispatch.resolve_attention(
+                prefill_attn_impl or cfg.attn_impl, cfg.n_frames,
+                cfg.n_frames, softmax_impl=self.prefill_softmax_impl,
+                device=self.device)
+            self._encoder_cfg = self._prefill_cfg.replace(
+                attn_impl=self.encoder_attn_impl)
         self._slots = [_Slot() for _ in range(n_slots)]
         self._admit_seq = 0
         self._queue: list[_QEntry] = []
@@ -260,8 +276,8 @@ class ServeEngine:
     def prefill_logits(self, tokens, row_caches, last_idx, cross_src=None):
         """Contiguous mode: one whole prompt (1, L), padded to its bucket,
         written at 0 into the batch-1 ``row_caches`` (with the cross K/V of
-        ``cross_src`` (1, n_img_tokens, d), if given) -> (1, V) logits at
-        row ``last_idx``."""
+        ``cross_src`` (1, T, d), image embeddings or the encoder's output,
+        if given) -> (1, V) logits at row ``last_idx``."""
         logits, _ = lm_apply(self.params, self._prefill_cfg, tokens, pos=0,
                              caches=row_caches, cross_src=cross_src,
                              last_pos=last_idx, device=self.device)
@@ -414,13 +430,15 @@ class ServeEngine:
         row = init_caches(self.cfg, 1, self.max_seq, self.device)
         cross = (None if req.cross_src is None else torch.as_tensor(
             req.cross_src, dtype=torch.float32).to(self.device))
+        if cross is not None and self.cfg.enc_layers:
+            cross = encoder_apply(self.params, self._encoder_cfg, cross,
+                                  device=self.device)
         logits = self.prefill_logits(
             toks, row, torch.tensor([plen - 1], device=self.device), cross)
         for full, one in zip(self.caches, row):
-            for pair in ("kv", "cross_kv"):
-                if pair in full:
-                    full[pair]["k"][i].copy_(one[pair]["k"][0])
-                    full[pair]["v"][i].copy_(one[pair]["v"][0])
+            for name, pair in full.items():
+                for key, rows in pair.items():
+                    rows[i].copy_(one[name][key][0])
         self.stats["cache_copies"] += 1
         self._slots[i] = _Slot(rid=req.rid, pos=plen, remaining=req.max_new,
                                temperature=req.temperature,
@@ -517,8 +535,9 @@ class ServeEngine:
     # ---- preemption ----
 
     def _swap_out(self, blocks: list[int]) -> list[dict]:
-        """The blocks' K/V rows of every layer's pool, one gather a pool
-        tensor, in host memory (pinned on a GPU)."""
+        """The blocks' rows of every layer's pools (K / V, or an MLA
+        layer's latent and rope key), one gather a pool tensor, in host
+        memory (pinned on a GPU)."""
         t0 = time.perf_counter()
         idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
         saved = []

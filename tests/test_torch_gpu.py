@@ -1346,3 +1346,122 @@ def test_granite_train_step_repeats_bitwise_on_the_card(cuda):
                                                   tree_leaves(s2.params)))
     assert all(float(m1[k]) == float(m2[k]) for k in m1)
     assert 1.5 < float(m1["aux"]) < 2.5
+
+
+# ---------------- the remaining attention families ----------------
+#
+# minicpm3's MLA attends with q.k over h = nope + rope = 96 and v at hv
+# 64, over K 40 heads of G 1 (the expanded latent); whisper's encoder runs
+# rows 7 / 8 non-causal over its 1500 frames (not a multiple of the
+# 64-key tile: a phantom tail); qwen3's paged decode runs G 5, which the
+# decode kernel rounds up to 8 rows.  The limits above.
+
+@pytest.mark.parametrize("causal_end", [None, 40])
+def test_flash_kernels_at_mla_shape(cuda, causal_end):
+    """Rows 7 and 8 at MLA's head dims: a 64-token chunk against a
+    2048-key table (causal, ragged kv_valid), and a whole 300-token
+    prompt whose first rows see one masked key."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    s, t = (64, 2048) if causal_end is None else (300, 300)
+    for grid in (False, True):
+        qf, k, v, qp, valid = _attn(cuda, 1, s, t, 40, 1, 96, 64, grid,
+                                    causal_end=causal_end)
+        if causal_end is not None:
+            valid[:, 0] = 0
+        args = (qf, k, v, qp, valid)
+        kw = dict(causal=True, block_kv=64)
+        if not grid:
+            before = fa.FLASH_FWD.launches
+            torch.testing.assert_close(fa.flash_fwd(*args, **kw),
+                                       fa.flash_fwd_plain(*args, **kw),
+                                       atol=1e-5, rtol=0)
+            assert fa.FLASH_FWD.launches == before + 1
+            continue
+        gs = fai.unit.guard_shift_for(t)
+        part, out = _snap_call(fai, args, dict(kw, guard_shift=gs))
+        want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                    return_partial=True, **kw)
+        assert torch.equal(part[1], want[1]) and torch.equal(part[2], want[2])
+        torch.testing.assert_close(
+            out, fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+            atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("num_splits", [None, 1, 5])
+def test_decode_dense_kernels_at_mla_shape(cuda, num_splits):
+    """Rows 5 and 6 as an MLA decode tick runs them: 4 slots at ragged
+    depths of a 2048-key cache, K 40, G 1, h 96, hv 64, at the plan's
+    splits (tiling.decode_dense_plan), 1 and 5."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import tiling
+    gen = torch.Generator().manual_seed(31)
+    b, t, kh, h, hv = 4, 2048, 40, 96, 64
+    plan = tiling.decode_dense_plan(t, b * kh, sms=tiling.sm_count(cuda))
+    splits = plan.splits if num_splits is None else num_splits
+    for grid in (False, True):
+        qf = _randn(gen, cuda, b, kh, 1, h) * h ** -0.5
+        k = _randn(gen, cuda, b, t, kh, h)
+        if grid:
+            qf, k = torch.round(qf * 32) / 32, torch.round(k * 4) / 16
+        v = _randn(gen, cuda, b, t, kh, hv)
+        qp = torch.tensor([70, 700, 1500, t - 1], dtype=torch.int32).to(cuda)
+        valid = (torch.arange(t, device=cuda)[None] <= qp[:, None]).to(
+            torch.uint8)
+        args = (qf.contiguous(), k, v, qp, valid)
+        kw = dict(num_splits=splits, block_kv=plan.block_kv, causal=True,
+                  guard_shift=unit.guard_shift_for(t))
+        before = fd.DECODE_DENSE.launches
+        kf = fd.decode_dense_partials(*args, int_mode=False, **kw)
+        assert fd.DECODE_DENSE.launches == before + 1
+        pf = fd.decode_dense_partials_plain(*args, int_mode=False, **kw)
+        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
+                                   fd.finish_partials(*pf, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        ki = fd.decode_dense_partials(*args, int_mode=True, **kw)
+        pi = fd.decode_dense_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
+        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
+                                   fd.finish_partials(*pi, int_mode=True),
+                                   atol=1e-5 if grid else 1e-4, rtol=0)
+
+
+def test_flash_kernels_at_whisper_encoder_shape(cuda):
+    """Rows 7 and 8 non-causal over 1500 frames, as whisper's encoder
+    runs them: 1500 = 23 x 64 + 28, so the last key tile holds 36 phantom
+    keys; K 8, G 1, h 64, every key valid."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    for grid in (False, True):
+        qf, k, v, _, _ = _attn(cuda, 1, 1500, 1500, 8, 1, 64, 64, grid)
+        qp = torch.arange(1500, dtype=torch.int32, device=cuda)[None]
+        valid = torch.ones(1, 1500, dtype=torch.uint8, device=cuda)
+        args = (qf, k, v, qp, valid)
+        kw = dict(causal=False, block_kv=64)
+        if not grid:
+            torch.testing.assert_close(fa.flash_fwd(*args, **kw),
+                                       fa.flash_fwd_plain(*args, **kw),
+                                       atol=1e-5, rtol=0)
+            continue
+        gs = fai.unit.guard_shift_for(1500)
+        part, out = _snap_call(fai, args, dict(kw, guard_shift=gs))
+        want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                    return_partial=True, **kw)
+        assert torch.equal(part[1], want[1]) and torch.equal(part[2], want[2])
+        torch.testing.assert_close(
+            out, fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+            atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_decode_paged_kernels_at_qwen3_shape(cuda, grid):
+    """Rows 3 and 4 at qwen3-14b's decode: 8 kv heads x G 5 query heads
+    (the kernel's 8-row instantiation, 3 rows idle), h 128, 128-key
+    blocks, a 2048-key table, at 1 split and the plan's."""
+    from repro_torch.kernels import tiling
+    args = _case(cuda, 5, grid, b=4, kh=8, h=128, bs=128, nblk=16,
+                 q_pos=[100, 700, 1300, 2047], tails="out")
+    plan = tiling.decode_splits(16, 128, 32, cuda)
+    for num_splits in sorted({1, plan}):
+        _paged_checks(args, num_splits, grid)

@@ -42,6 +42,9 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
                                   "configs/bert_base.py",
                                   "configs/llama3_2_vision_11b.py",
                                   "configs/granite_moe_3b.py",
+                                  "configs/whisper_base.py",
+                                  "configs/minicpm3_4b.py",
+                                  "configs/qwen3_14b.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -51,7 +54,8 @@ def test_copied_modules_equal_originals(path):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b", "bert-base",
                                   "llama-3.2-vision-11b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "whisper-base",
+                                  "minicpm3-4b", "qwen3-14b"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
         j = getattr(J_registry, get)(arch)
@@ -182,10 +186,11 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 def test_unported_configurations_raise():
+    from repro_torch.configs.base import LayerSpec
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        lm_apply(p, cfg.replace(pos_emb="sinusoid"), torch.zeros(
+        lm_apply(p, cfg.replace(prefix=(LayerSpec(),)), torch.zeros(
             (1, 3), dtype=torch.long), device="cpu")
     with pytest.raises(ValueError):
         T_registry.get_config("jamba-v0.1-52b")

@@ -469,8 +469,8 @@ def test_aux_weight_is_in_the_gradient(granite):
 
 
 def test_entry_points_accept_granite_and_refuse_the_rest():
-    """init_lm / check_supported take granite; prefix, MLA, mamba, rwkv,
-    encoder and sinusoid configurations still raise."""
+    """init_lm / check_supported take granite; prefix, MLA-over-MoE,
+    mamba and rwkv configurations still raise."""
     T_tf.check_supported(T_registry.get_config(ARCH))
     cfg = T_registry.reduced_config(ARCH)
     from repro_torch.configs.base import LayerSpec
@@ -480,12 +480,11 @@ def test_entry_points_accept_granite_and_refuse_the_rest():
                cfg.replace(pattern=(LayerSpec(mixer="rwkv",
                                               ffn="rwkv_cm"),)),
                cfg.replace(pattern=(LayerSpec(mixer="none", ffn="moe"),)),
-               cfg.replace(enc_layers=2), cfg.replace(pos_emb="sinusoid")]
+               cfg.replace(pos_emb="alibi")]
     for bad in refused:
         with pytest.raises(NotImplementedError):
             T_tf.check_supported(bad)
-    for name in ("deepseek-v2-lite-16b", "jamba-v0.1-52b", "rwkv6-1.6b",
-                 "minicpm3-4b", "whisper-base"):
+    for name in ("deepseek-v2-lite-16b", "jamba-v0.1-52b", "rwkv6-1.6b"):
         with pytest.raises(NotImplementedError):
             T_tf.check_supported(J_registry.get_config(name))
 

@@ -133,10 +133,11 @@ def test_engine_refuses_what_this_slice_does_not_serve():
     attention + MLP (NotImplementedError), an unknown cache mode, a
     prompt past max_seq or the largest bucket (ValueError), and running
     on no GPU unasked (RuntimeError)."""
+    from repro_torch.configs.base import LayerSpec
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        ServeEngine(cfg.replace(pos_emb="sinusoid"), p,
+        ServeEngine(cfg.replace(pattern=(LayerSpec(mixer="mamba"),)), p,
                     cache_mode="contiguous", device="cpu")
     with pytest.raises(ValueError):
         ServeEngine(cfg, p, cache_mode="ring", device="cpu")
