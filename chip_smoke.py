@@ -23,7 +23,8 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             launched.  Then one prefill chunk and the first decode step at
             full width through the kernels against the same step with the
             plain versions called in their place.
-   pressure the same model and prompts with 144 new tokens each (every
+   pressure the same model cut to its first 8 layers (PRESSURE_LAYERS)
+            and the same prompts with 144 new tokens each (every
             request grows its table past a 128-token block) on an ample
             pool, then on a pool of half the worst-case demand of 4 slots
             (as serve.faults sizes it) with preempt_mode 'recompute' and
@@ -200,10 +201,39 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             12, 14, 15 at its widths; then, alone on the card, full-width
             qwen3-14b (40 layers, 14.77 B parameters, 55 GiB), as
             minicpm3 but on yi's path with qk-norm.
+13. rwkv6    the WKV kernel (wkv6) against its plain step loop at
+            rwkv6's tick (B 4, S 1, 32 heads of 64), a batch-1 prefill
+            of 1500 steps, S 77 and 33 (no multiple of its 32-step tile)
+            and S 8192: y and the final state within TOL_SCAN, a split
+            of the steps in two carried through the state and a repeat
+            bitwise; timed at the tick and the prefill beside its bound.
+            Then full-width, full-depth rwkv6-1.6b (24 layers, 1.6 B),
+            float only (relu^2 and a plain SiLU gate: no unit mode), the
+            residual-norm epilogue fused, on the contiguous cache that
+            'auto' picks (max_seq 16384, 4 slots, each prompt prefilled
+            at its own length): the serve phase's 6 prompts and one of
+            8192 tokens, 16 new each; exact launches a layer of a
+            prefill and a tick; the first prefill and tick against the
+            plain versions.
+14. jamba    the selective-scan kernel against its plain step loop at
+            jamba's tick (B 4, d_inner 8192, d_state 16), a 1500-step
+            prefill, d_inner 200 and d_state 8, with the same checks and
+            times.  Then full-width jamba-v0.1-52b at 8 of its 32 layers
+            (one period: 7 mamba layers and 1 attention layer over 4
+            dense and 4 MoE FFNs, 16 experts top-2; 13.30 B, 49.5 GiB),
+            float and dual-mode with the fused impls, contiguous at
+            max_seq 4096, 4 slots, the serve phase's prompts at their own
+            lengths, 16 new each: exact launches a prefill and a tick;
+            the first prefill and tick block by block (the kernels and
+            the plain versions on the same input and cache, held on the
+            tokens whose expert sets agree with granite's flip rule, the
+            mamba states within TOL_SCAN) and their logits against the
+            plain versions.
 
 ``python3 chip_smoke.py PHASE[,PHASE]`` runs the build and the named
 phases only (qwen, long, yi, train, bert, vision, granite, whisper,
-minicpm3, qwen3; qwen is phases 2, 3 and the pressure run) and ends with
+minicpm3, qwen3, rwkv6, jamba; qwen is phases 2, 3 and the pressure run)
+and ends with
 ``{"ok": true, "phases": [...]}`` instead of the kernels line and the
 device line.
 
@@ -213,7 +243,8 @@ each for rows 12, 13, 15, 16 ("[norm gemm]"), row 7 ("[flash fwd]"),
 row 5 ("[decode dense]"), row 8 ("[flash snap]"), row 6 ("[decode
 dense int]"), rows 3 / 4 ("[decode paged]") and row 9 ("[flash int3]")
 at every shape they were timed at, rows 7 and 5 at MLA's head dims
-("[mla attention]"), a "[resnorm host]" line (row 14's
+("[mla attention]"), the two recurrence kernels at a tick and a prefill
+("[recurrence]"), a "[resnorm host]" line (row 14's
 wrapper, µs a call to issue, by part), and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
@@ -1033,6 +1064,11 @@ def serve_phase(dev, launches):
 
 PRESSURE_NEW = 144       # past a 128-token block: every request grows
 PRESSURE_POOL_FRAC = 0.5  # of a full slot complement's worst-case demand
+# the pressure runs' depth: the first 8 of qwen's 24 layers at full
+# width.  Preemption, swap and the stream rules do not depend on depth,
+# and the six runs took ~250 s of the script's 1200 s limit at 24 layers
+# (PERF.md section 6)
+PRESSURE_LAYERS = 8
 # The recompute rule, stated before the first chip run: a recompute
 # resume writes the generated tokens' K/V through a 64-row chunk where
 # decode wrote them through a 4-row tick, so their last bits may differ
@@ -1173,18 +1209,22 @@ def pressure_runs(tag: str, name: str, cfg, params, dev, prompts, new: int,
 
 
 def pressure_phase(dev, launches, params, prompts):
-    """The serve phase's model and prompts, 144 new tokens each: an ample
-    pool, then a pool of half the worst-case demand of 4 slots (as
-    faults._setup sizes it) under preempt_mode 'recompute' and 'swap',
-    float and dual-mode; then the chaos soak at full width."""
+    """The serve phase's model (its first PRESSURE_LAYERS layers) and
+    prompts, 144 new tokens each: an ample pool, then a pool of half the
+    worst-case demand of 4 slots (as faults._setup sizes it) under
+    preempt_mode 'recompute' and 'swap', float and dual-mode; then the
+    chaos soak at full width and depth."""
     from repro_torch.configs import registry
     from repro_torch.serve import faults
     base = registry.get_config("qwen1.5-0.5b")
     tight = tight_pool("pressure", "qwen1.5-0.5b", prompts, PRESSURE_NEW)
+    cut = base.replace(n_layers=PRESSURE_LAYERS)
+    log(f"[pressure] depth {PRESSURE_LAYERS} of {base.n_layers} layers")
+    cut_params = {**params, "layers": params["layers"][:PRESSURE_LAYERS]}
     for name, (sm, act, kernels) in PATHS.items():
-        pressure_runs("pressure", name, base.replace(softmax_impl=sm,
-                                                     activation=act),
-                      params, dev, prompts, PRESSURE_NEW, tight, kernels,
+        pressure_runs("pressure", name, cut.replace(softmax_impl=sm,
+                                                    activation=act),
+                      cut_params, dev, prompts, PRESSURE_NEW, tight, kernels,
                       launches, n_slots=4, max_seq=2048)
     cfg = base.replace(softmax_impl="float", activation="silu")
     for mode in ("recompute", "swap"):
@@ -1214,8 +1254,8 @@ def _plain_norm_provider():
 def _plain_serve_kernels():
     """Patches that put the plain versions in the serve paths' kernels'
     place: the unit's row softmax and pair mode, the paged and contiguous
-    decodes, the blocked float and snapped int flash, the fused norm
-    seams and the fused GLU."""
+    decodes, the blocked float and snapped int flash, the WKV and
+    selective scans, the fused norm seams and the fused GLU."""
     from contextlib import ExitStack
 
     from repro_torch.core import activations
@@ -1233,11 +1273,15 @@ def _plain_serve_kernels():
                                           ds.softmax_rows_plain))
     stack.enter_context(mock.patch.object(activations, "pair_act",
                                           ds.pair_act_plain))
+    from repro_torch.kernels import recurrence as rec
+    from repro_torch.models import mamba, rwkv
     for mod, name, plain in (
             (fd, "decode_paged_partials", fd.decode_paged_partials_plain),
             (fd, "decode_dense_partials", fd.decode_dense_partials_plain),
             (fa, "flash_fwd", fa.flash_fwd_plain),
-            (fai, "flash_snap", fai.flash_snap_plain)):
+            (fai, "flash_snap", fai.flash_snap_plain),
+            (rwkv, "wkv6", rec.wkv6_plain),
+            (mamba, "selective_scan", rec.selective_scan_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     stack.enter_context(mock.patch.dict(
         dispatch._NORM, {"fused_pallas": _plain_norm_provider()}))
@@ -4115,16 +4159,19 @@ def _free_weights(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
 
-def _model(tag: str, base, dev):
-    """Full-width, full-depth random weights of ``base`` from a seeded
-    generator on the card; logs their size."""
+def _model(tag: str, base, dev, depth_of: int | None = None):
+    """Full-width random weights of ``base`` from a seeded generator on
+    the card, at its depth (``depth_of``: the published depth it was cut
+    from); logs their size."""
     from repro_torch.models.transformer import init_lm
     from repro_torch.tree import tree_leaves
     t0 = time.perf_counter()
     params = init_lm(base, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in tree_leaves(params))
-    log(f"[{tag}] {base.name} full width and depth: {base.n_layers} layers"
+    depth = (f"full width and depth: {base.n_layers}" if depth_of is None
+             else f"full width, {base.n_layers} of its {depth_of}")
+    log(f"[{tag}] {base.name} {depth} layers"
         + (f" (+ {base.enc_layers} encoder)" if base.enc_layers else "")
         + f" d {base.d_model} heads {base.n_heads}/{base.n_kv_heads} h "
         f"{base.hd} d_ff {base.d_ff} vocab {base.vocab}, "
@@ -4333,8 +4380,410 @@ def qwen3_phase(dev, launches, results):
                        dev, launches, results)
 
 
+# ---------------- phases 13 / 14: the recurrent mixers ----------------
+#
+# rwkv6-1.6b at full width and depth, jamba-v0.1-52b at full width and 8
+# of its 32 layers (one period: 13.30 B parameters, 49.5 GiB; all 32 are
+# 192 GiB), both on the contiguous engine that 'auto' picks for a
+# recurrent state, each prompt prefilled at its own length.
+
+TOL_SCAN = 1e-5        # wkv6 / selective_scan against the plain step loop:
+#                        y and the final state within 1e-5 of max(1, max
+#                        |plain|) of each -- fused multiply-adds and the
+#                        hd- (64) or d_state- (16) term sums in another
+#                        order, carried through the state over the steps
+RWKV_ID = "rwkv6-1.6b"
+RWKV = dict(max_seq=16384, n_slots=4)
+RWKV_LONG = 8192       # one prompt of this many tokens beside the 6 others
+RWKV_NEW = 16
+# config overrides, the launches of each kernel a layer of a prefill and
+# of a tick: the time mix's WKV scan and the residual-norm epilogue before
+# the channel mix (norm1 stays unfused, as in the reference; relu^2 is no
+# unit mode and the gate is a plain SiLU, so the arch runs float only)
+RWKV_PATH = (dict(softmax_impl="float", **FUSED),
+             {"wkv6": (1, 1), "resnorm": (1, 1)})
+JAMBA_ID = "jamba-v0.1-52b"
+JAMBA_LAYERS = 8       # one period: 7 mamba layers and 1 attention layer
+JAMBA = dict(max_seq=4096, n_slots=4)
+JAMBA_NEW = 16
+# name: (config overrides, prefill impl, the launches of each kernel in a
+# prefill and in a tick of the 8 layers).  A mamba layer: the selective
+# scan and the residual-norm epilogue; the attention layer: norm -> QKV,
+# rows 7 / 8 at a prefill (exact length against max_seq keys), rows 5 / 6
+# at a tick, the epilogue; the 4 dense MLPs: the fused GLU in float, the
+# unit's SiLU mode (row 2) in dual-mode; the 4 MoE FFNs: cuBLAS products,
+# and row 2 once each in dual-mode.
+JAMBA_PATHS = {
+    "float": (dict(softmax_impl="float", activation="silu", **FUSED),
+              "flash_pallas",
+              {"selective_scan": (7, 7), "resnorm": (8, 8),
+               "norm_linear": (1, 1), "glu": (4, 4), "flash_fwd": (1, 0),
+               "decode_dense": (0, 1)}),
+    "dualmode": (dict(softmax_impl="dualmode", activation="silu_dualmode",
+                      **FUSED), "flash_pallas_int",
+                 {"selective_scan": (7, 7), "resnorm": (8, 8),
+                  "norm_linear": (1, 1), "pair_act": (8, 8),
+                  "flash_snap": (1, 0), "decode_dense_int": (0, 1)})}
+
+
+def _scan_checks(name: str, fn, plain, args, seq) -> float:
+    """One recurrence kernel against its plain version on ``args`` (those
+    at indices ``seq`` (B, S, ...) per step, the last the initial state):
+    y and the final state within TOL_SCAN of max(1, max |plain|); a split
+    of the steps in two (S1 = 1 and S1 = S // 2 + 1) carried through the
+    state equals the whole call bit for bit; two calls give the same
+    bits.  Returns the larger absolute error."""
+    got, want = fn(*args), plain(*args)
+    e = max(check_rel(f"{name} y", got[0], want[0], TOL_SCAN),
+            check_rel(f"{name} state", got[1], want[1], TOL_SCAN))
+    sl = args[0].shape[1]
+    for s1 in sorted({1, sl // 2 + 1} - {sl}):
+        head = list(args)
+        tail = list(args)
+        for i in seq:
+            head[i] = args[i][:, :s1].contiguous()
+            tail[i] = args[i][:, s1:].contiguous()
+        y1, st1 = fn(*head)
+        tail[-1] = st1
+        y2, st2 = fn(*tail)
+        torch.cuda.synchronize()
+        if not (torch.equal(torch.cat([y1, y2], dim=1), got[0])
+                and torch.equal(st2, got[1])):
+            fail(f"{name}: {s1} then {sl - s1} steps differ from {sl} in "
+                 "one call")
+        log(f"  ok {name}: {s1} then {sl - s1} steps equal one call, "
+            "bitwise")
+    check_repeat(f"{name} repeat", lambda: torch.cat(
+        [t.flatten() for t in fn(*args)]))
+    return e
+
+
+def _scan_row(table: dict, key: str, fn, plain, args, nbytes: float,
+              flops: float, plain_iters: int) -> dict:
+    """Time one recurrence kernel at one shape: back to back, under
+    CUDA-graph replay, its plain version, its bound (no library call
+    computes it)."""
+    b_ms, b_by = bound(nbytes, flops)
+    return kernel_row(table, key, lambda: fn(*args), lambda: plain(*args),
+                      b_ms, b_by, None, iters=20, plain_iters=plain_iters)
+
+
+def wkv6_args(dev, b: int, sl: int, h: int, hd: int, seed: int):
+    """r, k, v (B, S, H, hd), a decay w in (0.6, 0.9995) per channel and
+    step, u (H, hd), a nonzero S0."""
+    randn = _randn_fn(dev, seed)
+    r, k, v = (randn(b, sl, h, hd) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, sl, h, hd) - 3.0)).clamp(max=0.9995)
+    return (r, k, v, w.contiguous(), randn(h, hd, scale=0.1),
+            randn(b, h, hd, hd, scale=0.3))
+
+
+def scan_args(dev, b: int, sl: int, di: int, ds: int, seed: int):
+    """xc, dt (softplus, ~0.01-1) (B, S, di), A = -(1..ds) per channel as
+    the model's init has it, Bm, Cm (B, S, ds), a nonzero h0."""
+    randn = _randn_fn(dev, seed)
+    dt = torch.nn.functional.softplus(randn(b, sl, di) - 2.0)
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
+        di, ds).contiguous()
+    return (randn(b, sl, di), dt.contiguous(), a, randn(b, sl, ds),
+            randn(b, sl, ds), randn(b, di, ds, scale=0.3))
+
+
+def wkv6_cost(b, sl, h, hd):
+    """(bytes, flops) of one wkv6 call: r, k, v, w read and y written once
+    a step, u, S0 read and S written once; 7 flops a state word a step."""
+    return ((5 * b * sl * h * hd + h * hd + 2 * b * h * hd * hd) * 4,
+            7 * b * sl * h * hd * hd)
+
+
+def scan_cost(b, sl, di, ds):
+    """(bytes, flops) of one selective_scan call: xc, dt read and y written
+    a step, Bm, Cm read a step, A, h0 read and h written once; 7 flops (the
+    exp counted as one) a state word a step and one a channel."""
+    return ((3 * b * sl * di + 2 * b * sl * ds + di * ds + 2 * b * di * ds)
+            * 4, b * sl * di * (7 * ds + 1))
+
+
+def rwkv_kernel_checks(dev, cfg, results) -> None:
+    """wkv6 against its plain version at rwkv6's tick (B 4, S 1, 32 heads
+    of 64), a batch-1 prefill of 1500 steps, S 77 and 33 (no multiple of
+    the kernel's 32-step tile) and S 8192 at one layer, the split and
+    repeat checks at each; timed at the tick and at the prefill."""
+    from repro_torch.kernels import recurrence as rec
+    h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    log(f"[rwkv6] kernels: wkv6 at H {h} hd {hd}")
+    table: dict = {}
+    worst = 0.0
+    for i, (b, sl) in enumerate(((4, 1), (1, 1500), (2, 77), (3, 33),
+                                 (1, 8192))):
+        args = wkv6_args(dev, b, sl, h, hd, 40 + i)
+        name = f"wkv6 B{b} S{sl} H{h} hd{hd}"
+        e = _scan_checks(name, rec.wkv6, rec.wkv6_plain, args, (0, 1, 2, 3))
+        if (b, sl) in ((4, 1), (1, 1500)):
+            row = _scan_row(table, name, rec.wkv6, rec.wkv6_plain, args,
+                            *wkv6_cost(b, sl, h, hd),
+                            plain_iters=3 if sl == 1 else 1)
+            row["max_abs_err"] = e
+        worst = max(worst, e)
+        del args
+    tick = table[f"wkv6 B4 S1 H{h} hd{hd}"]
+    results["wkv6"] = dict(tick, max_abs_err=worst)
+    results["recurrence_ms"] = {**results.get("recurrence_ms", {}), **table}
+    log("[recurrence] wkv6, ms: " + json.dumps(table))
+
+
+def jamba_kernel_checks(dev, cfg, results) -> None:
+    """selective_scan against its plain version at jamba's tick (B 4, S 1,
+    d_inner 8192, d_state 16), a batch-1 prefill of 1500 steps, S 77 at
+    d_inner 200 (no multiple of the kernel's 128 channels or 32-step
+    tile) and S 33 at d_state 8, the split and repeat checks at each;
+    timed at the tick and at the prefill."""
+    from repro_torch.kernels import recurrence as rec
+    m = cfg.mamba
+    log(f"[jamba] kernels: selective_scan at d_inner {m.d_inner} d_state "
+        f"{m.d_state}")
+    table: dict = {}
+    worst = 0.0
+    for i, (b, sl, di, ds) in enumerate((
+            (4, 1, m.d_inner, m.d_state), (1, 1500, m.d_inner, m.d_state),
+            (2, 77, 200, m.d_state), (3, 33, m.d_inner, 8))):
+        args = scan_args(dev, b, sl, di, ds, 50 + i)
+        name = f"selective_scan B{b} S{sl} di{di} ds{ds}"
+        e = _scan_checks(name, rec.selective_scan, rec.selective_scan_plain,
+                         args, (0, 1, 3, 4))
+        if i < 2:
+            row = _scan_row(table, name, rec.selective_scan,
+                            rec.selective_scan_plain, args,
+                            *scan_cost(b, sl, di, ds),
+                            plain_iters=3 if sl == 1 else 1)
+            row["max_abs_err"] = e
+        worst = max(worst, e)
+        del args
+    tick = table[f"selective_scan B4 S1 di{m.d_inner} ds{m.d_state}"]
+    results["selective_scan"] = dict(tick, max_abs_err=worst)
+    results["recurrence_ms"] = {**results.get("recurrence_ms", {}), **table}
+    log("[recurrence] selective_scan, ms: " + json.dumps(table))
+
+
+def recurrent_parity(tag: str, cfg, params, dev, prompt, max_seq: int,
+                     tol: float) -> None:
+    """The first prefill (the prompt at its own length, batch 1) and the
+    first decode tick through the engine's phase configs, kernels against
+    the plain versions called in their place: logits within ``tol``."""
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve import ServeEngine
+
+    def step():
+        eng = ServeEngine(cfg, params, n_slots=1, max_seq=max_seq,
+                          device=dev)
+        row = init_caches(cfg, 1, max_seq, dev)
+        n = len(prompt)
+        pre = eng.prefill_logits(torch.tensor([prompt], device=dev), row,
+                                 torch.tensor([n - 1], device=dev))
+        eng.caches = row
+        dec = eng.decode_logits(torch.argmax(pre, dim=-1)[:, None],
+                                torch.tensor([n], dtype=torch.int32,
+                                             device=dev))
+        torch.cuda.synchronize()
+        return pre, dec
+    with torch.no_grad():
+        kern = step()
+        with _plain_serve_kernels():
+            plain = step()
+    for what, a, b_ in (("prefill", kern[0], plain[0]),
+                        ("first tick", kern[1], plain[1])):
+        check(f"{tag} {cfg.softmax_impl} full-width logits, {len(prompt)}"
+              f"-token {what}", a, b_, tol)
+    del kern, plain
+    torch.cuda.empty_cache()
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def jamba_blocks(cfg, params, dev, prompt, name: str) -> dict:
+    """The prompt's prefill and the first tick at full width, block by
+    block: each block runs on the kernel path's input and a copy of its
+    cache with the plain versions, then with the kernels (whose output and
+    cache feed the next block); outputs held on the tokens whose expert
+    sets agree (route flips counted and held to granite's flip rule), the
+    mamba states within TOL_SCAN of max(1, max |plain|).  The prefill and
+    the tick run with the engine's phase configs (the prefill's attention
+    resolved at (max_seq, max_seq))."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _positions_from
+    from repro_torch.models.layers import make_norm
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, device=dev, **{**JAMBA, "n_slots": 1})
+    phase_cfgs = (eng._prefill_cfg, eng._decode_cfg)
+    del eng
+    tol = TOL_FAMILY[name]
+    caches = tf.init_caches(cfg, 1, JAMBA["max_seq"], dev)
+    specs = tf.layer_specs(cfg)
+    report = {}
+
+    def forward(phase_cfg, toks, pos, what):
+        x = params["embed"][toks]
+        positions = _positions_from(pos, 1, toks.shape[1], dev)
+        worst, flips, margin, st_err = 0.0, [], 0.0, 0.0
+        for i, (lp, spec) in enumerate(zip(params["layers"], specs)):
+            rp, rk = [], []
+            cp = _clone_tree(caches[i])
+            with _plain_serve_kernels(), _route_spy(rp):
+                yp, _, _ = tf.block_apply(lp, phase_cfg, spec, x, cp,
+                                          positions=positions, pos=pos,
+                                          paged=None)
+            with _route_spy(rk):
+                yk, _, _ = tf.block_apply(lp, phase_cfg, spec, x, caches[i],
+                                          positions=positions, pos=pos,
+                                          paged=None)
+            agree = torch.ones(yk.shape[:2], dtype=torch.bool, device=dev)
+            if spec.ffn == "moe":
+                agree, margins, diff = route_flips(rp[0], rk[0],
+                                                   cfg.moe.top_k)
+                flips.append(int(margins.numel()))
+                if margins.numel():
+                    margin = max(margin, float(margins.max()))
+                    log(f"  jamba {name} {what} block {i}: "
+                        f"{margins.numel()} route flips, margins "
+                        f"{margins.tolist()}, largest router-probability "
+                        f"difference on agreeing tokens {diff:.3e}")
+                    if float(margins.max()) > 2 * diff:
+                        fail(f"jamba {name} {what} block {i}: a route flip "
+                             f"at margin {float(margins.max()):.3e} > "
+                             f"twice {diff:.3e}")
+            e = max_err(yk[agree], yp[agree])
+            if not torch.isfinite(yk).all() or e > tol:
+                fail(f"jamba {name} {what} block {i}: kernels vs plain "
+                     f"{e:.3e} on agreeing tokens > {tol:.0e}")
+            worst = max(worst, e)
+            if spec.mixer == "mamba":       # both runs took the same x
+                for key in ("conv", "ssm"):
+                    a, b_ = caches[i]["state"][key], cp["state"][key]
+                    scale = max(1.0, float(b_.abs().max()))
+                    st_err = max(st_err, max_err(a, b_) / scale)
+                if st_err > TOL_SCAN:
+                    fail(f"jamba {name} {what} block {i}: state kernels vs "
+                         f"plain {st_err:.3e} of max(1, max |plain|)")
+            x = yk
+        log(f"  ok jamba {name} {what}, {cfg.n_layers} blocks kernels vs "
+            f"plain: worst {worst:.3e} on agreeing tokens (limit "
+            f"{tol:.0e}); route flips a MoE block {flips}; mamba states "
+            f"{st_err:.3e} of max(1, max |plain|) (limit {TOL_SCAN:.0e})")
+        report[what] = dict(worst=worst, flips=flips, margin=margin,
+                            state=st_err)
+        return x
+
+    with torch.no_grad():
+        toks = torch.tensor([prompt], device=dev)
+        x = forward(phase_cfgs[0], toks, 0, f"{len(prompt)}-token prefill")
+        h = make_norm(cfg.norm)[1](params["final_norm"], x[:, -1:],
+                                   cfg.norm_eps)
+        nxt = torch.argmax(h @ tf.lm_head_weight(params, cfg), dim=-1)
+        forward(phase_cfgs[1], nxt, torch.tensor(
+            [len(prompt)], dtype=torch.int32, device=dev), "tick")
+    del caches
+    torch.cuda.empty_cache()
+    return report
+
+
+def _serve_prompts(vocab: int):
+    """The serve phase's 6 prompt lengths (100-1500 tokens) and tokens."""
+    rng = np.random.RandomState(0)
+    lens = rng.randint(100, 1501, size=6)
+    return [rng.randint(0, vocab, size=n).tolist() for n in lens]
+
+
+def rwkv_phase(dev, launches, results):
+    """Full-width rwkv6-1.6b, float, on the contiguous engine: the serve
+    phase's prompts and one of 8192 tokens, 16 new tokens each; exact
+    launches a layer of a prefill and a tick; the first prefill and tick,
+    kernels vs plain versions."""
+    from repro_torch.configs import registry
+    from repro_torch.serve import Request, ServeEngine
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(RWKV_ID)
+    rwkv_kernel_checks(dev, base, results)
+    params = _model("rwkv6", base, dev)
+    prompts = _serve_prompts(base.vocab)
+    prompts.append(np.random.RandomState(1).randint(
+        0, base.vocab, size=RWKV_LONG).tolist())
+    over, per_layer = RWKV_PATH
+    cfg = base.replace(**over)
+    log("[rwkv6] float only: its channel mix is relu^2 (no sigmoid-family "
+        "unit mode) and its gate a plain SiLU, so its dual-mode forward is "
+        "its float forward")
+    eng = ServeEngine(cfg, params, device=dev, **RWKV)
+    if eng.cache_mode != "contiguous" or not eng._exact_prefill:
+        fail(f"rwkv6: cache {eng.cache_mode}, exact prefill "
+             f"{eng._exact_prefill}")
+    reqs = [Request(rid=i, prompt=p, max_new=RWKV_NEW)
+            for i, p in enumerate(prompts)]
+
+    def expected(a, st):
+        pre, tick = a or (0, 0)
+        return base.n_layers * (pre * st["prefills"]
+                                + tick * st["decode_steps"])
+    outs = _serve_run("rwkv6", "float", eng, reqs, RWKV_NEW, per_layer,
+                      launches, expected)
+    log(f"[rwkv6] greedy streams (reported, not gated): "
+        f"{ {r: v[:8] for r, v in sorted(outs.items())} }")
+    del eng
+    torch.cuda.empty_cache()
+    recurrent_parity("rwkv6-1.6b", cfg, params, dev, prompts[0],
+                     RWKV["max_seq"], TOL_FAMILY["float"])
+    del params
+    _free_weights(dev)
+    log(f"[rwkv6] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def jamba_phase(dev, launches, results):
+    """Full-width jamba-v0.1-52b at 8 of its 32 layers, float and
+    dual-mode, on the contiguous engine: the serve phase's prompts with 16
+    new tokens each; exact launches a prefill and a tick; the first
+    prefill and tick block by block with route flips, and their logits,
+    kernels vs plain versions."""
+    from repro_torch.configs import registry
+    from repro_torch.serve import Request, ServeEngine
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    full = registry.get_config(JAMBA_ID)
+    base = full.replace(n_layers=JAMBA_LAYERS)
+    jamba_kernel_checks(dev, base, results)
+    params = _model("jamba", base, dev, depth_of=full.n_layers)
+    prompts = _serve_prompts(base.vocab)
+    streams = {}
+    for name, (over, prefill_impl, per_fwd) in JAMBA_PATHS.items():
+        cfg = base.replace(**over)
+        eng = ServeEngine(cfg, params, device=dev, **JAMBA)
+        impls = (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl)
+        if impls != ("contiguous", prefill_impl, "flash_decode"):
+            fail(f"jamba {name}: cache, prefill, decode {impls}")
+        reqs = [Request(rid=i, prompt=p, max_new=JAMBA_NEW)
+                for i, p in enumerate(prompts)]
+
+        def expected(a, st):
+            pre, tick = a or (0, 0)
+            return pre * st["prefills"] + tick * st["decode_steps"]
+        streams[name] = _serve_run("jamba", name, eng, reqs, JAMBA_NEW,
+                                   per_fwd, launches, expected)
+        del eng
+        torch.cuda.empty_cache()
+        jamba_blocks(cfg, params, dev, prompts[0], name)
+        recurrent_parity("jamba-v0.1-52b", cfg, params, dev, prompts[0],
+                         JAMBA["max_seq"], TOL_FAMILY[name])
+    _report_streams("jamba", streams)
+    del params
+    _free_weights(dev)
+    log(f"[jamba] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite",
-          "whisper", "minicpm3", "qwen3")
+          "whisper", "minicpm3", "qwen3", "rwkv6", "jamba")
 
 
 def main() -> int:
@@ -4359,6 +4808,7 @@ def main() -> int:
     import repro_torch.kernels.flash_decode  # noqa: F401  (registers)
     import repro_torch.kernels.fused_ffn  # noqa: F401  (registers)
     import repro_torch.kernels.fused_norm  # noqa: F401  (registers)
+    import repro_torch.kernels.recurrence  # noqa: F401  (registers)
     dev = torch.device("cuda")
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, CUDA "
@@ -4375,7 +4825,8 @@ def main() -> int:
                     src.startswith(("norm_", "glu", "flash_bwd",
                                     "flash_fwd", "flash_snap", "decode_",
                                     "softmax_rows", "pair_act", "flash_int3",
-                                    "resnorm"))
+                                    "resnorm", "wkv6",
+                                    "selective_scan"))
                     and "entry function" in line):
                 log(f"  {src}: {line.strip()}")
     log("[sass] rows 1 / 2 int entries, instructions (total, loops, mix of "
@@ -4421,6 +4872,10 @@ def main() -> int:
         minicpm_phase(dev, launches, results)
     if "qwen3" in phases:
         qwen3_phase(dev, launches, results)
+    if "rwkv6" in phases:
+        rwkv_phase(dev, launches, results)
+    if "jamba" in phases:
+        jamba_phase(dev, launches, results)
     log(f"[chip_smoke] phases {', '.join(phases)} in "
         f"{time.perf_counter() - t_start:.1f} s with the build")
 

@@ -15,6 +15,8 @@ _MODULES = {
     "qwen3-14b": "qwen3_14b",
     "minicpm3-4b": "minicpm3_4b",
     "whisper-base": "whisper_base",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 # the serving / training archs; bert-base (the paper's encoder) stays out,

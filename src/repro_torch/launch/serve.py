@@ -17,11 +17,18 @@ cpu`` runs the plain versions).
         --norm-impl fused_pallas --ffn-impl fused_pallas --max-seq 2048
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
         --max-seq 448 --prefill-impl flash_pallas --decode-impl flash_decode
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --norm-impl fused_pallas --max-seq 16384
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+        --layers 8 --norm-impl fused_pallas --ffn-impl fused_pallas \
+        --max-seq 4096
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --max-seq 64 --num-blocks 7 --preempt-mode swap
 
-Full width by default; ``--reduced`` takes the arch's smoke config.  A
+Full width by default; ``--reduced`` takes the arch's smoke config and
+``--layers`` cuts the depth (jamba-v0.1-52b's 32 layers, 192 GiB in f32,
+fit no single card; its first period of 8 does).  A
 ``--num-blocks`` under the traffic's demand makes the paged engine
 preempt (``--preempt-mode``, ``--preempt-policy``); ``--admission``,
 ``--hol-window`` and ``--deadline-s`` are the reference launcher's.  The
@@ -53,6 +60,9 @@ def main() -> None:
     ap.add_argument("--max-seq", type=int, default=2048)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: the "
+                         "config's)")
     ap.add_argument("--softmax-impl", default=None,
                     choices=("float", "dualmode"),
                     help="attention softmax (default: the config's)")
@@ -122,6 +132,8 @@ def main() -> None:
     dev = resolve_device(args.device)
     cfg = (registry.reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     if args.softmax_impl:
         cfg = cfg.replace(softmax_impl=args.softmax_impl)
     if args.activation:

@@ -6,7 +6,10 @@ module needs no JAX) and returns the port's parameter dict: the
 reference stacks the blocks of each period on a leading axis, the port
 keeps one dict per layer in a list.  Every leaf is taken per period, so
 a cross layer's gate, stacked by the reference as (n_periods,), becomes
-the 0-d ``cross_gate`` of each of its layers.  An encoder's blocks,
+the 0-d ``cross_gate`` of each of its layers, and a recurrent layer's
+leaves (the rwkv time mix's ``mu`` (5, d), ``dd_w2`` (5, r, d), ``u`` (H,
+hd); mamba's ``A_log`` (d_inner, d_state), ``conv_w`` (d_conv, d_inner),
+``dt_proj``'s pair) lose only their period axis.  An encoder's blocks,
 stacked by the reference on a leading ``enc_layers`` axis, become a list
 too, beside the encoder's final norm.
 """

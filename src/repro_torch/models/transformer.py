@@ -12,8 +12,11 @@ sinusoid positions, a decoder with a learned table that cross-attends to
 the encoder's output, GELU MLPs), llama-3.2-vision (a period of four
 self-attention layers and one 'none'-mixer layer whose cross attention
 reads the image embeddings) and granite-moe (attention over a
-mixture-of-experts FFN, ``models/moe.py``), with the reference's fused
-norm seams (``norm_impl``) and fused GLU (``ffn_impl``).
+mixture-of-experts FFN, ``models/moe.py``), rwkv6 (an RWKV-6 time mix
+over a channel mix, ``models/rwkv.py``) and jamba (a period of seven
+Mamba layers and one attention layer, over alternating MLP and MoE
+FFNs, ``models/mamba.py``), with the reference's fused norm seams
+(``norm_impl``) and fused GLU (``ffn_impl``).
 
 bert-base and whisper-base also rotate q and k by RoPE: their configs
 leave ``use_rope`` at its default (True), so the reference applies RoPE
@@ -41,7 +44,10 @@ from .attention import (AttnSpec, MLASpec, _positions_from, cross_apply,
                         mla_cache_init, mla_init)
 from .layers import (Params, embed_init, linear_init, make_norm, mlp,
                      mlp_init, rmsnorm_init, sinusoidal_pos_emb)
+from .mamba import MambaSpec, mamba_apply, mamba_init, mamba_state_init
 from .moe import MoESpec, moe_apply, moe_init
+from .rwkv import (RWKVSpec, rwkv_channel_mix, rwkv_cm_init, rwkv_state_init,
+                   rwkv_time_mix, rwkv_tm_init)
 
 
 def attn_spec(cfg: ModelConfig, causal: bool | None = None) -> AttnSpec:
@@ -68,29 +74,52 @@ def moe_spec(cfg: ModelConfig) -> MoESpec:
                    cfg.moe_dispatch, ep_pad=m.ep_pad)
 
 
+def mamba_spec(cfg: ModelConfig) -> MambaSpec:
+    m = cfg.mamba
+    return MambaSpec(cfg.d_model, m.d_inner, m.d_state, m.d_conv, m.dt_rank)
+
+
+def rwkv_spec(cfg: ModelConfig) -> RWKVSpec:
+    return RWKVSpec(cfg.d_model, cfg.n_heads, cfg.d_ff, cfg.rwkv_lora_r)
+
+
+RECURRENT = ("mamba", "rwkv")     # mixers that carry a state, not a KV cache
+
+
+def recurrent_mixers(cfg: ModelConfig) -> list[str]:
+    """The state-carrying mixers among ``cfg``'s layers, sorted."""
+    return sorted({s.mixer for s in tuple(cfg.prefix) + tuple(cfg.pattern)
+                   if s.mixer in RECURRENT})
+
+
 def _supported_spec(spec: LayerSpec) -> bool:
-    if spec.mixer not in ("attn", "mla", "none"):
+    if spec.mixer not in ("attn", "mla", "none") + RECURRENT or (
+            spec.cross and spec.mixer in RECURRENT):
         return False
-    return spec.ffn == "mlp" or (spec.ffn == "moe" and spec.mixer == "attn"
-                                 and not spec.cross)
+    if spec.ffn == "rwkv_cm":
+        return spec.mixer == "rwkv"
+    return spec.ffn == "mlp" or (spec.ffn == "moe" and not spec.cross
+                                 and spec.mixer in ("attn", "mamba"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet
-    (prefix layers, mamba / rwkv mixers, other norms).  It runs attn,
-    MLA and 'none' mixers with an mlp (and an optional cross sublayer),
-    attn mixers with a moe ffn, an encoder stack (``enc_layers``), and
-    rope, learned or sinusoid positions."""
+    (prefix layers, other norms).  It runs attn, MLA and 'none' mixers
+    with an mlp (and an optional cross sublayer), attn and mamba mixers
+    with an mlp or a moe ffn, the rwkv time mix over its channel mix
+    ('rwkv_cm'), an encoder stack (``enc_layers``), and rope, learned,
+    sinusoid or no positions."""
     why = []
     if cfg.prefix or not all(_supported_spec(s) for s in cfg.pattern):
         why.append("layer patterns other than attn / MLA / 'none' mixers "
-                   "with an mlp (and an optional cross sublayer), or attn "
-                   "mixers with a moe ffn (prefix layers, mamba, rwkv)")
-    if cfg.mamba:
-        why.append("mamba layers")
+                   "with an mlp (and an optional cross sublayer), attn or "
+                   "mamba mixers with an mlp or a moe ffn, or rwkv over "
+                   "rwkv_cm (prefix layers)")
+    if cfg.mamba is None and any(s.mixer == "mamba" for s in cfg.pattern):
+        why.append("mamba layers without a mamba config")
     if cfg.norm not in ("rms", "layer"):
         why.append(f"norm={cfg.norm!r}")
-    if cfg.pos_emb not in ("rope", "learned", "sinusoid"):
+    if cfg.pos_emb not in ("rope", "learned", "sinusoid", "none"):
         why.append(f"pos_emb={cfg.pos_emb!r}")
     if why:
         raise NotImplementedError(
@@ -107,10 +136,10 @@ def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
 def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                device) -> Params:
     """The reference's keys for ``spec``: norm1 always (a 'none' block
-    carries an unused one), the mixer for 'attn' or 'mla', cross_norm /
-    cross / a 0-d cross_gate (zero: tanh(0) shuts the sublayer) for
-    cross, then norm2 and the ffn (an MLP, or the MoE's router and expert
-    stacks)."""
+    carries an unused one), the mixer for 'attn', 'mla', 'mamba' or
+    'rwkv' (the time mix), cross_norm / cross / a 0-d cross_gate (zero:
+    tanh(0) shuts the sublayer) for cross, then norm2 and the ffn (an
+    MLP, the MoE's router and expert stacks, or the rwkv channel mix)."""
     s = attn_spec(cfg)
     norm_init, _ = make_norm(cfg.norm)
     p: Params = {"norm1": norm_init(cfg.d_model, device)}
@@ -130,6 +159,10 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
         p["mixer"] = mixer
     elif spec.mixer == "mla":
         p["mixer"] = mla_init(gen, mla_spec(cfg), device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = mamba_init(gen, mamba_spec(cfg), device)
+    elif spec.mixer == "rwkv":
+        p["mixer"] = rwkv_tm_init(gen, rwkv_spec(cfg), device)
     if spec.cross:
         p["cross_norm"] = norm_init(cfg.d_model, device)
         p["cross"] = cross_init(gen, attn_spec(cfg, causal=False), device)
@@ -137,6 +170,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     p["norm2"] = norm_init(cfg.d_model, device)
     if spec.ffn == "moe":
         p["ffn"] = moe_init(gen, moe_spec(cfg), device)
+    elif spec.ffn == "rwkv_cm":
+        p["ffn"] = rwkv_cm_init(gen, rwkv_spec(cfg), device)
     else:
         p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff, device,
                             gated=cfg.gated_mlp)
@@ -184,7 +219,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device=None
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Whether every cached layer of ``cfg`` can live in a paged pool."""
+    """Whether every cached layer of ``cfg`` can live in a paged pool:
+    attention and MLA layers page their rows; a mamba or rwkv state is
+    not a sequence of positions, and a cross cache not one of the
+    request's, so those archs stay on the contiguous cache."""
     specs = tuple(cfg.prefix) + tuple(cfg.pattern)
     return (not cfg.enc_layers and
             all(s.mixer in ("attn", "mla", "none") and not s.cross
@@ -204,7 +242,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
     for an attention layer, {'ckv','krope'} (batch, max_seq,
     kv_lora_rank / rope_dim) for an MLA layer, ``'cross_kv'`` {'k','v'}
     (batch, n_img_tokens or n_frames, K, h) for a cross-attention
-    layer."""
+    layer, ``'state'`` for a recurrent layer: {'conv' (batch, d_conv - 1,
+    d_inner), 'ssm' (batch, d_inner, d_state)} (mamba) or {'tm_x', 'cm_x'
+    (batch, d), 'wkv' (batch, H, hd, hd)} (rwkv, shared by its time and
+    channel mix), all zeros."""
     check_supported(cfg)
     dev = resolve_device(device)
     caches = []
@@ -214,6 +255,10 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int, device=None
             c["kv"] = _kv_pair((batch, max_seq, cfg.n_kv_heads, cfg.hd), dev)
         elif spec.mixer == "mla":
             c["kv"] = mla_cache_init(mla_spec(cfg), batch, max_seq, dev)
+        elif spec.mixer == "mamba":
+            c["state"] = mamba_state_init(mamba_spec(cfg), batch, dev)
+        elif spec.mixer == "rwkv":
+            c["state"] = rwkv_state_init(rwkv_spec(cfg), batch, dev)
         if spec.cross:
             c["cross_kv"] = _kv_pair((batch, cfg.n_img_tokens or cfg.n_frames,
                                       cfg.n_kv_heads, cfg.hd), dev)
@@ -246,6 +291,22 @@ def init_paged_caches(cfg: ModelConfig, num_blocks: int, block_size: int,
 
 # ---------------- apply ----------------
 
+def _fresh_state(cfg: ModelConfig, mixer: str, x) -> Params:
+    """A recurrent layer's zero state for x's batch (a pass without a
+    cache starts every sequence from it)."""
+    if mixer == "mamba":
+        return mamba_state_init(mamba_spec(cfg), x.shape[0], x.device)
+    return rwkv_state_init(rwkv_spec(cfg), x.shape[0], x.device)
+
+
+def _store(state: Params, new: Params) -> None:
+    """Write a sublayer's new state into the cache's state dict, in place
+    (the serve engine's slot rows and admission copies hold on to these
+    tensors)."""
+    for key, t in new.items():
+        state[key].copy_(t)
+
+
 def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
                 positions, pos, paged, cross_src=None):
     """One block of ``spec`` (the reference's control flow) -> (x, cache,
@@ -262,11 +323,28 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
 
     The cross sublayer: dense norm, K/V from ``cross_src`` (written into
     the layer's cross cache when there is one) or from that cache, then
-    x + tanh(cross_gate) * cross_apply(...)."""
+    x + tanh(cross_gate) * cross_apply(...).
+
+    A mamba or rwkv mixer takes the plain norm1, starts from the cache's
+    ``'state'`` (zeros without a cache) and writes its new state back into
+    that dict in place; the residual add + norm2 epilogue follows it as
+    after attention.  The rwkv channel mix ('rwkv_cm') reads and writes
+    ``cm_x`` of the same dict."""
     nprov = dispatch.get_norm(dispatch.resolve_norm(cfg.norm_impl, x.device))
     _, norm = make_norm(cfg.norm)
     h_ffn = None
-    if spec.mixer in ("attn", "mla"):
+    o = None
+    if spec.mixer in RECURRENT:
+        st = (_fresh_state(cfg, spec.mixer, x) if cache is None
+              else cache["state"])
+        h = norm(p["norm1"], x, cfg.norm_eps)
+        if spec.mixer == "mamba":
+            o, new = mamba_apply(p["mixer"], mamba_spec(cfg), h, state=st)
+        else:
+            o, new = rwkv_time_mix(p["mixer"], rwkv_spec(cfg), h, state=st)
+        if cache is not None:
+            _store(st, new)
+    elif spec.mixer in ("attn", "mla"):
         kv = None if cache is None else cache["kv"]
         if spec.mixer == "mla":
             o, _ = mla_apply(p["mixer"], mla_spec(cfg),
@@ -283,6 +361,7 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
                              norm(p["norm1"], x, cfg.norm_eps),
                              positions=positions, cache=kv, pos=pos,
                              paged=paged)
+    if o is not None:
         if nprov is not None and not spec.cross:
             x, h_ffn = nprov["residual_norm"](
                 x, o, p["norm2"]["g"], p["norm2"].get("b"), kind=cfg.norm,
@@ -309,6 +388,14 @@ def block_apply(p: Params, cfg: ModelConfig, spec: LayerSpec, x, cache, *,
         o, aux = moe_apply(p["ffn"], moe_spec(cfg), h,
                            dropless=cache is not None)
         return x + o, cache, aux
+    if spec.ffn == "rwkv_cm":
+        h = h_ffn if h_ffn is not None else norm(p["norm2"], x, cfg.norm_eps)
+        st = (_fresh_state(cfg, "rwkv", x) if cache is None
+              else cache["state"])
+        o, new = rwkv_channel_mix(p["ffn"], rwkv_spec(cfg), h, state=st)
+        if cache is not None:
+            _store(st, new)
+        return x + o, cache, 0.0
     if h_ffn is None and nprov is not None:
         return x + mlp(p["ffn"], x, cfg.activation, impl=cfg.ffn_impl,
                        prenorm=(p["norm2"], cfg.norm, cfg.norm_eps),

@@ -26,7 +26,17 @@ there, and a request without one attends over the fresh row's zero cross
 cache, as in the reference.  ``cache_mode='auto'`` is paged where every
 cached layer can be paged (``paged_supported``: attention and MLA
 layers; an MLA layer pages its latent and rope key) and contiguous
-otherwise; ``'paged'`` on a cross arch raises ValueError.
+otherwise; ``'paged'`` on a cross arch or a recurrent one raises
+ValueError.
+
+The archs with a recurrent mixer (rwkv6; jamba's mamba layers) carry a
+state that integrates every input token, so a right-padded bucket would
+fold its pad tokens into the state: they prefill at the prompt's own
+length (``_bucket`` returns it), as the reference does, and the prefill's
+attention impl (jamba's attention layer) is resolved at (max_seq,
+max_seq).  Admission copies every cache tensor of the row, the states
+included, over the slot's old contents; a free slot's state drifts
+through the lockstep ticks until then, and nothing reads it.
 
 Attention impls (and the softmax of each phase) are resolved once per
 phase through the dispatch registry, for the engine's device, at the
@@ -59,8 +69,7 @@ token a request produced, across its preemptions, and
 ``reasons[rid]`` why it left.  Faults are injected through
 ``repro_torch.serve.faults``.
 
-Not in the port yet: the archs with mamba / rwkv state (contiguous
-only) and a device mesh.
+Not in the port yet: a device mesh.
 """
 from __future__ import annotations
 
@@ -77,7 +86,8 @@ from repro_torch.kernels import dispatch, tiling
 from repro_torch.models.transformer import (check_supported,
                                             encoder_apply, init_caches,
                                             init_paged_caches, lm_apply,
-                                            paged_supported)
+                                            paged_supported,
+                                            recurrent_mixers)
 
 from .paged_cache import BlockPool, chain_hashes
 
@@ -188,8 +198,8 @@ class ServeEngine:
         if cache_mode == "paged" and not paged_supported(cfg):
             raise ValueError(
                 "cache_mode='paged' requires attention-only cached layers "
-                "(no cross-attention, no encoder) -- use 'auto' or "
-                "'contiguous'")
+                "(no mamba / rwkv state, no cross-attention, no encoder) -- "
+                "use 'auto' or 'contiguous'")
         self.cache_mode = ("paged" if cache_mode == "paged" or (
             cache_mode == "auto" and paged_supported(cfg)) else "contiguous")
         self.cfg, self.params = cfg, params
@@ -204,6 +214,9 @@ class ServeEngine:
         self.seed = seed
         self.buckets = tuple(b for b in sorted(prefill_buckets)
                              if b <= max_seq) or (max_seq,)
+        # a recurrent state integrates every input token: those archs
+        # prefill at the prompt's own length, never a padded bucket
+        self._exact_prefill = bool(recurrent_mixers(cfg))
         if self.cache_mode == "paged":
             self.block_size = block_size or tiling.paged_block_size(max_seq)
             self.max_blocks = tiling.cdiv(max_seq, self.block_size)
@@ -219,12 +232,13 @@ class ServeEngine:
         else:
             self.pool = None
             self.caches = init_caches(cfg, n_slots, max_seq, self.device)
-            prefill_sq, t_kv = self.buckets[-1], max_seq
+            prefill_sq = max_seq if self._exact_prefill else self.buckets[-1]
+            t_kv = max_seq
 
         # per-phase softmax and attention impls, resolved once at each
         # phase's widest shape: a prefill chunk (paged) or the largest
-        # bucket (contiguous) against the whole cache, one decode row
-        # against it
+        # bucket (contiguous; max_seq for an exact-length prefill)
+        # against the whole cache, one decode row against it
         self.prefill_softmax_impl = (prefill_softmax_impl
                                      or cfg.softmax_impl)
         self.decode_softmax_impl = decode_softmax_impl or cfg.softmax_impl
@@ -313,10 +327,13 @@ class ServeEngine:
         self._queue.append(_QEntry(req=req, deadline_at=ddl))
 
     def _bucket(self, n: int) -> int:
-        """The smallest prefill bucket that holds an n-token prompt."""
+        """The smallest prefill bucket that holds an n-token prompt (n
+        itself for an arch with a recurrent mixer)."""
         if n > self.max_seq:
             raise ValueError(f"prompt length {n} exceeds max_seq "
                              f"{self.max_seq}")
+        if self._exact_prefill:
+            return n
         for b in self.buckets:
             if n <= b:
                 return b
@@ -419,8 +436,8 @@ class ServeEngine:
 
     def _admit_contiguous(self, i: int, entry: _QEntry) -> None:
         """Prefill the whole prompt at its bucket into a fresh batch-1 row
-        cache, copy that row into slot ``i`` of the batch cache, and
-        sample the first token."""
+        cache, copy that row (K / V rows, cross K / V, recurrent states)
+        over slot ``i`` of the batch cache, and sample the first token."""
         t0 = time.perf_counter()
         req = entry.req
         plen = len(req.prompt)

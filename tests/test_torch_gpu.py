@@ -1465,3 +1465,88 @@ def test_decode_paged_kernels_at_qwen3_shape(cuda, grid):
     plan = tiling.decode_splits(16, 128, 32, cuda)
     for num_splits in sorted({1, plan}):
         _paged_checks(args, num_splits, grid)
+
+
+# ---------------- the recurrence kernels (wkv6, selective_scan) ----------------
+
+def _wkv6_args(dev, b, sl, h, hd, seed):
+    gen = torch.Generator().manual_seed(seed)
+    r, k, v = (_randn(gen, dev, b, sl, h, hd) for _ in range(3))
+    w = torch.exp(-torch.exp(_randn(gen, dev, b, sl, h, hd) - 3.0))
+    return (r, k, v, w.clamp(max=0.9995).contiguous(),
+            _randn(gen, dev, h, hd, scale=0.1),
+            _randn(gen, dev, b, h, hd, hd, scale=0.3))
+
+
+def _scan_args(dev, b, sl, di, ds, seed):
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(_randn(gen, dev, b, sl, di) - 2.0)
+    a = -torch.arange(1, ds + 1, dtype=torch.float32, device=dev).expand(
+        di, ds).contiguous()
+    return (_randn(gen, dev, b, sl, di), dt.contiguous(), a,
+            _randn(gen, dev, b, sl, ds), _randn(gen, dev, b, sl, ds),
+            _randn(gen, dev, b, di, ds, scale=0.3))
+
+
+def _recurrence_checks(kernel, fn, plain, args, seq):
+    """One launch a call; y and the final state within 1e-5 of max(1,
+    max |plain|); S1 then S - S1 steps with the carried state equal one
+    call bit for bit; two calls give the same bits."""
+    before = kernel.launches
+    got = fn(*args)
+    assert kernel.launches == before + 1
+    for a, b in zip(got, plain(*args)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(
+            1.0, float(b.abs().max())))
+    sl = args[0].shape[1]
+    for s1 in sorted({1, sl // 2 + 1} - {sl}):
+        head, tail = list(args), list(args)
+        for i in seq:
+            head[i] = args[i][:, :s1].contiguous()
+            tail[i] = args[i][:, s1:].contiguous()
+        y1, st1 = fn(*head)
+        tail[-1] = st1
+        y2, st2 = fn(*tail)
+        assert torch.equal(torch.cat([y1, y2], dim=1), got[0])
+        assert torch.equal(st2, got[1])
+    again = fn(*args)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+# rwkv6's tick and prefill (32 heads of 64), S 8192 at one layer, and steps
+# that are no multiple of the kernel's 32-step tile at the other widths
+@pytest.mark.parametrize("b,sl,h,hd", [(4, 1, 32, 64), (1, 1500, 32, 64),
+                                       (1, 8192, 32, 64), (2, 77, 4, 16),
+                                       (3, 33, 8, 32)])
+def test_wkv6_kernel(cuda, b, sl, h, hd):
+    from repro_torch.kernels import recurrence as rec
+    _recurrence_checks(rec.WKV6, rec.wkv6, rec.wkv6_plain,
+                       _wkv6_args(cuda, b, sl, h, hd, sl), (0, 1, 2, 3))
+
+
+# jamba's tick and prefill (d_inner 8192, d_state 16), channels that are no
+# multiple of the kernel's 128, the reduced d_state 8
+@pytest.mark.parametrize("b,sl,di,ds", [(4, 1, 8192, 16), (1, 1500, 8192, 16),
+                                        (2, 77, 200, 16), (3, 33, 130, 8)])
+def test_selective_scan_kernel(cuda, b, sl, di, ds):
+    from repro_torch.kernels import recurrence as rec
+    _recurrence_checks(rec.SELECTIVE_SCAN, rec.selective_scan,
+                       rec.selective_scan_plain,
+                       _scan_args(cuda, b, sl, di, ds, sl), (0, 1, 3, 4))
+
+
+def test_recurrence_kernels_refuse_what_they_do_not_take(cuda):
+    """Head dims and state widths the sources do not instantiate, and
+    strided operands, raise before any launch."""
+    from repro_torch.kernels import recurrence as rec
+    before = (rec.WKV6.launches, rec.SELECTIVE_SCAN.launches)
+    args = _wkv6_args(cuda, 1, 4, 2, 48, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        rec.wkv6(*args)
+    args = list(_wkv6_args(cuda, 1, 4, 2, 64, 0))
+    args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        rec.wkv6(*args)
+    with pytest.raises(ValueError, match="d_state"):
+        rec.selective_scan(*_scan_args(cuda, 1, 4, 64, 12, 0))
+    assert (rec.WKV6.launches, rec.SELECTIVE_SCAN.launches) == before

@@ -363,16 +363,15 @@ def test_qwen3_dualmode_blocks_track_reference(qwen3):
 
 def test_check_supported_admits_exactly_this_slice():
     """MLA without a prefix, an encoder stack and sinusoid positions are
-    admitted; prefix layers (deepseek-v2-lite), mamba (jamba) and rwkv
-    still raise."""
+    admitted (and, since the recurrent slice, jamba's mamba and rwkv6's
+    rwkv layers); prefix layers (deepseek-v2-lite) still raise."""
     from repro_torch.configs.base import LayerSpec
-    for arch in (MLA, QK, "whisper-base"):
+    for arch in (MLA, QK, "whisper-base", "jamba-v0.1-52b", "rwkv6-1.6b"):
         T_tf.check_supported(T_registry.get_config(arch))
     T_tf.check_supported(T_registry.reduced_config(QK).replace(
         pos_emb="sinusoid"))
-    for name in ("deepseek-v2-lite-16b", "jamba-v0.1-52b", "rwkv6-1.6b"):
-        with pytest.raises(NotImplementedError):
-            T_tf.check_supported(J_registry.get_config(name))
+    with pytest.raises(NotImplementedError):
+        T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
     mla = T_registry.reduced_config(MLA)
     with pytest.raises(NotImplementedError):
         T_tf.check_supported(mla.replace(prefix=(LayerSpec(mixer="mla"),)))

@@ -45,6 +45,8 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
                                   "configs/whisper_base.py",
                                   "configs/minicpm3_4b.py",
                                   "configs/qwen3_14b.py",
+                                  "configs/rwkv6_1_6b.py",
+                                  "configs/jamba_v0_1_52b.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -55,7 +57,8 @@ def test_copied_modules_equal_originals(path):
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "yi-6b", "bert-base",
                                   "llama-3.2-vision-11b",
                                   "granite-moe-3b-a800m", "whisper-base",
-                                  "minicpm3-4b", "qwen3-14b"])
+                                  "minicpm3-4b", "qwen3-14b", "rwkv6-1.6b",
+                                  "jamba-v0.1-52b"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
         j = getattr(J_registry, get)(arch)
@@ -193,7 +196,7 @@ def test_unported_configurations_raise():
         lm_apply(p, cfg.replace(prefix=(LayerSpec(),)), torch.zeros(
             (1, 3), dtype=torch.long), device="cpu")
     with pytest.raises(ValueError):
-        T_registry.get_config("jamba-v0.1-52b")
+        T_registry.get_config("deepseek-v2-lite-16b")
 
 
 def test_flash_oracles_match_reference():

@@ -469,24 +469,25 @@ def test_aux_weight_is_in_the_gradient(granite):
 
 
 def test_entry_points_accept_granite_and_refuse_the_rest():
-    """init_lm / check_supported take granite; prefix, MLA-over-MoE,
-    mamba and rwkv configurations still raise."""
+    """init_lm / check_supported take granite (and, since the recurrent
+    slice, a moe ffn under a mamba mixer, as jamba's); prefix,
+    MLA-over-MoE, MoE under an rwkv mixer and mamba layers without a
+    mamba config still raise."""
     T_tf.check_supported(T_registry.get_config(ARCH))
     cfg = T_registry.reduced_config(ARCH)
     from repro_torch.configs.base import LayerSpec
+    T_tf.check_supported(T_registry.get_config("jamba-v0.1-52b"))
     refused = [cfg.replace(prefix=(LayerSpec(),)),
                cfg.replace(pattern=(LayerSpec(mixer="mla", ffn="moe"),)),
                cfg.replace(pattern=(LayerSpec(mixer="mamba", ffn="moe"),)),
-               cfg.replace(pattern=(LayerSpec(mixer="rwkv",
-                                              ffn="rwkv_cm"),)),
+               cfg.replace(pattern=(LayerSpec(mixer="rwkv", ffn="moe"),)),
                cfg.replace(pattern=(LayerSpec(mixer="none", ffn="moe"),)),
                cfg.replace(pos_emb="alibi")]
     for bad in refused:
         with pytest.raises(NotImplementedError):
             T_tf.check_supported(bad)
-    for name in ("deepseek-v2-lite-16b", "jamba-v0.1-52b", "rwkv6-1.6b"):
-        with pytest.raises(NotImplementedError):
-            T_tf.check_supported(J_registry.get_config(name))
+    with pytest.raises(NotImplementedError):
+        T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
 
 
 @pytest.mark.parametrize("launcher", ["serve", "train"])
