@@ -461,7 +461,7 @@ def snap_int_a_score(results, h: int, hv: int, causal: bool) -> float:
     from repro_torch.kernels import tiling
     plan = tiling.flash_fwd_plan(h, hv, causal=causal)
     key = ",".join(str(x) for x in (
-        64 if max(h, hv) <= 64 else 128, plan.block_q, plan.stages, plan.vec))
+        tiling.head_width(h, hv), plan.block_q, plan.stages, plan.vec))
     if key not in results["snap_sass"]:
         fail(f"no SASS count of row 8's entry {key}: its bound needs one")
     return results["snap_sass"][key]["int_ops_a_score"]
@@ -1290,34 +1290,35 @@ def _plain_serve_kernels():
     return stack
 
 
+def paged_step(cfg, params, dev, prompt, max_seq=2048) -> list:
+    """One 64-token prefill chunk of ``prompt`` and the first decode step
+    on a one-slot paged engine at full width: [(what, logits)]."""
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(cfg, params, n_slots=1, max_seq=max_seq, device=dev)
+    eng.pool.alloc(2)
+    tables = torch.tensor([[1, 2] + [0] * (eng.max_blocks - 2)],
+                          dtype=torch.int32, device=dev)
+    toks = torch.tensor([prompt[:64]], device=dev)
+    chunk = eng.prefill_chunk_logits(toks, 0, tables,
+                                     torch.tensor([63], device=dev))
+    nxt = torch.argmax(chunk, dim=-1)[:, None]
+    dec = eng.decode_logits(nxt, torch.tensor([64], dtype=torch.int32,
+                                              device=dev), tables)
+    torch.cuda.synchronize()
+    del eng
+    return [("prefill chunk", chunk), ("first decode step", dec)]
+
+
 def parity(cfg, params, dev, prompt, max_seq=2048, tol_f=TOL_LOGITS_F):
     """One prefill chunk + the first decode step at full width, through
     the kernels and with the plain versions called in their place."""
-    from repro_torch.serve import ServeEngine
-    def step():
-        eng = ServeEngine(cfg, params, n_slots=1, max_seq=max_seq,
-                          device=dev)
-        eng.pool.alloc(2)
-        tables = torch.tensor([[1, 2] + [0] * (eng.max_blocks - 2)],
-                              dtype=torch.int32, device=dev)
-        toks = torch.tensor([prompt[:64]], device=dev)
-        chunk = eng.prefill_chunk_logits(toks, 0, tables,
-                                         torch.tensor([63], device=dev))
-        nxt = torch.argmax(chunk, dim=-1)[:, None]
-        dec = eng.decode_logits(nxt, torch.tensor([64], dtype=torch.int32,
-                                                  device=dev), tables)
-        torch.cuda.synchronize()
-        del eng
-        return chunk, dec
-
-    kern = step()
+    kern = paged_step(cfg, params, dev, prompt, max_seq)
     torch.cuda.empty_cache()
     with _plain_serve_kernels():
-        plain = step()
+        plain = paged_step(cfg, params, dev, prompt, max_seq)
     torch.cuda.empty_cache()
     tol = tol_f if cfg.softmax_impl == "float" else TOL_LOGITS_D
-    for what, a, b in (("prefill chunk", kern[0], plain[0]),
-                       ("first decode step", kern[1], plain[1])):
+    for (what, a), (_, b) in zip(kern, plain):
         check(f"{cfg.name} {cfg.softmax_impl} full-width logits, {what}", a,
               b, tol)
 
@@ -3462,28 +3463,31 @@ def route_flips(plain, kern, k: int):
     return agree, gap[~agree], diff
 
 
-def granite_blocks(cfg, params, dev, prompt, name: str) -> dict:
-    """One 64-token prefill chunk and the first decode step at full width,
-    block by block: each block runs on the kernel path's input with the
-    plain versions, then with the kernels (whose output feeds the next
-    block); outputs held on the tokens whose expert sets agree, flips
-    counted and each held to the flip rule; the logits finite."""
+def granite_blocks(cfg, params, dev, prompt, name: str, tag: str = "granite",
+                   geom: dict = GRANITE) -> dict:
+    """One 64-token prefill chunk and the first decode step at full width
+    on the paged engine of ``geom``, block by block: each block runs on
+    the kernel path's input with the plain versions, then with the
+    kernels (whose output feeds the next block); a MoE block's outputs
+    held on the tokens whose expert sets agree, flips counted and each
+    held to the flip rule (any other block's on every token); the logits
+    finite."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.attention import _positions_from
     from repro_torch.models.layers import make_norm
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params, device=dev, **{**GRANITE, "n_slots": 1})
+    eng = ServeEngine(cfg, params, device=dev, **{**geom, "n_slots": 1})
     eng.pool.alloc(2)
     tables = torch.tensor([[1, 2] + [0] * (eng.max_blocks - 2)],
                           dtype=torch.int32, device=dev)
-    spec, k, tol = cfg.pattern[0], cfg.moe.top_k, TOL_GRANITE[name]
+    specs, k, tol = tf.layer_specs(cfg), cfg.moe.top_k, TOL_GRANITE[name]
     report = {}
 
     def forward(phase_cfg, toks, pos, what):
         x = params["embed"][toks]
         positions = _positions_from(pos, 1, toks.shape[1], dev)
         worst, flips, margin = 0.0, [], 0.0
-        for i, lp in enumerate(params["layers"]):
+        for i, (lp, spec) in enumerate(zip(params["layers"], specs)):
             rp, rk = [], []
             with _plain_serve_kernels(), _route_spy(rp):
                 yp, _, _ = tf.block_apply(lp, phase_cfg, spec, x,
@@ -3493,21 +3497,23 @@ def granite_blocks(cfg, params, dev, prompt, name: str) -> dict:
                 yk, _, _ = tf.block_apply(lp, phase_cfg, spec, x,
                                           eng.caches[i], positions=positions,
                                           pos=pos, paged=tables)
-            agree, margins, diff = route_flips(rp[0], rk[0], k)
-            flips.append(int(margins.numel()))
-            if margins.numel():
-                margin = max(margin, float(margins.max()))
-                log(f"  {name} {what} block {i}: {margins.numel()} route "
-                    f"flips, margins {margins.tolist()}, largest "
-                    f"router-probability difference on agreeing tokens "
-                    f"{diff:.3e}")
-                if float(margins.max()) > 2 * diff:
-                    fail(f"granite {name} {what} block {i}: a route flip "
-                         f"at margin {float(margins.max()):.3e} > twice "
-                         f"{diff:.3e}")
+            agree = torch.ones(yk.shape[:2], dtype=torch.bool, device=dev)
+            if spec.ffn == "moe":
+                agree, margins, diff = route_flips(rp[0], rk[0], k)
+                flips.append(int(margins.numel()))
+                if margins.numel():
+                    margin = max(margin, float(margins.max()))
+                    log(f"  {name} {what} block {i}: {margins.numel()} "
+                        f"route flips, margins {margins.tolist()}, largest "
+                        f"router-probability difference on agreeing tokens "
+                        f"{diff:.3e}")
+                    if float(margins.max()) > 2 * diff:
+                        fail(f"{tag} {name} {what} block {i}: a route flip "
+                             f"at margin {float(margins.max()):.3e} > twice "
+                             f"{diff:.3e}")
             e = max_err(yk[agree], yp[agree])
             if not torch.isfinite(yk).all() or e > tol:
-                fail(f"granite {name} {what} block {i}: kernels vs plain "
+                fail(f"{tag} {name} {what} block {i}: kernels vs plain "
                      f"{e:.3e} on agreeing tokens > {tol:.0e}")
             worst = max(worst, e)
             x = yk
@@ -3515,10 +3521,10 @@ def granite_blocks(cfg, params, dev, prompt, name: str) -> dict:
                                    cfg.norm_eps)
         logits = (h @ tf.lm_head_weight(params, cfg))[:, -1]
         if not torch.isfinite(logits).all():
-            fail(f"granite {name} {what}: non-finite logits")
-        log(f"  ok granite {name} {what}, {cfg.n_layers} blocks kernels vs "
+            fail(f"{tag} {name} {what}: non-finite logits")
+        log(f"  ok {tag} {name} {what}, {cfg.n_layers} blocks kernels vs "
             f"plain: worst {worst:.3e} on agreeing tokens (limit "
-            f"{tol:.0e}); route flips a block {flips} (largest margin "
+            f"{tol:.0e}); route flips a MoE block {flips} (largest margin "
             f"{margin:.3e}); logits finite")
         report[what] = dict(worst=worst, flips=flips, margin=margin)
         return logits
@@ -4604,24 +4610,27 @@ def _clone_tree(tree):
     return tree.clone()
 
 
-def jamba_blocks(cfg, params, dev, prompt, name: str) -> dict:
-    """The prompt's prefill and the first tick at full width, block by
-    block: each block runs on the kernel path's input and a copy of its
-    cache with the plain versions, then with the kernels (whose output and
-    cache feed the next block); outputs held on the tokens whose expert
-    sets agree (route flips counted and held to granite's flip rule), the
-    mamba states within TOL_SCAN of max(1, max |plain|).  The prefill and
-    the tick run with the engine's phase configs (the prefill's attention
-    resolved at (max_seq, max_seq))."""
+def contiguous_blocks(cfg, params, dev, prompt, name: str,
+                      tag: str = "jamba", geom: dict = JAMBA) -> dict:
+    """The prompt's prefill and the first tick at full width on the
+    contiguous engine of ``geom``, block by block: each block runs on the
+    kernel path's input and a copy of its cache with the plain versions,
+    then with the kernels (whose output and cache feed the next block); a
+    MoE block's outputs held on the tokens whose expert sets agree (route
+    flips counted and held to granite's flip rule), any other block's on
+    every token, the mamba states within TOL_SCAN of max(1, max |plain|).
+    The prefill and the tick run with the engine's phase configs (the
+    prefill's attention resolved at its widest bucket against
+    max_seq)."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.attention import _positions_from
     from repro_torch.models.layers import make_norm
     from repro_torch.serve import ServeEngine
-    eng = ServeEngine(cfg, params, device=dev, **{**JAMBA, "n_slots": 1})
+    eng = ServeEngine(cfg, params, device=dev, **{**geom, "n_slots": 1})
     phase_cfgs = (eng._prefill_cfg, eng._decode_cfg)
     del eng
     tol = TOL_FAMILY[name]
-    caches = tf.init_caches(cfg, 1, JAMBA["max_seq"], dev)
+    caches = tf.init_caches(cfg, 1, geom["max_seq"], dev)
     specs = tf.layer_specs(cfg)
     report = {}
 
@@ -4647,17 +4656,17 @@ def jamba_blocks(cfg, params, dev, prompt, name: str) -> dict:
                 flips.append(int(margins.numel()))
                 if margins.numel():
                     margin = max(margin, float(margins.max()))
-                    log(f"  jamba {name} {what} block {i}: "
+                    log(f"  {tag} {name} {what} block {i}: "
                         f"{margins.numel()} route flips, margins "
                         f"{margins.tolist()}, largest router-probability "
                         f"difference on agreeing tokens {diff:.3e}")
                     if float(margins.max()) > 2 * diff:
-                        fail(f"jamba {name} {what} block {i}: a route flip "
+                        fail(f"{tag} {name} {what} block {i}: a route flip "
                              f"at margin {float(margins.max()):.3e} > "
                              f"twice {diff:.3e}")
             e = max_err(yk[agree], yp[agree])
             if not torch.isfinite(yk).all() or e > tol:
-                fail(f"jamba {name} {what} block {i}: kernels vs plain "
+                fail(f"{tag} {name} {what} block {i}: kernels vs plain "
                      f"{e:.3e} on agreeing tokens > {tol:.0e}")
             worst = max(worst, e)
             if spec.mixer == "mamba":       # both runs took the same x
@@ -4666,13 +4675,15 @@ def jamba_blocks(cfg, params, dev, prompt, name: str) -> dict:
                     scale = max(1.0, float(b_.abs().max()))
                     st_err = max(st_err, max_err(a, b_) / scale)
                 if st_err > TOL_SCAN:
-                    fail(f"jamba {name} {what} block {i}: state kernels vs "
+                    fail(f"{tag} {name} {what} block {i}: state kernels vs "
                          f"plain {st_err:.3e} of max(1, max |plain|)")
             x = yk
-        log(f"  ok jamba {name} {what}, {cfg.n_layers} blocks kernels vs "
+        log(f"  ok {tag} {name} {what}, {cfg.n_layers} blocks kernels vs "
             f"plain: worst {worst:.3e} on agreeing tokens (limit "
-            f"{tol:.0e}); route flips a MoE block {flips}; mamba states "
-            f"{st_err:.3e} of max(1, max |plain|) (limit {TOL_SCAN:.0e})")
+            f"{tol:.0e}); route flips a MoE block {flips}"
+            + (f"; mamba states {st_err:.3e} of max(1, max |plain|) (limit "
+               f"{TOL_SCAN:.0e})" if "mamba" in {s.mixer for s in specs}
+               else ""))
         report[what] = dict(worst=worst, flips=flips, margin=margin,
                             state=st_err)
         return x
@@ -4773,7 +4784,7 @@ def jamba_phase(dev, launches, results):
                                    per_fwd, launches, expected)
         del eng
         torch.cuda.empty_cache()
-        jamba_blocks(cfg, params, dev, prompts[0], name)
+        contiguous_blocks(cfg, params, dev, prompts[0], name)
         recurrent_parity("jamba-v0.1-52b", cfg, params, dev, prompts[0],
                          JAMBA["max_seq"], TOL_FAMILY[name])
     _report_streams("jamba", streams)
@@ -4782,8 +4793,277 @@ def jamba_phase(dev, launches, results):
     log(f"[jamba] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------- phase 15: deepseek-v2-lite ----------------
+#
+# deepseek-v2-lite-16b at full width and depth (27 layers: a dense MLA +
+# MLP prefix layer, then 26 of MLA over 64 experts top-6 and 2 shared
+# ones; 15.71 B parameters, 58.5 GiB, alone on the card).  Its MLA runs
+# q.k over nope + rope = 128 + 64 = 192 and v at 128, K 16, G 1: the 192
+# class of rows 5-8.  The paged engine (the qwen prompts) ticks through
+# rows 5 / 6 and attends a chunk naively; one ~3000-token prompt on the
+# contiguous engine at bucket 4096 (4096^2 > 2^22) prefills through rows
+# 7 / 8 by the engine's own 'auto' rule.
+
+DEEPSEEK_ID = "deepseek-v2-lite-16b"
+DEEPSEEK_MODES = {
+    "float": dict(softmax_impl="float", activation="silu", **FUSED),
+    "dualmode": dict(softmax_impl="dualmode", activation="silu_dualmode",
+                     **FUSED)}
+DEEPSEEK_LONG = dict(max_seq=4096, n_slots=1, prefill_buckets=(4096,),
+                     cache_mode="contiguous")
+DEEPSEEK_LONG_LEN = 3000
+DEEPSEEK_NEW = 16
+
+
+def deepseek_launches(cfg) -> tuple[dict, dict]:
+    """The launches of each kernel in one forward of a paged chunk and of
+    a tick, and of a contiguous bucket prefill and of a tick, over all of
+    ``cfg``'s layers (every kernel not named: 0).  Each layer: the MLA
+    mixer takes the plain norm1 and the residual-norm epilogue (row 14)
+    follows it; its tick attends through rows 5 / 6, a paged chunk
+    naively (row 1 in dual-mode), a bucket prefill through rows 7 / 8.
+    Layer 0's dense MLP and each MoE layer's shared experts (one gated MLP
+    of 2 x 1408) run the fused GLU (row 12) in float, the unit's pair
+    mode (row 2) in dual-mode, which also runs once a MoE layer over the
+    routed experts' buffer (their products are cuBLAS's, their SiLU
+    PyTorch's in float)."""
+    from repro_torch.models.transformer import layer_specs
+    n = cfg.n_layers
+    n_moe = sum(s.ffn == "moe" for s in layer_specs(cfg))
+    if cfg.softmax_impl == "float":
+        ffn = {"glu": (n, n)}
+        rows = ("decode_dense", "flash_fwd", None)
+    else:
+        ffn = {"pair_act": (n + n_moe, n + n_moe)}
+        rows = ("decode_dense_int", "flash_snap", "softmax_rows")
+    dec, blocked, chunk = rows
+    paged = {"resnorm": (n, n), **ffn, dec: (0, n)}
+    contig = {"resnorm": (n, n), **ffn, dec: (0, n), blocked: (n, 0)}
+    if chunk:
+        paged[chunk] = (n, 0)
+    return paged, contig
+
+
+def deepseek_kernel_checks(dev, cfg, results) -> None:
+    """deepseek-v2-lite's kernels at its path's shapes (q.k over nope +
+    rope = 192, v 128, K 16, G 1): rows 7 / 8 over a 64-token chunk at the
+    end of a 2048-key table, a whole 2048-token prompt, a 300-token one
+    (a ragged last tile, key 0 masked) and the bucket-4096 prefill; rows
+    5 / 6 at a tick of 4 slots over 2048 keys; rows 5-8 timed beside
+    their bounds (and SDPA's time for rows 5 and 7); rows 14, 12 (d 2048,
+    the dense MLP's F 10944 and the shared experts' 2816) and 2 at a
+    chunk's and a tick's rows, row 1 over a dual-mode chunk's 16 x 64
+    score rows of 2048 keys."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tiling
+    kh = cfg.n_heads
+    h, hv = cfg.mla.nope_dim + cfg.mla.rope_dim, cfg.mla.v_dim
+    t = FAMILY_PAGED["max_seq"]
+    log(f"[deepseek] kernels at MLA's head dims h {h} hv {hv} K {kh} G 1 "
+        f"(width class {tiling.head_width(h, hv)}, plan "
+        f"{tuple(tiling.flash_fwd_plan(h, hv, causal=True))}, shared memory "
+        f"{tiling.flash_fwd_smem(h, hv)} / "
+        f"{tiling.flash_fwd_smem(h, hv, snap=True)} B a block of rows 7 / 8, "
+        f"{tiling.decode_dense_smem(h, hv, False)} / "
+        f"{tiling.decode_dense_smem(h, hv, True)} of rows 5 / 6)")
+    flash_pair_checks("deepseek chunk", dev, 64, t, kh, h, hv, True)
+    flash_pair_checks("deepseek ragged", dev, 300, 300, kh, h, hv, True,
+                      ragged=True)
+    flash_pair_checks("deepseek bucket", dev, DEEPSEEK_LONG["max_seq"],
+                      DEEPSEEK_LONG["max_seq"], kh, h, hv, True)
+    args = flash_pair_checks("deepseek prompt", dev, t, t, kh, h, hv, True)
+    table: dict = {}
+    kw = dict(causal=True, block_kv=64)
+    pairs = t * (t + 1) // 2 * kh
+    nbytes = (args[0].numel() + args[1].numel() + args[2].numel()
+              + t * kh * hv) * 4 + 5 * t
+    q_l = args[0][0].permute(1, 2, 0, 3).reshape(1, kh, t, h)
+    k_l, v_l = args[1].permute(0, 2, 1, 3), args[2].permute(0, 2, 1, 3)
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, is_causal=True, scale=1.0), iters=5)
+    del q_l, k_l, v_l
+    plan = tuple(tiling.flash_fwd_plan(h, hv, causal=True))
+    kernel_row(
+        table, f"flash_fwd B1 S{t} K{kh} G1 h{h} hv{hv} causal",
+        lambda: fa.flash_fwd(*args, **kw),
+        lambda: fa.flash_fwd_plain(*args, **kw),
+        *bound(nbytes, pairs * (2 * h + 2 * hv + 4)), lib, iters=5,
+        plain_iters=1, launches_a_forward=cfg.n_layers, plan=plan)
+    n_int = snap_int_a_score(results, h, hv, True)
+    check_repeat(f"flash_snap deepseek S{t} repeat",
+                 lambda: fai.flash_snap(*args, guard_shift=0, **kw))
+    kernel_row(
+        table, f"flash_snap B1 S{t} K{kh} G1 h{h} hv{hv} causal",
+        lambda: fai.flash_snap(*args, guard_shift=0, **kw),
+        lambda: fai.flash_snap_plain(*args, guard_shift=0, **kw),
+        *bound(nbytes, pairs * (2 * h + 2 * hv + 4 + n_int)), None, iters=5,
+        plain_iters=1, int_ops_a_score=n_int,
+        launches_a_forward=cfg.n_layers, plan=plan)
+    depths = [700, 1000, 1500, t - 1]
+    dargs, ns, bk = decode_pair_checks("deepseek tick", dev, depths, t, kh,
+                                       h, hv, True)
+    b = len(depths)
+    live = max(depths) + 1
+    q_l = dargs[0].reshape(b, kh, 1, h)
+    k_l = dargs[1][:, :live].permute(0, 2, 1, 3)
+    v_l = dargs[2][:, :live].permute(0, 2, 1, 3)
+    mask = dargs[4][:, :live].bool()[:, None, None, :]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q_l, k_l, v_l, attn_mask=mask, scale=1.0))
+    del q_l, k_l, v_l
+    keys = sum(depths) + b
+    dbytes = (keys * kh * (h + hv) * 4 + keys + dargs[0].numel() * 4
+              + 4 * ns * kh * (hv + 2) * b)
+    gs = fai.unit.guard_shift_for(t)
+    for int_mode, name in ((False, "decode_dense"),
+                           (True, "decode_dense_int")):
+        dkw = dict(num_splits=ns, block_kv=bk, causal=True,
+                   int_mode=int_mode, guard_shift=gs)
+        kernel_row(
+            table, f"{name} B{b} K{kh} G1 h{h} hv{hv} T{t} depths {depths}",
+            lambda dkw=dkw: fd.decode_dense_partials(*dargs, **dkw),
+            lambda dkw=dkw: fd.decode_dense_partials_plain(*dargs, **dkw),
+            *bound(dbytes, keys * kh * (2 * h + 2 * hv + 4)),
+            None if int_mode else lib, iters=50, plain_iters=3, splits=ns,
+            block_kv=bk, launches_a_forward=cfg.n_layers)
+    results["deepseek_ms"] = table
+    log("[deepseek attention] rows 7 / 8 / 5 / 6 at h 192 / hv 128, ms: "
+        + json.dumps(table))
+    seam_checks("deepseek", dev, cfg, (64, 4), score_rows=(kh * 64, t))
+    m = cfg.moe
+    seam_checks("deepseek shared experts", dev,
+                cfg.replace(d_ff=m.d_ff * m.n_shared), (64, 4))
+
+
+def deepseek_parity(tag: str, cfg, step, tol: float) -> None:
+    """``step()`` (one or two forwards, returning their logits) through
+    the kernels and with the plain versions called in their place, each
+    MoE routing recorded: where every token's expert set agrees in every
+    MoE layer, the logits within ``tol``; where a route flipped, the
+    flips are logged and the logits reported, the block-by-block check's
+    flip rule holding that forward (a flipped expert moves a token's
+    output by O(1))."""
+    rp, rk = [], []
+    with torch.no_grad():
+        with _route_spy(rk):
+            kern = step()
+        with _plain_serve_kernels(), _route_spy(rp):
+            plain = step()
+    flips = [int((~route_flips(p_, k_, cfg.moe.top_k)[0]).sum())
+             for p_, k_ in zip(rp, rk)]
+    for (what, a), (_, b_) in zip(kern, plain):
+        name = f"{tag} {cfg.softmax_impl} full-width logits, {what}"
+        if sum(flips):
+            log(f"  {name}: kernels vs plain {max_err(a, b_):.3e} (reported: "
+                f"route flips a MoE call {flips}; the blocks' flip rule "
+                "holds this forward)")
+            if not torch.isfinite(a).all():
+                fail(f"{name}: non-finite")
+        else:
+            check(name, a, b_, tol)
+    del kern, plain
+    torch.cuda.empty_cache()
+
+
+def deepseek_phase(dev, launches, results):
+    """Full-width deepseek-v2-lite-16b, float and dual-mode with the fused
+    impls: the paged engine (max_seq 2048, 4 slots, 64-token chunks) on
+    the qwen prompts with 16 new tokens each, exact launches; each block
+    of a chunk and a tick kernels vs plain with granite's flip rule; a
+    chunk's and a tick's logits kernels vs plain; then one
+    DEEPSEEK_LONG_LEN-token prompt on the contiguous engine at bucket
+    4096, exact launches, its prefill (through rows 7 / 8) and first tick
+    block by block with the flip rule, and their logits, kernels vs
+    plain."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve import Request, ServeEngine
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(DEEPSEEK_ID)
+    deepseek_kernel_checks(dev, base, results)
+    params = _model("deepseek", base, dev)
+    m = base.moe
+    log(f"[deepseek] {m.n_experts} experts top-{m.top_k} d_ff {m.d_ff} + "
+        f"{m.n_shared} shared, dense prefix d_ff {base.d_ff}; MLA kv_lora "
+        f"{base.mla.kv_lora_rank} nope {base.mla.nope_dim} rope "
+        f"{base.mla.rope_dim} v {base.mla.v_dim}")
+    prompts = _serve_prompts(base.vocab)
+    long_prompt = np.random.RandomState(3).randint(
+        0, base.vocab, size=DEEPSEEK_LONG_LEN).tolist()
+    streams = {}
+    for name, over in DEEPSEEK_MODES.items():
+        cfg = base.replace(**over)
+        tol = TOL_FAMILY[name]
+        paged, contig = deepseek_launches(cfg)
+        eng = ServeEngine(cfg, params, device=dev, **FAMILY_PAGED)
+        impls = (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl)
+        if impls != ("paged", "naive", "flash_decode"):
+            fail(f"deepseek {name}: cache, prefill, decode {impls}")
+        reqs = [Request(rid=i, prompt=p, max_new=DEEPSEEK_NEW)
+                for i, p in enumerate(prompts)]
+
+        def expected(a, st):
+            chunk, tick = a or (0, 0)
+            return chunk * st["prefill_chunks"] + tick * st["decode_steps"]
+        streams[name] = _serve_run("deepseek", f"{name} paged", eng, reqs,
+                                   DEEPSEEK_NEW, paged, launches, expected)
+        del eng
+        torch.cuda.empty_cache()
+        granite_blocks(cfg, params, dev, prompts[0], name, tag="deepseek",
+                       geom=FAMILY_PAGED)
+
+        deepseek_parity("deepseek-v2-lite-16b", cfg, lambda cfg=cfg: (
+            paged_step(cfg, params, dev, prompts[0])), tol)
+
+        eng = ServeEngine(cfg, params, device=dev, **DEEPSEEK_LONG)
+        blocked = dispatch.resolve_attention(
+            "auto", DEEPSEEK_LONG["max_seq"], DEEPSEEK_LONG["max_seq"],
+            softmax_impl=cfg.softmax_impl, device=dev)
+        impls = (eng.cache_mode, eng.prefill_attn_impl, eng.decode_attn_impl)
+        if impls != ("contiguous", blocked, "flash_decode") or \
+                blocked not in ("flash_pallas", "flash_pallas_int"):
+            fail(f"deepseek {name} bucket 4096: cache, prefill, decode "
+                 f"{impls}")
+
+        def expected_contig(a, st):
+            pre, tick = a or (0, 0)
+            return pre * st["prefills"] + tick * st["decode_steps"]
+        _serve_run("deepseek", f"{name} contiguous bucket 4096", eng,
+                   [Request(rid=0, prompt=long_prompt, max_new=DEEPSEEK_NEW)],
+                   DEEPSEEK_NEW, contig, launches, expected_contig)
+        del eng
+        torch.cuda.empty_cache()
+        contiguous_blocks(cfg, params, dev, long_prompt, name,
+                          tag="deepseek", geom=DEEPSEEK_LONG)
+
+        def long_step(cfg=cfg):
+            eng = ServeEngine(cfg, params, device=dev, **DEEPSEEK_LONG)
+            row = init_caches(cfg, 1, DEEPSEEK_LONG["max_seq"], dev)
+            n = len(long_prompt)
+            toks = torch.tensor([long_prompt + [0] * (
+                DEEPSEEK_LONG["max_seq"] - n)], device=dev)
+            pre = eng.prefill_logits(toks, row, torch.tensor([n - 1],
+                                                             device=dev))
+            eng.caches = row
+            dec = eng.decode_logits(
+                torch.argmax(pre, dim=-1)[:, None],
+                torch.tensor([n], dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            return [(f"bucket-4096 prefill of {n} tokens", pre),
+                    ("its first tick", dec)]
+        deepseek_parity("deepseek-v2-lite-16b", cfg, long_step, tol)
+    _report_streams("deepseek", streams)
+    del params
+    _free_weights(dev)
+    log(f"[deepseek] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite",
-          "whisper", "minicpm3", "qwen3", "rwkv6", "jamba")
+          "whisper", "minicpm3", "qwen3", "rwkv6", "jamba", "deepseek")
 
 
 def main() -> int:
@@ -4876,6 +5156,8 @@ def main() -> int:
         rwkv_phase(dev, launches, results)
     if "jamba" in phases:
         jamba_phase(dev, launches, results)
+    if "deepseek" in phases:
+        deepseek_phase(dev, launches, results)
     log(f"[chip_smoke] phases {', '.join(phases)} in "
         f"{time.perf_counter() - t_start:.1f} s with the build")
 

@@ -17,6 +17,7 @@ _MODULES = {
     "whisper-base": "whisper_base",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 # the serving / training archs; bert-base (the paper's encoder) stays out,

@@ -30,7 +30,8 @@
 using namespace ddec;
 
 // Shapes as in ddec::Args; every tensor contiguous (q, k, v, part_acc f32;
-// q_pos int32, kv_valid uint8), 1 <= G <= 8, h and hv <= 128, 1 <= bkv <=
+// q_pos int32, kv_valid uint8), 1 <= G <= 8, h <= 192 and hv <= 128 (up to
+// 128 both, or MLA's nope + rope against its v: the 192 class), 1 <= bkv <=
 // 1024; vec 4 or 1.  Float: part_m, part_l f32 (B, splits, K, G).
 extern "C" int decode_dense_launch(const float* q, const float* k, const float* v,
                                    const int32_t* q_pos, const uint8_t* kv_valid,
@@ -39,7 +40,7 @@ extern "C" int decode_dense_launch(const float* q, const float* k, const float* 
                                    int num_splits, int causal, int vec, void* stream) {
   const Args a{q, k, v, q_pos, kv_valid, part_m, part_l, part_acc,
                t_kv, kh, g, h, hv, bkv, num_splits, causal, 0, nullptr, 0, 0};
-  return dispatch<FloatDec, ContigKV>(a, batch, vec, stream);
+  return dispatch<FloatDec, ContigKV, true>(a, batch, vec, stream);
 }
 
 // Int: part_m int32 (B, splits, K, G), part_l the int32 buckets (B,
@@ -53,5 +54,5 @@ extern "C" int decode_dense_int_launch(const float* q, const float* k, const flo
   if (guard_shift < 0 || guard_shift > 31) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, q_pos, kv_valid, part_m, part_l, part_acc,
                t_kv, kh, g, h, hv, bkv, num_splits, causal, guard_shift, nullptr, 0, 0};
-  return dispatch<SnapDec, ContigKV>(a, batch, vec, stream);
+  return dispatch<SnapDec, ContigKV, true>(a, batch, vec, stream);
 }

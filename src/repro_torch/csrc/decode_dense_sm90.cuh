@@ -32,9 +32,11 @@
 // 2. Keys split across warps.  The W warps of a block take W runs of the
 //    split's keys, each a multiple of KW keys long.
 // 3. One K / V read serves every GQA row.  In the score step LPK lanes share
-//    a key, each reading D / LPK of its head dims as float4s (rows padded to
-//    D + D / 8 floats, so the reads fall in distinct banks) and dotting them
+//    a key, each reading DK / LPK of its head dims as float4s (rows padded
+//    by 4 LPK floats, so the reads fall in distinct banks) and dotting them
 //    with every row's q from shared memory; LPK - 1 shuffles finish a dot.
+//    At MLA's h 192 / hv 128 a key's 192 dims are 12 float4s on each of its
+//    4 lanes, the V rows 128 wide (Cfg's 192 class).
 // 4. No block barrier in the key loop.  Each warp keeps its own online
 //    state (the policy's, on every lane; acc with the value columns spread
 //    over the lanes, D / 32 a lane), synchronised by __syncwarp: p passes
@@ -89,35 +91,40 @@ struct Args {
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A block shape.  D: h and hv padded to 64 or 128; VEC floats a global
-// copy; GT GQA rows in the key loop (G rounded up to 1, 2, 4 or 8: the
-// rows past G have zero q and are never stored), so its row loops have a
-// fixed trip count and the rows' dependent chains (dot, shuffles, exp2)
-// interleave; W warps and NS ring stages at every D (two blocks fit an
-// SM).  Score step: LPK lanes a key, KW keys a step.  P V: CPL value
-// columns a lane.
+// A block shape.  D: the width class -- h and hv padded to 64 or 128, or
+// 192: h up to 192 with hv up to 128 (MLA's nope + rope against its v).  K
+// rows are DK = D floats, V rows and the output DV = min(D, 128).  VEC
+// floats a global copy; GT GQA rows in the key loop (G rounded up to 1, 2,
+// 4 or 8: the rows past G have zero q and are never stored), so its row
+// loops have a fixed trip count and the rows' dependent chains (dot,
+// shuffles, exp2) interleave; W warps and NS ring stages at every D (two
+// blocks fit an SM).  Score step: LPK lanes a key (DV / 32, so that a step's
+// KW keys match the P V columns a lane), each dotting DK / LPK head dims;
+// P V: CPL value columns a lane.
 template <int D_, int VEC_, int GT_>
 struct Cfg {
   static constexpr int D = D_, W = 4, NS = 2, VEC = VEC_, GT = GT_;
-  static constexpr int LPK = D / 32, KW = 32 / LPK, CPL = D / 32;
-  static constexpr int LD = D + D / 8;       // LD = 4 LPK (mod 32)
-  static constexpr int STAGE = 2 * KW * LD;  // K, V [KW][LD] floats
-  static_assert(D == 64 || D == 128, "head dims up to 64 or 128");
+  static constexpr int DK = D, DV = D < 128 ? D : 128;
+  static constexpr int LPK = DV / 32, KW = 32 / LPK, CPL = DV / 32;
+  static constexpr int LDK = DK + 4 * LPK, LDV = DV + 4 * LPK;  // = 4 LPK (mod 32)
+  static constexpr int STAGE = KW * (LDK + LDV);  // K [KW][LDK], V [KW][LDV] floats
+  static_assert(D == 64 || D == 128 || D == 192, "head dims up to 64, 128 or 192 / 128");
+  static_assert(DK % (4 * LPK) == 0, "whole float4s a lane");
   static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
   static_assert(GT == 1 || GT == 2 || GT == 4 || GT == kMaxG, "GQA rows 1, 2, 4 or 8");
 };
 
-// Shared memory, in floats: q [kMaxG][D]; the policy's block words [BX];
+// Shared memory, in floats: q [kMaxG][DK]; the policy's block words [BX];
 // per warp: the ring [NS][STAGE], p [kMaxG][KW] and the policy's warp words
-// [WX].  At the end a warp's ring holds its acc [kMaxG][D], then the
+// [WX].  At the end a warp's ring holds its acc [kMaxG][DV], then the
 // policy's state (STATE words).
 template <class C, class Rows>
 struct Smem {
-  static constexpr int Q = 0, X = kMaxG * C::D, RING = X + Rows::BX;
+  static constexpr int Q = 0, X = kMaxG * C::DK, RING = X + Rows::BX;
   static constexpr int P = C::NS * C::STAGE, W0 = P + kMaxG * C::KW;
   static constexpr int WARP = W0 + Rows::WX;
   static constexpr size_t BYTES = sizeof(float) * (RING + C::W * WARP);
-  static_assert(C::NS * C::STAGE >= kMaxG * C::D + Rows::STATE, "the ring holds the state");
+  static_assert(C::NS * C::STAGE >= kMaxG * C::DV + Rows::STATE, "the ring holds the state");
 };
 
 // A KV-layout policy (ContigKV, PagedKV): resolve the step's keys [key0,
@@ -214,7 +221,7 @@ struct FloatDec {
     }
   }
 
-  // The warps' states (warp w's acc at ws(w), its state at ws(w) + kMaxG D)
+  // The warps' states (warp w's acc at ws(w), its state at ws(w) + kMaxG DV)
   // folded in warp order into the split's partial rows row0 + g.
   template <class WS>
   __device__ static void merge(const Args& a, WS ws, size_t row0, int tid, int nt) {
@@ -223,14 +230,14 @@ struct FloatDec {
       const int g = i / a.hv, c = i - g * a.hv;
       float m_all = -INFINITY;
 #pragma unroll
-      for (int w = 0; w < C::W; ++w) m_all = fmaxf(m_all, ws(w)[kMaxG * C::D + g]);
+      for (int w = 0; w < C::W; ++w) m_all = fmaxf(m_all, ws(w)[kMaxG * C::DV + g]);
       float l_all = 0.0f, acc_all = 0.0f;
 #pragma unroll
       for (int w = 0; w < C::W; ++w) {
         const float* st = ws(w);
-        const float sc = exp2f((st[kMaxG * C::D + g] - m_all) * unit::LOG2E);
-        l_all += st[kMaxG * C::D + kMaxG + g] * sc;
-        acc_all += st[g * C::D + c] * sc;
+        const float sc = exp2f((st[kMaxG * C::DV + g] - m_all) * unit::LOG2E);
+        l_all += st[kMaxG * C::DV + kMaxG + g] * sc;
+        acc_all += st[g * C::DV + c] * sc;
       }
       a.part_acc[(row0 + g) * a.hv + c] = acc_all;
       if (c == 0) {
@@ -323,7 +330,7 @@ struct SnapDec {
   __device__ static void merge(const Args& a, WS ws, size_t row0, int tid, int nt) {
     const int G = a.G;
     const auto m_of = [&](int w, int g) {
-      return reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::D)[g];
+      return reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::DV)[g];
     };
     const auto m_all = [&](int g) {
       int32_t x = unit::SNAP_MIN;
@@ -337,7 +344,7 @@ struct SnapDec {
       float acc_all = 0.0f;
 #pragma unroll
       for (int w = 0; w < C::W; ++w)
-        acc_all += ws(w)[g * C::D + c] * unit::snap_scale_f32((mg - m_of(w, g)) >> unit::T_FRAC);
+        acc_all += ws(w)[g * C::DV + c] * unit::snap_scale_f32((mg - m_of(w, g)) >> unit::T_FRAC);
       a.part_acc[(row0 + g) * a.hv + c] = acc_all;
       if (c == 0) static_cast<int32_t*>(a.part_m)[row0 + g] = mg;
     }
@@ -348,7 +355,7 @@ struct SnapDec {
 #pragma unroll
       for (int w = 0; w < C::W; ++w) {
         const int32_t k = (mg - m_of(w, g)) >> unit::T_FRAC;
-        const int32_t* sw = reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::D + kMaxG);
+        const int32_t* sw = reinterpret_cast<const int32_t*>(ws(w) + kMaxG * C::DV + kMaxG);
         x += d >= k ? sw[g * kNB + d - k] : 0;
       }
       static_cast<int32_t*>(a.part_l)[(row0 + g) * kNB + d] = x;
@@ -367,8 +374,8 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
   const int G = a.G;
 
   const float* qrow = a.q + (static_cast<size_t>(b) * a.K + head) * G * a.h;
-  for (int i = threadIdx.x; i < kMaxG * C::D; i += kThreads) {
-    const int g = i / C::D, d = i - g * C::D;
+  for (int i = threadIdx.x; i < kMaxG * C::DK; i += kThreads) {
+    const int g = i / C::DK, d = i - g * C::DK;
     sm[L::Q + i] = g < G && d < a.h ? qrow[g * a.h + d] : 0.0f;
   }
   Rows rows;
@@ -396,9 +403,9 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
     const auto k_row = [&](int width) {
       return [&, width](int j) -> long long { return layout.off(a, b, head, key0, r1, j, width); };
     };
-    copy_rows<C::KW, C::D, C::LD, C::VEC, 32>(dst, a.k, a.h, k_row(a.h), lane);
-    copy_rows<C::KW, C::D, C::LD, C::VEC, 32>(dst + C::KW * C::LD, a.v, a.hv, k_row(a.hv),
-                                             lane);
+    copy_rows<C::KW, C::DK, C::LDK, C::VEC, 32>(dst, a.k, a.h, k_row(a.h), lane);
+    copy_rows<C::KW, C::DV, C::LDV, C::VEC, 32>(dst + C::KW * C::LDK, a.v, a.hv, k_row(a.hv),
+                                               lane);
   };
 #pragma unroll
   for (int s = 0; s < C::NS - 1; ++s) {
@@ -428,18 +435,18 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
     const int kind = kind_next;
     if (st + 1 < steps) kind_next = key_kind(st + 1);
     const float* ks = ring + (st % C::NS) * C::STAGE;
-    const float* vs = ks + C::KW * C::LD;
+    const float* vs = ks + C::KW * C::LDK;
 
-    float4 kv[C::D / (4 * C::LPK)];
+    float4 kv[C::DK / (4 * C::LPK)];
 #pragma unroll
-    for (int i = 0; i < C::D / (4 * C::LPK); ++i)
-      kv[i] = *reinterpret_cast<const float4*>(ks + kk * C::LD + 4 * (C::LPK * i + part));
+    for (int i = 0; i < C::DK / (4 * C::LPK); ++i)
+      kv[i] = *reinterpret_cast<const float4*>(ks + kk * C::LDK + 4 * (C::LPK * i + part));
 #pragma unroll
     for (int g = 0; g < C::GT; ++g) {
-      const float* qg = sm + L::Q + g * C::D;
+      const float* qg = sm + L::Q + g * C::DK;
       float x = 0.0f;
 #pragma unroll
-      for (int i = 0; i < C::D / (4 * C::LPK); ++i) {
+      for (int i = 0; i < C::DK / (4 * C::LPK); ++i) {
         const float4 qv = *reinterpret_cast<const float4*>(qg + 4 * (C::LPK * i + part));
         x = fmaf(qv.x, kv[i].x, x);
         x = fmaf(qv.y, kv[i].y, x);
@@ -467,7 +474,7 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[C::CPL];
-        const float* vr = vs + (j4 + jj) * C::LD + lane * C::CPL;
+        const float* vr = vs + (j4 + jj) * C::LDV + lane * C::CPL;
         if constexpr (C::CPL == 4) {
           const float4 t = *reinterpret_cast<const float4*>(vr);
           vv[0] = t.x, vv[1] = t.y, vv[2] = t.z, vv[3] = t.w;
@@ -486,13 +493,13 @@ __global__ void __launch_bounds__(C::W * 32) decode_kernel(Args a) {
   cp_wait<0>();
   __syncwarp();  // the warp's ring is free
 
-  float* st = ring;  // acc [kMaxG][D], then the policy's state
+  float* st = ring;  // acc [kMaxG][DV], then the policy's state
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g >= G) break;
 #pragma unroll
-    for (int c = 0; c < C::CPL; ++c) st[g * C::D + lane * C::CPL + c] = acc[g][c];
-    rows.store(st + kMaxG * C::D, g, lane);
+    for (int c = 0; c < C::CPL; ++c) st[g * C::DV + lane * C::CPL + c] = acc[g][c];
+    rows.store(st + kMaxG * C::DV, g, lane);
   }
   __syncthreads();  // every warp's state written
 
@@ -528,13 +535,14 @@ int launch_rows(const Args& a, int batch, cudaStream_t st) {
 
 // An entry's launch: the instantiation for a's shape (D by h and hv, GT by
 // G, the copy width vec), after refusing what none instantiates -- G
-// outside 1..8, h or hv outside 1..128, 16-byte copies (vec 4) where h,
-// hv or the K / V base pointer is off 16 bytes.
-template <template <class> class Rows, template <class> class KV>
+// outside 1..8, hv outside 1..128, h outside 1..128 (or, with WIDE, 1..192:
+// the 192 class, for MLA's nope + rope), 16-byte copies (vec 4) where h, hv
+// or the K / V base pointer is off 16 bytes.
+template <template <class> class Rows, template <class> class KV, bool WIDE = false>
 int dispatch(const Args& a, int batch, int vec, void* stream) {
-  if (a.G < 1 || a.G > kMaxG || a.h < 1 || a.h > 128 || a.hv < 1 || a.hv > 128 ||
-      a.bkv < 1 || a.bkv > 1024 || a.splits < 1 || a.T < 1 || a.K < 1 || batch < 1 ||
-      (vec != 4 && vec != 1))
+  if (a.G < 1 || a.G > kMaxG || a.h < 1 || a.h > (WIDE ? 192 : 128) || a.hv < 1 ||
+      a.hv > 128 || a.bkv < 1 || a.bkv > 1024 || a.splits < 1 || a.T < 1 || a.K < 1 ||
+      batch < 1 || (vec != 4 && vec != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (vec == 4 && (a.h % 4 != 0 || a.hv % 4 != 0 || !aligned16(a.k) || !aligned16(a.v)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -542,6 +550,11 @@ int dispatch(const Args& a, int batch, int vec, void* stream) {
   if (a.h <= 64 && a.hv <= 64)
     return vec == 4 ? launch_rows<Rows, KV, 64, 4>(a, batch, st)
                     : launch_rows<Rows, KV, 64, 1>(a, batch, st);
+  if constexpr (WIDE) {
+    if (a.h > 128)
+      return vec == 4 ? launch_rows<Rows, KV, 192, 4>(a, batch, st)
+                      : launch_rows<Rows, KV, 192, 1>(a, batch, st);
+  }
   return vec == 4 ? launch_rows<Rows, KV, 128, 4>(a, batch, st)
                   : launch_rows<Rows, KV, 128, 1>(a, batch, st);
 }

@@ -26,18 +26,19 @@
 using namespace ffwd;
 
 // Shapes as in ffwd::Args; every tensor contiguous f32 (q_pos int32,
-// kv_valid uint8), h and hv <= 128, 1 <= bkv <= 64.  vsum: a (B, cdiv(T,
-// 64), K, hv) f32 scratch when causal.  stat_m / stat_l are both null or
-// both (B, K, G, S) f32.  (bq, bk, stages, vec): (128, 64, 3, *) where h,
-// hv <= 64, else (64, 64, 2, *); vec 4 or 1.  reverse: walk q tiles from
-// the last.
+// kv_valid uint8), h <= 192 and hv <= 128, 1 <= bkv <= 64.  vsum: a (B,
+// cdiv(T, 64), K, hv) f32 scratch when causal.  stat_m / stat_l are both
+// null or both (B, K, G, S) f32.  (bq, bk, stages, vec): (128, 64, 3, *)
+// where h, hv <= 64, (64, 64, 2, *) where h, hv <= 128, (64, 64, 3, *)
+// where 128 < h <= 192 (MLA's nope + rope; one operand a ring stage); vec
+// 4 or 1.  reverse: walk q tiles from the last.
 extern "C" int flash_fwd_launch(const float* q, const float* k, const float* v,
                                 const int32_t* q_pos, const uint8_t* kv_valid, float* vsum,
                                 float* out, float* stat_m, float* stat_l, int batch, int S,
                                 int K, int G, int h, int hv, int T, int bkv, int causal,
                                 int bq, int bk, int stages, int vec, int reverse,
                                 void* stream) {
-  if (h < 1 || h > 128 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
+  if (h < 1 || h > 192 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
       T < 1 || K < 1 || batch < 1 || (causal && vsum == nullptr) ||
       (stat_m == nullptr) != (stat_l == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

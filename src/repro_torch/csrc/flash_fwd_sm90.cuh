@@ -17,7 +17,9 @@
 // 1. Tiles for the card.  A block holds BQ q rows (128 at head dims up to
 //    64, else 64) and streams 64-key K / V tiles through an NS-stage
 //    cp.async ring in dynamic shared memory; edges are zero-filled by the
-//    copy's src-size, so nothing is padded in device memory.  Copies move
+//    copy's src-size, so nothing is padded in device memory.  At MLA's h
+//    up to 192 (hv up to 128) a stage holds one operand, K(t) then V(t)
+//    (Cfg::ALT): two stages of both would not fit beside Q and the p tile.  Copies move
 //    16 bytes where h, hv and every base pointer allow it
 //    (tiling.flash_fwd_plan), 4 bytes otherwise.
 // 2. Scores and row state in registers.  Thread (ty, tx) computes the
@@ -99,33 +101,51 @@ struct Args {
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A tile shape.  D: h and hv padded to 64 or 128; BQ rows held, kBK keys a
-// tile, NS ring stages, VEC floats a global copy.  Scores: thread (ty, tx)
-// of TY x TX holds SR rows x SC keys.  P V: the TX threads of a row set
-// are NG key groups x PXN column groups of 8.
+// A tile shape.  D: the width class -- h and hv padded to 64 or 128, or
+// 192: h up to 192 with hv up to 128 (MLA's nope + rope against its v).  The
+// Q and K tiles are DK = D columns wide, the V tile and the output DV =
+// min(D, 128).  BQ rows held, kBK keys a tile, NS ring stages, VEC floats a
+// global copy.  Scores: thread (ty, tx) of TY x TX holds SR rows x SC keys.
+// P V: the TX threads of a row set are NG key groups x PXN column groups of
+// 8.  ALT (the 192 class): two K and V stages do not fit beside Q and the p
+// tile (235 520 bytes at BQ 64), so each ring stage holds one operand and
+// the tiles stream as K(0), V(0), K(1), V(1), ... through NS stages:
+// V(t) lands while tile t's scores are computed, K(t + 1) while its P V is.
 template <int D_, int BQ_, int NS_, int VEC_>
 struct Cfg {
   static constexpr int D = D_, BQ = BQ_, BK = kBK, NS = NS_, VEC = VEC_;
-  static constexpr int LD = D + 4;   // row stride of the Q, K, V tiles
+  static constexpr int DK = D, DV = D < 128 ? D : 128;
+  static constexpr bool ALT = DK != DV;
+  static constexpr int LDK = DK + 4, LDV = DV + 4;  // row strides of Q / K and V
   static constexpr int TX = 16, TY = kThreads / TX, SR = BQ / TY, SC = BK / TX;
-  static constexpr int PXN = D / 8, NG = TX / PXN, KH = BK / NG;
+  static constexpr int PXN = DV / 8, NG = TX / PXN, KH = BK / NG;
   static constexpr int LDT = BQ + 4;  // row stride of the [key][row] p tile
   static_assert(SR == 4 || SR == 8, "four or eight rows a thread");
   static_assert(NG * PXN == TX && (NG == 1 || NG == 2), "P V groups");
   static_assert(VEC == 1 || VEC == 4, "4- or 16-byte copies");
+  static_assert(!ALT || NS >= 3, "an operand a stage: K(t + 1) streams beside V(t)");
 };
 
-// Shared memory, in floats: Q [BQ][LD]; the ring [NS][K, V][BK][LD] (KV 2)
-// or [NS][BK][LD] (KV 1: one operand a sweep); the p tile [BK][LDT]; the
-// row-state policy's own words [EXTRA], then its bytes sized at the launch.
-// At the end the ring holds the second group's accumulator [BQ][LD] and the
-// p tile the tail's V sums [D].
+// Shared memory, in floats: Q [BQ][LDK]; the ring [NS][K [BK][LDK], V
+// [BK][LDV]] (KV 2) or [NS][BK][LDK] (KV 1: one operand a stage -- a sweep
+// of one operand, or the ALT stream); the p tile [BK][LDT]; the row-state
+// policy's own words [EXTRA], then its bytes sized at the launch.  At the
+// end the ring holds the second group's accumulator [BQ][LDV] and the p
+// tile the tail's V sums [DV].
 template <class C, int EXTRA = 0, int KV = 2>
 struct Smem {
-  static constexpr int Q = 0, RING = C::BQ * C::LD, STAGE = KV * C::BK * C::LD;
+  static constexpr int Q = 0, RING = C::BQ * C::LDK;
+  static constexpr int STAGE = KV == 2 ? C::BK * (C::LDK + C::LDV) : C::BK * C::LDK;
   static constexpr int P = RING + C::NS * STAGE, X = P + C::BK * C::LDT;
   static constexpr size_t BYTES = sizeof(float) * (X + EXTRA);
-  static_assert(C::NS * STAGE >= C::BQ * C::LD, "the ring holds a group's acc");
+  static_assert(C::NS * STAGE >= C::BQ * C::LDV, "the ring holds a group's acc");
+};
+
+// The ring layout of row policy Rows on tile shape C: one operand a stage
+// for a sweep of V alone (SCORES false) or the ALT stream.
+template <class C, class Rows>
+struct RingKV {
+  static constexpr int value = Rows::SCORES && !C::ALT ? 2 : 1;
 };
 
 // Element offset of flattened row ``flat`` in a (B, S, K, G, width) tensor.
@@ -151,11 +171,11 @@ __device__ __forceinline__ void score_tile(const float* qs, const float* ks, int
     float4 av[C::SR];
 #pragma unroll
     for (int i = 0; i < C::SR; ++i)
-      av[i] = *reinterpret_cast<const float4*>(qs + frag_pos<C::SR, C::TY>(ty, i) * C::LD +
+      av[i] = *reinterpret_cast<const float4*>(qs + frag_pos<C::SR, C::TY>(ty, i) * C::LDK +
                                                4 * d4);
 #pragma unroll
     for (int c = 0; c < C::SC; ++c) {
-      const float4 bv = *reinterpret_cast<const float4*>(ks + (tx + C::TX * c) * C::LD + 4 * d4);
+      const float4 bv = *reinterpret_cast<const float4*>(ks + (tx + C::TX * c) * C::LDK + 4 * d4);
 #pragma unroll
       for (int i = 0; i < C::SR; ++i) {
         float x = t[i][c];
@@ -326,7 +346,9 @@ struct FloatRows : RowsBase {
 // through the same ring and hand it each tile's masked scores.
 template <class C, class Rows>
 __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
-  using L = Smem<C, Rows::EXTRA, Rows::SCORES ? 2 : 1>;
+  using L = Smem<C, Rows::EXTRA, RingKV<C, Rows>::value>;
+  static_assert(!C::ALT || (Rows::SCORES && Rows::PRE == 0 && !Rows::FULL),
+                "the ALT stream is the default sweep's");
   extern __shared__ __align__(16) float sm[];
   const int R = a.S * a.G, n_qt = cdiv(R, C::BQ), n_kt = cdiv(a.T, C::BK);
   int qt, head, b;
@@ -335,7 +357,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
   const int tid = threadIdx.x, tx = tid % C::TX, ty = tid / C::TX;
   const int grp = tx / C::PXN, px = tx % C::PXN;
 
-  copy_rows<C::BQ, C::D, C::LD, C::VEC, kThreads>(
+  copy_rows<C::BQ, C::DK, C::LDK, C::VEC, kThreads>(
       sm + L::Q, a.q, a.h,
       [&](int r) -> long long { return q0 + r < R ? row_offset(a, b, head, q0 + r, a.h) : -1; },
       tid);
@@ -373,10 +395,10 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
                    : -1;
       };
     };
-    if (k) copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st, a.k, a.h, k_row(a.h), tid);
+    if (k) copy_rows<C::BK, C::DK, C::LDK, C::VEC, kThreads>(st, a.k, a.h, k_row(a.h), tid);
     if (v)
-      copy_rows<C::BK, C::D, C::LD, C::VEC, kThreads>(st + (k ? C::BK * C::LD : 0), a.v, a.hv,
-                                                     k_row(a.hv), tid);
+      copy_rows<C::BK, C::DV, C::LDV, C::VEC, kThreads>(st + (k ? C::BK * C::LDK : 0), a.v,
+                                                       a.hv, k_row(a.hv), tid);
   };
   // the thread's keys of tile t that are valid and below T
   const uint8_t* vrow = a.kv_valid + static_cast<size_t>(b) * a.T;
@@ -437,52 +459,121 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     }
   }
 
-#pragma unroll
-  for (int s = 0; s < C::NS - 1; ++s) {
-    if (s < n_tiles) fetch_kv(s, Rows::SCORES, true);
-    cp_commit();
-  }
-  unsigned valid_next = Rows::SCORES && n_tiles > 0 ? valid_bits(0) : 0u;
-
-  rows.init(a, sm + L::X, tid);
   float acc[C::SR][8];
-#pragma unroll
-  for (int i = 0; i < C::SR; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
   float* pt = sm + L::P;
-  for (int t = 0; t < n_tiles; ++t) {
-    cp_wait<C::NS - 2>();
-    __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
-    if (t + C::NS - 1 < n_tiles) fetch_kv(t + C::NS - 1, Rows::SCORES, true);
-    cp_commit();
-    const unsigned valid = valid_next;
-    if (Rows::SCORES && t + 1 < n_tiles) valid_next = valid_bits(t + 1);
-    const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
-    const float* vs = Rows::SCORES ? ks + C::BK * C::LD : ks;
-
-    float s[C::SR][C::SC];
-    if constexpr (Rows::SCORES) masked_scores(t, valid, ks, s);
-    rows.step(t, s, acc);
+  if constexpr (C::ALT) {
+    // the ALT stream: item 2t is K(t), item 2t + 1 is V(t), item i in stage
+    // i % NS; NS - 1 items in flight ahead of the one consumed
+    const int n_items = 2 * n_tiles;
+    const auto fetch_item = [&](int i) {
+      float* st = sm + L::RING + (i % C::NS) * L::STAGE;
+      const int key0 = (i >> 1) * C::BK;
+      const auto row = [&](int width) {
+        return [&, width](int j) -> long long {
+          return key0 + j < a.T
+                     ? ((static_cast<long long>(b) * a.T + key0 + j) * a.K + head) * width
+                     : -1;
+        };
+      };
+      if (i & 1)
+        copy_rows<C::BK, C::DV, C::LDV, C::VEC, kThreads>(st, a.v, a.hv, row(a.hv), tid);
+      else
+        copy_rows<C::BK, C::DK, C::LDK, C::VEC, kThreads>(st, a.k, a.h, row(a.h), tid);
+    };
 #pragma unroll
-    for (int c = 0; c < C::SC; ++c)
-#pragma unroll
-      for (int i4 = 0; i4 < C::SR; i4 += 4)
-        *reinterpret_cast<float4*>(pt + (tx + C::TX * c) * C::LDT +
-                                   frag_pos<C::SR, C::TY>(ty, i4)) =
-            make_float4(s[i4][c], s[i4 + 1][c], s[i4 + 2][c], s[i4 + 3][c]);
-    __syncthreads();  // p written
+    for (int i = 0; i < C::NS - 1; ++i) {
+      if (i < n_items) fetch_item(i);
+      cp_commit();
+    }
+    unsigned valid_next = n_tiles > 0 ? valid_bits(0) : 0u;
 
-    // acc += p V over the thread's key group
+    rows.init(a, sm + L::X, tid);
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_wait<C::NS - 2>();
+      __syncthreads();  // K(t) landed; V(t - 1)'s stage and the p tile are free
+      if (2 * t + C::NS - 1 < n_items) fetch_item(2 * t + C::NS - 1);
+      cp_commit();
+      const unsigned valid = valid_next;
+      if (t + 1 < n_tiles) valid_next = valid_bits(t + 1);
+
+      float s[C::SR][C::SC];
+      masked_scores(t, valid, sm + L::RING + ((2 * t) % C::NS) * L::STAGE, s);
+      rows.step(t, s, acc);
+#pragma unroll
+      for (int c = 0; c < C::SC; ++c)
+#pragma unroll
+        for (int i4 = 0; i4 < C::SR; i4 += 4)
+          *reinterpret_cast<float4*>(pt + (tx + C::TX * c) * C::LDT +
+                                     frag_pos<C::SR, C::TY>(ty, i4)) =
+              make_float4(s[i4][c], s[i4 + 1][c], s[i4 + 2][c], s[i4 + 3][c]);
+      cp_wait<C::NS - 2>();
+      __syncthreads();  // V(t) landed and p written; K(t)'s stage is free
+      if (2 * t + C::NS < n_items) fetch_item(2 * t + C::NS);
+      cp_commit();
+
+      // acc += p V (one key group at DV 128)
+      const float* vs = sm + L::RING + ((2 * t + 1) % C::NS) * L::STAGE;
 #pragma unroll 8
-    for (int j = grp * C::KH; j < (grp + 1) * C::KH; ++j) {
-      float av[C::SR], bv[8];
-      load_frag<C::SR, C::TY>(pt + j * C::LDT, ty, av);
-      load_frag<8, C::PXN>(vs + j * C::LD, px, bv);
+      for (int j = grp * C::KH; j < (grp + 1) * C::KH; ++j) {
+        float av[C::SR], bv[8];
+        load_frag<C::SR, C::TY>(pt + j * C::LDT, ty, av);
+        load_frag<8, C::PXN>(vs + j * C::LDV, px, bv);
 #pragma unroll
-      for (int i = 0; i < C::SR; ++i)
+        for (int i = 0; i < C::SR; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < C::NS - 1; ++s) {
+      if (s < n_tiles) fetch_kv(s, Rows::SCORES, true);
+      cp_commit();
+    }
+    unsigned valid_next = Rows::SCORES && n_tiles > 0 ? valid_bits(0) : 0u;
+
+    rows.init(a, sm + L::X, tid);
+#pragma unroll
+    for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_wait<C::NS - 2>();
+      __syncthreads();  // tile t landed; tile t - 1's slot and the p tile are free
+      if (t + C::NS - 1 < n_tiles) fetch_kv(t + C::NS - 1, Rows::SCORES, true);
+      cp_commit();
+      const unsigned valid = valid_next;
+      if (Rows::SCORES && t + 1 < n_tiles) valid_next = valid_bits(t + 1);
+      const float* ks = sm + L::RING + (t % C::NS) * L::STAGE;
+      const float* vs = Rows::SCORES ? ks + C::BK * C::LDK : ks;
+
+      float s[C::SR][C::SC];
+      if constexpr (Rows::SCORES) masked_scores(t, valid, ks, s);
+      rows.step(t, s, acc);
+#pragma unroll
+      for (int c = 0; c < C::SC; ++c)
+#pragma unroll
+        for (int i4 = 0; i4 < C::SR; i4 += 4)
+          *reinterpret_cast<float4*>(pt + (tx + C::TX * c) * C::LDT +
+                                     frag_pos<C::SR, C::TY>(ty, i4)) =
+              make_float4(s[i4][c], s[i4 + 1][c], s[i4 + 2][c], s[i4 + 3][c]);
+      __syncthreads();  // p written
+
+      // acc += p V over the thread's key group
+#pragma unroll 8
+      for (int j = grp * C::KH; j < (grp + 1) * C::KH; ++j) {
+        float av[C::SR], bv[8];
+        load_frag<C::SR, C::TY>(pt + j * C::LDT, ty, av);
+        load_frag<8, C::PXN>(vs + j * C::LDV, px, bv);
+#pragma unroll
+        for (int i = 0; i < C::SR; ++i)
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) acc[i][jj] = fmaf(av[i], bv[jj], acc[i][jj]);
+      }
     }
   }
   cp_wait<0>();
@@ -492,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
   const int n_tail = a.causal && !Rows::FULL ? a.T - n_tiles * C::BK : 0;
   if constexpr (!Rows::FULL) if (n_tail > 0) {
     float* tail = pt;
-    for (int c = tid; c < C::D; c += kThreads) {
+    for (int c = tid; c < C::DV; c += kThreads) {
       float x = 0.0f;
       if (c < a.hv) {
         const size_t step = static_cast<size_t>(a.K) * a.hv;
@@ -515,7 +606,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
     if (grp == 1) {
 #pragma unroll
       for (int i = 0; i < C::SR; ++i) {
-        float* row = part + frag_pos<C::SR, C::TY>(ty, i) * C::LD;
+        float* row = part + frag_pos<C::SR, C::TY>(ty, i) * C::LDV;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           *reinterpret_cast<float4*>(row + (j * C::PXN + px) * 4) =
@@ -527,7 +618,7 @@ __global__ void __launch_bounds__(kThreads, 1) fwd_kernel(Args a, int batch) {
 #pragma unroll
     for (int i = 0; i < C::SR; ++i) {
       float other[8];
-      load_frag<8, C::PXN>(part + frag_pos<C::SR, C::TY>(ty, i) * C::LD, px, other);
+      load_frag<8, C::PXN>(part + frag_pos<C::SR, C::TY>(ty, i) * C::LDV, px, other);
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] += other[j];
     }
@@ -557,7 +648,7 @@ inline bool vec_ok(const Args& a) {
 // The V-sum pre-pass (causal), then the main kernel with the row policy Rows.
 template <class C, class Rows>
 size_t smem_bytes(const Args& a) {
-  return Smem<C, Rows::EXTRA, Rows::SCORES ? 2 : 1>::BYTES + Rows::dyn_bytes(a);
+  return Smem<C, Rows::EXTRA, RingKV<C, Rows>::value>::BYTES + Rows::dyn_bytes(a);
 }
 
 template <class C, class Rows>
@@ -575,17 +666,22 @@ int launch(const Args& a, int batch, cudaStream_t st) {
 }
 
 // go(Cfg) for the tile shape the plan names -- (128, 64, 3, vec) where h, hv
-// <= 64, else (64, 64, 2, vec) -- or cudaErrorInvalidValue for any other
-// (bq, bk, stages, vec), and for 16-byte copies on unaligned shapes.
+// <= 64, (64, 64, 2, vec) where h, hv <= 128, the ALT stream (64, 64, 3,
+// vec) where 128 < h <= 192 and hv <= 128 -- or cudaErrorInvalidValue for
+// any other (bq, bk, stages, vec), for head dims past those, and for 16-byte
+// copies on unaligned shapes.
 template <class Go>
 int with_cfg(const Args& a, int bq, int bk, int stages, int vec, Go go) {
-  if (bk != kBK || (vec != 4 && vec != 1) || (vec == 4 && !vec_ok(a)))
+  if (bk != kBK || (vec != 4 && vec != 1) || (vec == 4 && !vec_ok(a)) || a.h < 1 ||
+      a.hv < 1 || a.hv > 128 || a.h > 192)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool narrow = a.h <= 64 && a.hv <= 64;
+  const bool narrow = a.h <= 64 && a.hv <= 64, wide = a.h > 128;
   if (narrow && bq == 128 && stages == 3)
     return vec == 4 ? go(Cfg<64, 128, 3, 4>{}) : go(Cfg<64, 128, 3, 1>{});
-  if (!narrow && bq == 64 && stages == 2)
+  if (!narrow && !wide && bq == 64 && stages == 2)
     return vec == 4 ? go(Cfg<128, 64, 2, 4>{}) : go(Cfg<128, 64, 2, 1>{});
+  if (wide && bq == 64 && stages == 3)
+    return vec == 4 ? go(Cfg<192, 64, 3, 4>{}) : go(Cfg<192, 64, 3, 1>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

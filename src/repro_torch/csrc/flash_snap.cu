@@ -24,18 +24,18 @@
 using namespace ffwd;
 
 // Shapes as in ffwd::Args; every tensor contiguous (q, k, v, vsum, out
-// f32, q_pos int32, kv_valid uint8), h and hv <= 128, 1 <= bkv <= 64,
-// 0 <= guard_shift <= 31.  vsum: a (B, cdiv(T, 64), K, hv) f32 scratch
-// when causal.  word_m / word_s: both null, or the partial's (B, K, G, S)
-// and (B, K, G, S, 16) int32 words, out then receiving the unnormalized
-// acc.  (bq, bk, stages, vec, reverse) as flash_fwd_launch.
+// f32, q_pos int32, kv_valid uint8), h <= 192 and hv <= 128, 1 <= bkv <=
+// 64, 0 <= guard_shift <= 31.  vsum: a (B, cdiv(T, 64), K, hv) f32
+// scratch when causal.  word_m / word_s: both null, or the partial's (B,
+// K, G, S) and (B, K, G, S, 16) int32 words, out then receiving the
+// unnormalized acc.  (bq, bk, stages, vec, reverse) as flash_fwd_launch.
 extern "C" int flash_snap_launch(const float* q, const float* k, const float* v,
                                  const int32_t* q_pos, const uint8_t* kv_valid, float* vsum,
                                  float* out, int32_t* word_m, int32_t* word_s, int batch,
                                  int S, int K, int G, int h, int hv, int T, int bkv,
                                  int causal, int guard_shift, int bq, int bk, int stages,
                                  int vec, int reverse, void* stream) {
-  if (h < 1 || h > 128 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
+  if (h < 1 || h > 192 || hv < 1 || hv > 128 || bkv < 1 || bkv > kBK || G < 1 || S < 1 ||
       T < 1 || K < 1 || batch < 1 || guard_shift < 0 || guard_shift > 31 ||
       (causal && vsum == nullptr) || (word_m == nullptr) != (word_s == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -13,7 +13,9 @@ operations on the H100 (see the source note).  Its tiles, copy width and
 tile order are :func:`tiling.flash_fwd_plan`'s, not ``block_kv``.
 
 Shapes (the reference's): q (B, S, K, G, h), k (B, T, K, h),
-v (B, T, K, hv) -> (B, S, K, G, hv).  Masking is
+v (B, T, K, hv) -> (B, S, K, G, hv); on a GPU h and hv up to 128, or MLA's
+h up to 192 against hv up to 128 (deepseek-v2-lite: nope 128 + rope 64,
+v 128), and anything else raises ValueError.  Masking is
 :func:`masked_score_block`'s: invalid or causally masked keys score
 ``MASK_VALUE`` (as in naive attention), keys past T (tile padding) are
 phantoms scoring -inf.
@@ -54,7 +56,17 @@ FLASH_FWD = _build.Kernel(
     source="src/repro_torch/csrc/flash_fwd.cu",
     replaces="src/repro/kernels/flash_attention.py:192")
 
-MAX_HEAD_DIM = 128       # h and hv the kernels take (their Cfg instances)
+MAX_HEAD_DIM = 128       # h and hv of rows 3, 4, 9, 10, 11 (their instances)
+# rows 5-8 also take MLA's h up to 192 against hv up to 128
+# (``tiling.head_width``'s 192 class)
+WIDE_HEAD_DIMS = (192, 128)
+
+
+def head_dims_ok(h: int, hv: int, wide: bool) -> bool:
+    """Whether a kernel's instances take head dims h, hv: 1..MAX_HEAD_DIM
+    both, or with ``wide`` (rows 5-8) also h up to 192 with hv up to 128."""
+    mh, mv = WIDE_HEAD_DIMS if wide else (MAX_HEAD_DIM, MAX_HEAD_DIM)
+    return 1 <= h <= mh and 1 <= hv <= mv
 
 
 def masked_score_block(qf, kb, q_pos, valid, kv_tile: int, *, block_kv: int,
@@ -92,7 +104,9 @@ def flash_fwd_plain(qf, k, v, q_pos, kv_valid, *, causal: bool,
     return res.contiguous()
 
 
-def _check_operands(name, qf, k, v, q_pos, kv_valid):
+def _check_operands(name, qf, k, v, q_pos, kv_valid, wide: bool = False):
+    """Raise ValueError unless the operands are what the blocked kernels
+    take; ``wide``: the entry has the 192 class (rows 7 and 8)."""
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     want = {"qf": (torch.float32, (b, s_q, kh, g, h)),
@@ -109,9 +123,11 @@ def _check_operands(name, qf, k, v, q_pos, kv_valid):
         if x.device != qf.device or not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous on "
                              f"{qf.device}")
-    if not (1 <= h <= MAX_HEAD_DIM and 1 <= hv <= MAX_HEAD_DIM):
+    if not head_dims_ok(h, hv, wide):
+        lim = ("h 1..192 and hv 1..128" if wide
+               else f"1..{MAX_HEAD_DIM}")
         raise ValueError(f"{name}: head dims {h}/{hv}; the kernel takes "
-                         f"1..{MAX_HEAD_DIM}")
+                         f"{lim}")
     if min(b, s_q, kh, g, t) < 1:
         raise ValueError(f"{name}: empty operand")
 
@@ -130,7 +146,7 @@ def flash_fwd(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
     if qf.device.type == "cpu":
         return flash_fwd_plain(qf, k, v, q_pos, kv_valid, causal=causal,
                                block_kv=block_kv, return_stats=return_stats)
-    _check_operands("flash_fwd", qf, k, v, q_pos, kv_valid)
+    _check_operands("flash_fwd", qf, k, v, q_pos, kv_valid, wide=True)
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     out = torch.empty((b, s_q, kh, g, hv), device=qf.device)

@@ -160,7 +160,7 @@ def flash_snap(qf, k, v, q_pos, kv_valid, *, causal: bool, block_kv: int,
         return flash_snap_plain(qf, k, v, q_pos, kv_valid, causal=causal,
                                 block_kv=block_kv, guard_shift=guard_shift,
                                 return_partial=return_partial)
-    _check_operands("flash_snap", qf, k, v, q_pos, kv_valid)
+    _check_operands("flash_snap", qf, k, v, q_pos, kv_valid, wide=True)
     b, s_q, kh, g, h = qf.shape
     t, hv = k.shape[1], v.shape[-1]
     dev = qf.device

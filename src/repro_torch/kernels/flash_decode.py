@@ -25,11 +25,14 @@ the CPU keeps the reference's split rule.
 Shapes (the reference's): q (B, 1, K, G, h); paged pools (N, bs, K,
 h|hv) with block_tables (B, nblk) int32 and kv_valid (B, nblk*bs);
 contiguous k (B, T, K, h), v (B, T, K, hv), kv_valid (B, T); q_pos (B, 1)
--> (B, 1, K, G, hv).  Split s covers its share of each row's LIVE tiles
-(pages, paged: up to its q_pos when causal), so a shallow slot in a deep
-cache still spreads its work over every split.  The fold does not depend
-on where the splits fall: the int words are exact, float changes only in
-f32 order.
+-> (B, 1, K, G, hv).  On a GPU the kernels take G up to 8 and h, hv up to
+128; the contiguous ones also MLA's h up to 192 against hv up to 128 (an
+MLA tick attends densely over its gathered latent, so the paged rows keep
+128).  Anything else raises ValueError.  Split s covers its share of each
+row's LIVE tiles (pages, paged: up to its q_pos when causal), so a shallow
+slot in a deep cache still spreads its work over every split.  The fold
+does not depend on where the splits fall: the int words are exact, float
+changes only in f32 order.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from repro_torch.core.fixedpoint import T_FRAC, quantize
 from . import _build
 from . import datapath as dp
 from . import dispatch, tiling
-from .flash_attention import MAX_HEAD_DIM
+from .flash_attention import MAX_HEAD_DIM, head_dims_ok
 from .flash_attention_int import snap_tile_update
 
 _P, _I = _build.P, _build.I
@@ -193,7 +196,7 @@ def decode_paged_partials(qf, k_pool, v_pool, tables, q_pos, kv_valid, *,
     _check_decode_operands(qf, k_pool, v_pool, tables, q_pos, kv_valid)
     if not 1 <= num_splits <= nblk:
         raise ValueError(f"num_splits={num_splits} outside [1, {nblk}]")
-    if max(h, hv) > MAX_HEAD_DIM:
+    if not head_dims_ok(h, hv, wide=False):
         raise ValueError(f"decode_paged: head dims {h}/{hv}; the kernels "
                          f"take 1..{MAX_HEAD_DIM}")
     dev = qf.device
@@ -324,9 +327,9 @@ def decode_dense_partials(qf, k, v, q_pos, kv_valid, *, num_splits: int,
     _check_dense_operands(qf, k, v, q_pos, kv_valid)
     if num_splits < 1 or not 1 <= block_kv <= 1024:
         raise ValueError(f"num_splits={num_splits}, block_kv={block_kv}")
-    if max(h, hv) > MAX_HEAD_DIM:
+    if not head_dims_ok(h, hv, wide=True):
         raise ValueError(f"decode_dense: head dims {h}/{hv}; the kernels "
-                         f"take 1..{MAX_HEAD_DIM}")
+                         "take h 1..192 and hv 1..128")
     dev = qf.device
     part_m = torch.empty((b, num_splits, kh, g), device=dev,
                          dtype=torch.int32 if int_mode else torch.float32)

@@ -36,9 +36,11 @@ pre-pass, a cp.async ring of the streamed operand, 8 x 8 register tiles.
 The float flash forward (row 7) and the one-sweep snapped int flash (row
 8) run on ``csrc/flash_fwd_sm90.cuh`` with the tiles of
 :func:`flash_fwd_plan` (128 or 64 q rows held, 64-key K / V tiles
-streamed); the three-sweep int kernel (row 9) runs on the same body with
-the tiles and the word cache of :func:`flash_int3_plan` (64 q rows, the
-score words of a q tile kept in shared memory where they fit).  The
+streamed; at MLA's h up to 192 one operand a ring stage, the 192 class
+of :func:`head_width`); the three-sweep int kernel (row 9) runs on the
+same body with the tiles and the word cache of :func:`flash_int3_plan`
+(64 q rows, the score words of a q tile kept in shared memory where they
+fit).  The
 contiguous decodes (rows 5 and 6) run on
 ``csrc/decode_dense_sm90.cuh`` with the split count and tile of
 :func:`decode_dense_plan` and the copy width of :func:`decode_dense_vec`;
@@ -348,8 +350,27 @@ def decode_splits(nblk: int, block_size: int, rows: int,
 
 
 FLASH_FWD_BK = 64    # keys of a streamed K / V tile of the float forward
-# head dims up to -> (block_q, stages) of the float forward
-FLASH_FWD_TILES = {64: (128, 3), 128: (64, 2)}
+# width class -> (block_q, stages) of the float forward; the 192 class (MLA's
+# h up to 192 against hv up to 128) streams one operand a stage
+FLASH_FWD_TILES = {64: (128, 3), 128: (64, 2), 192: (64, 3)}
+SMEM_MAX_BYTES = 232448     # shared memory a block may use (H100)
+SM_SMEM_BYTES = 233472      # shared memory of an SM (H100: 228 KB)
+SMEM_BLOCK_RESERVED = 1024  # of it, reserved for each resident block
+
+
+def head_width(h: int, hv: int) -> int:
+    """The width class of rows 5-8's instances (``csrc/flash_fwd_sm90.cuh``
+    and ``csrc/decode_dense_sm90.cuh``'s ``Cfg<D, ...>``) for head dims h
+    (q, k) and hv (v): 64 where both are at most 64, 128 where both are at
+    most 128, and 192 where h is at most 192 and hv at most 128 (MLA's
+    nope + rope against its v: the Q / K rows 192 wide, the V rows 128).
+    Raises ValueError past those."""
+    if min(h, hv) < 1 or h > 192 or hv > 128:
+        raise ValueError(f"head dims {h}/{hv}: rows 5-8 take h up to 192 "
+                         "and hv up to 128")
+    if max(h, hv) <= 64:
+        return 64
+    return 128 if h <= 128 else 192
 
 
 class FlashFwdPlan(NamedTuple):
@@ -364,27 +385,49 @@ class FlashFwdPlan(NamedTuple):
 def flash_fwd_plan(h: int, hv: int, *, causal: bool,
                    aligned: bool = True) -> FlashFwdPlan:
     """The tiles, ring depth, copy width and tile order of the float flash
-    forward (row 7, ``csrc/flash_fwd_sm90.cuh``) for head dims h (q, k)
-    and hv (v); ``aligned`` says whether every base pointer is a multiple
-    of 16 bytes.
+    forward (row 7, ``csrc/flash_fwd_sm90.cuh``; row 8 runs on the same
+    plan) for head dims h (q, k) and hv (v); ``aligned`` says whether every
+    base pointer is a multiple of 16 bytes.
 
     Head dims up to 64: a block holds 128 q rows (8 x 4 scores and 8 x 8
     outputs a thread) and streams 64-key tiles through three stages; up
     to 128: 64 rows and two stages, so Q, the ring and the p tile fit one
-    block's shared memory.  16-byte copies need h, hv and every pointer a
-    multiple of four floats; anything else takes 4-byte copies on the
-    same tiles.  A causal grid runs its late q tiles first, since they
-    visit the most keys.  The tiles are independent of the caller's
-    ``block_kv``: the mask is per key and the causal tail is folded at the
-    kernel's own width.  ``csrc/flash_fwd.cu`` instantiates exactly these."""
-    bq, stages = FLASH_FWD_TILES[64 if max(h, hv) <= 64 else 128]
+    block's shared memory.  MLA's h up to 192 against hv up to 128 (the 192
+    class): 64 rows, and two stages of K and V would not fit
+    (:func:`flash_fwd_smem`), so the ring holds one operand a stage and
+    streams K(0), V(0), K(1), ... through three.  16-byte copies need h,
+    hv and every pointer a multiple of four floats; anything else takes
+    4-byte copies on the same tiles.  A causal grid runs its late q tiles
+    first, since they visit the most keys.  The tiles are independent of
+    the caller's ``block_kv``: the mask is per key and the causal tail is
+    folded at the kernel's own width.  ``csrc/flash_fwd.cu`` instantiates
+    exactly these; other head dims raise ValueError."""
+    bq, stages = FLASH_FWD_TILES[head_width(h, hv)]
     vec = 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
     return FlashFwdPlan(bq, FLASH_FWD_BK, stages, vec, bool(causal))
 
 
+def flash_fwd_smem(h: int, hv: int, *, snap: bool = False) -> int:
+    """Shared-memory bytes of a block of the float flash forward (or, with
+    ``snap``, of row 8 on its body) at :func:`flash_fwd_plan`'s tile for
+    head dims h, hv: Q [BQ][DK + 4]; the ring, each stage K [64][DK + 4]
+    and V [64][DV + 4], or one of them a stage in the 192 class; the p
+    tile [64][BQ + 4]; row 8's per-warp bucket tiles and the ROM's pairs
+    (``csrc/flash_fwd_sm90.cuh``'s Smem, ``csrc/flash_snap_sm90.cuh``'s
+    EXTRA)."""
+    d = head_width(h, hv)
+    bq, ns = FLASH_FWD_TILES[d]
+    dk, dv = d, min(d, 128)
+    ldk, ldv, bk = dk + 4, dv + 4, FLASH_FWD_BK
+    stage = bk * ldk if dk != dv else bk * (ldk + ldv)
+    floats = bq * ldk + ns * stage + bk * (bq + 4)
+    if snap:
+        floats += 8 * (bq // 16) * 2 * 16 + 32
+    return 4 * floats
+
+
 FLASH_INT3_BQ = 64          # q rows a block of the three-sweep int flash holds
 FLASH_INT3_STAGES = {64: 3, 128: 2}   # head dims up to -> ring depth
-SMEM_MAX_BYTES = 232448     # shared memory a block may use (H100)
 
 
 class FlashInt3Plan(NamedTuple):
@@ -451,9 +494,25 @@ def decode_dense_vec(h: int, hv: int, aligned: bool) -> int:
     """Floats a K / V copy of the contiguous decodes moves: 4 (16
     bytes) where h, hv are multiples of four floats and ``aligned`` (the K
     and V base pointers are multiples of 16 bytes; q is read a float at a
-    time), else 1.  The kernel's wrapper applies it at each launch, to the
-    pointers it is given."""
+    time), else 1 -- in every width class of :func:`head_width`, MLA's h
+    192 / hv 128 included.  The kernel's wrapper applies it at each
+    launch, to the pointers it is given."""
     return 4 if aligned and h % 4 == 0 and hv % 4 == 0 else 1
+
+
+def decode_dense_smem(h: int, hv: int, int_mode: bool) -> int:
+    """Shared-memory bytes of a block of the split-KV decodes
+    (``csrc/decode_dense_sm90.cuh``'s Smem) at the width class of h, hv:
+    q [8][DK]; each of the 4 warps' two-stage ring of 32 / LPK keys, K
+    [.][DK + 4 LPK] and V [.][DV + 4 LPK], LPK = DV / 32, and its p
+    [8][32 / LPK]; the int policy's ROM pairs and per-warp [8][16] bucket
+    tiles.  DECODE_DENSE_SLOTS blocks of it fit an SM in every class."""
+    d = head_width(h, hv)
+    dk, dv = d, min(d, 128)
+    lpk = dv // 32
+    kw = 32 // lpk
+    warp = 2 * kw * (dk + dv + 8 * lpk) + 8 * kw + (8 * 16 if int_mode else 0)
+    return 4 * (8 * dk + (32 if int_mode else 0) + 4 * warp)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -471,7 +530,11 @@ def decode_dense_plan(t_kv: int, rows: int, *, sms: int) -> DecodeDensePlan:
     reference's CPU rule.  The paged decodes take the same count, capped
     at their pages (:func:`decode_splits`).  The kernel's warps and ring
     depth are fixed; ``csrc/decode_dense.cu`` (and ``decode_paged.cu``)
-    instantiate both copy widths and take any split count and tile.  The
+    instantiate both copy widths and take any split count and tile, at
+    head dims up to 64 or 128 and -- the contiguous rows only -- MLA's h up
+    to 192 against hv up to 128 (:func:`head_width`; two blocks of each
+    fit an SM, :func:`decode_dense_smem`).  The split rule does not depend
+    on the head dims: the bytes a key does, not the blocks.  The
     int words differ from the reference decode's 128-key tiles only
     through the masked keys past q_pos inside the last visited tile
     (ROADMAP Queue 3)."""

@@ -22,13 +22,17 @@ cpu`` runs the plain versions).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --layers 8 --norm-impl fused_pallas --ffn-impl fused_pallas \
         --max-seq 4096
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --norm-impl fused_pallas \
+        --ffn-impl fused_pallas --max-seq 2048
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
         --device cpu --max-seq 64 --num-blocks 7 --preempt-mode swap
 
 Full width by default; ``--reduced`` takes the arch's smoke config and
 ``--layers`` cuts the depth (jamba-v0.1-52b's 32 layers, 192 GiB in f32,
-fit no single card; its first period of 8 does).  A
+fit no single card; its first period of 8 does; deepseek-v2-lite-16b,
+58.5 GiB, runs alone on an 80 GB card at full depth).  A
 ``--num-blocks`` under the traffic's demand makes the paged engine
 preempt (``--preempt-mode``, ``--preempt-policy``); ``--admission``,
 ``--hol-window`` and ``--deadline-s`` are the reference launcher's.  The

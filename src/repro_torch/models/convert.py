@@ -9,7 +9,9 @@ a cross layer's gate, stacked by the reference as (n_periods,), becomes
 the 0-d ``cross_gate`` of each of its layers, and a recurrent layer's
 leaves (the rwkv time mix's ``mu`` (5, d), ``dd_w2`` (5, r, d), ``u`` (H,
 hd); mamba's ``A_log`` (d_inner, d_state), ``conv_w`` (d_conv, d_inner),
-``dt_proj``'s pair) lose only their period axis.  An encoder's blocks,
+``dt_proj``'s pair) lose only their period axis.  The ``prefix`` blocks
+(deepseek-v2-lite's dense first layer), kept unstacked by the reference,
+come first in ``layers``, their leaves as they are.  An encoder's blocks,
 stacked by the reference on a leading ``enc_layers`` axis, become a list
 too, beside the encoder's final norm.
 """
@@ -36,8 +38,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     check_supported(cfg)
     dev = resolve_device(device)
     periods = tree["periods"]
-    layers = [_to_torch(periods[j], dev, index=i)
-              for i in range(cfg.n_periods) for j in range(len(periods))]
+    layers = [_to_torch(blk, dev) for blk in tree.get("prefix", [])]
+    layers += [_to_torch(periods[j], dev, index=i)
+               for i in range(cfg.n_periods) for j in range(len(periods))]
     params = {"embed": _to_torch(tree["embed"], dev),
               "final_norm": _to_torch(tree["final_norm"], dev),
               "layers": layers}

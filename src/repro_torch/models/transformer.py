@@ -1,7 +1,7 @@
 """Transformer stack of the port (counterpart of
 ``repro.models.transformer``): each layer's ``LayerSpec`` has mixer
 ``'attn'``, ``'mla'`` or ``'none'``, ffn ``'mlp'`` (or ``'moe'`` under an
-'attn' mixer), and may carry a tanh-gated cross-attention sublayer
+'attn' or 'mla' mixer), and may carry a tanh-gated cross-attention sublayer
 (``cross``); a config with ``enc_layers`` adds an encoder stack whose
 output is the decoder's ``cross_src``.  That covers the qwen / yi /
 qwen3 decoders (RMSNorm, RoPE, gated MLP; qwen3 with qk-norm), minicpm3
@@ -11,12 +11,13 @@ ungated MLP), whisper-base (an encoder over frame embeddings with
 sinusoid positions, a decoder with a learned table that cross-attends to
 the encoder's output, GELU MLPs), llama-3.2-vision (a period of four
 self-attention layers and one 'none'-mixer layer whose cross attention
-reads the image embeddings) and granite-moe (attention over a
-mixture-of-experts FFN, ``models/moe.py``), rwkv6 (an RWKV-6 time mix
-over a channel mix, ``models/rwkv.py``) and jamba (a period of seven
-Mamba layers and one attention layer, over alternating MLP and MoE
-FFNs, ``models/mamba.py``), with the reference's fused norm seams
-(``norm_impl``) and fused GLU (``ffn_impl``).
+reads the image embeddings), granite-moe (attention over a
+mixture-of-experts FFN, ``models/moe.py``), deepseek-v2-lite (a dense
+MLA + MLP prefix layer, then MLA over a MoE with shared experts), rwkv6
+(an RWKV-6 time mix over a channel mix, ``models/rwkv.py``) and jamba (a
+period of seven Mamba layers and one attention layer, over alternating
+MLP and MoE FFNs, ``models/mamba.py``), with the reference's fused norm
+seams (``norm_impl``) and fused GLU (``ffn_impl``).
 
 bert-base and whisper-base also rotate q and k by RoPE: their configs
 leave ``use_rope`` at its default (True), so the reference applies RoPE
@@ -24,11 +25,12 @@ on top of the position tables, and the port matches the reference rather
 than the published models.
 
 The reference stacks each period's parameters on a leading axis for
-``jax.lax.scan``; PyTorch runs eagerly, so here the layers are a plain
-list (layer i has spec ``cfg.pattern[i % len(cfg.pattern)]``), the
-encoder's blocks another, and the stacks are Python loops.
-``models/convert.py`` maps the reference's stacked pytree onto this
-layout.
+``jax.lax.scan`` and keeps the ``prefix`` layers apart, unstacked;
+PyTorch runs eagerly, so here the layers are one plain list in order --
+the prefix layers first, then the period repeated over ``n_periods``
+(:func:`layer_specs`) -- the encoder's blocks another, and the stacks are
+Python loops.  ``models/convert.py`` maps the reference's pytree onto
+this layout.
 """
 from __future__ import annotations
 
@@ -99,23 +101,25 @@ def _supported_spec(spec: LayerSpec) -> bool:
     if spec.ffn == "rwkv_cm":
         return spec.mixer == "rwkv"
     return spec.ffn == "mlp" or (spec.ffn == "moe" and not spec.cross
-                                 and spec.mixer in ("attn", "mamba"))
+                                 and spec.mixer in ("attn", "mla", "mamba"))
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet
-    (prefix layers, other norms).  It runs attn, MLA and 'none' mixers
-    with an mlp (and an optional cross sublayer), attn and mamba mixers
-    with an mlp or a moe ffn, the rwkv time mix over its channel mix
-    ('rwkv_cm'), an encoder stack (``enc_layers``), and rope, learned,
-    sinusoid or no positions."""
+    (other layer specs, other norms).  It runs attn, MLA and 'none'
+    mixers with an mlp (and an optional cross sublayer), attn, MLA and
+    mamba mixers with an mlp or a moe ffn, the rwkv time mix over its
+    channel mix ('rwkv_cm'), in the period and in the prefix layers, an
+    encoder stack (``enc_layers``), and rope, learned, sinusoid or no
+    positions."""
     why = []
-    if cfg.prefix or not all(_supported_spec(s) for s in cfg.pattern):
-        why.append("layer patterns other than attn / MLA / 'none' mixers "
-                   "with an mlp (and an optional cross sublayer), attn or "
-                   "mamba mixers with an mlp or a moe ffn, or rwkv over "
-                   "rwkv_cm (prefix layers)")
-    if cfg.mamba is None and any(s.mixer == "mamba" for s in cfg.pattern):
+    specs = tuple(cfg.prefix) + tuple(cfg.pattern)
+    if not all(_supported_spec(s) for s in specs):
+        why.append("layer specs other than attn / MLA / 'none' mixers "
+                   "with an mlp (and an optional cross sublayer), attn, MLA "
+                   "or mamba mixers with an mlp or a moe ffn, or rwkv over "
+                   "rwkv_cm")
+    if cfg.mamba is None and any(s.mixer == "mamba" for s in specs):
         why.append("mamba layers without a mamba config")
     if cfg.norm not in ("rms", "layer"):
         why.append(f"norm={cfg.norm!r}")
@@ -127,8 +131,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:
-    """The spec of every layer, in order: the period repeated."""
-    return [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    """The spec of every layer, in order: the prefix layers, then the
+    period repeated -- ``n_periods`` times, the reference's order (a depth
+    cut to a part of a period, as ``--layers`` may, ends with that
+    period's first layers)."""
+    body = cfg.n_layers - len(cfg.prefix)
+    return list(cfg.prefix) + [cfg.pattern[i % len(cfg.pattern)]
+                               for i in range(body)]
 
 
 # ---------------- params ----------------

@@ -56,9 +56,11 @@ def check_train_arch(cfg: ModelConfig) -> None:
     step feeds image embeddings to the cross layers, as the reference's
     does), the encdec family (its batch carries the reference's
     ``frames`` for the encoder), MLA mixers (the flash backward, rows
-    10 / 11, is unchecked on the card at MLA's head dims, h 96 / hv
-    64) and mamba / rwkv mixers (their scans have no backward kernels
-    yet, nor the reference's chunk-boundary checkpointing)."""
+    10 / 11, is unchecked on the card at minicpm3's h 96 / hv 64 and
+    takes no h past 128, deepseek's 192; deepseek's unstacked prefix
+    layer also needs the reference's decay mask) and mamba / rwkv mixers
+    (their scans have no backward kernels yet, nor the reference's
+    chunk-boundary checkpointing)."""
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: training the vlm family (image embeddings into "
@@ -79,9 +81,12 @@ def check_train_arch(cfg: ModelConfig) -> None:
             "brings")
     if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.name}: training MLA layers (the flash backward at h 96 "
-            "/ hv 64, unchecked on the card) is not ported yet; a later "
-            "training slice of the port brings it")
+            f"{cfg.name}: training MLA layers (the flash backward at h "
+            f"{cfg.mla.nope_dim + cfg.mla.rope_dim} / hv {cfg.mla.v_dim}, "
+            "unchecked on the card or past its h 128"
+            + (", and the prefix layers' weight decay" if cfg.prefix else "")
+            + ") is not ported yet; a later training slice of the port "
+            "brings it")
 
 
 def _chunk_ce(h, head_w, labels):

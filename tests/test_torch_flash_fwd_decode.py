@@ -52,12 +52,57 @@ cdiv = tiling.cdiv
     (30, 62, True, True, (128, 64, 3, 1, True)),
     (64, 64, True, False, (128, 64, 3, 1, True)),
     (128, 126, False, True, (64, 64, 2, 1, False)),
+    # MLA's h past 128 against hv up to 128 (deepseek-v2-lite: 192 / 128):
+    # 64 rows, one operand a stage through three
+    (192, 128, True, True, (64, 64, 3, 4, True)),
+    (132, 64, False, True, (64, 64, 3, 4, False)),
+    (190, 126, True, True, (64, 64, 3, 1, True)),
+    (192, 128, True, False, (64, 64, 3, 1, True)),
 ])
 def test_flash_fwd_plan(h, hv, causal, aligned, want):
     plan = tiling.flash_fwd_plan(h, hv, causal=causal, aligned=aligned)
     assert tuple(plan) == want
-    assert (plan.block_q, plan.stages) == tiling.FLASH_FWD_TILES[
-        64 if max(h, hv) <= 64 else 128]
+    width = 64 if max(h, hv) <= 64 else 128 if h <= 128 else 192
+    assert tiling.head_width(h, hv) == width
+    assert (plan.block_q, plan.stages) == tiling.FLASH_FWD_TILES[width]
+
+
+@pytest.mark.parametrize("h,hv", [(200, 128), (192, 136), (136, 136),
+                                  (0, 64)])
+def test_head_dims_past_the_instances_raise(h, hv):
+    with pytest.raises(ValueError, match="head dims"):
+        tiling.head_width(h, hv)
+    with pytest.raises(ValueError, match="head dims"):
+        tiling.flash_fwd_plan(h, hv, causal=True)
+    assert not fa.head_dims_ok(h, hv, wide=True)
+
+
+@pytest.mark.parametrize("h,hv,snap", [(64, 64, False), (128, 128, False),
+                                       (192, 128, False), (64, 64, True),
+                                       (128, 128, True), (192, 128, True)])
+def test_flash_fwd_tile_fits_shared_memory(h, hv, snap):
+    """Every class's tile fits a block's shared memory with row 8's
+    buckets; in the 192 class two stages of K and V would not (235 520
+    bytes), which is why its ring holds one operand a stage."""
+    assert tiling.flash_fwd_smem(h, hv, snap=snap) <= tiling.SMEM_MAX_BYTES
+    if h == 192:
+        assert tiling.flash_fwd_smem(h, hv, snap=snap) == (
+            222336 if snap else 218112)
+        # Q, two stages of K [64][196] and V [64][132], the p tile
+        two_kv_stages = 4 * (64 * 196 + 2 * 64 * (196 + 132) + 64 * 68)
+        assert two_kv_stages == 235520 > tiling.SMEM_MAX_BYTES
+
+
+@pytest.mark.parametrize("h,hv", [(64, 64), (128, 128), (192, 128),
+                                  (96, 64)])
+def test_decode_dense_blocks_fit_an_sm(h, hv):
+    """Two blocks of the contiguous decodes fit an SM's shared memory in
+    every width class, float and int."""
+    for int_mode in (False, True):
+        smem = tiling.decode_dense_smem(h, hv, int_mode)
+        assert tiling.DECODE_DENSE_SLOTS * (
+            smem + tiling.SMEM_BLOCK_RESERVED) <= tiling.SM_SMEM_BYTES
+    assert tiling.decode_dense_smem(192, 128, True) == 99456
 
 
 @pytest.mark.parametrize("t,rows,sms,want", [
@@ -70,6 +115,9 @@ def test_flash_fwd_plan(h, hv, causal, aligned, want):
     (4096, 32, 132, (16, 64)),
     # a card with fewer SMs asks for fewer blocks
     (16384, 64, 114, (15, 64)),
+    # deepseek-v2-lite's tick (B4 K16, a 2048-key cache): 256 keys a
+    # split; the head dims do not enter the rule
+    (2048, 64, 132, (8, 64)),
     # short caches: one split; many rows: one split
     (100, 4, 132, (1, 64)),
     (16384, 4096, 132, (1, 64)),
@@ -81,7 +129,8 @@ def test_decode_dense_plan(t, rows, sms, want):
 
 
 @pytest.mark.parametrize("h,hv,aligned,want", [
-    (64, 64, True, 4), (128, 96, True, 4),
+    (64, 64, True, 4), (128, 96, True, 4), (192, 128, True, 4),
+    (190, 126, True, 1), (192, 128, False, 1),
     # 4-byte copies: a head dim, or the K / V pointers, off 16 bytes
     (30, 62, True, 1), (64, 62, True, 1), (128, 128, False, 1),
 ])
@@ -224,6 +273,12 @@ FWD = [
     (1, 40, 1300, 1, 2, 64, 64, True, 64, "all_masked", 40),
     (1, 20, 1100, 2, 1, 128, 128, True, 64, "negative", 20),
     (1, 67, 1601, 2, 4, 128, 128, False, 64, "plain", None),  # cross edge
+    # MLA's h 192 / hv 128 (deepseek-v2-lite): a ragged last tile with key
+    # 0 masked, a chunk at the end of a table, G 2, not causal
+    (1, 100, 100, 2, 1, 192, 128, True, 64, "all_masked", None),
+    (1, 30, 300, 2, 1, 192, 128, True, 64, "ragged", None),
+    (1, 33, 129, 1, 2, 192, 128, True, 16, "ragged", None),
+    (1, 40, 90, 1, 1, 190, 126, False, 37, "plain", None),
 ]
 
 
@@ -263,7 +318,8 @@ def emulate_decode_dense(qf, k, v, q_pos, kv_valid, *, num_splits, block_kv,
                          causal, warps=4, tables=None):
     """The per-split partials (m, l, acc) as the kernel computes them: the
     split's keys cut into ``warps`` runs of whole steps (16 keys at head
-    dims up to 64, else 8), each run its own online state, the states
+    dims up to 64, else 8, the 192 class's too), each run its own online
+    state, the states
     merged in warp order.  With ``tables`` k and v are the pools and the
     tile is the page (block_kv = bs)."""
     b, kh, g, h = qf.shape
@@ -345,6 +401,11 @@ DECODE = [
     (3, 257, 1, 2, 64, 32, [40, 200, 256], True, 5, 16, True),
     (2, 190, 3, 3, 30, 62, [100, 189], True, 4, 37, True),
     (2, 120, 2, 8, 128, 96, [70, 119], True, 2, 37, True),
+    # deepseek-v2-lite's tick at h 192 / hv 128: 4 lanes a key, 8 keys a
+    # step; G 2, and 4-byte copies at 190 / 126
+    (4, 300, 2, 1, 192, 128, [20, 100, 250, 299], True, 5, 64, False),
+    (2, 200, 1, 2, 192, 128, [60, 199], True, 3, 64, True),
+    (2, 130, 1, 1, 190, 126, [129, 77], True, 2, 37, True),
     # q_pos < 0 (every split the identity) beside a live slot; more splits
     # than the live range has tiles
     (2, 300, 2, 2, 64, 64, [-1, 40], True, 8, 64, True),
@@ -410,3 +471,56 @@ def test_decode_paged_emulated_scheme_vs_plain(shape):
     _close(got[2] / scale, want[2] / scale)
     _close(fd.finish_partials(*got, int_mode=False),
            fd.finish_partials(*want, int_mode=False))
+
+
+# ---------------- (e) the head dims each kernel takes ----------------
+
+def _meta_attn(b, s, t, kh, g, h, hv):
+    meta = torch.device("meta")
+    return (torch.empty(b, s, kh, g, h, device=meta),
+            torch.empty(b, t, kh, h, device=meta),
+            torch.empty(b, t, kh, hv, device=meta),
+            torch.empty(b, s, dtype=torch.int32, device=meta),
+            torch.empty(b, t, dtype=torch.uint8, device=meta))
+
+
+def test_rows_past_their_head_dims_raise_before_a_launch():
+    """Off the CPU (meta tensors here: no launch, no build) every wrapper
+    refuses head dims its instances do not take with ValueError: rows 3 /
+    4 (paged decode), 9 (three-sweep int) and 10 / 11 (flash backward)
+    past 128, rows 5-8 past h 192 or hv 128 -- never the plain version."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import flash_attention_int as fai
+    assert fa.head_dims_ok(192, 128, wide=True)
+    assert not fa.head_dims_ok(192, 128, wide=False)
+    assert not fa.head_dims_ok(129, 64, wide=False)
+    qf, k, v, qp, valid = _meta_attn(1, 8, 70, 2, 1, 192, 128)
+    with pytest.raises(ValueError, match="head dims"):
+        fai.flash_int3(qf, k, v, qp, valid, causal=True, block_kv=64,
+                       guard_shift=0)
+    o = torch.empty(1, 8, 2, 1, 128, device="meta")
+    m = torch.empty(1, 2, 1, 8, device="meta")
+    for bwd in (fab.flash_bwd_dq, fab.flash_bwd_dkdv):
+        with pytest.raises(ValueError, match="head dims"):
+            bwd(qf, k, v, o, m, m, o, qp, valid, causal=True, block_kv=64)
+    meta = torch.device("meta")
+    pool = torch.empty(5, 16, 2, 192, device=meta)
+    with pytest.raises(ValueError, match="head dims"):
+        fd.decode_paged_partials(
+            torch.empty(1, 2, 1, 192, device=meta), pool,
+            torch.empty(5, 16, 2, 128, device=meta),
+            torch.empty(1, 4, dtype=torch.int32, device=meta),
+            torch.empty(1, dtype=torch.int32, device=meta),
+            torch.empty(1, 64, dtype=torch.uint8, device=meta),
+            num_splits=2, causal=True, int_mode=False, guard_shift=0)
+    for h, hv in ((200, 128), (192, 136)):
+        qf, k, v, qp, valid = _meta_attn(1, 8, 70, 2, 1, h, hv)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_fwd(qf, k, v, qp, valid, causal=True, block_kv=64)
+        with pytest.raises(ValueError, match="head dims"):
+            fai.flash_snap(qf, k, v, qp, valid, causal=True, block_kv=64,
+                           guard_shift=0)
+        with pytest.raises(ValueError, match="head dims"):
+            fd.decode_dense_partials(
+                qf[:, 0], k, v, qp[:, 0], valid, num_splits=2, block_kv=64,
+                causal=True, int_mode=False, guard_shift=0)

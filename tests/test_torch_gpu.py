@@ -1550,3 +1550,232 @@ def test_recurrence_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="d_state"):
         rec.selective_scan(*_scan_args(cuda, 1, 4, 64, 12, 0))
     assert (rec.WKV6.launches, rec.SELECTIVE_SCAN.launches) == before
+
+
+# ---------------- deepseek-v2-lite: rows 5-8 at MLA's h 192 / hv 128 ------
+#
+# deepseek's q.k runs over nope + rope = 128 + 64 = 192 and its v at 128,
+# G 1 (K = n_heads 16): the 192 class of rows 5-8 (tiling.head_width).
+# Rows 7 / 8 there stream one operand a ring stage (K(0), V(0), K(1), ...);
+# rows 5 / 6 dot a key's 192 dims on 4 lanes.  The limits above; the other
+# rows keep refusing past 128.
+
+DEEPSEEK_FLASH = [
+    # (b, s, t, kh, g, h, hv, causal, block_kv, q_pos end, masked key 0)
+    (1, 300, 300, 16, 1, 192, 128, True, 64, None, True),   # ragged tile
+    (1, 64, 2048, 16, 1, 192, 128, True, 64, None, False),  # a chunk
+    (2, 33, 129, 3, 2, 192, 128, True, 16, None, False),    # G 2
+    (1, 67, 170, 2, 1, 192, 128, False, 37, None, False),   # non-causal
+    (1, 40, 1300, 2, 1, 192, 128, True, 64, 40, True),      # tail past a chunk
+    (1, 50, 90, 2, 1, 190, 126, True, 64, None, False),     # 4-byte copies
+    (1, 70, 140, 2, 1, 132, 100, True, 64, None, False)]    # h just past 128
+
+
+@pytest.mark.parametrize("shape", DEEPSEEK_FLASH)
+def test_flash_kernels_at_deepseek_shape(cuda, shape):
+    """Rows 7 and 8 in the 192 class against their plain versions: row 7
+    on random operands (1e-5, one counted launch), row 8's m and S words
+    bitwise and its output within 1e-5 on grid-valued q and k; both repeat
+    bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+    b, s, t, kh, g, h, hv, causal, bkv, end, masked = shape
+    assert tiling.flash_fwd_plan(h, hv, causal=causal).stages == 3
+    kw = dict(causal=causal, block_kv=bkv)
+    for grid in (False, True):
+        args = _attn(cuda, b, s, t, kh, g, h, hv, grid, seed=41,
+                     causal_end=end)
+        if masked:
+            args[4][:, 0] = 0
+        if not grid:
+            before = fa.FLASH_FWD.launches
+            got = fa.flash_fwd(*args, **kw)
+            assert fa.FLASH_FWD.launches == before + 1
+            torch.testing.assert_close(got, fa.flash_fwd_plain(*args, **kw),
+                                       atol=1e-5, rtol=0)
+            assert torch.equal(got, fa.flash_fwd(*args, **kw))
+            continue
+        gs = fai.unit.guard_shift_for(t)
+        part, out = _snap_call(fai, args, dict(kw, guard_shift=gs))
+        want = fai.flash_snap_plain(*args, guard_shift=gs,
+                                    return_partial=True, **kw)
+        assert torch.equal(part[1], want[1]) and torch.equal(part[2], want[2])
+        torch.testing.assert_close(
+            out, fai.flash_snap_plain(*args, guard_shift=gs, **kw),
+            atol=1e-5, rtol=0)
+        assert torch.equal(out, fai.flash_snap(*args, guard_shift=gs, **kw))
+
+
+@pytest.mark.parametrize("case", [
+    # (b, t, kh, g, h, hv, q_pos, splits); None: the plan's
+    (4, 2048, 16, 1, 192, 128, [70, 700, 1500, 2047], None),
+    (4, 2048, 16, 1, 192, 128, [70, 700, 1500, 2047], 1),
+    (4, 2048, 16, 1, 192, 128, [70, 700, 1500, 2047], 5),
+    (2, 333, 3, 2, 192, 128, [100, 332], 3),                # G 2
+    (2, 190, 2, 1, 190, 126, [50, 189], 4)])                # 4-byte copies
+def test_decode_dense_kernels_at_deepseek_shape(cuda, case):
+    """Rows 5 and 6 in the 192 class as deepseek's tick runs them (4
+    slots at ragged depths of a 2048-key cache, K 16, G 1) and at edges:
+    float 1e-5, int m / S words bitwise on grid-valued q and k (outputs
+    1e-5) and within 1e-4 on random ones; one counted launch each."""
+    from repro_torch.core import softmax_unit as unit
+    from repro_torch.kernels import tiling
+    b, t, kh, g, h, hv, q_pos, splits = case
+    gen = torch.Generator().manual_seed(43)
+    plan = tiling.decode_dense_plan(t, b * kh, sms=tiling.sm_count(cuda))
+    kw = dict(num_splits=plan.splits if splits is None else splits,
+              block_kv=plan.block_kv, causal=True,
+              guard_shift=unit.guard_shift_for(t))
+    qp = torch.tensor(q_pos, dtype=torch.int32).to(cuda)
+    valid = (torch.arange(t, device=cuda)[None] <= qp[:, None]).to(
+        torch.uint8)
+    for grid in (False, True):
+        qf = _randn(gen, cuda, b, kh, g, h) * h ** -0.5
+        k = _randn(gen, cuda, b, t, kh, h)
+        if grid:
+            qf, k = torch.round(qf * 32) / 32, torch.round(k * 4) / 16
+        args = (qf.contiguous(), k, _randn(gen, cuda, b, t, kh, hv), qp,
+                valid)
+        before = (fd.DECODE_DENSE.launches, fd.DECODE_DENSE_INT.launches)
+        kf = fd.decode_dense_partials(*args, int_mode=False, **kw)
+        ki = fd.decode_dense_partials(*args, int_mode=True, **kw)
+        assert (fd.DECODE_DENSE.launches, fd.DECODE_DENSE_INT.launches) == (
+            before[0] + 1, before[1] + 1)
+        pf = fd.decode_dense_partials_plain(*args, int_mode=False, **kw)
+        torch.testing.assert_close(fd.finish_partials(*kf, int_mode=False),
+                                   fd.finish_partials(*pf, int_mode=False),
+                                   atol=1e-5, rtol=0)
+        pi = fd.decode_dense_partials_plain(*args, int_mode=True, **kw)
+        if grid:
+            assert torch.equal(ki[0], pi[0]) and torch.equal(ki[1], pi[1])
+        torch.testing.assert_close(fd.finish_partials(*ki, int_mode=True),
+                                   fd.finish_partials(*pi, int_mode=True),
+                                   atol=1e-5 if grid else 1e-4, rtol=0)
+
+
+def test_only_rows_5_to_8_take_the_192_class(cuda):
+    """Past h 128 rows 3 / 4, 9, 10 / 11 raise ValueError before any
+    launch, rows 5-8 past h 192 or hv 128 too; the 192 class's plan
+    forced at h 128, or the 128 class's at h 192, makes the C entry
+    refuse."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.kernels import tiling
+
+    def counts():
+        return {n: k.launches for n, k in _build.KERNELS.items()}
+    before = counts()
+    qf, k, v, qp, valid = _attn(cuda, 1, 20, 70, 2, 1, 192, 128, False)
+    with pytest.raises(ValueError, match="head dims"):
+        fai.flash_int3(qf, k, v, qp, valid, causal=True, block_kv=64,
+                       guard_shift=0)
+    o = torch.ones(1, 20, 2, 1, 128, device=cuda)
+    m = torch.zeros(1, 2, 1, 20, device=cuda)
+    for bwd in (fab.flash_bwd_dq, fab.flash_bwd_dkdv):
+        with pytest.raises(ValueError, match="head dims"):
+            bwd(qf, k, v, o, m, m + 1, o, qp, valid, causal=True,
+                block_kv=64)
+    with pytest.raises(ValueError, match="head dims"):
+        fd.decode_paged_partials(*_case(cuda, 1, False, h=192, hv=128),
+                                 num_splits=2, causal=True, int_mode=False,
+                                 guard_shift=0)
+    for h, hv in ((200, 128), (192, 136), (136, 136)):
+        bad = _attn(cuda, 1, 20, 70, 2, 1, h, hv, False)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.flash_fwd(*bad, causal=True, block_kv=64)
+        with pytest.raises(ValueError, match="head dims"):
+            fai.flash_snap(*bad, causal=True, block_kv=64, guard_shift=0)
+        with pytest.raises(ValueError, match="head dims"):
+            fd.decode_dense_partials(
+                bad[0][:, 0].contiguous(), bad[1], bad[2],
+                bad[3][:, -1].contiguous(), bad[4], num_splits=2,
+                block_kv=64, causal=True, int_mode=False, guard_shift=0)
+    assert counts() == before
+    for h, other in ((128, (192, 128)), (192, (128, 128))):
+        ops = _attn(cuda, 1, 20, 70, 2, 1, h, 128, False)
+        forced = tiling.flash_fwd_plan(*other, causal=True)
+        with mock.patch.object(tiling, "flash_fwd_plan",
+                               lambda *a, **k_: forced):
+            with pytest.raises(RuntimeError, match="flash_fwd"):
+                fa.flash_fwd(*ops, causal=True, block_kv=64)
+
+
+def _deepseek_wide(dev):
+    """Reduced deepseek with the published MLA head dims (nope 128, rope
+    64, v 128): its attention runs the 192 class of rows 5-8."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import MLACfg
+    from repro_torch.models.transformer import init_lm
+    cfg = registry.reduced_config("deepseek-v2-lite-16b").replace(
+        mla=MLACfg(q_lora_rank=0, kv_lora_rank=32, nope_dim=128, rope_dim=64,
+                   v_dim=128))
+    return cfg, init_lm(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+
+
+def _plain_attention():
+    """Patches that put the plain versions in rows 1, 2, 5-8's place."""
+    from contextlib import ExitStack
+
+    from repro_torch.core import activations
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    stack = ExitStack()
+    for mod, name, plain in (
+            (fd, "decode_dense_partials", fd.decode_dense_partials_plain),
+            (fa, "flash_fwd", fa.flash_fwd_plain),
+            (fai, "flash_snap", fai.flash_snap_plain),
+            (dispatch, "softmax_rows", ds.softmax_rows_plain),
+            (activations, "pair_act", ds.pair_act_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
+
+
+@pytest.mark.parametrize("mode", ["float", "dualmode"])
+def test_deepseek_engine_on_the_card_equals_the_plain_versions(cuda, mode):
+    """Reduced deepseek at MLA's h 192 / hv 128 on the contiguous engine,
+    its prefill through rows 7 / 8 and its ticks through rows 5 / 6 by
+    name: float, the greedy streams equal the same engine's on the plain
+    versions; dual-mode, the first prefill's and tick's logits within
+    5e-3 of the plain versions' (a flipped score word moves a logit)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_int as fai
+    from repro_torch.models.transformer import init_caches
+    from repro_torch.serve import Request, ServeEngine
+    cfg, params = _deepseek_wide(cuda)
+    if mode == "dualmode":
+        cfg = cfg.replace(softmax_impl="dualmode", activation="silu_dualmode")
+    kw = dict(n_slots=3, max_seq=96, prefill_buckets=(32, 96),
+              cache_mode="contiguous",
+              prefill_attn_impl="flash_pallas" if mode == "float"
+              else "flash_pallas_int", decode_attn_impl="flash_decode")
+    reqs = [(0, [1, 2, 3, 4, 5], 9), (1, list(range(7, 47)), 7),
+            (2, [4] * 10, 12), (3, [2, 3], 6)]
+    fwd, dec = ((fa.FLASH_FWD, fd.DECODE_DENSE) if mode == "float"
+                else (fai.FLASH_SNAP, fd.DECODE_DENSE_INT))
+
+    def run():
+        eng = ServeEngine(cfg, params, device=cuda, **kw)
+        if mode == "float":
+            return eng.run([Request(rid=r, prompt=p, max_new=n)
+                            for r, p, n in reqs])
+        row = init_caches(cfg, 1, kw["max_seq"], cuda)
+        toks = torch.tensor([list(range(7, 39))], device=cuda)
+        pre = eng.prefill_logits(toks, row, torch.tensor([31], device=cuda))
+        eng.caches = row
+        tick = eng.decode_logits(torch.argmax(pre, -1)[:, None],
+                                 torch.tensor([32], dtype=torch.int32,
+                                              device=cuda))
+        return pre, tick
+    before = (fwd.launches, dec.launches)
+    got = run()
+    assert fwd.launches > before[0] and dec.launches > before[1]
+    with _plain_attention():
+        want = run()
+    if mode == "float":
+        assert got == want
+    else:
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=5e-3, rtol=0)

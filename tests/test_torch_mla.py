@@ -362,19 +362,25 @@ def test_qwen3_dualmode_blocks_track_reference(qwen3):
 # ---------------- entry points ----------------
 
 def test_check_supported_admits_exactly_this_slice():
-    """MLA without a prefix, an encoder stack and sinusoid positions are
-    admitted (and, since the recurrent slice, jamba's mamba and rwkv6's
-    rwkv layers); prefix layers (deepseek-v2-lite) still raise."""
+    """MLA, an encoder stack and sinusoid positions are admitted (and,
+    since the recurrent slice, jamba's mamba and rwkv6's rwkv layers;
+    since the prefix-layer slice, deepseek-v2-lite's dense MLA prefix
+    layer and its MLA over MoE); a prefix or a period of a spec the port
+    does not run still raises."""
     from repro_torch.configs.base import LayerSpec
-    for arch in (MLA, QK, "whisper-base", "jamba-v0.1-52b", "rwkv6-1.6b"):
+    for arch in (MLA, QK, "whisper-base", "jamba-v0.1-52b", "rwkv6-1.6b",
+                 "deepseek-v2-lite-16b"):
         T_tf.check_supported(T_registry.get_config(arch))
     T_tf.check_supported(T_registry.reduced_config(QK).replace(
         pos_emb="sinusoid"))
-    with pytest.raises(NotImplementedError):
-        T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
+    T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
     mla = T_registry.reduced_config(MLA)
+    T_tf.check_supported(mla.replace(prefix=(LayerSpec(mixer="mla"),)))
     with pytest.raises(NotImplementedError):
-        T_tf.check_supported(mla.replace(prefix=(LayerSpec(mixer="mla"),)))
+        T_tf.check_supported(mla.replace(
+            prefix=(LayerSpec(mixer="mla", ffn="moe", cross=True),)))
+    with pytest.raises(NotImplementedError, match="mamba config"):
+        T_tf.check_supported(mla.replace(prefix=(LayerSpec(mixer="mamba"),)))
 
 
 @pytest.mark.parametrize("arch,why", [("whisper-base", "encdec"),

@@ -47,6 +47,7 @@ CONFIGS = {"float": ("float", "silu", 1e-5),
                                   "configs/qwen3_14b.py",
                                   "configs/rwkv6_1_6b.py",
                                   "configs/jamba_v0_1_52b.py",
+                                  "configs/deepseek_v2_lite_16b.py",
                                   "serve/paged_cache.py"])
 def test_copied_modules_equal_originals(path):
     """Framework-free modules are ported by copy, byte for byte."""
@@ -58,7 +59,7 @@ def test_copied_modules_equal_originals(path):
                                   "llama-3.2-vision-11b",
                                   "granite-moe-3b-a800m", "whisper-base",
                                   "minicpm3-4b", "qwen3-14b", "rwkv6-1.6b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v2-lite-16b"])
 def test_configs_equal_reference(arch):
     for get in ("get_config", "reduced_config"):
         j = getattr(J_registry, get)(arch)
@@ -189,14 +190,20 @@ def test_entry_points_refuse_the_cpu_unless_asked():
 
 
 def test_unported_configurations_raise():
+    """Every config of the reference's registry is the port's (deepseek's
+    since the prefix-layer slice), and a prefix layer of a spec the port
+    does not run still raises -- at lm_apply as at init_lm."""
     from repro_torch.configs.base import LayerSpec
+    assert sorted(T_registry.ARCH_IDS) == sorted(J_registry.ARCH_IDS)
+    assert T_registry.get_config("deepseek-v2-lite-16b").prefix == (
+        LayerSpec(mixer="mla", ffn="mlp"),)
     cfg = T_registry.reduced_config("qwen1.5-0.5b")
     p = init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(NotImplementedError):
-        lm_apply(p, cfg.replace(prefix=(LayerSpec(),)), torch.zeros(
-            (1, 3), dtype=torch.long), device="cpu")
+        lm_apply(p, cfg.replace(prefix=(LayerSpec(mixer="rwkv", ffn="moe"),)),
+                 torch.zeros((1, 3), dtype=torch.long), device="cpu")
     with pytest.raises(ValueError):
-        T_registry.get_config("deepseek-v2-lite-16b")
+        T_registry.get_config("deepseek-v2-lite")
 
 
 def test_flash_oracles_match_reference():

@@ -470,15 +470,20 @@ def test_aux_weight_is_in_the_gradient(granite):
 
 def test_entry_points_accept_granite_and_refuse_the_rest():
     """init_lm / check_supported take granite (and, since the recurrent
-    slice, a moe ffn under a mamba mixer, as jamba's); prefix,
-    MLA-over-MoE, MoE under an rwkv mixer and mamba layers without a
-    mamba config still raise."""
+    slice, a moe ffn under a mamba mixer, as jamba's; since the
+    prefix-layer slice, a supported prefix layer and MoE under MLA, as
+    deepseek-v2-lite's); MoE under an rwkv or 'none' mixer, a prefix of
+    either, mamba layers without a mamba config and alibi still raise."""
     T_tf.check_supported(T_registry.get_config(ARCH))
     cfg = T_registry.reduced_config(ARCH)
     from repro_torch.configs.base import LayerSpec
     T_tf.check_supported(T_registry.get_config("jamba-v0.1-52b"))
-    refused = [cfg.replace(prefix=(LayerSpec(),)),
-               cfg.replace(pattern=(LayerSpec(mixer="mla", ffn="moe"),)),
+    T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
+    T_tf.check_supported(cfg.replace(prefix=(LayerSpec(),)))
+    T_tf.check_supported(cfg.replace(
+        pattern=(LayerSpec(mixer="mla", ffn="moe"),)))
+    refused = [cfg.replace(prefix=(LayerSpec(mixer="rwkv", ffn="moe"),)),
+               cfg.replace(prefix=(LayerSpec(mixer="mamba"),)),
                cfg.replace(pattern=(LayerSpec(mixer="mamba", ffn="moe"),)),
                cfg.replace(pattern=(LayerSpec(mixer="rwkv", ffn="moe"),)),
                cfg.replace(pattern=(LayerSpec(mixer="none", ffn="moe"),)),
@@ -486,8 +491,6 @@ def test_entry_points_accept_granite_and_refuse_the_rest():
     for bad in refused:
         with pytest.raises(NotImplementedError):
             T_tf.check_supported(bad)
-    with pytest.raises(NotImplementedError):
-        T_tf.check_supported(J_registry.get_config("deepseek-v2-lite-16b"))
 
 
 @pytest.mark.parametrize("launcher", ["serve", "train"])
