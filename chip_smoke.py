@@ -229,11 +229,33 @@ Phases, each of which raises on failure (no phase is skipped or caught):
             tokens whose expert sets agree with granite's flip rule, the
             mamba states within TOL_SCAN) and their logits against the
             plain versions.
+15. deepseek full-width deepseek-v2-lite-16b (below, at its phase).
+16. rwkv6-train  the WKV backward kernel (wkv6_bwd) against autograd
+            through the plain scan at rwkv6's training shape (B 2, S 2048,
+            32 heads of 64), every gradient within TOL_SCAN_BWD, a repeat
+            bitwise, timed back to back and under CUDA-graph replay
+            beside its bound.  Then the Trainer on full-width,
+            full-depth rwkv6-1.6b (24 layers, remat, the fused residual
+            norm) for 2 steps of 2 x 2048 tokens of the 8192-token bigram
+            stream: exact launches a layer of a step (wkv6 2, wkv6_bwd 1,
+            resnorm 2), a step repeated from one state bitwise, one
+            step's loss on 1 x 512 tokens kernels vs plain (its gradients
+            reported beside the plain path's own f32 noise), every block
+            given the kernel path's input held kernels vs plain, a save
+            and resume at 2 layers.
+17. jamba-train  the selective scan's backward kernel likewise at jamba's
+            training shape (B 1, S 2048, d_inner 8192, d_state 16); the
+            Trainer on full-width jamba-v0.1-52b at depth 1 (its layer 0,
+            a mamba mixer over the dense MLP, 0.82 B parameters), 2 steps
+            of 1 x 2048: exact launches (selective_scan 2,
+            selective_scan_bwd 1, resnorm 2, glu 2, glu_bwd 1), a step
+            bitwise twice, one step's loss and every gradient kernels vs
+            plain, the block held, a save and resume.
 
 ``python3 chip_smoke.py PHASE[,PHASE]`` runs the build and the named
 phases only (qwen, long, yi, train, bert, vision, granite, whisper,
-minicpm3, qwen3, rwkv6, jamba; qwen is phases 2, 3 and the pressure run)
-and ends with
+minicpm3, qwen3, rwkv6, jamba, deepseek, rwkv6-train, jamba-train; qwen is
+phases 2, 3 and the pressure run) and ends with
 ``{"ok": true, "phases": [...]}`` instead of the kernels line and the
 device line.
 
@@ -244,7 +266,8 @@ row 5 ("[decode dense]"), row 8 ("[flash snap]"), row 6 ("[decode
 dense int]"), rows 3 / 4 ("[decode paged]") and row 9 ("[flash int3]")
 at every shape they were timed at, rows 7 and 5 at MLA's head dims
 ("[mla attention]"), the two recurrence kernels at a tick and a prefill
-("[recurrence]"), a "[resnorm host]" line (row 14's
+("[recurrence]") and their backward kernels at the training shapes
+("[recurrence bwd]"), a "[resnorm host]" line (row 14's
 wrapper, µs a call to issue, by part), and a
 "[unit rows]" line from the kernels, yi and bert phases: rows 1 and 2 at
 qwen's and bert's shapes (int and float modes beside torch.softmax,
@@ -2323,13 +2346,17 @@ def train_kernel_phase(dev, results):
 
 def _plain_train_kernels():
     """Patches that put the plain versions in the train path kernels'
-    place (the same call sites, so the same graph)."""
+    place (the same call sites, so the same graph); the scans' entries,
+    where their autograd Functions apply, take the plain scans under
+    autograd."""
     from contextlib import ExitStack
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_attention_bwd as fb
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import fused_norm as fn
+    from repro_torch.kernels import recurrence as rec
+    from repro_torch.models import mamba, rwkv
     stack = ExitStack()
     for mod, name, plain in ((fa, "flash_fwd", fa.flash_fwd_plain),
                              (fb, "flash_bwd_dq", fb.flash_bwd_dq_plain),
@@ -2338,7 +2365,10 @@ def _plain_train_kernels():
                              (fn, "_norm_linear_fwd",
                               fn.fused_norm_linear_plain),
                              (ff, "_glu_fwd", ff._glu_reference),
-                             (ff, "glu_bwd", ff._glu_bwd_plain)):
+                             (ff, "glu_bwd", ff._glu_bwd_plain),
+                             (rwkv, "wkv6", rec.wkv6_plain),
+                             (mamba, "selective_scan",
+                              rec.selective_scan_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
     return stack
 
@@ -5062,8 +5092,411 @@ def deepseek_phase(dev, launches, results):
     log(f"[deepseek] phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------- phases 16 / 17: training rwkv6 and jamba ----------------
+#
+# The Trainer on the recurrent archs at full width: rwkv6-1.6b at its full
+# depth (24 layers, 2 steps of 2 x 2048 tokens) and jamba-v0.1-52b at depth
+# 1 (its layer 0: a mamba mixer over the dense MLP, 1 x 2048), remat, the
+# fused impls, the 8192-token bigram stream.  Each scan's forward kernel
+# runs twice a layer a step (the step's forward and the remat's recompute,
+# which writes the boundary states anew) and its backward kernel once.
+# The limits, stated before the first chip run (PERF.md section 2): the
+# backward kernels against autograd through the plain scans at the
+# training shapes, every gradient within TOL_SCAN_BWD of max(1, max
+# |plain|) (du / dA TOL_SCAN_BWD_SUM); one step's loss 1e-5 relative and
+# each gradient tensor 1e-3 of its own max, kernels vs plain (the train
+# phase's limits, TOL_TRAIN_LOSS / TOL_TRAIN_GRAD); a step from one state
+# bitwise twice; a save and resume continuing with the uninterrupted
+# run's loss (rtol 1e-4); exact launches, every other kernel 0.  The
+# first chip run found rwkv6's whole-model gradients 4.3e-3 of a tensor's
+# max apart (kernels vs plain), and the paths move by up to 1.2e-2 on
+# their own on the batch given twice (f32 reordering alone).  So each phase
+# also measures that noise in the same run, both paths on the batch
+# given twice, and holds each whole-model gradient tensor to
+# TOL_TRAIN_GRAD or to TOL_TRAIN_NOISE times its own noise, whichever is
+# larger; and each block, given the kernel path's input and one
+# cotangent, to TOL_TRAIN_GRAD.
+
+TOL_SCAN_BWD = 1e-5       # wkv6_bwd / selective_scan_bwd against autograd
+#                           through the plain scans, x max(1, max |plain|):
+#                           the same sums in another order (row sums, the
+#                           warp butterfly) carried over up to 2048 steps
+TOL_SCAN_BWD_SUM = 2e-5   # du / dA: sums over every step and batch row
+TOL_TRAIN_NOISE = 4       # a whole-model gradient tensor, kernels vs plain,
+#                           may exceed TOL_TRAIN_GRAD by up to this many
+#                           times the larger of the two paths' own
+#                           differences on the batch given twice (the same
+#                           gradient in exact arithmetic, other f32 orders)
+RWKV_TRAIN = dict(batch=2, seq=2048, steps=2, data_vocab=8192,
+                  plain=(1, 512), resume_layers=2)
+JAMBA_TRAIN = dict(layers=1, batch=1, seq=2048, steps=2, data_vocab=8192,
+                   plain=(1, 2048), resume_layers=1)
+# launches a layer of one step (remat: the forward kernels twice)
+RWKV_TRAIN_PER_LAYER = {"wkv6": 2, "wkv6_bwd": 1, "resnorm": 2}
+JAMBA_TRAIN_PER_LAYER = {"selective_scan": 2, "selective_scan_bwd": 1,
+                         "resnorm": 2, "glu": 2, "glu_bwd": 1}
+
+
+def wkv6_bwd_cost(b, sl, h, hd):
+    """(bytes, flops) of one wkv6_bwd call: r, k, v, w, dy read and dr,
+    dk, dv, dw written once a step, u read and du written, the boundary
+    states and the final state's gradient read, ds0 written; 14 flops a
+    state word a step: dr, dw, dk and dv 2 each (the u terms are O(hd) a
+    step), dS's update 3 and the state's recompute 3."""
+    nb = -(-sl // 64) + 1
+    return ((9 * b * sl * h * hd + 2 * h * hd + (nb + 2) * b * h * hd * hd)
+            * 4, 14 * b * sl * h * hd * hd)
+
+
+def scan_bwd_cost(b, sl, di, ds):
+    """(bytes, flops) of one selective_scan_bwd call: xc, dt, dy read and
+    dxc, ddt written a step, Bm, Cm read and dBm, dCm written a step, A
+    read and dA written, the boundary states and dh read, dh0 written; 20
+    flops a state word a step: the recompute's 5 (the exp counted as
+    one), dh, dC, ddt, the shared sum of dh B, dB and dA 2 each, their
+    shared product dh da h_{t-1} 2 and dh's decay 1."""
+    nb = -(-sl // 64) + 1
+    return ((5 * b * sl * di + 4 * b * sl * ds + 2 * di * ds
+             + (nb + 2) * b * di * ds) * 4, 20 * b * sl * di * ds)
+
+
+def _scan_bwd_checks(name: str, key: str, fwd, bwd, plain_bwd, args,
+                     douts, names, wide: str, cost, results) -> None:
+    """One backward kernel at the training shape: every gradient against
+    autograd through the plain scan (TOL_SCAN_BWD, ``wide``
+    TOL_SCAN_BWD_SUM, x max(1, max |plain|)), a repeat bitwise; timed
+    back to back and under CUDA-graph replay beside its bound and the
+    plain version."""
+    _, _, bnd = fwd(*args, boundary=True)
+    got = bwd(*args[:5], bnd, *douts)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain_bwd(*args, *douts)        # timed once: it takes seconds
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    worst = 0.0
+    for n, a, b_ in zip(names, got, want):
+        tol = TOL_SCAN_BWD_SUM if n == wide else TOL_SCAN_BWD
+        worst = max(worst, check_rel(f"{name} {n}", a, b_, tol))
+    del want
+    check_repeat(f"{name} repeat", lambda: torch.cat(
+        [t.flatten() for t in bwd(*args[:5], bnd, *douts)]))
+    table: dict = {}
+    b_ms, b_by = bound(*cost)
+
+    def call():
+        return bwd(*args[:5], bnd, *douts)
+    ms = time_ms(call, iters=5, warmup=2)
+    row = table[key] = dict(ms=ms, graph_ms=graph_ms(call, calls=2),
+                            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                            library_ms=None, bound_share=b_ms / ms,
+                            max_abs_err=worst)
+    log(f"  {key}: {ms * 1e3:.1f} us (graph {row['graph_ms'] * 1e3:.1f}), "
+        f"plain {plain_ms * 1e3:.1f} us (one call), bound {b_ms * 1e3:.1f} "
+        f"us ({b_by}; {100 * row['bound_share']:.1f}% of it reached)")
+    results[name] = row
+    results["recurrence_bwd_ms"] = {**results.get("recurrence_bwd_ms", {}),
+                                    **table}
+    log(f"[recurrence bwd] {name}, ms: " + json.dumps(table))
+
+
+def rwkv_bwd_kernel_checks(dev, cfg, results) -> None:
+    from repro_torch.kernels import recurrence as rec
+    b, sl = RWKV_TRAIN["batch"], RWKV_TRAIN["seq"]
+    h, hd = cfg.n_heads, cfg.d_model // cfg.n_heads
+    args = wkv6_args(dev, b, sl, h, hd, 60)
+    randn = _randn_fn(dev, 61)
+    douts = (randn(b, sl, h, hd), randn(b, h, hd, hd))
+    _scan_bwd_checks("wkv6_bwd", f"wkv6_bwd B{b} S{sl} H{h} hd{hd}",
+                     rec._wkv6_fwd, rec.wkv6_bwd, rec.wkv6_bwd_plain, args,
+                     douts, ("dr", "dk", "dv", "dw", "du", "ds0"), "du",
+                     wkv6_bwd_cost(b, sl, h, hd), results)
+
+
+def jamba_bwd_kernel_checks(dev, cfg, results) -> None:
+    from repro_torch.kernels import recurrence as rec
+    m = cfg.mamba
+    b, sl = JAMBA_TRAIN["batch"], JAMBA_TRAIN["seq"]
+    args = scan_args(dev, b, sl, m.d_inner, m.d_state, 62)
+    randn = _randn_fn(dev, 63)
+    douts = (randn(b, sl, m.d_inner), randn(b, m.d_inner, m.d_state))
+    _scan_bwd_checks("selective_scan_bwd",
+                     f"selective_scan_bwd B{b} S{sl} di{m.d_inner} "
+                     f"ds{m.d_state}", rec._scan_fwd, rec.selective_scan_bwd,
+                     rec.selective_scan_bwd_plain, args, douts,
+                     ("dxc", "ddt", "dA", "dBm", "dCm", "dh0"), "dA",
+                     scan_bwd_cost(b, sl, m.d_inner, m.d_state), results)
+
+
+def _host_copy(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t,
+                    tree)
+
+
+def block_grad_checks(tag: str, cfg, params, batch, dev) -> tuple:
+    """Each block of the kernel path's forward over ``batch``, given that
+    forward's input to it: the gradients of sum(out x g) + aux (g a seeded
+    unit-normal cotangent) with respect to the block's input and every
+    parameter, kernels vs plain, each within TOL_TRAIN_GRAD of its own
+    max.  Returns (worst ratio, where)."""
+    from contextlib import nullcontext
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _positions_from
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+    toks = batch["tokens"]
+    positions = _positions_from(0, toks.shape[0], toks.shape[1], dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.no_grad():
+        x = params["embed"][toks]
+    worst, worst_at = 0.0, "(every tensor)"
+    for i, (lp, spec) in enumerate(zip(params["layers"],
+                                       tf.layer_specs(cfg))):
+        cot = torch.randn(x.shape, generator=gen, device=dev)
+
+        def vjp(make_ctx):
+            with make_ctx(), torch.enable_grad():
+                live = tree_map(lambda t: t.detach().requires_grad_(True), lp)
+                xl = x.detach().requires_grad_(True)
+                y, _, aux = tf.block_apply(live, cfg, spec, xl, None,
+                                           positions=positions, pos=0,
+                                           paged=None)
+                g = torch.autograd.grad((y * cot).sum() + aux,
+                                        [xl] + tree_leaves(live),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            return y.detach(), g
+        y_k, g_k = vjp(nullcontext)
+        _, g_p = vjp(_plain_train_kernels)
+        names = ["input"] + [p for p, _ in tree_paths(lp)]
+        for n, a, b_ in zip(names, g_k, g_p):
+            r = max_err(a, b_) / max(float(b_.abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_at = r, f"block {i} {n}"
+        del g_k, g_p
+        x = y_k
+    if worst > TOL_TRAIN_GRAD:
+        fail(f"{tag}: {worst_at} gradient kernels vs plain {worst:.2e} of "
+             f"its max > {TOL_TRAIN_GRAD:.0e}")
+    log(f"  ok every block given the kernel path's input, kernels vs plain: "
+        f"worst gradient {worst_at} {worst:.2e} of its max (limit "
+        f"{TOL_TRAIN_GRAD:.0e}; {cfg.n_layers} blocks)")
+    return worst, worst_at
+
+
+def recurrent_train_phase(tag: str, cfg, tr: dict, per_layer: dict, dev,
+                          launches, results) -> None:
+    """The Trainer on ``cfg`` (full width) for tr['steps'] steps of
+    tr['batch'] x tr['seq'] tokens, remat: loss finite, exact launches a
+    layer of a step; one step from one state twice, bitwise; one step's
+    loss and gradients through the kernels against the plain versions on
+    a tr['plain'] batch, each gradient within TOL_TRAIN_GRAD or
+    TOL_TRAIN_NOISE times the two paths' own differences on that batch
+    given twice, and every block's (:func:`block_grad_checks`); a save
+    after one step and a resume continuing with the uninterrupted run's
+    loss (depth cut to tr['resume_layers'])."""
+    import shutil
+    import tempfile
+    from contextlib import nullcontext
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.train import Trainer, make_grad_fn
+    from repro_torch.tree import tree_leaves, tree_paths
+    b, seq, steps = tr["batch"], tr["seq"], tr["steps"]
+    data = SyntheticLM(vocab=tr["data_vocab"], seq_len=seq, global_batch=b,
+                       seed=0)
+    tmp = tempfile.mkdtemp(prefix=f"repro_torch_{tag}_")
+    try:
+        tcfg = TrainConfig(lr=3e-4, warmup_steps=1, remat=True,
+                           total_steps=steps, checkpoint_every=1000,
+                           checkpoint_dir=os.path.join(tmp, "main"))
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = Trainer(cfg, tcfg, b, seq, device=dev, data=data,
+                          log=lambda *_: None)
+        n_par = sum(p.numel() for p in tree_leaves(trainer.state.params))
+        log(f"[{tag}] {cfg.name} full width, {cfg.n_layers} layers, "
+            f"{n_par / 1e9:.3f} B parameters; batch {b} x {seq}, data vocab "
+            f"{tr['data_vocab']}, remat, norm / ffn {cfg.norm_impl} / "
+            f"{cfg.ffn_impl}")
+        for k in _build.KERNELS.values():
+            k.launches = 0
+        hist = []
+        for i in range(steps):
+            mt = trainer.run(1)
+            hist.append(mt)
+            log(f"  step {i}: loss {mt['loss']:.5f} grad_norm "
+                f"{mt['grad_norm']:.4f} {trainer.step_times[-1] * 1e3:.0f} "
+                "ms")
+        counts = {k: v.launches for k, v in _build.KERNELS.items()}
+        log(f"[{tag}] {steps} steps, last {trainer.step_times[-1] * 1e3:.0f}"
+            f" ms a step (first {trainer.step_times[0] * 1e3:.0f} ms), "
+            f"{b * seq / trainer.step_times[-1]:.0f} tokens/s, peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB; "
+            f"launches {counts}")
+        if not np.isfinite([mt["loss"] for mt in hist]).all():
+            fail(f"{tag}: non-finite loss {hist}")
+        for k, n in counts.items():
+            want = per_layer.get(k, 0) * cfg.n_layers * steps
+            if n != want:
+                fail(f"{tag}: kernel {k} launched {n} times, expected {want}")
+        log(f"  ok exact launches a layer of a step: "
+            + "; ".join(f"{k} {v}" for k, v in per_layer.items())
+            + "; every other kernel 0")
+        for k in per_layer:
+            launches[k] = launches.get(k, 0) + counts[k]
+
+        # one step from one state, twice: the same bits (the first
+        # result waits on the host, so two new states need not fit)
+        state = trainer.state
+        tokens, labels = data.batch(steps)
+        batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+        s1, m1 = trainer.step_fn(state, batch)
+        s1, m1 = _host_copy(s1), _host_copy(m1)
+        s2, m2 = trainer.step_fn(state, batch)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y.cpu()) for x, y in zip(
+            tree_leaves(s1), tree_leaves(s2)) if torch.is_tensor(y))
+        same = same and all(torch.equal(torch.as_tensor(m1[k]),
+                                        torch.as_tensor(m2[k]).cpu())
+                            for k in m1)
+        if not same:
+            fail(f"{tag}: one step from the same state gave other bits")
+        log(f"  ok a step repeated from one state: identical bits (loss "
+            f"{float(m1['loss']):.6f})")
+        del s1, s2, m1, m2
+
+        # one step's loss and gradients, kernels vs plain versions, each
+        # gradient beside the two paths' own f32 noise (the batch given
+        # twice); one more gradient tree at a time beside g_k and g_p
+        pb, ps = tr["plain"]
+        small = {k: v[:pb, :ps] for k, v in batch.items()}
+        twice = {k: torch.cat([v, v]) for k, v in small.items()}
+        grad_fn = make_grad_fn(cfg, tcfg, dev)
+        (loss_k, _), g_k = grad_fn(state.params, small)
+        with _plain_train_kernels():
+            (loss_p, _), g_p = grad_fn(state.params, small)
+        torch.cuda.synchronize()
+        rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        if rel > TOL_TRAIN_LOSS:
+            fail(f"{tag}: loss kernels {float(loss_k)} vs plain "
+                 f"{float(loss_p)} (relative {rel:.2e})")
+        paths = [p for p, _ in tree_paths(g_k)]
+        g_k, g_p = tree_leaves(g_k), tree_leaves(g_p)
+        scale = [max(float(gp.abs().max()), 1e-30) for gp in g_p]
+        ratio = [max_err(gk, gp) / sc for gk, gp, sc in zip(g_k, g_p, scale)]
+        noise = [0.0] * len(paths)
+        for make_ctx, ref in ((nullcontext, g_k),
+                              (_plain_train_kernels, g_p)):
+            with make_ctx():
+                _, g2 = grad_fn(state.params, twice)
+            noise = [max(n, max_err(a, b_) / sc) for n, a, b_, sc in zip(
+                noise, tree_leaves(g2), ref, scale)]
+            del g2
+        limit = [max(TOL_TRAIN_GRAD, TOL_TRAIN_NOISE * n) for n in noise]
+        for path, r, n, lim in zip(paths, ratio, noise, limit):
+            if r > lim:
+                fail(f"{tag}: gradient {path} kernels vs plain {r:.2e} of "
+                     f"its max > {lim:.2e} (TOL_TRAIN_GRAD "
+                     f"{TOL_TRAIN_GRAD:.0e}; {TOL_TRAIN_NOISE} x its f32 "
+                     f"noise {n:.2e})")
+        worst_i = max(range(len(paths)), key=lambda i: ratio[i])
+        tight_i = max(range(len(paths)), key=lambda i: ratio[i] / limit[i])
+        past = sum(r > TOL_TRAIN_GRAD for r in ratio)
+        med = sorted(ratio)[len(ratio) // 2]
+        log(f"  ok one step on {pb} x {ps} tokens, kernels vs plain: loss "
+            f"relative {rel:.2e} (limit {TOL_TRAIN_LOSS:.0e}); worst "
+            f"gradient {paths[worst_i]} {ratio[worst_i]:.2e} of its max, "
+            f"median {med:.2e}; f32 noise (each path on the batch given "
+            f"twice) worst {max(noise):.2e}, median "
+            f"{sorted(noise)[len(noise) // 2]:.2e}; {past} of {len(paths)} "
+            f"tensors past {TOL_TRAIN_GRAD:.0e}, each within "
+            f"{TOL_TRAIN_NOISE} x its noise; tightest {paths[tight_i]} "
+            f"{ratio[tight_i]:.2e} of its {limit[tight_i]:.2e} limit")
+        del g_k, g_p, trainer, grad_fn
+        results.setdefault("train_grads", {})[tag] = dict(
+            loss_rel=rel, worst=ratio[worst_i], worst_at=paths[worst_i],
+            median=med, noise_worst=max(noise), past_tol=past,
+            tightest=ratio[tight_i] / limit[tight_i])
+        block_grad_checks(tag, cfg, state.params, small, dev)
+        del state
+        _free_weights(dev)
+
+        # save after one step, resume, one more step: the uninterrupted
+        # run's loss
+        cut = cfg.replace(n_layers=tr["resume_layers"])
+        quiet = dict(device=dev, data=data, log=lambda *_: None)
+
+        def tc(name):
+            return TrainConfig(lr=3e-4, warmup_steps=1, remat=True,
+                               total_steps=steps, checkpoint_every=1000,
+                               checkpoint_dir=os.path.join(tmp, name))
+        t0 = time.perf_counter()
+        first = Trainer(cut, tc("saved"), b, seq, **quiet)
+        first.run(1)
+        first.save(1)
+        del first
+        t_save = time.perf_counter() - t0
+        resumed = Trainer(cut, tc("saved"), b, seq, **quiet)
+        if resumed.start_step != 1:
+            fail(f"{tag}: resumed at step {resumed.start_step}, not 1")
+        m_res = resumed.run(1)
+        del resumed
+        m_cont = Trainer(cut, tc("cont"), b, seq, **quiet).run(2)
+        if not np.isclose(m_res["loss"], m_cont["loss"], rtol=1e-4, atol=0):
+            fail(f"{tag}: resumed loss {m_res['loss']} vs uninterrupted "
+                 f"{m_cont['loss']}")
+        log(f"  ok save at step 1 ({cut.n_layers} layers, {t_save:.1f} s "
+            f"with the step), resume, step 2: loss {m_res['loss']:.6f} vs "
+            f"uninterrupted {m_cont['loss']:.6f} (rtol 1e-4; "
+            f"{'identical' if m_res['loss'] == m_cont['loss'] else 'close'})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _free_weights(dev)
+
+
+def rwkv_train_phase(dev, launches, results):
+    """rwkv6-1.6b at full width and depth through the Trainer, with the
+    WKV's backward kernel held at its training shape first."""
+    from repro_torch.configs import registry
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    base = registry.get_config(RWKV_ID)
+    rwkv_bwd_kernel_checks(dev, base, results)
+    recurrent_train_phase("rwkv6 train", base.replace(**RWKV_PATH[0]),
+                          RWKV_TRAIN, RWKV_TRAIN_PER_LAYER, dev, launches,
+                          results)
+    log(f"[rwkv6 train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def jamba_train_phase(dev, launches, results):
+    """jamba-v0.1-52b at full width and depth 1 (its layer 0: a mamba
+    mixer over the dense MLP) through the Trainer, with the selective
+    scan's backward kernel held at its training shape first."""
+    from repro_torch.configs import registry
+    _free_weights(dev)
+    t_phase = time.perf_counter()
+    full = registry.get_config(JAMBA_ID)
+    base = full.replace(n_layers=JAMBA_TRAIN["layers"])
+    jamba_bwd_kernel_checks(dev, base, results)
+    log(f"[jamba train] depth {base.n_layers} of {full.n_layers}: layer 0 "
+        "is a mamba mixer over the dense MLP; depth 2 adds a 16-expert MoE "
+        "layer (~2.8 B parameters, ~105 GB with AdamW at ~28 bytes a "
+        "parameter)")
+    recurrent_train_phase("jamba train", base.replace(
+        **JAMBA_PATHS["float"][0]), JAMBA_TRAIN, JAMBA_TRAIN_PER_LAYER, dev,
+        launches, results)
+    log(f"[jamba train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 PHASES = ("qwen", "long", "yi", "train", "bert", "vision", "granite",
-          "whisper", "minicpm3", "qwen3", "rwkv6", "jamba", "deepseek")
+          "whisper", "minicpm3", "qwen3", "rwkv6", "jamba", "deepseek",
+          "rwkv6-train", "jamba-train")
 
 
 def main() -> int:
@@ -5158,6 +5591,10 @@ def main() -> int:
         jamba_phase(dev, launches, results)
     if "deepseek" in phases:
         deepseek_phase(dev, launches, results)
+    if "rwkv6-train" in phases:
+        rwkv_train_phase(dev, launches, results)
+    if "jamba-train" in phases:
+        jamba_train_phase(dev, launches, results)
     log(f"[chip_smoke] phases {', '.join(phases)} in "
         f"{time.perf_counter() - t_start:.1f} s with the build")
 

@@ -27,10 +27,20 @@
 // 3. Sums in a fixed order (k = 0..HD-1) and no atomics: a call repeats bit
 //    for bit, and the arithmetic of a step does not depend on its place in
 //    a tile, so S steps in one call equal S1 then S - S1 steps with the
-//    carried state, bit for bit.
+//    carried state, bit for bit.  The state update is pinned to one rounded
+//    product and one fused multiply-add, so that csrc/wkv6_bwd.cu, which
+//    recomputes the states, gets the same bits.
+// 4. A forward that trains passes ``bnd``: the state before every
+//    scan::kChunk-th step and the final state, ceil(S / kChunk) + 1 of
+//    them, the chunk boundaries of the reference's chunked_time_scan, for
+//    the backward to recompute from.  Serving passes null: nothing more is
+//    written.
 // Inputs batch-major, as the model holds them: r, k, v, w, y (B, S, H, HD);
-// u (H, HD); s0, s_out (B, H, HD, HD), row k column j at k HD + j.
+// u (H, HD); s0, s_out (B, H, HD, HD), row k column j at k HD + j; bnd
+// (B, H, NB, HD, HD).
 #include <cuda_runtime.h>
+
+#include "scan_common.cuh"
 
 namespace {
 
@@ -41,7 +51,8 @@ __global__ void __launch_bounds__(HD)
     wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ w,
                 const float* __restrict__ u, const float* __restrict__ s0,
-                float* __restrict__ y, float* __restrict__ s_out, int S, int H) {
+                float* __restrict__ y, float* __restrict__ s_out,
+                float* __restrict__ bnd, int S, int H) {
   __shared__ float sr[kTileSteps][HD], sk[kTileSteps][HD];
   __shared__ float sv[kTileSteps][HD], sw[kTileSteps][HD];
   __shared__ float su[HD];
@@ -49,6 +60,8 @@ __global__ void __launch_bounds__(HD)
   const long long step = static_cast<long long>(H) * HD;  // floats a step
   const long long base = (static_cast<long long>(b) * S * H + h) * HD + j;
   const long long sbase = (static_cast<long long>(b) * H + h) * HD * HD + j;
+  const int nb = (S + scan::kChunk - 1) / scan::kChunk + 1;
+  float* const bout = bnd == nullptr ? nullptr : bnd + (sbase - j) * nb + j;
 
   float st[HD];
 #pragma unroll
@@ -57,6 +70,11 @@ __global__ void __launch_bounds__(HD)
 
   for (int t0 = 0; t0 < S; t0 += kTileSteps) {
     const int n = min(kTileSteps, S - t0);
+    if (bout != nullptr && t0 % scan::kChunk == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD; ++kk)
+        bout[(static_cast<long long>(t0 / scan::kChunk) * HD + kk) * HD] = st[kk];
+    }
     __syncthreads();  // the last tile's reads are done (and su is written)
     for (int t = 0; t < n; ++t) {
       const long long o = base + (t0 + t) * step;
@@ -71,39 +89,47 @@ __global__ void __launch_bounds__(HD)
       float acc = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD; ++kk) {
-        const float kv = sk[t][kk] * vj;
+        const float kv = __fmul_rn(sk[t][kk], vj);
         acc += sr[t][kk] * (st[kk] + su[kk] * kv);
-        st[kk] = st[kk] * sw[t][kk] + kv;
+        st[kk] = __fmaf_rn(st[kk], sw[t][kk], kv);
       }
       y[base + (t0 + t) * step] = acc;
     }
   }
 #pragma unroll
   for (int kk = 0; kk < HD; ++kk) s_out[sbase + kk * HD] = st[kk];
+  if (bout != nullptr) {
+#pragma unroll
+    for (int kk = 0; kk < HD; ++kk)
+      bout[(static_cast<long long>(nb - 1) * HD + kk) * HD] = st[kk];
+  }
 }
 
 template <int HD>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* y, float* s_out, int B, int S,
-           int H, cudaStream_t st) {
-  wkv6_kernel<HD><<<dim3(H, B), HD, 0, st>>>(r, k, v, w, u, s0, y, s_out, S, H);
+           const float* u, const float* s0, float* y, float* s_out, float* bnd,
+           int B, int S, int H, cudaStream_t st) {
+  wkv6_kernel<HD><<<dim3(H, B), HD, 0, st>>>(r, k, v, w, u, s0, y, s_out, bnd, S,
+                                              H);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // All f32, contiguous; B, H >= 1, S >= 0 (S 0 copies s0 to s_out).  hd is
-// 16, 32 or 64; anything else is refused.
+// 16, 32 or 64; anything else is refused.  bnd: null, or (B, H, ceil(S /
+// 64) + 1, hd, hd) for the boundary states.
 extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
                            const float* w, const float* u, const float* s0, float* y,
-                           float* s_out, int B, int S, int H, int hd, void* stream) {
+                           float* s_out, float* bnd, int B, int S, int H, int hd,
+                           void* stream) {
   if (B < 1 || S < 0 || H < 1 || H > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
-    case 32: return launch<32>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
-    case 64: return launch<64>(r, k, v, w, u, s0, y, s_out, B, S, H, st);
+    case 16: return launch<16>(r, k, v, w, u, s0, y, s_out, bnd, B, S, H, st);
+    case 32: return launch<32>(r, k, v, w, u, s0, y, s_out, bnd, B, S, H, st);
+    case 64: return launch<64>(r, k, v, w, u, s0, y, s_out, bnd, B, S, H, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

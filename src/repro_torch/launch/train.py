@@ -5,10 +5,20 @@ stream, on the GPU (``--device cpu`` runs the plain versions).
         --reduced --device cpu --steps 3 --batch 4 --seq 32
 
 ``--reduced`` takes the arch's smoke config; ``--arch`` takes the
-serving archs and bert-base, as the reference's launcher does.  A MoE
+serving archs and bert-base, as the reference's launcher does (the vlm,
+encdec and MLA archs raise: their training is not ported yet).  A MoE
 arch (granite-moe-3b-a800m) trains on CE + 0.01 x its load-balance loss,
 and ``--layers`` cuts the depth (full-width granite's parameters,
-gradients and two AdamW moments alone come to ~62 GB at 32 layers).  The stream's bigram table
+gradients and two AdamW moments alone come to ~62 GB at 32 layers).
+The recurrent archs train through their scans' backward kernels:
+
+    python -m repro_torch.launch.train --arch rwkv6-1.6b --batch 2 \
+        --seq 2048 --data-vocab 8192 --steps 2
+    python -m repro_torch.launch.train --arch jamba-v0.1-52b --layers 1 \
+        --batch 1 --seq 2048 --data-vocab 8192 --steps 2
+
+(full-width jamba at depth 2 adds a 16-expert MoE layer, ~105 GB with
+AdamW).  The stream's bigram table
 is (vocab, vocab) float32, built on the host: at a full 150k vocabulary
 that is ~92 GB, so a full-width run passes ``--data-vocab`` (token ids
 then stay below it).  Checkpoints go to ``--ckpt`` (default: a

@@ -4,8 +4,10 @@ conv -> SiLU -> the selective (dt, B, C) projections -> the discretized
 diagonal SSM scan -> + D skip -> SiLU(z) gate -> out_proj.
 
 The scan is one ``kernels.recurrence.selective_scan`` call a layer (the
-CUDA kernel on the card, its plain version on the CPU), so the (B, S,
-d_inner, d_state) tensor never exists.  A decode step carries the conv
+CUDA kernel on the card, its plain version on the CPU; in training, its
+autograd Function, whose backward is the ``selective_scan_bwd`` kernel,
+the gradients flowing back through the ``.contiguous()`` copies), so the
+(B, S, d_inner, d_state) tensor never exists.  A decode step carries the conv
 window and the SSM state, O(1) in the sequence length.  The SiLUs are
 plain ``F.silu``, as the reference's are ``jax.nn.silu``, not the unit's.
 The reference's mesh pins (``axes``) belong to the multi-card slice.

@@ -7,7 +7,9 @@ the channel mix.
     w_t = exp(-exp(w_base + lora(x))) in f32
   * a per-head hd x hd matrix state S: y_t = r_t (S + diag(u) k_t^T v_t),
     S <- diag(w_t) S + k_t^T v_t -- one ``kernels.recurrence.wkv6`` call a
-    layer (the CUDA kernel on the card, its plain version on the CPU)
+    layer (the CUDA kernel on the card, its plain version on the CPU; in
+    training, its autograd Function, whose backward is the ``wkv6_bwd``
+    kernel)
   * a group norm per head (f32, eps 64e-5) and a SiLU(g) gate
   * the channel mix: a squared-ReLU FFN with token shift, sigmoid gate
 

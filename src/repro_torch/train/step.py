@@ -17,8 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (init_lm, lm_apply, lm_head_weight,
-                                            recurrent_mixers)
+from repro_torch.models.transformer import init_lm, lm_apply, lm_head_weight
 from repro_torch.optim import (OptState, adamw_init, adamw_update,
                                compress_decompress, ef_state_init,
                                wsd_schedule)
@@ -55,12 +54,12 @@ def check_train_arch(cfg: ModelConfig) -> None:
     (a later training slice of the port brings them): the vlm family (its
     step feeds image embeddings to the cross layers, as the reference's
     does), the encdec family (its batch carries the reference's
-    ``frames`` for the encoder), MLA mixers (the flash backward, rows
+    ``frames`` for the encoder) and MLA mixers (the flash backward, rows
     10 / 11, is unchecked on the card at minicpm3's h 96 / hv 64 and
     takes no h past 128, deepseek's 192; deepseek's unstacked prefix
-    layer also needs the reference's decay mask) and mamba / rwkv mixers
-    (their scans have no backward kernels yet, nor the reference's
-    chunk-boundary checkpointing)."""
+    layer also needs the reference's decay mask).  Mamba and rwkv mixers
+    train: their scans' backward kernels (``kernels/recurrence.py``) keep
+    the reference's chunk-boundary checkpointing."""
     if cfg.family == "vlm":
         raise NotImplementedError(
             f"{cfg.name}: training the vlm family (image embeddings into "
@@ -71,14 +70,6 @@ def check_train_arch(cfg: ModelConfig) -> None:
             f"{cfg.name}: training the encdec family (a batch with the "
             "encoder's frames) is not ported yet; a later training slice "
             "of the port brings it")
-    recurrent = recurrent_mixers(cfg)
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: training {' / '.join(recurrent)} layers is not "
-            "ported yet: it needs the scans' backward kernels and the "
-            "chunk-boundary checkpointing of the reference's "
-            "chunked_time_scan, which a later training slice of the port "
-            "brings")
     if cfg.mla is not None:
         raise NotImplementedError(
             f"{cfg.name}: training MLA layers (the flash backward at h "

@@ -28,7 +28,11 @@ score word can flip between two f32 dot orders).  Training (rows 10,
 dq, dk, dv and d_gate / d_up within 1e-5 / 2e-5 of max(1, max |plain|)
 (f32 sums over up to thousands of rows in two orders), the Functions'
 gradients on CUDA tensors within 1e-4 of the dense graph's (the
-kernels' and cuBLAS's orders of f32 products).
+kernels' and cuBLAS's orders of f32 products).  The recurrences' backward
+kernels (wkv6_bwd, selective_scan_bwd): every gradient within 1e-5 of
+max(1, max |plain|) of autograd through the plain scans, du and dA 2e-5
+(sums over every step and batch row in another order); repeats, the
+training forward against the serving one and remat against none bitwise.
 """
 import os
 from unittest import mock
@@ -1550,6 +1554,105 @@ def test_recurrence_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="d_state"):
         rec.selective_scan(*_scan_args(cuda, 1, 4, 64, 12, 0))
     assert (rec.WKV6.launches, rec.SELECTIVE_SCAN.launches) == before
+
+
+# ---------------- the recurrence backward kernels ----------------
+#
+# wkv6_bwd and selective_scan_bwd against autograd through the plain scans
+# (wkv6_bwd_plain / selective_scan_bwd_plain): every gradient within 1e-5
+# of max(1, max |plain|), du and dA 2e-5 (sums over every step and row in
+# another order); the decays drawn per channel near 0 and near 1; the
+# initial states nonzero and their gradients held too; the training
+# forward's values bitwise those of the serving forward; a repeat bitwise;
+# under a block's remat the forward launches twice, the backward once, and
+# the gradients are the bits of the run without remat.
+
+def _grad_limits(names, got, want, wide):
+    for name, a, b in zip(names, got, want):
+        tol = (2e-5 if name in wide else 1e-5) * max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, msg=name)
+
+
+def _extreme_decays(gen, dev, shape, last):
+    """exp(-exp(.)) per channel (the last axis of ``last`` entries) near 0
+    (~2e-9) or near 1 (~1 - 3e-4)."""
+    centre = torch.where(torch.rand(last, generator=gen) < 0.5, 3.0, -8.0)
+    return torch.exp(-torch.exp(centre + 0.3 * torch.randn(
+        shape, generator=gen))).to(dev).contiguous()
+
+
+def _bwd_run(kernels, fn, args, douts, remat=False):
+    from torch.utils.checkpoint import checkpoint
+    live = [a.clone().requires_grad_(True) for a in args]
+    before = [k.launches for k in kernels]
+    if remat:
+        outs = checkpoint(lambda *xs: fn(*xs), *live, use_reentrant=False)
+    else:
+        outs = fn(*live)
+    grads = torch.autograd.grad(outs, live, douts)
+    torch.cuda.synchronize()
+    return ([o.detach() for o in outs], list(grads),
+            [k.launches - n for k, n in zip(kernels, before)])
+
+
+def _recurrence_bwd_checks(kernels, fn, plain_bwd, fwd, bwd, args, douts,
+                           names, wide):
+    outs, grads, counts = _bwd_run(kernels, fn, args, douts)
+    assert counts == [1, 1]
+    with torch.no_grad():
+        served = fn(*args)
+    assert all(torch.equal(a, b) for a, b in zip(outs, served))
+    _grad_limits(names, grads, plain_bwd(*args, *douts), wide)
+    _, again, _ = _bwd_run(kernels, fn, args, douts)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    _, remat, counts = _bwd_run(kernels, fn, args, douts, remat=True)
+    assert counts == [2, 1]
+    assert all(torch.equal(a, b) for a, b in zip(grads, remat))
+    y, st, bnd = fwd(*args, boundary=True)
+    assert torch.equal(y, outs[0]) and torch.equal(st, outs[1])
+    first, last = (bnd[:, :, 0], bnd[:, :, -1]) if bnd.dim() == 5 else (
+        bnd[:, 0], bnd[:, -1])
+    assert torch.equal(first, args[5]) and torch.equal(last, st)
+    direct = bwd(*args[:5], bnd, *douts)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+
+
+# rwkv6's training shape (B 2, S 2048, 32 heads of 64); S 1, 63, 64 and 130
+# around the 64-step chunk and the 8-step checkpoints, at every head dim
+@pytest.mark.parametrize("b,sl,h,hd", [(2, 2048, 32, 64), (1, 1, 4, 64),
+                                       (2, 63, 3, 64), (1, 64, 2, 32),
+                                       (2, 130, 5, 16), (1, 2048, 2, 16),
+                                       (3, 130, 2, 32)])
+def test_wkv6_bwd_kernel(cuda, b, sl, h, hd):
+    from repro_torch.kernels import recurrence as rec
+    gen = torch.Generator().manual_seed(sl + hd)
+    args = list(_wkv6_args(cuda, b, sl, h, hd, sl + hd))
+    args[3] = _extreme_decays(gen, cuda, (b, sl, h, hd), hd)
+    douts = (_randn(gen, cuda, b, sl, h, hd), _randn(gen, cuda, b, h, hd, hd))
+    _recurrence_bwd_checks((rec.WKV6, rec.WKV6_BWD), rec.wkv6,
+                           rec.wkv6_bwd_plain, rec._wkv6_fwd, rec.wkv6_bwd,
+                           args, douts, ("dr", "dk", "dv", "dw", "du", "ds0"),
+                           ("du",))
+
+
+# jamba's training shape (B 1, S 2048, d_inner 8192, d_state 16); d_inner
+# 200 and 70 (no multiple of the backward's 64-channel block); d_state 8
+@pytest.mark.parametrize("b,sl,di,ds", [(1, 2048, 8192, 16), (2, 1, 200, 16),
+                                        (2, 63, 200, 8), (1, 64, 70, 16),
+                                        (3, 130, 128, 8), (1, 2048, 70, 8)])
+def test_selective_scan_bwd_kernel(cuda, b, sl, di, ds):
+    from repro_torch.kernels import recurrence as rec
+    gen = torch.Generator().manual_seed(sl + di + ds)
+    args = list(_scan_args(cuda, b, sl, di, ds, sl + di))
+    big = torch.rand(di, generator=gen) < 0.5
+    args[1] = torch.where(big, torch.rand((b, sl, di), generator=gen) * 3.0
+                          + 2.0, torch.rand((b, sl, di), generator=gen)
+                          * 1e-4).to(cuda).contiguous()
+    douts = (_randn(gen, cuda, b, sl, di), _randn(gen, cuda, b, di, ds))
+    _recurrence_bwd_checks((rec.SELECTIVE_SCAN, rec.SELECTIVE_SCAN_BWD),
+                           rec.selective_scan, rec.selective_scan_bwd_plain,
+                           rec._scan_fwd, rec.selective_scan_bwd, args, douts,
+                           ("dxc", "ddt", "dA", "dBm", "dCm", "dh0"), ("dA",))
 
 
 # ---------------- deepseek-v2-lite: rows 5-8 at MLA's h 192 / hv 128 ------

@@ -5,7 +5,7 @@ same weights and inputs: ``rwkv_time_mix`` and ``rwkv_channel_mix``
 decode against the reference's caches and against the full pass, the
 contiguous engine against the JAX engine on tests/test_serve.py's
 requests, the exact-length prefill's length check, the cache-mode rule,
-the training refusal, the WKV plain version at split lengths, and the
+the training admission, the WKV plain version at split lengths, and the
 serve launcher.
 
 Tolerances: a sublayer's outputs and states 1e-5; logits 1e-5 of
@@ -229,10 +229,12 @@ def test_rwkv_paged_refused_auto_contiguous(rwkv):
 
 @pytest.mark.parametrize("arch", [ARCH, "jamba-v0.1-52b"])
 def test_training_recurrent_archs_is_refused(arch):
-    mixer = "rwkv" if arch == ARCH else "mamba"
-    with pytest.raises(NotImplementedError,
-                       match=f"training {mixer} layers.*backward kernels"):
-        check_train_arch(T_registry.reduced_config(arch))
+    """The recurrent archs were refused training until their scans had
+    backward kernels and the chunk-boundary checkpointing; now both are
+    admitted, at the reduced and the published widths
+    (tests/test_torch_recurrent_train.py holds their steps)."""
+    check_train_arch(T_registry.reduced_config(arch))
+    check_train_arch(T_registry.get_config(arch))
 
 
 @pytest.mark.parametrize("split", [1, 13, 31])
